@@ -1,0 +1,4 @@
+from persia_tpu_torch.models.common import MLP
+from persia_tpu_torch.models.seq import SequenceSelfAttention, SequenceTower
+
+__all__ = ["MLP", "SequenceSelfAttention", "SequenceTower"]

@@ -1,0 +1,139 @@
+"""Sequence tower: self-attention over user-history (raw) slots
+(``persia_tpu/models/seq.py``).
+
+Raw slots become sequences: gather -> multi-head self-attention -> masked
+mean pool; summed slots and dense features concatenate as usual; MLP head.
+Single device only in this slice: context parallelism over a mesh (ring,
+Ulysses) waits for a later slice of the port.
+
+``attn_impl`` keeps the JAX field: ``"flash"`` runs kernel K2
+(:func:`persia_tpu_torch.ops.flash_attention.flash_attention_masked`) in
+the compute dtype, ``"reference"`` the dense O(T^2) attention in f32.
+The JAX package's ``"pallas"`` and ``"xla"`` map onto them
+(:data:`persia_tpu_torch.weights.JAX_ATTN_IMPL`).
+"""
+
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from persia_tpu_torch.device import resolve_device
+from persia_tpu_torch.models.common import MLP, dense, gather_raw_embedding
+
+ATTN_IMPLS = ("reference", "flash")
+
+
+def _check_attn_impl(attn_impl: str):
+    if attn_impl not in ATTN_IMPLS:
+        # a typo here must not silently fall through to the dense path
+        raise ValueError(
+            f"attn_impl must be one of {ATTN_IMPLS} (the JAX package's "
+            f"'pallas'/'xla' map onto 'flash'/'reference'), got "
+            f"{attn_impl!r}")
+
+
+class SequenceSelfAttention(nn.Module):
+    """Multi-head self-attention over (bs, t, d) with a (bs, t) key mask.
+    Submodules: q, k, v and output projections ``Dense_0..3``."""
+
+    def __init__(self, d: int, num_heads: int = 2,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "reference", causal: bool = False,
+                 device=None):
+        super().__init__()
+        _check_attn_impl(attn_impl)
+        self.num_heads = num_heads
+        self.dh = max(1, d // num_heads)
+        self.compute_dtype = compute_dtype
+        self.attn_impl = attn_impl
+        self.causal = causal
+        inner = num_heads * self.dh
+        for i in range(3):
+            self.add_module(f"Dense_{i}", nn.Linear(d, inner, device=device))
+        self.Dense_3 = nn.Linear(inner, d, device=device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        from persia_tpu_torch.ops.flash_attention import flash_attention_masked
+        from persia_tpu_torch.parallel.ring_attention import (
+            reference_attention,
+        )
+
+        bs, t, _ = x.shape
+        dt = self.compute_dtype
+
+        def heads(y):  # (bs, t, h*dh) -> (bs, h, t, dh), contiguous
+            return (y.reshape(bs, t, self.num_heads, self.dh)
+                    .permute(0, 2, 1, 3).contiguous())
+
+        q = heads(dense(self.Dense_0, x, dt))
+        k = heads(dense(self.Dense_1, x, dt))
+        v = heads(dense(self.Dense_2, x, dt))
+        # padded positions are masked at SCORE level (kv_mask)
+        if self.attn_impl == "flash":
+            # the compute dtype goes in; the kernel accumulates in f32
+            out = flash_attention_masked(q, k, v, kv_mask=mask,
+                                         causal=self.causal)
+        else:
+            out = reference_attention(q.float(), k.float(), v.float(),
+                                      causal=self.causal, kv_mask=mask)
+        out = out.permute(0, 2, 1, 3).reshape(bs, t, self.num_heads * self.dh)
+        return dense(self.Dense_3, out, dt)
+
+
+class SequenceTower(nn.Module):
+    """Dense tower with attention-pooled sequence slots.
+
+    ``slots`` lists the model's embedding inputs in batch order as
+    ``(dim, raw)`` pairs; each raw slot gets its own attention block
+    (``SequenceSelfAttention_i``). Then ``MLP_0`` and the one-logit
+    ``Dense_0`` head; the output is a sigmoid in f32. Parameters are
+    created on ``device`` (default CUDA, which raises without a card).
+    """
+
+    def __init__(self, num_dense: int, slots: Sequence[Tuple[int, bool]],
+                 mlp: Sequence[int] = (256, 128), num_heads: int = 2,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "reference", mesh: Optional[Any] = None,
+                 device=None):
+        super().__init__()
+        if mesh is not None:
+            raise NotImplementedError(
+                "context parallelism over a mesh (ring / Ulysses) is not "
+                "ported yet; see ROADMAP.md queue A")
+        _check_attn_impl(attn_impl)
+        device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.slots = [(int(d), bool(raw)) for d, raw in slots]
+        n_raw = 0
+        for dim, raw in self.slots:
+            if raw:
+                self.add_module(
+                    f"SequenceSelfAttention_{n_raw}",
+                    SequenceSelfAttention(dim, num_heads, compute_dtype,
+                                          attn_impl, device=device))
+                n_raw += 1
+        self.n_raw = n_raw
+        in_features = num_dense + sum(d for d, _ in self.slots)
+        self.MLP_0 = MLP(in_features, mlp, compute_dtype=compute_dtype,
+                         device=device)
+        self.Dense_0 = nn.Linear(self.MLP_0.features[-1], 1, device=device)
+
+    def forward(self, non_id_tensors: Sequence[torch.Tensor],
+                embedding_tensors: Sequence[Any]) -> torch.Tensor:
+        dt = self.compute_dtype
+        parts = [t.to(dt) for t in non_id_tensors]
+        i_raw = 0
+        for e in embedding_tensors:
+            if isinstance(e, (tuple, list)):
+                x, mask = gather_raw_embedding(*e)
+                attended = getattr(self, f"SequenceSelfAttention_{i_raw}")(
+                    x, mask)
+                i_raw += 1
+                denom = mask.sum(dim=1, keepdim=True).clamp_min(1).to(dt)
+                pooled = (attended * mask[..., None].to(dt)).sum(dim=1)
+                parts.append(pooled / denom)
+            else:
+                parts.append(e.to(dt))
+        x = self.MLP_0(torch.cat(parts, dim=1))
+        return torch.sigmoid(dense(self.Dense_0, x, dt).float())

@@ -1,0 +1,281 @@
+"""Embedding-worker middleware: the lookup transform pipeline.
+
+A copy of the numpy twin of ``persia_tpu/worker/middleware.py`` for the
+forward (lookup) direction:
+
+- per-feature **dedup** of signs with (sample, col) back-pointers;
+- **hashstack** multi-round vocab compression;
+- **index-prefix** namespacing;
+- **shard split** by ``farmhash64(sign) % replica_size``, grouped by
+  embedding dim so each PS call is one rectangular batch;
+- **postprocess** into static-shape tensors: summed slots -> (batch, dim)
+  f32 with sum / mean / last-k pooling and optional 1/sqrt(n) scaling; raw
+  slots -> a fixed-capacity distinct tensor (batch*sample_fixed_size + 1,
+  dim) whose row 0 is zeros, plus a (batch, sample_fixed_size) int32 index
+  tensor where 0 means padding.
+
+Every sum accumulates with ``np.add.at``, which adds strictly in element
+order: that order is what makes the results bit-identical to the JAX
+package (and its native C++ kernels), which the parity tests rely on.
+"""
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from persia_tpu_torch.config import EmbeddingSchema, SlotConfig
+from persia_tpu_torch.data.batch import IDTypeFeature
+from persia_tpu_torch.hashing import farmhash64_np, sign_to_shard
+
+_U64 = np.uint64
+
+
+@dataclass
+class DedupedFeature:
+    """One ID feature after dedup (+ hashstack + prefix) transforms."""
+
+    name: str
+    batch_size: int
+    distinct_signs: np.ndarray  # (d,) uint64 — signs to look up on the PS
+    elem_sample: np.ndarray  # (nnz,) int32 — sample index per CSR element
+    elem_col: np.ndarray  # (nnz,) int32 — position within the sample
+    elem_distinct: np.ndarray  # (nnz,) int32 — index into distinct_signs
+    sample_num_signs: np.ndarray  # (bs,) int32 — per-sample sign count
+    # raw mode: which output row each distinct sign contributes to
+    # (identity unless hashstack merged rounds back onto original signs)
+    raw_row_of_distinct: Optional[np.ndarray] = None
+    hash_stack_rounds: int = 0
+
+    @property
+    def num_distinct(self) -> int:
+        return len(self.distinct_signs)
+
+
+def _segment_sum(values: np.ndarray, segment_ids: np.ndarray,
+                 num_segments: int) -> np.ndarray:
+    """Sum rows of ``values`` by segment id, in element order."""
+    out = np.zeros((num_segments, values.shape[1]), dtype=values.dtype)
+    np.add.at(out, segment_ids, values)
+    return out
+
+
+def dedup_feature(feature: IDTypeFeature) -> DedupedFeature:
+    """CSR feature -> sorted distinct signs + element back-pointers."""
+    offsets = feature.offsets.astype(np.int64, copy=False)
+    counts = np.diff(offsets)
+    bs = feature.batch_size
+    nnz = int(offsets[-1])
+    elem_sample = np.repeat(np.arange(bs, dtype=np.int32), counts)
+    elem_col = (np.arange(nnz, dtype=np.int32)
+                - np.repeat(offsets[:-1], counts).astype(np.int32))
+    distinct, inverse = np.unique(feature.signs, return_inverse=True)
+    return DedupedFeature(
+        name=feature.name,
+        batch_size=bs,
+        distinct_signs=distinct.astype(np.uint64, copy=False),
+        elem_sample=elem_sample,
+        elem_col=elem_col,
+        elem_distinct=inverse.astype(np.int32, copy=False),
+        sample_num_signs=counts.astype(np.int32),
+    )
+
+
+def apply_hashstack(feat: DedupedFeature, rounds: int,
+                    table_size: int) -> DedupedFeature:
+    """Multi-round hash compression: each sign becomes ``rounds`` bucket
+    signs in a table of ``rounds * table_size`` rows."""
+    if rounds <= 0:
+        return feat
+    d = feat.num_distinct
+    h = feat.distinct_signs
+    buckets = np.empty((d, rounds), dtype=np.uint64)
+    for r in range(rounds):
+        h = farmhash64_np(h)
+        buckets[:, r] = h % _U64(table_size) + _U64(r * table_size)
+    new_distinct, new_inverse = np.unique(buckets.ravel(),
+                                          return_inverse=True)
+    bucket_of = new_inverse.reshape(d, rounds).astype(np.int32)
+    # raw mode: every bucket contributes to its original sign's row
+    raw_row = np.zeros(len(new_distinct), dtype=np.int32)
+    raw_row[bucket_of.ravel()] = np.repeat(np.arange(d, dtype=np.int32),
+                                           rounds)
+    return DedupedFeature(
+        name=feat.name,
+        batch_size=feat.batch_size,
+        distinct_signs=new_distinct,
+        elem_sample=np.repeat(feat.elem_sample, rounds),
+        elem_col=np.repeat(feat.elem_col, rounds),
+        elem_distinct=bucket_of[feat.elem_distinct].ravel(),
+        sample_num_signs=feat.sample_num_signs * rounds,
+        raw_row_of_distinct=raw_row,
+        hash_stack_rounds=rounds,
+    )
+
+
+def apply_index_prefix(feat: DedupedFeature, slot: SlotConfig,
+                       feature_spacing: int) -> DedupedFeature:
+    """Namespace signs under the slot's feature-group prefix."""
+    if slot.index_prefix <= 0:
+        return feat
+    with np.errstate(over="ignore"):
+        feat.distinct_signs = (feat.distinct_signs % _U64(feature_spacing)
+                               + _U64(slot.index_prefix))
+    return feat
+
+
+def truncate_to_sample_fixed_size(feature: IDTypeFeature,
+                                  sfs: int) -> IDTypeFeature:
+    """Keep only the first ``sfs`` ids of each sample, so a raw slot's
+    distinct count can never exceed its static capacity."""
+    offsets = feature.offsets.astype(np.int64, copy=False)
+    counts = np.diff(offsets)
+    if len(counts) == 0 or int(counts.max()) <= sfs:
+        return feature
+    nnz = int(offsets[-1])
+    elem_col = (np.arange(nnz, dtype=np.int64)
+                - np.repeat(offsets[:-1], counts))
+    new_offsets = np.zeros(len(counts) + 1, dtype=np.uint32)
+    np.cumsum(np.minimum(counts, sfs), out=new_offsets[1:])
+    return IDTypeFeature.from_csr(feature.name, new_offsets,
+                                  feature.signs[elem_col < sfs])
+
+
+def preprocess_batch(id_type_features: List[IDTypeFeature],
+                     schema: EmbeddingSchema) -> List[DedupedFeature]:
+    """dedup -> hashstack -> prefix for every feature of a batch."""
+    feats = []
+    for f in id_type_features:
+        slot = schema.get_slot(f.name)
+        if not slot.embedding_summation:
+            f = truncate_to_sample_fixed_size(f, slot.sample_fixed_size)
+        df = dedup_feature(f)
+        hs = slot.hash_stack_config
+        df = apply_hashstack(df, hs.hash_stack_rounds, hs.embedding_size)
+        df = apply_index_prefix(df, slot, schema.feature_spacing)
+        feats.append(df)
+    return feats
+
+
+@dataclass
+class ShardGroup:
+    """All signs for one (shard, dim) pair, with scatter-back pointers."""
+
+    shard: int
+    dim: int
+    signs: np.ndarray  # (m,) uint64
+    feature_idx: np.ndarray  # (m,) int32 — which DedupedFeature
+    distinct_idx: np.ndarray  # (m,) int32 — index into its distinct signs
+
+
+def shard_split(feats: List[DedupedFeature], schema: EmbeddingSchema,
+                replica_size: int) -> List[ShardGroup]:
+    """Group every feature's distinct signs by (PS shard, dim), in
+    ascending (shard, dim) order with features in batch order."""
+    by_key: Dict[Tuple[int, int], List[Tuple[np.ndarray, int]]] = {}
+    for fi, feat in enumerate(feats):
+        dim = schema.get_slot(feat.name).dim
+        shards = sign_to_shard(feat.distinct_signs, replica_size)
+        for shard in np.unique(shards):
+            sel = np.nonzero(shards == shard)[0].astype(np.int32)
+            by_key.setdefault((int(shard), dim), []).append((sel, fi))
+    groups = []
+    for (shard, dim), parts in sorted(by_key.items()):
+        signs = np.concatenate(
+            [feats[fi].distinct_signs[sel] for sel, fi in parts])
+        fidx = np.concatenate(
+            [np.full(len(sel), fi, np.int32) for sel, fi in parts])
+        didx = np.concatenate([sel for sel, _ in parts])
+        groups.append(ShardGroup(shard, dim, signs, fidx, didx))
+    return groups
+
+
+def _feature_runs(feature_idx: np.ndarray):
+    """Contiguous (start, end, fi) runs of a group's nondecreasing
+    feature_idx array."""
+    if len(feature_idx) == 0:
+        return
+    starts = np.nonzero(np.diff(feature_idx, prepend=feature_idx[0] - 1))[0]
+    ends = np.append(starts[1:], len(feature_idx))
+    for a, b in zip(starts, ends):
+        yield int(a), int(b), int(feature_idx[a])
+
+
+def alloc_lookup_mats(feats: List[DedupedFeature],
+                      schema: EmbeddingSchema) -> List[np.ndarray]:
+    """Per-feature (num_distinct, dim) result matrices for the scatter."""
+    return [np.zeros((f.num_distinct, schema.get_slot(f.name).dim),
+                     dtype=np.float32) for f in feats]
+
+
+def scatter_group(mats: List[np.ndarray], group: ShardGroup,
+                  res: np.ndarray):
+    """Scatter one shard group's lookup result into the per-feature
+    matrices. Groups partition the distinct signs, so scatters of
+    different groups write disjoint rows."""
+    res = np.ascontiguousarray(res, dtype=np.float32)
+    for a, b, fi in _feature_runs(group.feature_idx):
+        mats[fi][group.distinct_idx[a:b]] = res[a:b]
+
+
+@dataclass
+class SumEmbedding:
+    name: str
+    embeddings: np.ndarray  # (batch, dim)
+
+
+@dataclass
+class RawEmbedding:
+    """Static-shape raw (sequence) slot output: ``embeddings[0]`` is
+    all-zeros padding; ``index[s, c]`` selects the row for sample s
+    position c, with 0 meaning padding. Gather and mask happen on the
+    device in the dense model."""
+
+    name: str
+    embeddings: np.ndarray  # (capacity, dim), row 0 zeros
+    index: np.ndarray  # (batch, sample_fixed_size) int32
+    sample_id_num: np.ndarray  # (batch,) int32
+
+
+def postprocess_feature(feat: DedupedFeature, slot: SlotConfig,
+                        emb: np.ndarray):
+    """One feature's distinct embeddings -> model-ready tensors."""
+    bs = feat.batch_size
+    dim = slot.dim
+    if slot.embedding_summation:
+        last_n = slot.pooling_last_n
+        if last_n:
+            # recency pooling: sum of each sample's LAST k signs (CSR
+            # order is arrival order)
+            keep = feat.elem_col >= (
+                feat.sample_num_signs - last_n)[feat.elem_sample]
+            out = _segment_sum(emb[feat.elem_distinct[keep]],
+                               feat.elem_sample[keep], bs)
+            return SumEmbedding(feat.name, out)
+        scale = None
+        if slot.pooling == "mean":
+            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
+            scale = 1.0 / n
+        elif slot.sqrt_scaling:
+            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
+            scale = 1.0 / np.sqrt(n)
+        out = _segment_sum(emb[feat.elem_distinct], feat.elem_sample, bs)
+        if scale is not None:
+            out *= scale[:, None]
+        return SumEmbedding(feat.name, out)
+
+    sfs = slot.sample_fixed_size
+    capacity = bs * sfs + 1
+    rows = (feat.raw_row_of_distinct
+            if feat.raw_row_of_distinct is not None
+            else np.arange(feat.num_distinct, dtype=np.int32))
+    emb_out = np.zeros((capacity, dim), dtype=np.float32)
+    np.add.at(emb_out, rows + 1, emb)
+    if slot.sqrt_scaling and feat.hash_stack_rounds > 1:
+        emb_out *= 1.0 / np.sqrt(float(feat.hash_stack_rounds))
+    index = np.zeros((bs, sfs), dtype=np.int32)
+    valid = feat.elem_col < sfs
+    index[feat.elem_sample[valid], feat.elem_col[valid]] = (
+        rows[feat.elem_distinct[valid]] + 1)
+    sample_id_num = np.minimum(feat.sample_num_signs, sfs).astype(np.int32)
+    return RawEmbedding(feat.name, emb_out, index, sample_id_num)

@@ -1,0 +1,216 @@
+"""Host-side parity of the PyTorch port against the JAX package: the
+port keeps its own copies of the numpy-only modules (hashing, PTB2 wire,
+PS rng and store, worker middleware, seqrec traffic), and every result
+here must be bit-identical to the JAX package's.
+
+Also: the port and ``chip_smoke.py`` import nothing of JAX or of the JAX
+package.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from persia_tpu_torch import config as tcfg
+from persia_tpu_torch import hashing as thash
+from persia_tpu_torch.data.batch import PersiaBatch as TBatch
+from persia_tpu_torch.ps import rng as trng
+from persia_tpu_torch.ps.store import EmbeddingHolder as THolder
+from persia_tpu_torch.worker import middleware as tmw
+from persia_tpu_torch.worker.worker import EmbeddingWorker as TWorker
+from persia_tpu_torch.workloads import generator as tgen
+
+REPO = Path(__file__).resolve().parent.parent
+
+SPEC = dict(item_vocab=3000, t_hist=12)
+
+
+def _slot_specs():
+    """(name, kwargs) of a schema that reaches every transform: sum, mean,
+    last4 and sqrt pooling, a raw slot that truncates, hashstack."""
+    return [
+        ("user_geo", dict(dim=8)),
+        ("user_device", dict(dim=8, pooling="mean")),
+        ("recent_items", dict(dim=8, embedding_summation=False,
+                              sample_fixed_size=8)),
+        ("recent_clicks", dict(dim=8, pooling="last4")),
+        ("target_item", dict(dim=4, sqrt_scaling=True,
+                             hash_stack_config="hs")),
+    ]
+
+
+def _schemas(prefix_bit=0):
+    from persia_tpu import config as jcfg
+
+    out = []
+    for cfg in (jcfg, tcfg):
+        slots = {}
+        for name, kw in _slot_specs():
+            kw = dict(kw)
+            if kw.pop("hash_stack_config", None):
+                kw["hash_stack_config"] = cfg.HashStackConfig(
+                    hash_stack_rounds=2, embedding_size=500)
+            slots[name] = cfg.SlotConfig(name=name, **kw)
+        groups = {"profile": ["user_geo", "user_device"]} if prefix_bit \
+            else {}
+        out.append(cfg.EmbeddingSchema(
+            slots_config=slots, feature_index_prefix_bit=prefix_bit,
+            feature_groups=groups))
+    return out
+
+
+def _batches(n=64, bs=16, seed=3):
+    from persia_tpu.workloads import generator as jgen
+
+    jb = list(jgen.seqrec_batches(n, bs, seed=seed,
+                                  spec=jgen.SeqRecSpec(**SPEC)))
+    tb = list(tgen.seqrec_batches(n, bs, seed=seed,
+                                  spec=tgen.SeqRecSpec(**SPEC)))
+    return jb, tb
+
+
+def test_seqrec_generator_and_ptb2_wire_are_byte_identical():
+    from persia_tpu.data.batch import PersiaBatch as JBatch
+
+    jb, tb = _batches()
+    assert len(jb) == len(tb) == 4
+    for j, t in zip(jb, tb):
+        jbytes, tbytes = j.to_bytes(), t.to_bytes()
+        assert jbytes == tbytes
+        # across packages, both directions
+        assert TBatch.from_bytes(jbytes).to_bytes() == jbytes
+        assert JBatch.from_bytes(tbytes).to_bytes() == tbytes
+    # flags and optional fields survive the crossing
+    t = tb[0]
+    t.batch_id, t.meta, t.requires_grad = None, b"", False
+    j = JBatch.from_bytes(t.to_bytes())
+    assert (j.batch_id, j.meta, j.requires_grad) == (None, b"", False)
+    assert j.to_bytes() == t.to_bytes()
+
+
+def test_hashing_and_rng_are_bit_exact():
+    from persia_tpu import hashing as jhash
+    from persia_tpu.ps import rng as jrng
+
+    rng = np.random.default_rng(0)
+    signs = np.concatenate([
+        rng.integers(0, 2**63, size=2000, dtype=np.uint64) * np.uint64(2)
+        + np.uint64(1),
+        np.array([0, 1, 2**64 - 1, 2**63], dtype=np.uint64)])
+    np.testing.assert_array_equal(thash.farmhash64_np(signs),
+                                  jhash.farmhash64_np(signs))
+    for r in (1, 2, 7):
+        np.testing.assert_array_equal(thash.sign_to_shard(signs, r),
+                                      jhash.sign_to_shard(signs, r))
+        np.testing.assert_array_equal(trng.internal_shard_of(signs, r),
+                                      jrng.internal_shard_of(signs, r))
+    params = tcfg.InitializationConfig(shape=0.7, scale=2.0,
+                                       lam=3.0).to_params()
+    for method in ("bounded_uniform", "normal", "truncated_normal",
+                   "bounded_gamma", "bounded_poisson", "zero"):
+        few = signs[:50] if method in ("bounded_gamma",
+                                        "bounded_poisson") else signs
+        for dim in (5, 16):
+            a = trng.initialize_entries(few, dim, method, params)
+            b = jrng.initialize_entries(few, dim, method, params)
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("prefix_bit", [0, 8])
+def test_preprocess_and_postprocess_are_bit_exact(prefix_bit):
+    from persia_tpu.worker import middleware as jmw
+
+    jschema, tschema = _schemas(prefix_bit)
+    jb, tb = _batches()
+    rng = np.random.default_rng(prefix_bit)
+    for j, t in zip(jb, tb):
+        jf = jmw.preprocess_batch(j.id_type_features, jschema)
+        tf = tmw.preprocess_batch(t.id_type_features, tschema)
+        for a, b in zip(jf, tf):
+            assert a.name == b.name
+            for field in ("distinct_signs", "elem_sample", "elem_col",
+                          "elem_distinct", "sample_num_signs",
+                          "raw_row_of_distinct"):
+                np.testing.assert_array_equal(getattr(a, field),
+                                              getattr(b, field))
+            slot = tschema.get_slot(b.name)
+            emb = rng.normal(size=(b.num_distinct, slot.dim)).astype(
+                np.float32)
+            pa = jmw.postprocess_feature(a, jschema.get_slot(a.name), emb)
+            pb = tmw.postprocess_feature(b, slot, emb)
+            assert type(pa).__name__ == type(pb).__name__
+            np.testing.assert_array_equal(pa.embeddings, pb.embeddings)
+            if isinstance(pb, tmw.RawEmbedding):
+                np.testing.assert_array_equal(pa.index, pb.index)
+                np.testing.assert_array_equal(pa.sample_id_num,
+                                              pb.sample_id_num)
+        jg = jmw.shard_split(jf, jschema, 3)
+        tg = tmw.shard_split(tf, tschema, 3)
+        assert [(g.shard, g.dim) for g in jg] == [(g.shard, g.dim)
+                                                  for g in tg]
+        for a, b in zip(jg, tg):
+            np.testing.assert_array_equal(a.signs, b.signs)
+            np.testing.assert_array_equal(a.distinct_idx, b.distinct_idx)
+
+
+def test_lookup_direct_is_bit_exact():
+    """The same PS rows in both packages' holders: eval lookups through
+    each worker agree bit for bit, misses read zeros."""
+    from persia_tpu.ps.store import EmbeddingHolder as JHolder
+    from persia_tpu.worker.worker import EmbeddingWorker as JWorker
+
+    jschema, tschema = _schemas()
+    jw = JWorker(jschema, [JHolder(1_000_000, 4) for _ in range(2)])
+    tw = TWorker(tschema, [THolder(1_000_000, 4) for _ in range(2)])
+    try:
+        jb, tb = _batches()
+        # dim-8 rows for every sign of the traffic; the dim-4 hashstack
+        # slot's buckets stay absent (a miss must read zeros)
+        signs = tgen.SeqRecSpec(**SPEC).all_signs()
+        vecs = trng.initialize_entries(signs, 8, "bounded_uniform",
+                                       {"lower": -0.1, "upper": 0.1})
+        tw.set_rows(signs, vecs, 8)
+        shards = thash.sign_to_shard(signs, 2)
+        for r, holder in enumerate(jw.ps_clients):
+            sel = shards == r
+            holder.set_entries(signs[sel], 8, vecs[sel])
+        for j, t in zip(jb, tb):
+            ja = jw.lookup_direct(j.id_type_features, training=False)
+            ta = tw.lookup_direct(t.id_type_features, training=False)
+            assert list(ja) == list(ta)
+            for name in ta:
+                np.testing.assert_array_equal(ja[name].embeddings,
+                                              ta[name].embeddings)
+            assert not ta["target_item"].embeddings.any()
+            assert ta["user_geo"].embeddings.any()
+            distinct = np.unique(t.id_type_features[2].signs)
+            np.testing.assert_array_equal(
+                jw.lookup_signs(distinct, 8), tw.lookup_signs(distinct, 8))
+    finally:
+        jw.close()
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter imports every module of the port and
+    chip_smoke (without running it): no jax, flax, optax or persia_tpu
+    module may load."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import persia_tpu_torch\n"
+        "for m in pkgutil.walk_packages(persia_tpu_torch.__path__, "
+        "'persia_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'persia_tpu'))\n"
+        "print(len([n for n in sys.modules "
+        "if n.startswith('persia_tpu_torch.')]))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
