@@ -9,19 +9,28 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 1. Setup: versions, the card's name and power limit, and the build of
    every kernel of the port from the sources in this checkout, one nvcc
    per source, all started together.
-2. Kernel phase: each kernel is held against its plain PyTorch version on
-   the card, at the serving path's shape and at the attention-bench shape,
-   and timed beside its bound, its plain version and one PyTorch library
-   call computing the same function (a yardstick only; the port never
-   calls it).
-3. Serving phase: the port's main path. Two PS shards hold rows for the
-   whole sign space of the ``seqrec`` traffic; an ``InferenceServer`` on
-   the card with micro-batching and the hot-row cache serves a few hundred
-   requests from 8 threads as PTB2 bytes through ``SequenceTower(
-   attn_impl="flash")`` at the width of ``examples/seq_rec/train.py``.
-   The launch counters are zeroed just before and read just after; every
-   prediction must be finite and in (0, 1) and agree with a second server
-   whose tower uses the dense reference attention.
+2. Kernel phase: each kernel (K2, the flash-attention forward, here with
+   its logsumexp; K3 and K4, the backward) is held against its plain
+   PyTorch version on the card, at the sequence tower's shape and at the
+   attention-bench shape, and timed beside its bound, its plain version
+   and, where one exists, a PyTorch library call computing the same
+   function (a yardstick only; the port never calls it).
+3. Serving phase: two PS shards hold rows for the whole sign space of the
+   ``seqrec`` traffic; an ``InferenceServer`` on the card with
+   micro-batching and the hot-row cache serves requests from 8 threads as
+   PTB2 bytes through ``SequenceTower(attn_impl="flash")`` at the width of
+   ``examples/seq_rec/train.py``. Every prediction must be finite and in
+   (0, 1) and agree with a second server whose tower uses the dense
+   reference attention; K2 must have launched.
+4. Training phase, the port's main path: ``TrainCtx`` on the card trains
+   ``SequenceTower(attn_impl="flash")`` at the example's widths over two
+   fresh PS shards (sparse Adagrad, dense Adam) for 300 steps of batch 256
+   of ``seqrec`` traffic, then ``eval_ctx`` scores 4096 held-out samples;
+   the AUC must pass the example's own bar (0.62). The launch counters are
+   zeroed just before the 300 steps and read just after: K2, K3 and K4
+   must each have launched. Before that, a flash tower and a reference
+   tower train 3 steps from the same weights and fresh PS rows in f32 and
+   must agree.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -41,17 +50,28 @@ import traceback
 # flip the last bit of the bf16 result (2**-8 relative; outputs are O(1)).
 KERNEL_ATOL = 2e-2
 KERNEL_RTOL = 2e-2
+# The logsumexp is f32 in every path: f32 sums in another order.
+LSE_ATOL = 1e-4
 # Serving predictions, flash tower against reference tower on the card:
 # every product runs in bf16, and the attention output is rounded to bf16
 # at a different point (kernel output vs. input of the output projection);
 # one-ulp differences pass through three more bf16 layers to a sigmoid.
 SERVING_ATOL = 2e-2
+# Training, flash tower against reference tower, f32 compute, f32 wire, no
+# TF32: the same math in another summation order, carried through three
+# Adam steps (a gradient near 0 whose sign differs moves its parameter by
+# up to 2 lr = 2e-3). Loss and predictions absolute; each slot's embedding
+# gradient relative to its largest element.
+TRAIN_ATOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+# the example's own pass bar (examples/seq_rec/train.py:166)
+AUC_BAR = 0.62
 
 # H100 SXM published dense peaks (NVIDIA data sheet, at 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# the serving model: examples/seq_rec/train.py's widths
+# the model: examples/seq_rec/train.py's widths
 DIM = 16
 HEADS = 4
 T_HIST = 64
@@ -62,6 +82,21 @@ REQUEST_ROWS = 32
 N_THREADS = 8
 REQUESTS_PER_THREAD = 50
 SEED = 0
+TRAIN_SEED = 42  # the example's --seed
+TRAIN_STEPS = 300
+TRAIN_BATCH = 256
+EVAL_SAMPLES = 4096
+
+KERNEL_INFO = {
+    # name -> (source, the TPU kernel it replaces)
+    "flash_attention_fwd": ("persia_tpu_torch/csrc/flash_attention_fwd.cu",
+                            "persia_tpu/ops/flash_attention.py:43"),
+    "flash_attention_bwd_dq": ("persia_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "persia_tpu/ops/flash_attention.py:237"),
+    "flash_attention_bwd_dkv": (
+        "persia_tpu_torch/csrc/flash_attention_bwd.cu",
+        "persia_tpu/ops/flash_attention.py:280"),
+}
 
 
 def _log(*a):
@@ -96,30 +131,74 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, k, v, kv_mask, causal: bool):
-    """Least time for one attention forward on an H100: bytes (q, k, v and
-    the mask read once, the output written once) over the memory rate, or
-    the products' operations on the keys this run's data leaves visible
-    over the bf16 tensor-core peak, whichever is larger."""
-    b, h, t_q, dh = q.shape
+def visible_pairs(q, k, kv_mask, causal: bool) -> int:
+    """(query, key) pairs this run's data leaves visible."""
+    b, h, t_q, _ = q.shape
     t_k = k.shape[2]
-    nbytes = 4 * q.numel() * q.element_size()
-    if kv_mask is not None:
-        nbytes += kv_mask.numel() * kv_mask.element_size()
     if causal:
-        pairs_per_bh = sum(min(i + 1, t_k) for i in range(t_q))
-        pairs = b * h * pairs_per_bh
-    elif kv_mask is not None:
-        pairs = h * t_q * int((kv_mask > 0).sum().item())
-    else:
-        pairs = b * h * t_q * t_k
-    flops = 4.0 * pairs * dh  # q·k and p·v, 2 FLOP per multiply-add
+        per_bh = sum(min(i + 1, t_k) for i in range(t_q))
+        return b * h * per_bh
+    if kv_mask is not None:
+        return h * t_q * int((kv_mask > 0).sum().item())
+    return b * h * t_q * t_k
+
+
+def bound_ms(nbytes: int, flops: float):
+    """Least time on an H100: bytes over the memory rate or operations
+    over the bf16 tensor-core peak, whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bounds(q, k, kv_mask, causal: bool, with_lse: bool):
+    """Bounds of K2 (two products), K3 (three) and K4 (four): each input
+    read once and each output written once; 2 FLOP per multiply-add over
+    the visible pairs."""
+    dh = q.shape[-1]
+    rows = q.shape[0] * q.shape[1] * q.shape[2]  # lse / delta entries
+    qb = q.numel() * q.element_size()  # one (B, H, T, Dh) operand
+    kb = k.numel() * k.element_size()
+    mb = 0 if kv_mask is None else kv_mask.numel()  # one byte a key
+    pairs = visible_pairs(q, k, kv_mask, causal)
+    fwd = bound_ms(2 * qb + 2 * kb + mb + (4 * rows if with_lse else 0),
+                   4.0 * pairs * dh)
+    # K3 reads q, k, v, out, dO, lse and the mask, writes dq and delta
+    dq = bound_ms(4 * qb + 2 * kb + mb + 8 * rows, 6.0 * pairs * dh)
+    # K4 reads q, k, v, dO, lse, delta and the mask, writes dk and dv
+    dkv = bound_ms(2 * qb + 4 * kb + mb + 8 * rows, 8.0 * pairs * dh)
+    return fwd, dq, dkv
+
+
+def profile_window(torch, fn):
+    """Run ``fn`` under torch.profiler (CUPTI). Returns (wall s, device
+    busy s, the six device kernels with the most time as (us, name,
+    count)); busy is 0 when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((float(us), e.key, e.count))
+    rows.sort(reverse=True)
+    return wall, sum(r[0] for r in rows) / 1e6, rows[:6]
+
+
 def kernel_phase(torch, card: str) -> dict:
+    """K2 with its lse, K3 and K4 against their plain versions, timed.
+    Returns name -> record (without launches)."""
     import torch.nn.functional as F
 
     from persia_tpu_torch.ops import flash_attention as fa
@@ -129,108 +208,196 @@ def kernel_phase(torch, card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def qkv(b, h, t, dh):
+    def rand(b, h, t, dh, n=3):
         return [torch.randn((b, h, t, dh), generator=gen, device=dev,
                             dtype=torch.float32).to(torch.bfloat16)
-                for _ in range(3)]
+                for _ in range(n)]
 
-    def compare(name, got, want):
+    def compare(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
         err = (got.float() - want.float()).abs()
-        bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+        bad = err > atol + rtol * want.float().abs()
         if not torch.isfinite(got.float()).all() or bool(bad.any()):
             raise AssertionError(
                 f"{name}: kernel disagrees with its plain version "
                 f"(max abs err {float(err.max()):.3e}, {int(bad.sum())} "
-                f"elements beyond atol={KERNEL_ATOL} rtol={KERNEL_RTOL})")
+                f"elements beyond atol={atol} rtol={rtol})")
         return float(err.max())
 
-    with torch.inference_mode():
-        # the serving path's shape: batch 256, 4 heads, t_hist 64, dh 4,
-        # a key mask from ragged history lengths, some of them empty
-        b, h, t, dh = 256, HEADS, T_HIST, DIM // HEADS
-        q, k, v = qkv(b, h, t, dh)
-        lengths = torch.randint(0, t + 1, (b,), generator=gen, device=dev)
-        lengths[:8] = 0  # fully masked rows must give 0, not NaN
-        kv_mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
-        got = fa.flash_attention_fwd(q, k, v, kv_mask=kv_mask)
-        want = fa.flash_attention_fwd_reference(q, k, v, kv_mask=kv_mask)
+    def check_all(tag, q, k, v, do, kv_mask, causal):
+        """Each kernel against its plain version on the same inputs;
+        returns the max abs error of each."""
+        out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, causal,
+                                          return_lse=True)
+        w_out, w_lse = fa.flash_attention_fwd_reference(
+            q, k, v, kv_mask, causal, return_lse=True)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do,
+                                              kv_mask, causal)
+        w_dq, w_delta = fa.flash_attention_bwd_dq_reference(
+            q, k, v, out, lse, do, kv_mask, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                            kv_mask, causal)
+        w_dk, w_dv = fa.flash_attention_bwd_dkv_reference(
+            q, k, v, do, lse, delta, kv_mask, causal)
         torch.cuda.synchronize()
-        err_model = compare("model shape", got, want)
-        if bool(got[:8].float().abs().max() != 0):
-            raise AssertionError("fully masked rows are not 0")
-        ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, kv_mask=kv_mask), iters=200)
-        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd_reference(
-            q, k, v, kv_mask=kv_mask), iters=50)
-        sdpa_mask = kv_mask[:, None, None, :]
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=sdpa_mask), iters=200)
-        bound_ms, bound_by = attention_bound_ms(q, k, v, kv_mask, False)
-        _log(f"[kernel] flash_attention_fwd model shape B={b} H={h} T={t} "
-             f"Dh={dh} bf16 kv_mask: max_abs_err={err_model:.3e} "
-             f"kernel_ms={ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
-             f"plain_ms={plain_ms:.6f} library_ms(sdpa)={library_ms:.6f} "
-             f"| card: {card}")
-        # kernel_ms above is per wrapper call on the device timeline, back
-        # to back, so it includes the host's launch cost when that is the
-        # longer; the profiler gives the kernel's own device time
-        _, _, top = profile_window(torch, lambda: [fa.flash_attention_fwd(
-            q, k, v, kv_mask=kv_mask) for _ in range(50)])
-        for us, name, count in top:
-            if "fwd_kernel" in name:
-                _log(f"[kernel] flash_attention_fwd model shape: device time "
-                     f"per launch {us / count / 1e3:.6f} ms ({count} launches "
-                     f"profiled) | card: {card}")
+        live = lse > fa.NEG_INF / 2
+        if not torch.equal(live, w_lse > fa.NEG_INF / 2):
+            raise AssertionError(f"{tag}: fully masked rows differ")
+        errs = {
+            "flash_attention_fwd": max(
+                compare(f"{tag} K2 out", out, w_out),
+                compare(f"{tag} K2 lse", torch.where(live, lse, 0),
+                        torch.where(live, w_lse, 0), LSE_ATOL, 0)),
+            "flash_attention_bwd_dq": max(
+                compare(f"{tag} K3 dq", dq, w_dq),
+                compare(f"{tag} K3 delta", delta, w_delta, LSE_ATOL, 1e-5)),
+            "flash_attention_bwd_dkv": max(compare(f"{tag} K4 dk", dk, w_dk),
+                                           compare(f"{tag} K4 dv", dv, w_dv)),
+        }
+        return errs, (out, lse, delta, dq, dk, dv)
 
-        # the attention-bench shape of bench.py --mode attn
-        b, h, dh = 4, 8, 128
-        q2, k2, v2 = qkv(b, h, 2048, dh)
-        err_bench = compare(
-            "bench shape T=2048 causal",
-            fa.flash_attention_fwd(q2, k2, v2, causal=True),
-            fa.flash_attention_fwd_reference(q2, k2, v2, causal=True))
-        del q2, k2, v2
-        q3, k3, v3 = qkv(b, h, 8192, dh)
-        b_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
-            q3, k3, v3, causal=True), iters=5, warmup=1)
-        b_plain = cuda_ms(torch, lambda: fa.flash_attention_fwd_reference(
-            q3, k3, v3, causal=True), iters=2, warmup=1)
-        b_lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q3, k3, v3, is_causal=True), iters=10)
-        b_bound, b_by = attention_bound_ms(q3, k3, v3, None, True)
-        del q3, k3, v3
+    def time_all(q, k, v, do, kv_mask, causal, iters, plain_iters):
+        out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, causal,
+                                          return_lse=True)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, kv_mask,
+                                             causal)
+        kernel = {
+            "flash_attention_fwd": lambda: fa.flash_attention_fwd(
+                q, k, v, kv_mask, causal, return_lse=True),
+            "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+                q, k, v, out, lse, do, kv_mask, causal),
+            "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, kv_mask, causal),
+        }
+        plain = {
+            "flash_attention_fwd": lambda: fa.flash_attention_fwd_reference(
+                q, k, v, kv_mask, causal, return_lse=True),
+            "flash_attention_bwd_dq":
+                lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, out, lse, do, kv_mask, causal),
+            "flash_attention_bwd_dkv":
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, kv_mask, causal),
+        }
+        ms = {n: cuda_ms(torch, f, iters) for n, f in kernel.items()}
+        plain_ms = ({n: cuda_ms(torch, f, plain_iters, warmup=1)
+                     for n, f in plain.items()} if plain_iters else None)
+        return ms, plain_ms
+
+    def sdpa_ms(q, k, v, do, kv_mask, causal, iters):
+        """SDPA forward alone, and forward plus one autograd.grad."""
+        mask = None if kv_mask is None else kv_mask[:, None, None, :]
+
+        def fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  is_causal=causal)
+
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                               is_causal=causal)
+            return torch.autograd.grad(o, (qg, kg, vg), do)
+
+        with torch.inference_mode():
+            f_ms = cuda_ms(torch, fwd, iters)
+        return f_ms, cuda_ms(torch, fwd_bwd, iters)
+
+    records = {}
+    # the training path's shape: batch 256, 4 heads, t_hist 64, dh 4, a
+    # key mask from ragged history lengths, some of them empty
+    b, h, t, dh = 256, HEADS, T_HIST, DIM // HEADS
+    q, k, v, do = rand(b, h, t, dh, 4)
+    lengths = torch.randint(0, t + 1, (b,), generator=gen, device=dev)
+    lengths[:8] = 0  # fully masked rows must give 0, not NaN
+    kv_mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    errs, (out, lse, _, dq, dk, dv) = check_all("model shape", q, k, v, do,
+                                                kv_mask, False)
+    if any(bool(x[:8].float().abs().max() != 0) for x in (out, dq, dk, dv)):
+        raise AssertionError("fully masked rows: output or gradients not 0")
+    if not bool((lse[:8] <= fa.NEG_INF / 2).all()):
+        raise AssertionError("fully masked rows: lse above -1e30 / 2")
+    ms, plain_ms = time_all(q, k, v, do, kv_mask, False, 200, 50)
+    serve_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, kv_mask), iters=200)
+    lib_fwd, lib_fwd_bwd = sdpa_ms(q, k, v, do, kv_mask, False, 200)
+    bounds = dict(zip(KERNEL_INFO, attention_bounds(q, k, kv_mask, False,
+                                                    True)))
+    for name, (src, replaces) in KERNEL_INFO.items():
+        records[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            # one PyTorch call computes the forward (SDPA); none computes
+            # dq or dk/dv alone: the backward's yardstick is printed below
+            "library_ms": lib_fwd if name == "flash_attention_fwd" else None,
+        }
+        _log(f"[kernel] {name} model shape B={b} H={h} T={t} Dh={dh} bf16 "
+             f"kv_mask: max_abs_err={errs[name]:.3e} kernel_ms="
+             f"{ms[name]:.6f} bound_ms={bounds[name][0]:.6f} "
+             f"({bounds[name][1]}) plain_ms={plain_ms[name]:.6f} | card: "
+             f"{card}")
+    ours = sum(ms.values())
+    _log(f"[kernel] model shape: K2 serving variant (no lse) kernel_ms="
+         f"{serve_ms:.6f}; library sdpa forward ms={lib_fwd:.6f}; "
+         f"sdpa forward+backward ms={lib_fwd_bwd:.6f} vs K2(lse)+K3+K4 ms="
+         f"{ours:.6f} | card: {card}")
+    _, _, top = profile_window(torch, lambda: [time_all(
+        q, k, v, do, kv_mask, False, 20, 0)])
+    for us, name, count in top:
+        if any(f"{k}_kernel" in name for k in ("fwd", "bwd_dq", "bwd_dkv")):
+            _log(f"[kernel] model shape device time per launch "
+                 f"{us / count / 1e3:.6f} ms ({count} x {name[:70]}) | "
+                 f"card: {card}")
+    del q, k, v, do, out, lse, dq, dk, dv
+
+    # the attention-bench shape of bench.py --mode attn, causal
+    b, h, dh = 4, 8, 128
+    q, k, v, do = rand(b, h, 2048, dh, 4)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    errs_b, _ = check_all("bench shape T=2048 causal", q, k, v, do, None,
+                          True)
+    plain_peak_2048 = torch.cuda.max_memory_allocated() - base
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    q, k, v, do = rand(b, h, 8192, dh, 4)
+    # the plain versions hold a few (B, H, T, T) f32 matrices: time them at
+    # 8192 if the peak measured at 2048, scaled by T^2, fits in free memory
+    free = torch.cuda.mem_get_info()[0]
+    plain_t = 8192
+    while plain_peak_2048 * (plain_t / 2048) ** 2 > 0.8 * free:
+        plain_t //= 2
+    ms_b, _ = time_all(q, k, v, do, None, True, 3, 0)
+    lib_b_fwd, lib_b_fwd_bwd = sdpa_ms(q, k, v, do, None, True, 5)
+    bounds_b = dict(zip(KERNEL_INFO, attention_bounds(q, k, None, True,
+                                                      True)))
+    if plain_t != 8192:
+        del q, k, v, do
         torch.cuda.empty_cache()
-        _log(f"[kernel] flash_attention_fwd bench shape B={b} H={h} T=8192 "
-             f"Dh={dh} bf16 causal: max_abs_err(T=2048)={err_bench:.3e} "
-             f"kernel_ms={b_ms:.4f} bound_ms={b_bound:.4f} ({b_by}) "
-             f"plain_ms={b_plain:.4f} library_ms(sdpa)={b_lib:.4f} "
-             f"| card: {card}")
-    return {
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "persia_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "persia_tpu/ops/flash_attention.py:43",
-        "launches": None,  # filled from the serving phase
-        "max_abs_err": err_model,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }
+        q, k, v, do = rand(b, h, plain_t, dh, 4)
+    _, plain_b = time_all(q, k, v, do, None, True, 1, 1)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    for name in KERNEL_INFO:
+        _log(f"[kernel] {name} bench shape B={b} H={h} T=8192 Dh={dh} bf16 "
+             f"causal: max_abs_err(T=2048)={errs_b[name]:.3e} kernel_ms="
+             f"{ms_b[name]:.4f} bound_ms={bounds_b[name][0]:.4f} "
+             f"({bounds_b[name][1]}) plain_ms(T={plain_t})="
+             f"{plain_b[name]:.4f} | card: {card}")
+    _log(f"[kernel] bench shape T=8192: library sdpa forward ms="
+         f"{lib_b_fwd:.4f}; sdpa forward+backward ms={lib_b_fwd_bwd:.4f} "
+         f"vs K2(lse)+K3+K4 ms={sum(ms_b.values()):.4f} | card: {card}")
+    return records
 
 
-def build_world():
-    """Two PS shards holding rows for every sign of the traffic, and the
-    worker over them."""
+def build_schema():
     from persia_tpu_torch.config import EmbeddingSchema, SlotConfig, \
         uniform_slots
-    from persia_tpu_torch.ps.rng import initialize_entries
-    from persia_tpu_torch.ps.store import EmbeddingHolder
-    from persia_tpu_torch.worker.worker import EmbeddingWorker
     from persia_tpu_torch.workloads.generator import (
         SEQ_CLICKS_SLOT, SEQ_HISTORY_SLOT, SEQ_PROFILE_SLOTS,
-        SEQ_TARGET_SLOT, SeqRecSpec)
+        SEQ_TARGET_SLOT)
 
     slots = uniform_slots([*SEQ_PROFILE_SLOTS, SEQ_TARGET_SLOT], dim=DIM)
     slots[SEQ_HISTORY_SLOT] = SlotConfig(
@@ -238,19 +405,39 @@ def build_world():
         sample_fixed_size=T_HIST)
     slots[SEQ_CLICKS_SLOT] = SlotConfig(
         name=SEQ_CLICKS_SLOT, dim=DIM, pooling="last4")
-    schema = EmbeddingSchema(slots_config=slots)
-    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
-    worker = EmbeddingWorker(
+    return EmbeddingSchema(slots_config=slots)
+
+
+def fresh_worker(schema):
+    """A worker over ``N_PS`` empty PS shards, as the example builds."""
+    from persia_tpu_torch.ps.store import EmbeddingHolder
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+
+    return EmbeddingWorker(
         schema, [EmbeddingHolder(2_000_000, 8) for _ in range(N_PS)])
+
+
+def build_world():
+    """Two PS shards holding rows for every sign of the traffic, and the
+    worker over them."""
+    from persia_tpu_torch.ps.rng import initialize_entries
+    from persia_tpu_torch.workloads.generator import SeqRecSpec
+
+    schema = build_schema()
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    worker = fresh_worker(schema)
     signs = spec.all_signs()
     worker.set_rows(signs, initialize_entries(
         signs, DIM, "bounded_uniform", {"lower": -0.05, "upper": 0.05}), DIM)
     return schema, worker, spec
 
 
-def build_tower(num_dense: int, attn_impl: str, state_dict=None):
+def build_tower(num_dense: int, attn_impl: str, state_dict=None,
+                compute_dtype=None):
     """The SequenceTower on the card, with seeded weights or a copy of
     ``state_dict``."""
+    import torch
+
     from persia_tpu_torch.models import SequenceTower
     from persia_tpu_torch.weights import init_params
 
@@ -258,7 +445,8 @@ def build_tower(num_dense: int, attn_impl: str, state_dict=None):
     slots = [(DIM, False), (DIM, False), (DIM, True), (DIM, False),
              (DIM, False)]
     model = SequenceTower(num_dense, slots, mlp=MLP, num_heads=HEADS,
-                          attn_impl=attn_impl, device="cuda")
+                          attn_impl=attn_impl, device="cuda",
+                          compute_dtype=compute_dtype or torch.bfloat16)
     if state_dict is None:
         return init_params(model, SEED)
     model.load_state_dict(state_dict)
@@ -298,32 +486,6 @@ def run_clients(server, payloads):
     return preds, lat, wall
 
 
-def profile_window(torch, fn):
-    """Run ``fn`` under torch.profiler (CUPTI). Returns (wall s, device
-    busy s, the six device kernels with the most time as (us, name,
-    count)); busy is 0 when the trace holds no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((float(us), e.key, e.count))
-    rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows) / 1e6, rows[:6]
-
-
 def serving_phase(torch, card: str):
     import numpy as np
 
@@ -352,7 +514,7 @@ def serving_phase(torch, card: str):
 
         fa.reset_launch_count()
         preds, lat, wall = run_clients(server, payloads)
-        launches = fa.launch_count()
+        launches = [fa.launch_count(n) for n in KERNEL_INFO]
         stats = server.stats()
         window = profile_window(
             torch, lambda: run_clients(server, payloads[:16 * N_THREADS]))
@@ -365,9 +527,10 @@ def serving_phase(torch, card: str):
                 or not ((p > 0) & (p < 1)).all():
             raise AssertionError(f"bad predictions: shape {p.shape}, "
                                  f"range [{p.min()}, {p.max()}]")
-    if launches <= 0:
+    if launches[0] <= 0 or any(launches[1:]):
         raise AssertionError(
-            "the serving path launched no flash_attention_fwd kernel")
+            f"the serving path must launch K2 and no backward kernel: "
+            f"launches {launches}")
     lat_ms = np.asarray(lat) * 1e3
     _log(f"[serving] {rows} rows in {wall:.3f}s: rows_per_s="
          f"{rows / wall:.1f} request_p50_ms={np.percentile(lat_ms, 50):.3f} "
@@ -376,19 +539,9 @@ def serving_phase(torch, card: str):
          f"{stats['avg_coalesce']:.2f} lookup_p50_ms="
          f"{stats['lookup_p50_ms']:.3f} forward_p50_ms="
          f"{stats['forward_p50_ms']:.3f} cache_hit_rate="
-         f"{stats['cache_hit_rate']:.3f} flash_launches={launches} "
-         f"({launches / n_req:.3f} per request) | card: {card}")
-    w_wall, busy, top = window
-    if busy > 0:
-        _log(f"[serving] profiled window of {16 * N_THREADS} requests: "
-             f"wall={w_wall:.3f}s device_busy={busy:.4f}s "
-             f"device_busy_share={busy / w_wall:.4f} | card: {card}")
-        for us, name, count in top:
-            _log(f"[serving]   device {us / 1e3:.3f} ms in {count} x "
-                 f"{name[:90]}")
-    else:
-        _log("[serving] profiled window: the trace holds no device time; "
-             "device busy share not measured")
+         f"{stats['cache_hit_rate']:.3f} flash_launches={launches[0]} "
+         f"({launches[0] / n_req:.3f} per request) | card: {card}")
+    report_window("serving", f"{16 * N_THREADS} requests", window, card)
 
     # the same requests through a tower with the dense reference attention
     ref_model = build_tower(spec.num_dense, "reference",
@@ -404,7 +557,183 @@ def serving_phase(torch, card: str):
             f"flash and reference towers disagree: max abs err {err:.3e} > "
             f"{SERVING_ATOL}")
     _log(f"[serving] flash vs reference attention: max_abs_err={err:.3e} "
-         f"(atol {SERVING_ATOL})")
+         f"(atol {SERVING_ATOL}) | card: {card}")
+
+
+def report_window(phase: str, what: str, window, card: str):
+    wall, busy, top = window
+    if busy <= 0:
+        _log(f"[{phase}] profiled window: the trace holds no device time; "
+             f"device busy share not measured")
+        return
+    _log(f"[{phase}] profiled window of {what}: wall={wall:.3f}s "
+         f"device_busy={busy:.4f}s device_busy_share={busy / wall:.4f} | "
+         f"card: {card}")
+    for us, name, count in top:
+        _log(f"[{phase}]   device {us / 1e3:.3f} ms in {count} x "
+             f"{name[:90]} | card: {card}")
+
+
+def train_ctx(torch, schema, model, global_config=None):
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding import EmbeddingConfig
+    from persia_tpu_torch.embedding.optim import Adagrad
+
+    return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                    Adagrad(lr=1e-2), schema, fresh_worker(schema),
+                    embedding_config=EmbeddingConfig(
+                        emb_initialization=(-0.05, 0.05)),
+                    global_config=global_config, device="cuda")
+
+
+def training_agreement(torch, card: str, spec):
+    """A flash tower and a reference tower, from the same weights and
+    fresh PS rows, train 3 steps in f32 (f32 wire, no TF32) and must
+    agree on loss, predictions and each slot's embedding gradients."""
+    import numpy as np
+
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+    from persia_tpu_torch.workloads.generator import seqrec_batches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    schema = build_schema()
+    flash = build_tower(spec.num_dense, "flash",
+                        compute_dtype=torch.float32)
+    ref = build_tower(spec.num_dense, "reference",
+                      state_dict=flash.state_dict(),
+                      compute_dtype=torch.float32)
+    runs = []
+    for model in (flash, ref):
+        ctx = train_ctx(torch, schema, model,
+                        GlobalConfig(CommonConfig("f32")))
+        grads = []
+        inner = ctx.worker.update_gradients
+
+        def record(ref_id, g, inner=inner, grads=grads):
+            grads.append({k: np.array(v) for k, v in g.items()})
+            return inner(ref_id, g)
+
+        ctx.worker.update_gradients = record
+        out = []
+        with ctx:
+            for b in seqrec_batches(3 * TRAIN_BATCH, TRAIN_BATCH,
+                                    seed=TRAIN_SEED, spec=spec):
+                loss, pred = ctx.train_step(b)
+                out.append((float(loss), pred.cpu().numpy()))
+        runs.append((out, grads))
+    worst = [0.0, 0.0, 0.0]
+    for step, ((fl, fp), (rl, rp), fg, rg) in enumerate(zip(
+            runs[0][0], runs[1][0], runs[0][1], runs[1][1])):
+        if not (np.isfinite(fl) and np.isfinite(fp).all()):
+            raise AssertionError(f"flash tower step {step}: non-finite")
+        worst[0] = max(worst[0], abs(fl - rl))
+        worst[1] = max(worst[1], float(np.abs(fp - rp).max()))
+        for name in rg:
+            scale = float(np.abs(rg[name]).max())
+            err = float(np.abs(fg[name] - rg[name]).max())
+            worst[2] = max(worst[2], err / max(scale, 1e-30))
+    _log(f"[training] flash vs reference tower, 3 steps f32: loss "
+         f"max_abs_err={worst[0]:.3e} pred max_abs_err={worst[1]:.3e} "
+         f"(atol {TRAIN_ATOL}); embedding grads max err / max |grad| = "
+         f"{worst[2]:.3e} (rtol {TRAIN_GRAD_RTOL}) | card: {card}")
+    if not (worst[0] <= TRAIN_ATOL and worst[1] <= TRAIN_ATOL
+            and worst[2] <= TRAIN_GRAD_RTOL):
+        raise AssertionError("flash and reference towers disagree in "
+                             "training")
+
+
+def training_phase(torch, card: str):
+    """The main path: 300 steps of TrainCtx on the card, then the AUC.
+    Returns the launches of each kernel during the 300 steps."""
+    import numpy as np
+
+    from persia_tpu_torch.ctx import STAGES, eval_ctx
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.utils import roc_auc
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    training_agreement(torch, card, spec)
+
+    t0 = time.perf_counter()
+    schema = build_schema()
+    model = build_tower(spec.num_dense, "flash")
+    ctx = train_ctx(torch, schema, model)
+    batches = list(seqrec_batches(TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED, spec=spec))
+    _log(f"[training] setup {time.perf_counter() - t0:.2f}s: "
+         f"{TRAIN_STEPS} batches of {TRAIN_BATCH}, fresh PS of {N_PS} "
+         f"shards")
+    # steps [0, 250) are timed as they run; [250, 270) synchronize after
+    # every stage for an honest split; [270, 275) run under the profiler
+    timed, split, prof = range(0, 250), range(250, 270), range(270, 275)
+    step_s, losses = [], {}
+    window = None
+    with ctx:
+        fa.reset_launch_count()
+        for step, batch in enumerate(batches):
+            if step == split.start:
+                ctx.sync_stages = True
+                ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
+            if step == prof.start:
+                split_s = dict(ctx.stage_seconds)
+                ctx.sync_stages = False
+                window = profile_window(torch, lambda: [
+                    ctx.train_step(batches[s]) for s in prof])
+            if step in prof:
+                continue
+            t = time.perf_counter()
+            loss, pred = ctx.train_step(batch)
+            step_s.append(time.perf_counter() - t)
+            if step % 50 == 0:
+                losses[step] = float(loss)
+                if not (np.isfinite(losses[step])
+                        and bool(torch.isfinite(pred).all())):
+                    raise AssertionError(f"step {step}: non-finite output")
+        torch.cuda.synchronize()
+        launches = {n: fa.launch_count(n) for n in KERNEL_INFO}
+
+        preds, labels = [], []
+        with eval_ctx(ctx) as ectx:
+            for b in seqrec_batches(EVAL_SAMPLES, TRAIN_BATCH,
+                                    seed=TRAIN_SEED + 1000, spec=spec,
+                                    requires_grad=False):
+                pred, lab = ectx.forward(b)
+                preds.append(pred.float().cpu().numpy().reshape(-1))
+                labels.append(lab[0].numpy().reshape(-1))
+    preds = np.concatenate(preds)
+    if not np.isfinite(preds).all():
+        raise AssertionError("non-finite eval predictions")
+    auc = roc_auc(np.concatenate(labels), preds)
+
+    steady = np.asarray(step_s[10:len(timed)]) * 1e3  # past the warm-up
+    _log(f"[training] {len(steady)} steady steps of batch {TRAIN_BATCH}: "
+         f"samples_per_s={TRAIN_BATCH / (steady.mean() / 1e3):.1f} "
+         f"step_p50_ms={np.percentile(steady, 50):.3f} "
+         f"step_p99_ms={np.percentile(steady, 99):.3f} | card: {card}")
+    n_split = len(split)
+    _log("[training] step split over steps "
+         f"{split.start}-{split.stop - 1}, device synchronized after each "
+         "stage (ms per step): " + " ".join(
+             f"{k}={split_s[k] / n_split * 1e3:.3f}" for k in STAGES)
+         + f" | card: {card}")
+    _log("[training] loss " + " ".join(
+        f"step{s}={v:.4f}" for s, v in sorted(losses.items()))
+        + f" | card: {card}")
+    _log(f"[training] launches in {TRAIN_STEPS} steps: " + " ".join(
+        f"{n}={c}" for n, c in launches.items())
+        + f" ({launches['flash_attention_fwd'] / TRAIN_STEPS:.3f} K2 per "
+        f"step) | card: {card}")
+    _log(f"[training] test AUC on {EVAL_SAMPLES} held-out samples: "
+         f"{auc:.4f} (bar {AUC_BAR}) | card: {card}")
+    report_window("training", f"{len(prof)} steps", window, card)
+    if any(c <= 0 for c in launches.values()):
+        raise AssertionError(f"a kernel of the training path never "
+                             f"launched: {launches}")
+    if not auc > AUC_BAR:
+        raise AssertionError(f"test AUC {auc:.4f} is not above {AUC_BAR}")
     return launches
 
 
@@ -426,20 +755,23 @@ def main() -> int:
         _log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
              f"python {sys.version.split()[0]}")
         _log(f"[setup] card: {card}")
-        kernels = ["flash_attention_fwd"]
+        sources = sorted({s.split("/")[-1][:-3] for s, _ in
+                          KERNEL_INFO.values()})
         t0 = time.perf_counter()
-        _build.build(kernels)
-        _log(f"[setup] built {kernels} in {time.perf_counter() - t0:.1f}s")
-        for name in kernels:
+        _build.build(sources)
+        _log(f"[setup] built {sources} in {time.perf_counter() - t0:.1f}s")
+        for name in sources:
             for line in _build.build_logs.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     _log(f"[setup] ptxas {name}: {line.strip()}")
-        record = kernel_phase(torch, card)
-        record["launches"] = serving_phase(torch, card)
+        records = kernel_phase(torch, card)
+        serving_phase(torch, card)
+        for name, n in training_phase(torch, card).items():
+            records[name]["launches"] = n
     except Exception:
         traceback.print_exc()
         return 1
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,16 @@ beside it and imports nothing of it (nor of jax, flax or optax). Where it
 needs one of the JAX package's numpy-only modules it keeps its own
 trimmed copy under the same relative path.
 
-The slice ported so far is the serving path of the sequence-tower model:
+The slices ported so far are the serving and training paths of the
+sequence-tower model:
 
     InferenceServer -> EmbeddingWorker lookup -> InferCtx.forward_prepared
     -> SequenceTower -> flash-attention forward (hand-written CUDA kernel)
+
+    TrainCtx.train_step -> EmbeddingWorker training lookup (numpy PS)
+    -> packed bf16 wire -> SequenceTower forward (K2 with logsumexp)
+    -> backward (CUDA kernels K3, K4) -> dense Adam -> bf16 gradient wire
+    -> EmbeddingWorker.update_gradients -> sparse optimizer on the PS
 
 Entry points take an explicit ``device`` that defaults to CUDA and raise
 when no CUDA device is present, unless the caller asks for ``"cpu"``.

@@ -1,9 +1,10 @@
-"""Embedding schema: the slot configuration the serving path needs.
+"""Embedding schema and the job configuration the port needs so far.
 
 A trimmed copy of ``persia_tpu/config.py`` (``InitializationConfig``,
 ``HashStackConfig``, ``SlotConfig``, ``EmbeddingSchema``,
-``uniform_slots``). YAML loading and the global job configuration are not
-part of this slice.
+``uniform_slots``, and of ``GlobalConfig.common`` only
+``embedding_wire_dtype``). YAML loading and the rest of the job
+configuration are not ported yet.
 
 Raw (non-summed) slots always produce a dense ``(batch,
 sample_fixed_size)`` index tensor into a fixed-capacity embedding tensor
@@ -198,3 +199,21 @@ def uniform_slots(
                       sample_fixed_size=sample_fixed_size, pooling=pooling)
         for n in names
     }
+
+
+@dataclass
+class CommonConfig:
+    # dtype of the embedding values and gradients on the host <-> device
+    # wire: "bf16" (the default) or "f32"
+    embedding_wire_dtype: str = "bf16"
+
+    def __post_init__(self):
+        if self.embedding_wire_dtype not in ("bf16", "f32"):
+            raise ValueError(
+                f"embedding_wire_dtype must be 'bf16' or 'f32', got "
+                f"{self.embedding_wire_dtype!r}")
+
+
+@dataclass
+class GlobalConfig:
+    common: CommonConfig = field(default_factory=CommonConfig)

@@ -7,6 +7,11 @@
 // masked, optional causal masking (k-tiles wholly above the diagonal are
 // skipped), an optional (B, T_k) key mask broadcast over heads, and a
 // fully masked query row giving 0, not NaN. Output in the input dtype.
+// Optionally (the training path) it also writes the (B*H, T_q) f32
+// logsumexp m + log(max(l, 1e-20)) that the backward kernels K3/K4 read;
+// a fully masked row keeps m = -1e30, so its lse stays <= -1e30 / 2 and
+// the backward forces its probabilities to 0. The serving path passes no
+// lse buffer and writes nothing more, as the JAX kernel does.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s):
 // at the attention-bench shape (B=4, H=8, T=8192, Dh=128, bf16, causal)
@@ -65,8 +70,8 @@ template <typename T, int DHP>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-           T* __restrict__ out, int heads, int t_q, int t_k, int dh,
-           int causal, float scale) {
+           T* __restrict__ out, float* __restrict__ lse, int heads, int t_q,
+           int t_k, int dh, int causal, float scale) {
   static_assert(DHP % GROUP == 0, "padded head dim must divide by GROUP");
   constexpr int LD = DHP + 1;
   constexpr int LDP = BK + 1;
@@ -180,14 +185,17 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = j + GROUP * i;
       if (d < dh) out[q_base + (size_t)qrow * dh + d] = from_f32<T>(acc[i] / denom);
     }
+    // the row's four threads hold the same m and l after the shuffles
+    if (lse != nullptr && j == 0)
+      lse[(size_t)bh * t_q + qrow] = m + logf(denom);
   }
 }
 
 template <typename T, int DHP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_mask, void* out, int bh, int heads,
-                   int t_q, int t_k, int dh, int causal, float scale,
-                   cudaStream_t stream) {
+                   const void* kv_mask, void* out, float* lse, int bh,
+                   int heads, int t_q, int t_k, int dh, int causal,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DHP>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -199,47 +207,47 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   fwd_kernel<T, DHP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<T*>(out), heads, t_q, t_k, dh, causal, scale);
+      static_cast<T*>(out), lse, heads, t_q, t_k, dh, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* kv_mask, void* out, int bh, int heads,
-                     int t_q, int t_k, int dh, int causal, float scale,
-                     cudaStream_t stream) {
-  if (dh <= 4)
-    return launch<T, 4>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, stream);
-  if (dh <= 8)
-    return launch<T, 8>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, stream);
-  if (dh <= 16)
-    return launch<T, 16>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, stream);
-  if (dh <= 32)
-    return launch<T, 32>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, stream);
-  if (dh <= 64)
-    return launch<T, 64>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, stream);
-  return launch<T, 128>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, stream);
+                     const void* kv_mask, void* out, float* lse, int bh,
+                     int heads, int t_q, int t_k, int dh, int causal,
+                     float scale, cudaStream_t stream) {
+#define PERSIA_FWD_LAUNCH(DHP)                                            \
+  return launch<T, DHP>(q, k, v, kv_mask, out, lse, bh, heads, t_q, t_k, \
+                        dh, causal, scale, stream)
+  if (dh <= 4) PERSIA_FWD_LAUNCH(4);
+  if (dh <= 8) PERSIA_FWD_LAUNCH(8);
+  if (dh <= 16) PERSIA_FWD_LAUNCH(16);
+  if (dh <= 32) PERSIA_FWD_LAUNCH(32);
+  if (dh <= 64) PERSIA_FWD_LAUNCH(64);
+  PERSIA_FWD_LAUNCH(128);
+#undef PERSIA_FWD_LAUNCH
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q is (bh, t_q, dh), k/v (bh, t_k, dh),
-// out like q, all contiguous; kv_mask is null or (bh / heads, t_k) uint8.
-// Returns the cudaError_t of the launch (0 on success).
+// out like q, all contiguous; kv_mask is null or (bh / heads, t_k) uint8;
+// lse is null (serving) or (bh, t_q) f32. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int persia_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* kv_mask,
-                                          void* out, int bh, int heads,
-                                          int t_q, int t_k, int dh, int dtype,
-                                          int causal, float scale,
+                                          void* out, float* lse, int bh,
+                                          int heads, int t_q, int t_k, int dh,
+                                          int dtype, int causal, float scale,
                                           void* stream) {
   if (bh <= 0 || heads <= 0 || t_q <= 0 || t_k <= 0 || dh <= 0 || dh > 128 ||
       bh % heads != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, s);
+    return (int)dispatch<float>(q, k, v, kv_mask, out, lse, bh, heads, t_q, t_k, dh, causal, scale, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, kv_mask, out, bh, heads, t_q, t_k, dh, causal, scale, s);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, kv_mask, out, lse, bh, heads, t_q, t_k, dh, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

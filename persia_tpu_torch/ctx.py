@@ -1,5 +1,14 @@
-"""Contexts of the serving path (``persia_tpu/ctx.py``): the embedding
-context's feature preparation and the inference context.
+"""User-facing contexts (``persia_tpu/ctx.py``).
+
+- :func:`current_ctx` and the context stack: contexts nest, the innermost
+  entered one is current (an embedding optimizer's ``apply()`` registers
+  through it).
+- :class:`EmbeddingCtx`: parameter-server configuration, feature
+  preparation and the eval forward.
+- :class:`TrainCtx`: the synchronous hybrid train step (training lookup ->
+  packed dense step on the device -> sparse update), and
+  :func:`eval_ctx` over it.
+- :class:`InferCtx`: eval-mode lookups and forward for serving.
 
 The embedding tier is reached through an
 :class:`~persia_tpu_torch.worker.worker.EmbeddingWorker`. Host numpy goes
@@ -7,28 +16,99 @@ to the device through pinned buffers with asynchronous copies on the
 current stream.
 """
 
-from typing import Any, Dict, List, Tuple
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from persia_tpu_torch.config import EmbeddingSchema
+from persia_tpu_torch.config import EmbeddingSchema, GlobalConfig
 from persia_tpu_torch.data.batch import PersiaBatch
 from persia_tpu_torch.device import DeviceLike, resolve_device
+from persia_tpu_torch.embedding import (
+    EmbeddingConfig,
+    get_default_embedding_config,
+)
 from persia_tpu_torch.worker.middleware import RawEmbedding, SumEmbedding
 
+_ctx_lock = threading.Lock()
+_ctx_stack: List["BaseCtx"] = []
 
-class EmbeddingCtx:
-    def __init__(self, model=None, schema: EmbeddingSchema = None,
-                 worker=None, device: DeviceLike = None):
+
+def current_ctx() -> Optional["BaseCtx"]:
+    return _ctx_stack[-1] if _ctx_stack else None
+
+
+class BaseCtx:
+    """Contexts nest; ``current_ctx`` returns the innermost entered one."""
+
+    def __enter__(self):
+        with _ctx_lock:
+            _ctx_stack.append(self)
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        with _ctx_lock:
+            if self in _ctx_stack:
+                _ctx_stack.remove(self)
+        return False
+
+
+def _check_model_device(model, device: torch.device):
+    for p in model.parameters():
+        if p.device.type != device.type:
+            raise ValueError(
+                f"model parameters live on {p.device}, the context on "
+                f"{device}; build the model on the same device")
+
+
+class EmbeddingCtx(BaseCtx):
+    def __init__(self, model=None, schema: Optional[EmbeddingSchema] = None,
+                 worker=None,
+                 embedding_config: Optional[EmbeddingConfig] = None,
+                 global_config: Optional[GlobalConfig] = None,
+                 device: DeviceLike = None):
         self.model = model
         self.schema = schema if schema is not None else (
             worker.schema if worker is not None else None)
         self.worker = worker
+        self.embedding_config = (embedding_config
+                                 or get_default_embedding_config())
+        self.global_config = global_config or GlobalConfig()
         self.device = resolve_device(device)
+        self._configured_servers = False
 
-    def to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+    def __enter__(self):
+        super().__enter__()
+        if self.worker is not None and not self._configured_servers:
+            self.configure_embedding_parameter_servers()
+        return self
+
+    def configure_embedding_parameter_servers(self):
+        """Send the initialization, admission and weight-bound
+        hyperparameters to every parameter server."""
+        ec = self.embedding_config
+        init = self.schema.initialization if self.schema else None
+        if init is not None and init.method.value != "bounded_uniform":
+            method, params = init.method.value, init.to_params()
+        else:
+            lower, upper = ec.emb_initialization
+            method, params = "bounded_uniform", {"lower": lower,
+                                                 "upper": upper}
+        self.worker.configure_parameter_servers(
+            method, params, ec.admit_probability, ec.weight_bound,
+            enable_weight_bound=True)
+        self._configured_servers = True
+
+    def register_optimizer(self, optimizer):
+        """Called by an embedding optimizer's ``apply()``."""
+        self.worker.register_optimizer(optimizer.config)
+
+    def to_device(self, arr: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        t = (arr if isinstance(arr, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(arr)))
         if self.device.type == "cuda":
             # the caching host allocator keeps the pinned block alive until
             # the asynchronous copy has run
@@ -70,6 +150,187 @@ class EmbeddingCtx:
         raise NotImplementedError
 
 
+STAGES = ("lookup", "h2d", "dense", "d2h", "update")
+
+
+class TrainCtx(EmbeddingCtx):
+    """Training context: synchronous lookup, dense step, sparse update.
+
+    ``dense_optimizer`` is a ``torch.optim.Optimizer`` over the model's
+    parameters (``torch.optim.Adam(model.parameters(), lr=1e-3)`` is the
+    counterpart of ``optax.adam(1e-3)``); ``embedding_optimizer`` a
+    :mod:`persia_tpu_torch.embedding.optim` config, registered on the
+    parameter servers on ``__enter__``. With ``seed`` the dense weights are
+    drawn anew (:func:`persia_tpu_torch.weights.init_params`); without it
+    the module's current weights are the starting point. ``device``
+    defaults to CUDA and must be where the model lives.
+
+    ``stage_seconds`` accumulates the host time of each part of a step
+    (:data:`STAGES`). The device runs asynchronously, so its work lands in
+    whichever stage waits for it (``d2h`` at the latest); with
+    ``sync_stages`` the context synchronizes the device at the end of
+    each stage, which makes the split honest and the step slower.
+    """
+
+    def __init__(self, model, dense_optimizer: torch.optim.Optimizer,
+                 embedding_optimizer, schema: EmbeddingSchema, worker,
+                 embedding_config: Optional[EmbeddingConfig] = None,
+                 global_config: Optional[GlobalConfig] = None,
+                 seed: Optional[int] = None, device: DeviceLike = None,
+                 sync_stages: bool = False, mesh=None,
+                 grad_update_interval: int = 1,
+                 device_cache_capacity: int = 0, profiler=None,
+                 resume_from: Optional[str] = None):
+        waits = {
+            "mesh": (mesh is not None, "ROADMAP.md queue A item 3 (DDP)"),
+            "grad_update_interval": (
+                grad_update_interval != 1,
+                "ROADMAP.md queue A item 2b (the training pipeline)"),
+            "device_cache_capacity": (
+                bool(device_cache_capacity),
+                "ROADMAP.md queue A item 5 (on-device sparse)"),
+            "profiler": (profiler is not None,
+                         "ROADMAP.md queue A item 8 (tooling)"),
+            "resume_from": (bool(resume_from),
+                            "ROADMAP.md queue A item 7 (snapshots)"),
+        }
+        for name, (asked, item) in waits.items():
+            if asked:
+                raise NotImplementedError(
+                    f"TrainCtx({name}=...) is not ported yet; it waits for "
+                    f"{item}")
+        super().__init__(model=model, schema=schema, worker=worker,
+                         embedding_config=embedding_config,
+                         global_config=global_config, device=device)
+        from persia_tpu_torch.parallel.train import WIRE_DTYPES
+
+        _check_model_device(model, self.device)
+        if seed is not None:
+            from persia_tpu_torch.weights import init_params
+
+            init_params(model, seed)
+        self.dense_optimizer = dense_optimizer
+        self.embedding_optimizer = embedding_optimizer
+        self.wire_dtype = WIRE_DTYPES[
+            self.global_config.common.embedding_wire_dtype]
+        self.sync_stages = sync_stages
+        self.stage_seconds: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
+        self._train_step = None
+        self._emb_shapes = None
+        self._eval_step = None
+
+    def __enter__(self):
+        super().__enter__()
+        if self.embedding_optimizer is not None:
+            self.embedding_optimizer.apply()
+        return self
+
+    @contextmanager
+    def _stage(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        if self.sync_stages and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stage_seconds[name] += time.perf_counter() - t0
+
+    def _prep_train_inputs(self, batch: PersiaBatch, lookup: Dict[str, Any]):
+        """Lookup results -> train-step inputs on the device, the
+        embedding values as the single packed wire array. Returns
+        (non_id, emb_shapes, flat_emb, emb_indices, label)."""
+        from persia_tpu_torch.parallel.train import pack_embedding_values
+
+        non_id = [self.to_device(f.data) for f in batch.non_id_type_features]
+        label = self.to_device(batch.labels[0].data)
+        emb_np: List[np.ndarray] = []
+        emb_indices: List[Optional[torch.Tensor]] = []
+        for f in batch.id_type_features:
+            r = lookup[f.name]
+            if isinstance(r, SumEmbedding):
+                emb_np.append(r.embeddings)
+                emb_indices.append(None)
+            elif isinstance(r, RawEmbedding):
+                emb_np.append(r.embeddings)
+                emb_indices.append(self.to_device(r.index))
+            else:
+                raise TypeError(f"unexpected lookup result {type(r)}")
+        emb_shapes = tuple(tuple(v.shape) for v in emb_np)
+        flat_emb = self.to_device(pack_embedding_values(emb_np,
+                                                        self.wire_dtype))
+        return non_id, emb_shapes, flat_emb, emb_indices, label
+
+    def train_step(self, batch: PersiaBatch
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One full hybrid step on a raw batch: training lookup -> dense
+        forward, backward and update on the device -> sparse update.
+        Embedding values and gradients cross the host <-> device boundary
+        as one packed array in the wire dtype each way. Returns (loss,
+        pred) on the device."""
+        from persia_tpu_torch.parallel.train import (
+            make_train_step,
+            unpack_embedding_grads,
+        )
+
+        if not isinstance(batch, PersiaBatch):
+            raise NotImplementedError(
+                "TrainCtx.train_step takes a raw PersiaBatch; pre-looked-up "
+                "batches from a DataLoader wait for ROADMAP.md queue A "
+                "item 2b (the training pipeline)")
+        with self._stage("lookup"):
+            ref_id, lookup = self.worker.lookup_direct_training(
+                batch.id_type_features)
+        with self._stage("h2d"):
+            non_id, emb_shapes, flat_emb, emb_indices, label = \
+                self._prep_train_inputs(batch, lookup)
+        if self._train_step is None or emb_shapes != self._emb_shapes:
+            self._emb_shapes = emb_shapes
+            self._train_step = make_train_step(
+                self.model, self.dense_optimizer, emb_shapes,
+                wire_dtype=self.wire_dtype)
+        with self._stage("dense"):
+            loss, flat_grads, pred = self._train_step(
+                non_id, flat_emb, emb_indices, label)
+        with self._stage("d2h"):
+            per_slot = unpack_embedding_grads(flat_grads.cpu(), emb_shapes)
+        with self._stage("update"):
+            names = [f.name for f in batch.id_type_features]
+            self.worker.update_gradients(ref_id, dict(zip(names, per_slot)))
+        return loss, pred
+
+    def _apply_model(self, non_id, emb_inputs):
+        from persia_tpu_torch.parallel.train import (
+            make_eval_step,
+            split_embedding_inputs,
+        )
+
+        if self._eval_step is None:
+            self._eval_step = make_eval_step(self.model)
+        emb_values, emb_indices = split_embedding_inputs(emb_inputs)
+        return self._eval_step(non_id, emb_values, emb_indices)
+
+
+class _EvalCtx(EmbeddingCtx):
+    def __init__(self, parent: TrainCtx):
+        super().__init__(model=parent.model, schema=parent.schema,
+                         worker=parent.worker,
+                         embedding_config=parent.embedding_config,
+                         global_config=parent.global_config,
+                         device=parent.device)
+        self._parent = parent
+        self._configured_servers = True  # configured by the parent
+
+    def _apply_model(self, non_id, emb_inputs):
+        return self._parent._apply_model(non_id, emb_inputs)
+
+
+def eval_ctx(train_ctx: Optional[TrainCtx] = None) -> _EvalCtx:
+    """Evaluation context over a TrainCtx (the given one, else the
+    current context): eval lookups and an eval-mode forward."""
+    ctx = train_ctx or current_ctx()
+    if not isinstance(ctx, TrainCtx):
+        raise RuntimeError("eval_ctx requires a TrainCtx")
+    return _EvalCtx(ctx)
+
+
 class InferCtx(EmbeddingCtx):
     """Inference: eval-mode lookups and an eval-mode forward on
     ``device`` (default CUDA). The model's parameters must already live
@@ -83,11 +344,7 @@ class InferCtx(EmbeddingCtx):
                  device: DeviceLike = None):
         super().__init__(model=model, schema=schema, worker=worker,
                          device=device)
-        for p in model.parameters():
-            if p.device.type != self.device.type:
-                raise ValueError(
-                    f"model parameters live on {p.device}, the context on "
-                    f"{self.device}; build the model on the same device")
+        _check_model_device(model, self.device)
         self._eval_step = None
         self.eval_batch_rows_seen: set = set()
 

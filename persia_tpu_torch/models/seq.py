@@ -6,9 +6,11 @@ mean pool; summed slots and dense features concatenate as usual; MLP head.
 Single device only in this slice: context parallelism over a mesh (ring,
 Ulysses) waits for a later slice of the port.
 
-``attn_impl`` keeps the JAX field: ``"flash"`` runs kernel K2
-(:func:`persia_tpu_torch.ops.flash_attention.flash_attention_masked`) in
-the compute dtype, ``"reference"`` the dense O(T^2) attention in f32.
+``attn_impl`` keeps the JAX field: ``"flash"`` runs
+:func:`persia_tpu_torch.ops.flash_attention.flash_attention_masked` in the
+compute dtype (kernel K2 forward; in training K2 with its logsumexp and
+K3/K4 backward), ``"reference"`` the dense O(T^2) attention in f32 under
+autograd.
 The JAX package's ``"pallas"`` and ``"xla"`` map onto them
 (:data:`persia_tpu_torch.weights.JAX_ATTN_IMPL`).
 """

@@ -11,6 +11,7 @@ rows this package initializes are bit-identical to the JAX package's
 - normal: Box-Muller on consecutive (u1, u2) pairs, u1 clamped to 2**-53
 - gamma: Marsaglia-Tsang (shape >= 1; boost by u**(1/shape) otherwise)
 - poisson: Knuth product-of-uniforms
+- admission: ``u01(mix(sign ^ ADMIT_SALT)) < p``, one decision per sign
 
 All integer math is modulo 2**64.
 """
@@ -20,6 +21,7 @@ import math
 import numpy as np
 
 GOLDEN = 0x9E3779B97F4A7C15
+ADMIT_SALT = 0x5851F42D4C957F2D
 _U64 = np.uint64
 
 
@@ -44,6 +46,15 @@ def raw_stream(signs: np.ndarray, count: int) -> np.ndarray:
         ks = (np.arange(1, count + 1, dtype=np.uint64)) * _U64(GOLDEN)
         states = signs[:, None] + ks[None, :]
     return _u01(_mix_np(states))
+
+
+def admit_mask(signs: np.ndarray, admit_probability: float) -> np.ndarray:
+    """Deterministic per-sign admission decision."""
+    if admit_probability >= 1.0:
+        return np.ones(len(signs), dtype=bool)
+    with np.errstate(over="ignore"):
+        salted = signs.astype(np.uint64) ^ _U64(ADMIT_SALT)
+    return _u01(_mix_np(salted)) < admit_probability
 
 
 def init_bounded_uniform(signs, dim, lower, upper) -> np.ndarray:

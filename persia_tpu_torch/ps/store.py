@@ -1,25 +1,41 @@
 """The embedding parameter store: a sharded LRU map of fp32 rows.
 
-A trimmed copy of the semantics of ``persia_tpu/ps/store.py``'s
-``EmbeddingHolder`` that the serving path needs:
+A copy of the semantics of ``persia_tpu/ps/store.py``'s
+``EmbeddingHolder`` for fp32 rows:
 
-- ``configure`` stores the initialization hyperparameters;
-- the eval ``lookup`` is read-only and answers a miss with zeros;
-- ``set_entries`` / ``get_entries`` write and read whole rows;
-- inserting at capacity evicts the least recently inserted row of the
-  internal shard (eval lookups do not refresh recency).
+- entries are ``[embedding | optimizer state]`` f32 vectors with a
+  per-entry dim, kept in ``num_internal_shards`` independently locked LRU
+  maps; inserting at capacity evicts the least recently used row of the
+  internal shard;
+- ``configure`` stores the initialization hyperparameters and
+  ``register_optimizer`` the sparse optimizer;
+- the **training lookup**: a hit refreshes recency; a miss is admitted
+  with the deterministic per-sign probability and then initialized from
+  the sign's seeded stream, with the optimizer's state initialization,
+  and inserted; a miss that is not admitted reads zeros and leaves no
+  entry; a hit of another dim is re-initialized unconditionally;
+- the **eval lookup** is read-only and answers a miss with zeros;
+- ``update_gradients`` applies the optimizer per sign (duplicate signs
+  one after another, otherwise one batched call) and then the weight
+  bound; signs absent or of another layout are skipped and counted;
+- ``set_entries`` / ``get_entries`` write and read whole rows.
 
-Training lookups, the sparse optimizer, half-precision rows, the disk
-spill tier and hotness sketches belong to later slices of the port.
+Half-precision rows, the disk spill tier, hotness sketches and the PSD
+dump format belong to later slices of the port.
 """
 
 import threading
 from collections import OrderedDict
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from persia_tpu_torch.ps.rng import internal_shard_of
+from persia_tpu_torch.ps.optim import SparseOptimizer, apply_weight_bound
+from persia_tpu_torch.ps.rng import (
+    admit_mask,
+    initialize_entries,
+    internal_shard_of,
+)
 
 
 class EmbeddingHolder:
@@ -36,12 +52,24 @@ class EmbeddingHolder:
         self._shards: List["OrderedDict[int, Tuple[int, np.ndarray]]"] = [
             OrderedDict() for _ in range(num_internal_shards)]
         self._locks = [threading.Lock() for _ in range(num_internal_shards)]
+        self.optimizer: Optional[SparseOptimizer] = None
         self.init_method: str = "bounded_uniform"
         self.init_params: dict = {"lower": -0.01, "upper": 0.01}
         self.admit_probability: float = 1.0
         self.weight_bound: float = 10.0
         self.enable_weight_bound: bool = True
         self.configured = False
+        # per-shard cells, each written only under its shard's lock
+        self._index_miss = [0] * num_internal_shards
+        self._gradient_id_miss = [0] * num_internal_shards
+
+    @property
+    def index_miss_count(self) -> int:
+        return sum(self._index_miss)
+
+    @property
+    def gradient_id_miss_count(self) -> int:
+        return sum(self._gradient_id_miss)
 
     def configure(self, init_method: str, init_params: dict,
                   admit_probability: float = 1.0, weight_bound: float = 10.0,
@@ -53,6 +81,11 @@ class EmbeddingHolder:
         self.enable_weight_bound = enable_weight_bound
         self.configured = True
 
+    def register_optimizer(self, config: dict,
+                           feature_index_prefix_bit: int = 0):
+        self.optimizer = SparseOptimizer.from_config(
+            config, feature_index_prefix_bit=feature_index_prefix_bit)
+
     def _groups(self, signs: np.ndarray):
         shard_ids = internal_shard_of(signs, self.num_internal_shards)
         for shard_idx in np.unique(shard_ids):
@@ -60,21 +93,100 @@ class EmbeddingHolder:
 
     def lookup(self, signs: np.ndarray, dim: int,
                training: bool) -> np.ndarray:
-        """(n, dim) f32 rows for ``signs``. Eval only: a miss, or a row of
-        another width, reads zeros and creates nothing."""
-        if training:
-            raise NotImplementedError(
-                "training lookups are not ported yet (see ROADMAP.md)")
+        """(n, dim) f32 rows for ``signs``. Duplicate signs are handled in
+        order: the first occurrence initializes, later ones hit it."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
-        out = np.zeros((len(signs), dim), dtype=np.float32)
+        n = len(signs)
+        out = np.zeros((n, dim), dtype=np.float32)
+        if n == 0:
+            return out
+        if training:
+            if self.optimizer is None:
+                raise RuntimeError(
+                    "optimizer not registered on parameter server")
+            if not self.configured:
+                raise RuntimeError("parameter server not configured")
+            # admission and the init rows of every sign at once
+            # (deterministic per sign; hits ignore their row); inserts then
+            # run sign by sign so intra-batch eviction and duplicates
+            # behave as the sequential reference
+            space = self.optimizer.require_space(dim)
+            admitted = admit_mask(signs, self.admit_probability)
+            init_vecs = np.zeros((n, dim + space), dtype=np.float32)
+            init_vecs[:, :dim] = initialize_entries(
+                signs, dim, self.init_method, self.init_params)
+            if space:
+                self.optimizer.state_initialization(init_vecs, dim)
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
             with self._locks[shard_idx]:
                 for pos in sel:
-                    entry = shard.get(int(signs[pos]))
+                    sign = int(signs[pos])
+                    entry = shard.get(sign)
+                    if entry is not None and training:
+                        shard.move_to_end(sign)
                     if entry is not None and entry[0] == dim:
                         out[pos] = entry[1][:dim]
+                    elif not training or (entry is None
+                                          and not admitted[pos]):
+                        self._index_miss[shard_idx] += 1
+                    else:
+                        # admitted miss, or a dim mismatch (re-initialized
+                        # unconditionally)
+                        vec = init_vecs[pos].copy()
+                        out[pos] = vec[:dim]
+                        self._insert_locked(shard_idx, sign, dim, vec)
+                        self._index_miss[shard_idx] += 1
         return out
+
+    def update_gradients(self, signs: np.ndarray, grads: np.ndarray,
+                         dim: int):
+        """Batched optimizer step for ``signs`` with grads (n, dim)."""
+        if self.optimizer is None:
+            raise RuntimeError("optimizer not registered on parameter server")
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        if len(signs) == 0:
+            return
+        batch_state = self.optimizer.batch_level_state(signs)
+        width = dim + self.optimizer.require_space(dim)
+        # duplicates must apply one after another (each step sees the
+        # previous one's result); a batched gather/update/scatter would
+        # keep only the last
+        has_dups = len(np.unique(signs)) != len(signs)
+        for shard_idx, sel in self._groups(signs):
+            shard = self._shards[shard_idx]
+            # the whole gather/update/write-back runs under the lock
+            with self._locks[shard_idx]:
+                found_pos: List[int] = []
+                found_entries: List[np.ndarray] = []
+                for pos in sel:
+                    entry = shard.get(int(signs[pos]))
+                    if entry is None or entry[0] != dim or \
+                            len(entry[1]) != width:
+                        self._gradient_id_miss[shard_idx] += 1
+                    elif has_dups:
+                        row = entry[1][None, :]  # updated in place
+                        st = (batch_state[pos:pos + 1]
+                              if batch_state is not None else None)
+                        self.optimizer.update(row, grads[pos:pos + 1], dim,
+                                              st)
+                        if self.enable_weight_bound:
+                            apply_weight_bound(row[:, :dim],
+                                               self.weight_bound)
+                    else:
+                        found_pos.append(pos)
+                        found_entries.append(entry[1])
+                if found_pos:
+                    mat = np.stack(found_entries).astype(np.float32,
+                                                         copy=False)
+                    sub_state = (batch_state[np.array(found_pos)]
+                                 if batch_state is not None else None)
+                    self.optimizer.update(mat, grads[np.array(found_pos)],
+                                          dim, sub_state)
+                    if self.enable_weight_bound:
+                        apply_weight_bound(mat[:, :dim], self.weight_bound)
+                    for row, vec in zip(mat, found_entries):
+                        vec[:] = row
 
     def _insert_locked(self, shard_idx: int, sign: int, dim: int,
                        vec: np.ndarray):

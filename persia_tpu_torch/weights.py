@@ -6,10 +6,12 @@ weights of the torch module. The torch modules carry flax's auto-names
 (``SequenceSelfAttention_0/Dense_0..3``, ``MLP_0/Dense_i``, ``Dense_0``),
 so the two trees are walked name by name. A flax ``Dense`` kernel is
 (in, out) and becomes a ``Linear.weight`` (out, in). An unknown key, a
-missing one or a shape mismatch raises.
+missing one or a shape mismatch raises. :func:`flax_params` is the reverse
+walk: the module's weights as a flax tree, to compare a trained port
+model with a trained JAX one.
 """
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +67,33 @@ def load_flax_params(model: nn.Module, params_np: Mapping,
     ``model`` in place and return it."""
     _load(model, params_np, batch_stats_np or {}, "")
     return model
+
+
+def _export(module: nn.Module, params: Dict, stats: Dict):
+    def arr(t):
+        return t.detach().float().cpu().numpy().copy()
+
+    if isinstance(module, nn.Linear):
+        params.update(kernel=arr(module.weight).T, bias=arr(module.bias))
+        return
+    if isinstance(module, FlaxBatchNorm):
+        params.update(scale=arr(module.scale), bias=arr(module.bias))
+        stats.update(mean=arr(module.mean), var=arr(module.var))
+        return
+    for name, child in module.named_children():
+        params[name], child_stats = {}, {}
+        _export(child, params[name], child_stats)
+        if child_stats:
+            stats[name] = child_stats
+
+
+def flax_params(model: nn.Module) -> Tuple[Dict, Dict]:
+    """The module's weights as flax trees of numpy f32 arrays:
+    ``(params, batch_stats)``, the layout :func:`load_flax_params` reads."""
+    params: Dict = {}
+    stats: Dict = {}
+    _export(model, params, stats)
+    return params, stats
 
 
 def init_params(model: nn.Module, seed: int) -> nn.Module:

@@ -1,7 +1,7 @@
-"""Embedding-worker middleware: the lookup transform pipeline.
+"""Embedding-worker middleware: the lookup and gradient transforms.
 
-A copy of the numpy twin of ``persia_tpu/worker/middleware.py`` for the
-forward (lookup) direction:
+A copy of the numpy twin of ``persia_tpu/worker/middleware.py``. Forward
+(lookup) direction:
 
 - per-feature **dedup** of signs with (sample, col) back-pointers;
 - **hashstack** multi-round vocab compression;
@@ -13,6 +13,14 @@ forward (lookup) direction:
   slots -> a fixed-capacity distinct tensor (batch*sample_fixed_size + 1,
   dim) whose row 0 is zeros, plus a (batch, sample_fixed_size) int32 index
   tensor where 0 means padding.
+
+Backward (gradient) direction, the transpose of postprocess:
+
+- **aggregate** a feature's model gradient into per-distinct-sign rows
+  (sum / mean / sqrt pooling and last-k pooling; raw slots read row
+  ``+1`` of the distinct tensor's gradient), with non-finite values
+  zeroed and the loss scale divided out;
+- **gather** them per (shard, dim) group for the PS update calls.
 
 Every sum accumulates with ``np.add.at``, which adds strictly in element
 order: that order is what makes the results bit-identical to the JAX
@@ -279,3 +287,66 @@ def postprocess_feature(feat: DedupedFeature, slot: SlotConfig,
         rows[feat.elem_distinct[valid]] + 1)
     sample_id_num = np.minimum(feat.sample_num_signs, sfs).astype(np.int32)
     return RawEmbedding(feat.name, emb_out, index, sample_id_num)
+
+
+def aggregate_gradients(feat: DedupedFeature, slot: SlotConfig,
+                        grad: np.ndarray, loss_scale: float = 1.0
+                        ) -> np.ndarray:
+    """Model gradients -> per-distinct-sign gradients.
+
+    For summed slots ``grad`` is (batch, dim); for raw slots it is the
+    gradient w.r.t. the padded distinct tensor, (capacity, dim).
+    Non-finite values are zeroed and the trainer's loss scale is divided
+    out."""
+    grad = np.ascontiguousarray(grad, dtype=np.float32)
+    last_n = slot.pooling_last_n
+    if not np.isfinite(grad).all():
+        grad = np.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
+    if loss_scale != 1.0:
+        grad = grad * (1.0 / loss_scale)
+    if slot.embedding_summation:
+        if last_n:
+            # transpose of the masked forward sum: only the kept (last k
+            # per sample) elements receive gradient
+            keep = feat.elem_col >= (
+                feat.sample_num_signs - last_n)[feat.elem_sample]
+            return _segment_sum(grad[feat.elem_sample[keep]],
+                                feat.elem_distinct[keep], feat.num_distinct)
+        if slot.pooling == "mean":
+            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
+            grad = grad * (1.0 / n)[:, None]
+        elif slot.sqrt_scaling:
+            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
+            grad = grad * (1.0 / np.sqrt(n))[:, None]
+        return _segment_sum(grad[feat.elem_sample], feat.elem_distinct,
+                            feat.num_distinct)
+    rows = (feat.raw_row_of_distinct
+            if feat.raw_row_of_distinct is not None
+            else np.arange(feat.num_distinct, dtype=np.int32))
+    out = grad[rows + 1].copy()
+    if slot.sqrt_scaling and feat.hash_stack_rounds > 1:
+        out *= 1.0 / np.sqrt(float(feat.hash_stack_rounds))
+    return out
+
+
+def gather_group_grads(group: ShardGroup,
+                       per_feature_grads: List[np.ndarray]) -> np.ndarray:
+    """One shard group's (m, dim) gradient matrix from the per-feature
+    aggregates."""
+    grads = np.empty((len(group.signs), group.dim), dtype=np.float32)
+    for a, b, fi in _feature_runs(group.feature_idx):
+        grads[a:b] = per_feature_grads[fi][group.distinct_idx[a:b]]
+    return grads
+
+
+def shard_gradients(feats: List[DedupedFeature], schema: EmbeddingSchema,
+                    per_feature_grads: List[np.ndarray], replica_size: int,
+                    groups: Optional[List[ShardGroup]] = None
+                    ) -> List[Tuple[int, int, np.ndarray, np.ndarray]]:
+    """Group per-sign gradients by (shard, dim) for the PS update calls:
+    a list of (shard, dim, signs, grads). Pass the forward's ``groups``
+    to skip re-hashing and re-grouping every sign."""
+    if groups is None:
+        groups = shard_split(feats, schema, replica_size)
+    return [(g.shard, g.dim, g.signs, gather_group_grads(g, per_feature_grads))
+            for g in groups]

@@ -4,7 +4,8 @@ the JAX tests run it on the CPU, and against ``reference_attention``.
 
 On the CPU the port's wrapper runs the plain PyTorch version; the CUDA
 kernel itself is held against that plain version on the card
-(``chip_smoke.py`` and the ``gpu``-marked test below).
+(``chip_smoke.py`` and the ``gpu``-marked test below). The backward
+kernels K3 and K4 are tested in ``test_torch_flash_attention_bwd.py``.
 
 Tolerances: f32 rtol=atol=2e-5 — the same math in another summation
 order (blockwise online softmax in Pallas, one dense softmax in the plain
@@ -128,6 +129,11 @@ def test_wrapper_rejects_bad_shapes():
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_and_refuses_grad():
+    """K2 against its plain version on the card; an input that requires
+    grad is no longer refused but differentiated through K3 and K4, which
+    agree with the plain backward."""
+    from persia_tpu_torch.ops import flash_attention as fa
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m gpu)")
     q, k, v, mask = _inputs(3, 4, 2, 100, 100, 16, True)
@@ -141,5 +147,18 @@ def test_cuda_kernel_matches_plain_and_refuses_grad():
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(),
                                    rtol=2e-2, atol=2e-2)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        flash_attention_masked(tq.requires_grad_(), tk, tv)
+    gq, gk, gv = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    fa.reset_launch_count()
+    out = flash_attention_masked(gq, gk, gv, kv_mask=tmask, causal=True)
+    do = torch.randn_like(out)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert fa.launch_count(fa.DQ_KERNEL) == fa.launch_count(fa.DKV_KERNEL) == 1
+    w_out, w_lse = fa.flash_attention_fwd_reference(tq, tk, tv, tmask, True,
+                                                    return_lse=True)
+    want = fa.flash_attention_bwd_reference(tq, tk, tv, w_out, w_lse, do,
+                                            tmask, True)
+    for g, w in zip((gq.grad, gk.grad, gv.grad), want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=2e-2,
+                                   atol=2e-2)
