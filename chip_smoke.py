@@ -9,12 +9,15 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 1. Setup: versions, the card's name and power limit, and the build of
    every kernel of the port from the sources in this checkout, one nvcc
    per source, all started together.
-2. Kernel phase: each kernel (K2, the flash-attention forward, here with
-   its logsumexp; K3 and K4, the backward) is held against its plain
-   PyTorch version on the card, at the sequence tower's shape and at the
-   attention-bench shape, and timed beside its bound, its plain version
-   and, where one exists, a PyTorch library call computing the same
-   function (a yardstick only; the port never calls it).
+2. Kernel phase: each kernel is held against its plain PyTorch version on
+   the card and timed beside its bound, its plain version and, where one
+   exists, a PyTorch library call computing the same function (a
+   yardstick only; the port never calls it): K2 (the flash-attention
+   forward, here with its logsumexp), K3 and K4 (the backward) at the
+   sequence tower's shape and at the attention-bench shape; K1 (the
+   embedding bag) at device mode's shape and at the v5e shape of
+   ``persia_tpu/ops/embedding_bag.py``; K5 (the copy-shape probe) on its
+   four cases.
 3. Serving phase: two PS shards hold rows for the whole sign space of the
    ``seqrec`` traffic; an ``InferenceServer`` on the card with
    micro-batching and the hot-row cache serves requests from 8 threads as
@@ -22,15 +25,29 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    ``examples/seq_rec/train.py``. Every prediction must be finite and in
    (0, 1) and agree with a second server whose tower uses the dense
    reference attention; K2 must have launched.
-4. Training phase, the port's main path: ``TrainCtx`` on the card trains
-   ``SequenceTower(attn_impl="flash")`` at the example's widths over two
-   fresh PS shards (sparse Adagrad, dense Adam) for 300 steps of batch 256
-   of ``seqrec`` traffic, then ``eval_ctx`` scores 4096 held-out samples;
-   the AUC must pass the example's own bar (0.62). The launch counters are
-   zeroed just before the 300 steps and read just after: K2, K3 and K4
-   must each have launched. Before that, a flash tower and a reference
-   tower train 3 steps from the same weights and fresh PS rows in f32 and
-   must agree.
+4. Training phase, the sequence tower's main path: ``TrainCtx`` on the
+   card trains ``SequenceTower(attn_impl="flash")`` at the example's
+   widths over two fresh PS shards (sparse Adagrad, dense Adam) for 300
+   steps of batch 256 of ``seqrec`` traffic, then ``eval_ctx`` scores 4096
+   held-out samples; the AUC must pass the example's own bar (0.62). The
+   launch counters are zeroed just before the 300 steps and read just
+   after: K2, K3 and K4 must each have launched. Before that, a flash
+   tower and a reference tower train 3 steps from the same weights and
+   fresh PS rows in f32 and must agree.
+5. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
+   configuration (26 hashed tables of 2^20 x 16 resident on the card,
+   ``DLRM(embedding_dim=16)`` in bf16, ``OptaxAdagrad(0.02)``, batch
+   4096): first a kernel tower and a plain tower train 3 steps from one
+   weight set with an f32 tower and must agree; then warm-up, timed
+   loops (one synchronize at the end, or one per step; the repeated batch
+   and 4 rotating fresh-id batches), a stage split and a profiled window.
+   K1's counter is zeroed just before the timed steps and must read 26
+   per step; every loss must be finite, the repeated batch's loss must
+   fall below step 0's and an eval forward must give predictions in
+   (0, 1).
+6. Probe phase, K5's path: ``run_probe`` of
+   ``python -m persia_tpu_torch.ops.probe_copy``, counters zeroed just
+   before; every case must match.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -66,9 +83,25 @@ TRAIN_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 # the example's own pass bar (examples/seq_rec/train.py:166)
 AUC_BAR = 0.62
+# K1 against its plain version: at S = 1 each output is one rounded
+# product in both, so they must be bit-equal; at S > 1 both round every
+# product and every sum in f32, possibly adding in another order.
+BAG_ATOL = 1e-6
+BAG_RTOL = 1e-5
+# Device mode, kernel tower against plain tower from the same weights,
+# f32 tower, no TF32, 3 steps: the pooled sums may differ by an ulp, which
+# can flip the bf16 rounding of a pooled embedding (the collection keeps
+# bf16), and the dense table gradients are scatter-added in another order
+# (index_add_ against the plain gather's autograd). Adagrad moves a table
+# row by ~0.06 of its gradient, ~1e-5 at batch 4096, so the tables agree
+# far inside 1e-6; a one-ulp bf16 flip moves a prediction by ~1e-5.
+DM_LOSS_ATOL = 1e-5
+DM_PRED_ATOL = 1e-4
+DM_TABLE_ATOL = 1e-6
 
 # H100 SXM published dense peaks (NVIDIA data sheet, at 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 # the model: examples/seq_rec/train.py's widths
@@ -86,6 +119,20 @@ TRAIN_SEED = 42  # the example's --seed
 TRAIN_STEPS = 300
 TRAIN_BATCH = 256
 EVAL_SAMPLES = 4096
+# device mode: bench.py's bench_device configuration (26 hashed slots of
+# 2^20 x 16, 13 dense features, DLRM(embedding_dim=16), adagrad(0.02),
+# batch 4096)
+DM_SLOTS = 26
+DM_VOCAB = 1 << 20
+DM_DIM = 16
+DM_DENSE = 13
+DM_BATCH = 4096
+DM_LR = 0.02
+DM_WARMUP = 5
+DM_STEPS = 30  # per timed loop, as tools/probe_device_step.py
+DM_SPLIT_STEPS = 10
+DM_PROFILE_STEPS = 5
+DM_AGREE_SFS = 4
 
 KERNEL_INFO = {
     # name -> (source, the TPU kernel it replaces)
@@ -96,7 +143,13 @@ KERNEL_INFO = {
     "flash_attention_bwd_dkv": (
         "persia_tpu_torch/csrc/flash_attention_bwd.cu",
         "persia_tpu/ops/flash_attention.py:280"),
+    "embedding_bag": ("persia_tpu_torch/csrc/embedding_bag.cu",
+                      "persia_tpu/ops/embedding_bag.py:90"),
+    "probe_copy": ("persia_tpu_torch/csrc/probe_copy.cu",
+                   "tools/probe_dma_shapes.py:38"),
 }
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 
 
 def _log(*a):
@@ -143,11 +196,12 @@ def visible_pairs(q, k, kv_mask, causal: bool) -> int:
     return b * h * t_q * t_k
 
 
-def bound_ms(nbytes: int, flops: float):
+def bound_ms(nbytes: int, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     """Least time on an H100: bytes over the memory rate or operations
-    over the bf16 tensor-core peak, whichever is larger."""
+    over their type's peak (the bf16 tensor cores unless given),
+    whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -173,7 +227,9 @@ def attention_bounds(q, k, kv_mask, causal: bool, with_lse: bool):
 def profile_window(torch, fn):
     """Run ``fn`` under torch.profiler (CUPTI). Returns (wall s, device
     busy s, the six device kernels with the most time as (us, name,
-    count)); busy is 0 when the trace holds no device time."""
+    count)); busy is 0 when the trace holds no device time. User
+    annotations (``Optimizer.step#...`` ranges on the device's timeline)
+    are spans over kernels already counted, not work of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,7 +241,8 @@ def profile_window(torch, fn):
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -320,9 +377,10 @@ def kernel_phase(torch, card: str) -> dict:
     serve_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
         q, k, v, kv_mask), iters=200)
     lib_fwd, lib_fwd_bwd = sdpa_ms(q, k, v, do, kv_mask, False, 200)
-    bounds = dict(zip(KERNEL_INFO, attention_bounds(q, k, kv_mask, False,
-                                                    True)))
-    for name, (src, replaces) in KERNEL_INFO.items():
+    bounds = dict(zip(FLASH_KERNELS, attention_bounds(q, k, kv_mask, False,
+                                                      True)))
+    for name in FLASH_KERNELS:
+        src, replaces = KERNEL_INFO[name]
         records[name] = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": None,
@@ -371,8 +429,8 @@ def kernel_phase(torch, card: str) -> dict:
         plain_t //= 2
     ms_b, _ = time_all(q, k, v, do, None, True, 3, 0)
     lib_b_fwd, lib_b_fwd_bwd = sdpa_ms(q, k, v, do, None, True, 5)
-    bounds_b = dict(zip(KERNEL_INFO, attention_bounds(q, k, None, True,
-                                                      True)))
+    bounds_b = dict(zip(FLASH_KERNELS, attention_bounds(q, k, None, True,
+                                                        True)))
     if plain_t != 8192:
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -380,7 +438,7 @@ def kernel_phase(torch, card: str) -> dict:
     _, plain_b = time_all(q, k, v, do, None, True, 1, 1)
     del q, k, v, do
     torch.cuda.empty_cache()
-    for name in KERNEL_INFO:
+    for name in FLASH_KERNELS:
         _log(f"[kernel] {name} bench shape B={b} H={h} T=8192 Dh={dh} bf16 "
              f"causal: max_abs_err(T=2048)={errs_b[name]:.3e} kernel_ms="
              f"{ms_b[name]:.4f} bound_ms={bounds_b[name][0]:.4f} "
@@ -390,6 +448,156 @@ def kernel_phase(torch, card: str) -> dict:
          f"{lib_b_fwd:.4f}; sdpa forward+backward ms={lib_b_fwd_bwd:.4f} "
          f"vs K2(lse)+K3+K4 ms={sum(ms_b.values()):.4f} | card: {card}")
     return records
+
+
+def kernel_device_ms(torch, fn, kernel_name: str, calls: int = 50):
+    """Device time per launch of the kernel whose name contains
+    ``kernel_name``, from a profiler window of ``calls`` calls of ``fn``;
+    None when the trace holds no such kernel."""
+    _, _, top = profile_window(torch, lambda: [fn() for _ in range(calls)])
+    for us, name, count in top:
+        if kernel_name in name:
+            return us / count / 1e3
+    return None
+
+
+def bag_inputs(torch, gen, vocab, dim, batch, bag, edge_ids: bool):
+    """A (vocab, dim) f32 table, (batch, bag) int32 ids and f32 weights
+    on the card. With ``edge_ids``: duplicates inside and across bags,
+    zero-weight padding, and ids -1, V and V + 7."""
+    dev = torch.device("cuda")
+    table = torch.randn((vocab, dim), generator=gen, device=dev)
+    ids = torch.randint(0, vocab, (batch, bag), generator=gen, device=dev,
+                        dtype=torch.int32)
+    weights = torch.randn((batch, bag), generator=gen, device=dev)
+    if edge_ids:
+        ids[:64, :] = ids[:64, :1]  # one id repeated through a bag
+        ids[64:128, 0] = 7  # one id in many bags
+        pad = torch.rand((batch, bag), generator=gen, device=dev) < 0.25
+        weights[pad] = 0.0
+        ids[200:203, -1] = torch.tensor([-1, vocab, vocab + 7], device=dev,
+                                        dtype=torch.int32)
+    return table, ids, weights
+
+
+def sparse_kernel_phase(torch, card: str) -> dict:
+    """K1 at device mode's shape and at the v5e shape of
+    persia_tpu/ops/embedding_bag.py:21, and K5's four cases, each against
+    its plain version and timed. Returns name -> record (without
+    launches)."""
+    import torch.nn.functional as F
+
+    from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.ops import probe_copy as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = {}
+    k1 = {}
+    for tag, (vocab, dim, batch, bag, edge) in {
+            "device-mode": (DM_VOCAB, DM_DIM, DM_BATCH, 1, False),
+            "v5e": (1 << 16, 16, 4096, 8, True)}.items():
+        table, ids, weights = bag_inputs(torch, gen, vocab, dim, batch, bag,
+                                         edge)
+        got = eb.embedding_bag_fwd(table, ids, weights)
+        want = eb.embedding_bag_reference(table, ids, weights)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if bag == 1:
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {tag}: not bit-equal to its plain "
+                                     f"version at S=1 (max abs err {err})")
+        elif not bool(torch.isfinite(got).all()) or bool(
+                ((got - want).abs() > BAG_ATOL + BAG_RTOL * want.abs())
+                .any()):
+            raise AssertionError(f"K1 {tag}: kernel disagrees with its plain "
+                                 f"version (max abs err {err:.3e})")
+        clipped = eb.clip_ids(ids, vocab)
+        ms = cuda_ms(torch, lambda: eb.embedding_bag_fwd(table, ids,
+                                                         weights), 200)
+        plain = cuda_ms(torch, lambda: eb.embedding_bag_reference(
+            table, ids, weights), 200)
+        lib = cuda_ms(torch, lambda: F.embedding_bag(
+            clipped, table, per_sample_weights=weights, mode="sum"), 200)
+        dev_ms = kernel_device_ms(torch, lambda: eb.embedding_bag_fwd(
+            table, ids, weights), "embedding_bag_kernel")
+        # the rows this run's ids read once each, the ids and weights, and
+        # the output; 2 FLOP per element of a gathered row on the f32 cores
+        rows = int(torch.unique(clipped).numel())
+        bound = bound_ms(rows * 4 * dim + batch * bag * 8 + 4 * batch * dim,
+                         2.0 * batch * bag * dim, PEAK_F32_FLOPS)
+        k1[tag] = (err, ms, plain, lib, bound)
+        _log(f"[kernel] embedding_bag {tag} shape V={vocab} D={dim} "
+             f"B={batch} S={bag}: max_abs_err={err:.3e}"
+             f"{' (bit-equal)' if bag == 1 else ''} kernel_ms={ms:.6f} "
+             f"device_ms_per_launch="
+             f"{'not measured' if dev_ms is None else f'{dev_ms:.6f}'} "
+             f"bound_ms={bound[0]:.6f} ({bound[1]}, {rows} distinct rows) "
+             f"plain_ms={plain:.6f} library F.embedding_bag ms={lib:.6f} | "
+             f"card: {card}")
+        del table, ids, weights, got, want, clipped
+    err, ms, plain, lib, bound = k1["device-mode"]
+    src, replaces = KERNEL_INFO["embedding_bag"]
+    records["embedding_bag"] = {
+        "name": "embedding_bag", "route": "cuda", "source": src,
+        "replaces": replaces, "launches": None,
+        "max_abs_err": max(v[0] for v in k1.values()), "ms": ms,
+        "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": lib}
+
+    k5 = {}
+    for name in pc.CASES:
+        src_t, idx = pc.case_inputs(name, "cuda")
+        got = pc.probe_copy(src_t, idx)
+        want = pc.probe_copy_reference(src_t, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 case {name}: {got.tolist()} != plain "
+                                 f"{want.tolist()}")
+        row_bytes = 4 * src_t[0].numel()
+        ms = cuda_ms(torch, lambda: pc.probe_copy(src_t, idx), 200)
+        plain = cuda_ms(torch, lambda: pc.probe_copy_reference(src_t, idx),
+                        200)
+        dev_ms = kernel_device_ms(torch, lambda: pc.probe_copy(src_t, idx),
+                                  "probe_copy_kernel")
+        # the row, the index and the 8 floats written
+        bound = bound_ms(row_bytes + 4 + 4 * got.numel(), 0.0)
+        k5[name] = (ms, plain, bound)
+        _log(f"[kernel] probe_copy case {name} row_bytes={row_bytes}: equal "
+             f"to plain, kernel_ms={ms:.6f} device_ms_per_launch="
+             f"{'not measured' if dev_ms is None else f'{dev_ms:.6f}'} "
+             f"bound_ms={bound[0]:.8f} ({bound[1]}) plain_ms={plain:.6f} | "
+             f"card: {card}")
+    ms, plain, bound = k5["D_(8,128)"]  # the largest row, 4096 bytes
+    src, replaces = KERNEL_INFO["probe_copy"]
+    records["probe_copy"] = {
+        "name": "probe_copy", "route": "cuda", "source": src,
+        "replaces": replaces, "launches": None, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+        "bound_by": bound[1],
+        # the plain version is itself one indexing call; no other PyTorch
+        # call computes the copy through on-chip memory
+        "library_ms": None}
+    return records
+
+
+def probe_phase(torch, card: str) -> int:
+    """K5's own path, ``python -m persia_tpu_torch.ops.probe_copy``'s
+    ``run_probe`` on the card: every case must match. Returns the
+    launches."""
+    from persia_tpu_torch.ops import probe_copy as pc
+
+    pc.reset_launch_count()
+    results = pc.run_probe("cuda")
+    torch.cuda.synchronize()
+    launches = pc.launch_count()
+    for r in results:
+        _log(f"[probe] {r['name']}: row_bytes={r['row_bytes']} ok={r['ok']} "
+             f"us_per_call={r['us_per_call']} error={r['error']} | card: "
+             f"{card}")
+    if not all(r["ok"] for r in results) or launches <= 0:
+        raise AssertionError(f"the copy-shape probe failed: {results}, "
+                             f"{launches} launches")
+    return launches
 
 
 def build_schema():
@@ -514,7 +722,7 @@ def serving_phase(torch, card: str):
 
         fa.reset_launch_count()
         preds, lat, wall = run_clients(server, payloads)
-        launches = [fa.launch_count(n) for n in KERNEL_INFO]
+        launches = [fa.launch_count(n) for n in FLASH_KERNELS]
         stats = server.stats()
         window = profile_window(
             torch, lambda: run_clients(server, payloads[:16 * N_THREADS]))
@@ -571,7 +779,7 @@ def report_window(phase: str, what: str, window, card: str):
          f"card: {card}")
     for us, name, count in top:
         _log(f"[{phase}]   device {us / 1e3:.3f} ms in {count} x "
-             f"{name[:90]} | card: {card}")
+             f"{name[:200]} | card: {card}")
 
 
 def train_ctx(torch, schema, model, global_config=None):
@@ -693,7 +901,7 @@ def training_phase(torch, card: str):
                         and bool(torch.isfinite(pred).all())):
                     raise AssertionError(f"step {step}: non-finite output")
         torch.cuda.synchronize()
-        launches = {n: fa.launch_count(n) for n in KERNEL_INFO}
+        launches = {n: fa.launch_count(n) for n in FLASH_KERNELS}
 
         preds, labels = [], []
         with eval_ctx(ctx) as ectx:
@@ -737,6 +945,200 @@ def training_phase(torch, card: str):
     return launches
 
 
+def device_mode_model(torch, bag_impl: str, compute_dtype):
+    """bench_device's DeviceModeModel(DLRM) on the card, weights not yet
+    drawn. Returns (slot specs, model)."""
+    from persia_tpu_torch.models.dlrm import DLRM
+    from persia_tpu_torch.parallel.device_mode import (
+        DeviceModeModel,
+        criteo_like_specs,
+    )
+
+    specs = criteo_like_specs(DM_SLOTS, DM_VOCAB, DM_DIM)
+    tower = DLRM(DM_DENSE, DM_SLOTS, embedding_dim=DM_DIM,
+                 compute_dtype=compute_dtype, device="cuda")
+    return specs, DeviceModeModel(specs, tower, bag_impl=bag_impl,
+                                  device="cuda")
+
+
+def dm_adagrad(params):
+    """optax.adagrad(0.02), bench_device's optimizer."""
+    from persia_tpu_torch.parallel.optim import OptaxAdagrad
+
+    return OptaxAdagrad(params, DM_LR)
+
+
+def device_mode_agreement(torch, card: str):
+    """A kernel tower and a plain tower (``bag_impl="reference"``) from one
+    seeded weight set take 3 steps at bench width with an f32 tower on a
+    batch of 4 ids a slot, about a quarter of them padding; loss,
+    predictions and every table must agree."""
+    import numpy as np
+
+    from persia_tpu_torch.parallel.device_mode import (
+        make_device_mode_trainer,
+        synthetic_device_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    specs, kmodel = device_mode_model(torch, "kernel", torch.float32)
+    non_id, ids, label = synthetic_device_batch(
+        DM_BATCH, DM_DENSE, specs, DM_AGREE_SFS, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for v in ids.values():
+        v[torch.rand(v.shape, generator=gen, device="cuda") < 0.25] = 0
+    kmodel, _, kstep = make_device_mode_trainer(kmodel, dm_adagrad, non_id,
+                                                ids, seed=SEED, device="cuda")
+    _, rmodel = device_mode_model(torch, "reference", torch.float32)
+    rmodel.load_state_dict(kmodel.state_dict())
+    rmodel, _, rstep = make_device_mode_trainer(rmodel, dm_adagrad, non_id,
+                                                ids, seed=None, device="cuda")
+    losses = np.array([[float(step(non_id, ids, label)) for _ in range(3)]
+                       for step in (kstep, rstep)])
+    with torch.inference_mode():
+        preds = [m.eval()(non_id, ids) for m in (kmodel, rmodel)]
+    loss_err = float(np.abs(losses[0] - losses[1]).max())
+    pred_err = float((preds[0] - preds[1]).abs().max())
+    rparams = dict(rmodel.named_parameters())
+    with torch.no_grad():
+        table_err = max(float((p - rparams[n]).abs().max())
+                        for n, p in kmodel.named_parameters()
+                        if n.endswith(".table"))
+    _log(f"[device_mode] kernel vs plain tower, 3 steps of batch {DM_BATCH}"
+         f" with {DM_AGREE_SFS} ids a slot, f32 tower: loss max_abs_err="
+         f"{loss_err:.3e} (atol {DM_LOSS_ATOL}) pred max_abs_err="
+         f"{pred_err:.3e} (atol {DM_PRED_ATOL}) table max_abs_err="
+         f"{table_err:.3e} (atol {DM_TABLE_ATOL}); kernel tower losses "
+         f"{' '.join(f'{x:.6f}' for x in losses[0])} | card: {card}")
+    if not np.isfinite(losses).all() or not all(
+            bool(torch.isfinite(p).all()) for p in preds):
+        raise AssertionError("non-finite loss or prediction in the "
+                             "device-mode agreement steps")
+    if not (loss_err <= DM_LOSS_ATOL and pred_err <= DM_PRED_ATOL
+            and table_err <= DM_TABLE_ATOL):
+        raise AssertionError("the kernel and plain device-mode towers "
+                             "disagree")
+
+
+def device_mode_phase(torch, card: str) -> int:
+    """Device mode's main path at bench_device's configuration: the
+    agreement check, then warm-up, timed loops (end-sync and per-step
+    sync, on the repeated batch and on 4 rotating fresh-id batches), a
+    stage split, a profiled window, and an eval forward. K1's counter is
+    zeroed just before the timed steps and must read 26 per step after
+    them. Returns K1's launches."""
+    import numpy as np
+
+    from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.parallel.device_mode import (
+        STAGES,
+        make_device_mode_trainer,
+        synthetic_device_batch,
+    )
+    from persia_tpu_torch.parallel.train import bce_loss
+
+    device_mode_agreement(torch, card)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    specs, model = device_mode_model(torch, "kernel", torch.bfloat16)
+    non_id, ids, label = synthetic_device_batch(DM_BATCH, DM_DENSE, specs,
+                                                seed=SEED, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model, _, step = make_device_mode_trainer(model, dm_adagrad, non_id, ids,
+                                              seed=SEED, device="cuda")
+    # 4 rotating fresh-id batches, as tools/probe_device_step.py:55-60
+    rng = np.random.default_rng(1)
+    fresh = [{name: torch.from_numpy(rng.integers(
+        1, 1 << 31, size=(DM_BATCH, 1)).astype(np.int32)).cuda()
+        for name, _, _ in specs} for _ in range(4)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+
+    losses = [step(non_id, ids, label) for _ in range(DM_WARMUP)]
+    torch.cuda.synchronize()
+    loss0 = float(losses[0])
+
+    def loop(id_sets, sync_each: bool) -> float:
+        """DM_STEPS steps; samples/s by the host clock, which ends in a
+        synchronize after the last step (or after every step)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(DM_STEPS):
+            losses.append(step(non_id, id_sets[i % len(id_sets)], label))
+            if sync_each:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return DM_STEPS * DM_BATCH / (time.perf_counter() - t)
+
+    eb.reset_launch_count()
+    # the two end-sync loops first, back to back after the warm-up, so
+    # that the repeated and the fresh ids meet the card in the same state
+    rates = {"end_sync": loop([ids], False),
+             "fresh_end_sync": loop(fresh, False)}
+    rates["per_sync"] = loop([ids], True)
+    rates["fresh_per_sync"] = loop(fresh, True)
+    step.sync_stages = True
+    step.stage_seconds = dict.fromkeys(STAGES, 0.0)
+    for _ in range(DM_SPLIT_STEPS):
+        losses.append(step(non_id, ids, label))
+    split = {k: v / DM_SPLIT_STEPS * 1e3 for k, v in step.stage_seconds.items()}
+    step.sync_stages = False
+    window = profile_window(torch, lambda: [
+        losses.append(step(non_id, ids, label))
+        for _ in range(DM_PROFILE_STEPS)])
+    torch.cuda.synchronize()
+    launches = eb.launch_count()
+    n_steps = 4 * DM_STEPS + DM_SPLIT_STEPS + DM_PROFILE_STEPS
+    peak = torch.cuda.max_memory_allocated()
+
+    with torch.inference_mode():
+        pred = model.eval()(non_id, ids)
+        eval_loss = float(bce_loss(pred, label))
+    all_losses = torch.stack(losses).float().cpu().numpy()
+
+    rate_s = " ".join(f"{k}={v:.1f}" for k, v in rates.items())
+    _log(f"[device_mode] DeviceModeModel(DLRM(embedding_dim={DM_DIM})) "
+         f"{DM_SLOTS} slots x {DM_VOCAB} x {DM_DIM}, {DM_DENSE} dense, bf16 "
+         f"tower, OptaxAdagrad({DM_LR}), batch {DM_BATCH}: samples_per_s "
+         f"{rate_s} | card: {card}")
+    _log(f"[device_mode] step split over {DM_SPLIT_STEPS} steps, device "
+         f"synchronized after each stage (ms per step): " + " ".join(
+             f"{k}={v:.3f}" for k, v in split.items()) + f" | card: {card}")
+    _log(f"[device_mode] memory: {resident / 1e9:.3f} GB allocated after "
+         f"init (the tables and the tower), "
+         f"max_memory_allocated {peak / 1e9:.3f} GB; setup "
+         f"{setup_s:.2f}s | card: {card}")
+    _log(f"[device_mode] loss step0={loss0:.6f} last={float(all_losses[-1]):.6f}"
+         f" eval on the repeated batch after {DM_WARMUP + n_steps} steps="
+         f"{eval_loss:.6f}; K1 launches in {n_steps} steps: {launches} "
+         f"({launches / n_steps:.3f} per step) | card: {card}")
+    report_window("device_mode", f"{DM_PROFILE_STEPS} steps", window, card)
+    if window[1] > 0:
+        # the profiler slows the host; the device's own time per step
+        # against the unprofiled end-sync step gives the steady busy share
+        dev_ms = window[1] / DM_PROFILE_STEPS * 1e3
+        step_ms = DM_BATCH / rates["end_sync"] * 1e3
+        _log(f"[device_mode] device time per step {dev_ms:.3f} ms (profiled "
+             f"kernels and copies) against the end-sync step "
+             f"{step_ms:.3f} ms: device_busy_share {dev_ms / step_ms:.4f} | "
+             f"card: {card}")
+    if not np.isfinite(all_losses).all():
+        raise AssertionError("a device-mode loss is not finite")
+    if not (bool(torch.isfinite(pred).all()) and bool(((pred > 0)
+                                                       & (pred < 1)).all())):
+        raise AssertionError("device-mode eval predictions not in (0, 1)")
+    if not eval_loss < loss0:
+        raise AssertionError(f"the repeated batch's loss did not fall: "
+                             f"{eval_loss} >= step 0's {loss0}")
+    if launches != DM_SLOTS * n_steps:
+        raise AssertionError(f"K1 launched {launches} times in {n_steps} "
+                             f"steps, not {DM_SLOTS} per step")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -765,9 +1167,12 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     _log(f"[setup] ptxas {name}: {line.strip()}")
         records = kernel_phase(torch, card)
+        records.update(sparse_kernel_phase(torch, card))
         serving_phase(torch, card)
         for name, n in training_phase(torch, card).items():
             records[name]["launches"] = n
+        records["embedding_bag"]["launches"] = device_mode_phase(torch, card)
+        records["probe_copy"]["launches"] = probe_phase(torch, card)
     except Exception:
         traceback.print_exc()
         return 1

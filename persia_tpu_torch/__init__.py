@@ -6,7 +6,7 @@ needs one of the JAX package's numpy-only modules it keeps its own
 trimmed copy under the same relative path.
 
 The slices ported so far are the serving and training paths of the
-sequence-tower model:
+sequence-tower model, and device-mode training of DLRM:
 
     InferenceServer -> EmbeddingWorker lookup -> InferCtx.forward_prepared
     -> SequenceTower -> flash-attention forward (hand-written CUDA kernel)
@@ -15,6 +15,13 @@ sequence-tower model:
     -> packed bf16 wire -> SequenceTower forward (K2 with logsumexp)
     -> backward (CUDA kernels K3, K4) -> dense Adam -> bf16 gradient wire
     -> EmbeddingWorker.update_gradients -> sparse optimizer on the PS
+
+    make_device_mode_trainer step -> DeviceModeModel: hashed tables on
+    the card -> pooled lookups (CUDA kernel K1) -> DLRM -> backward
+    (dense table gradients) -> OptaxAdagrad over tables and tower
+
+The copy-shape probe (CUDA kernel K5) is ``python -m
+persia_tpu_torch.ops.probe_copy``.
 
 Entry points take an explicit ``device`` that defaults to CUDA and raise
 when no CUDA device is present, unless the caller asks for ``"cpu"``.

@@ -10,7 +10,7 @@ Submodules carry flax's auto-names (``Dense_0``, ``BatchNorm_0``, ...), so
 name by name.
 """
 
-from typing import Any, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +25,9 @@ def gather_raw_embedding(embeddings: torch.Tensor, index: torch.Tensor
     return embeddings[index.long()], index > 0
 
 
-def flatten_embeddings(embedding_tensors: Sequence[Any]) -> torch.Tensor:
-    """Concatenate model-ready embedding inputs along features; a raw
-    (emb, index) pair is gathered and mean-pooled over valid positions."""
+def _pooled_fields(embedding_tensors: Sequence[Any]) -> List[torch.Tensor]:
+    """Each input as (bs, dim): a raw (emb, index) pair is gathered and
+    mean-pooled over valid positions."""
     parts = []
     for e in embedding_tensors:
         if isinstance(e, (tuple, list)):
@@ -36,7 +36,20 @@ def flatten_embeddings(embedding_tensors: Sequence[Any]) -> torch.Tensor:
             parts.append(gathered.sum(dim=1) / denom)
         else:
             parts.append(e)
-    return torch.cat(parts, dim=1)
+    return parts
+
+
+def flatten_embeddings(embedding_tensors: Sequence[Any]) -> torch.Tensor:
+    """Concatenate model-ready embedding inputs along features; a raw
+    (emb, index) pair is gathered and mean-pooled over valid positions."""
+    return torch.cat(_pooled_fields(embedding_tensors), dim=1)
+
+
+def stack_field_embeddings(embedding_tensors: Sequence[Any]
+                           ) -> torch.Tensor:
+    """(bs, F, dim) field stack for interaction layers (DLRM). All fields
+    must share one dim; raw slots are mean-pooled first."""
+    return torch.stack(_pooled_fields(embedding_tensors), dim=1)
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype

@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -28,6 +28,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # what the last build of each kernel printed (the ptxas register, shared
 # memory and spill report), for the chip smoke run
 build_logs: Dict[str, str] = {}
+# launches of each kernel since its last reset, counted by launch() when
+# the launcher succeeds; the plain versions on the CPU never count
+_launches: Dict[str, int] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -89,3 +93,42 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
     return lib
+
+
+def count_launch(kernel: str):
+    with _count_lock:
+        _launches[kernel] = _launches.get(kernel, 0) + 1
+
+
+def launch_count(kernel: str) -> int:
+    return _launches.get(kernel, 0)
+
+
+def reset_launch_counts(kernels: Iterable[str]):
+    with _count_lock:
+        for kernel in kernels:
+            _launches[kernel] = 0
+
+
+def launch(kernel: str, source: str, symbol: str, argtypes, device, *args):
+    """Launch ``kernel``: call the C launcher ``symbol`` of
+    ``csrc/<source>.cu`` with ``args`` and torch's current stream on
+    ``device``, raise on a non-zero ``cudaError_t`` (every launcher
+    returns one and every source defines ``persia_cuda_error_string``),
+    and count the launch."""
+    import torch
+
+    lib = load(source)
+    fn = getattr(lib, symbol)  # ctypes caches the function object
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        err = lib.persia_cuda_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")
+    count_launch(kernel)

@@ -27,8 +27,7 @@ whose forward is K2 with the lse and whose backward is K3 then K4.
 """
 
 import ctypes
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,25 +42,15 @@ KERNEL_SOURCES = {FWD_KERNEL: "flash_attention_fwd",
                   DQ_KERNEL: "flash_attention_bwd",
                   DKV_KERNEL: "flash_attention_bwd"}
 
-# launches of each kernel since the last reset; the plain versions on the
-# CPU never count
-_launches: Dict[str, int] = dict.fromkeys(KERNEL_SOURCES, 0)
-_launch_lock = threading.Lock()
-
 
 def launch_count(kernel: str) -> int:
-    return _launches[kernel]
+    """The kernel's launches since the last reset; the plain versions on
+    the CPU never count."""
+    return _build.launch_count(kernel)
 
 
 def reset_launch_count():
-    with _launch_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count(kernel: str):
-    with _launch_lock:
-        _launches[kernel] += 1
+    _build.reset_launch_counts(KERNEL_SOURCES)
 
 
 # --- plain versions ---------------------------------------------------------
@@ -214,26 +203,14 @@ def _ptr(t):
 
 
 def _call(kernel: str, symbol: str, argtypes, device, *args):
-    lib = _build.load(KERNEL_SOURCES[kernel])
-    fn = getattr(lib, symbol)  # ctypes caches the function object
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        err = lib.persia_cuda_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        raise RuntimeError(
-            f"{kernel} kernel launch failed: CUDA error {rc} "
-            f"({err(rc).decode()})")
-    _count(kernel)
+    _build.launch(kernel, KERNEL_SOURCES[kernel], symbol, argtypes, device,
+                  *args)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_P] * 6 + [_I] * 7 + [_F, _P]
-_BWD_ARGS = [_P] * 9 + [_I] * 7 + [_F, _P]  # K3 and K4
+# the launchers' arguments before the stream, which _build.launch appends
+_FWD_ARGS = [_P] * 6 + [_I] * 7 + [_F]
+_BWD_ARGS = [_P] * 9 + [_I] * 7 + [_F]  # K3 and K4
 
 
 def _dims(q, k, causal):

@@ -5,8 +5,9 @@
 weights of the torch module. The torch modules carry flax's auto-names
 (``SequenceSelfAttention_0/Dense_0..3``, ``MLP_0/Dense_i``, ``Dense_0``),
 so the two trees are walked name by name. A flax ``Dense`` kernel is
-(in, out) and becomes a ``Linear.weight`` (out, in). An unknown key, a
-missing one or a shape mismatch raises. :func:`flax_params` is the reverse
+(in, out) and becomes a ``Linear.weight`` (out, in); a device-mode
+``DeviceEmbeddingBag`` ``table`` is (V, D) in both and is copied as it is.
+An unknown key, a missing one or a shape mismatch raises. :func:`flax_params` is the reverse
 walk: the module's weights as a flax tree, to compare a trained port
 model with a trained JAX one.
 """
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from persia_tpu_torch.models.common import FlaxBatchNorm
+from persia_tpu_torch.parallel.device_embedding import DeviceEmbeddingBag
 
 # the JAX package's SequenceTower.attn_impl values -> the port's
 JAX_ATTN_IMPL = {"xla": "reference", "pallas": "flash"}
@@ -43,6 +45,10 @@ def _load(module: nn.Module, params: Mapping, stats: Mapping, where: str):
         _expect_keys(params, ("kernel", "bias"), where)
         _set(module.weight, np.asarray(params["kernel"]).T, f"{where}/kernel")
         _set(module.bias, params["bias"], f"{where}/bias")
+        return
+    if isinstance(module, DeviceEmbeddingBag):
+        _expect_keys(params, ("table",), where)
+        _set(module.table, params["table"], f"{where}/table")
         return
     if isinstance(module, FlaxBatchNorm):
         _expect_keys(params, ("scale", "bias"), where)
@@ -75,6 +81,9 @@ def _export(module: nn.Module, params: Dict, stats: Dict):
 
     if isinstance(module, nn.Linear):
         params.update(kernel=arr(module.weight).T, bias=arr(module.bias))
+        return
+    if isinstance(module, DeviceEmbeddingBag):
+        params.update(table=arr(module.table))
         return
     if isinstance(module, FlaxBatchNorm):
         params.update(scale=arr(module.scale), bias=arr(module.bias))
@@ -114,6 +123,22 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
                 mod.weight.copy_(w)
                 mod.bias.zero_()
     return model
+
+
+def init_device_mode(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded init of a device-mode model: every ``DeviceEmbeddingBag``
+    table from flax's ``uniform(scale=0.01)``, U[0, 0.01), drawn in module
+    order from one explicit CPU ``torch.Generator``, so a seed gives the
+    same tables on every device; then the dense layers by
+    :func:`init_params`."""
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    for bag in model.modules():
+        if isinstance(bag, DeviceEmbeddingBag):
+            table = torch.empty(bag.table.shape, dtype=torch.float32)
+            table.uniform_(0.0, 0.01, generator=gen)
+            with torch.no_grad():
+                bag.table.copy_(table)
+    return init_params(model, seed)
 
 
 def numpy_tree(tree) -> Dict:
