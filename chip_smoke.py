@@ -8,13 +8,19 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 
 1. Setup: versions, the card's name and power limit, and the build of
    every kernel of the port from the sources in this checkout, one nvcc
-   per source, all started together.
+   per source, all started together; ptxas's registers and spills of
+   every kernel entry, K2's shared memory per body, and the count of
+   tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in each built
+   library.
 2. Kernel phase: each kernel is held against its plain PyTorch version on
    the card and timed beside its bound, its plain version and, where one
    exists, a PyTorch library call computing the same function (a
    yardstick only; the port never calls it): K2 (the flash-attention
    forward, here with its logsumexp), K3 and K4 (the backward) at the
-   sequence tower's shape and at the attention-bench shape; K1 (the
+   sequence tower's shape, at the attention-bench width with T=2048
+   causal and with a ragged key mask (not causal), and timed at the
+   attention-bench shape (T=8192, causal), where K2's record also carries
+   its time, TFLOP/s, share of the bound and SDPA's forward; K1 (the
    embedding bag) at device mode's shape and at the v5e shape of
    ``persia_tpu/ops/embedding_bag.py``.
 3. Serving phase: two PS shards hold rows for the whole sign space of the
@@ -57,6 +63,9 @@ without the ``ok`` line.
 """
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -179,6 +188,72 @@ def card_line() -> str:
             else f"nvidia-smi gave no output (rc={out.returncode})"
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi failed: {e}"
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, spill stores, spill loads) of each entry that
+    ``nvcc -Xptxas -v`` compiled, in order, and its performance notes (a
+    wgmma chain that ptxas serialized, for one)."""
+    rows, notes, entry = [], [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            rows.append([entry, None, None, None])
+        elif "spill stores" in line and rows:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            rows[-1][2:4] = [int(n) for n, _ in nums][:2]
+        elif "Used" in line and "registers" in line and rows:
+            rows[-1][1] = int(re.search(r"Used (\d+) registers", line)[1])
+        elif "Performance Loss" in line:
+            notes.append(line.split("Potential")[1].strip())
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(rows):
+        for r, name in zip(rows, names):
+            r[0] = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return rows, notes
+
+
+def sass_counts(lib_path) -> str:
+    """Counts of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
+    a built library, by ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return "HGMMA and UTMALDG counts not measured (no cuobjdump)"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        return f"HGMMA and UTMALDG counts not measured (cuobjdump rc " \
+               f"{out.returncode})"
+    return f"HGMMA={out.stdout.count('HGMMA')} " \
+           f"UTMALDG={out.stdout.count('UTMALDG')}"
+
+
+def report_build(paths, sources):
+    """ptxas's registers and spills of every kernel entry, K2's dynamic
+    shared memory per body, and the SASS instruction counts."""
+    import ctypes
+
+    from persia_tpu_torch.ops import _build
+
+    for name, path in zip(sources, paths):
+        rows, notes = ptxas_report(_build.build_logs.get(name, ""))
+        for entry, regs, st, ld in rows:
+            _log(f"[setup] ptxas {name}: {entry}: {regs} registers, spill "
+                 f"stores {st} B, spill loads {ld} B")
+        for note in notes:
+            _log(f"[setup] ptxas {name}: {note}")
+        _log(f"[setup] sass {name}: {sass_counts(path)}")
+    smem = _build.load("flash_attention_fwd").persia_flash_attention_fwd_smem
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_int
+    _log("[setup] K2 bf16 body dynamic shared memory per CTA (bytes): "
+         + " ".join(f"block_q={bq},dh<={dh}:{smem(bq, dh)}"
+                    for bq in (64, 128) for dh in (16, 32, 64, 128)))
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -389,6 +464,10 @@ def kernel_phase(torch, card: str) -> dict:
     ms, plain_ms = time_all(q, k, v, do, kv_mask, False, 200, 50)
     serve_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
         q, k, v, kv_mask), iters=200)
+    # the per-call times here are host time: K2 (lse) once more, after the
+    # others, shows their spread
+    again_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, kv_mask, return_lse=True), iters=200)
     lib_fwd, lib_fwd_bwd = sdpa_ms(q, k, v, do, kv_mask, False, 200)
     bounds = dict(zip(FLASH_KERNELS, attention_bounds(q, k, kv_mask, False,
                                                       True)))
@@ -411,16 +490,19 @@ def kernel_phase(torch, card: str) -> dict:
              f"{card}")
     ours = sum(ms.values())
     _log(f"[kernel] model shape: K2 serving variant (no lse) kernel_ms="
-         f"{serve_ms:.6f}; library sdpa forward ms={lib_fwd:.6f}; "
+         f"{serve_ms:.6f}; K2 (lse) timed again kernel_ms={again_ms:.6f}; "
+         f"library sdpa forward ms={lib_fwd:.6f}; "
          f"sdpa forward+backward ms={lib_fwd_bwd:.6f} vs K2(lse)+K3+K4 ms="
          f"{ours:.6f} | card: {card}")
     _, _, top = profile_window(torch, lambda: [time_all(
         q, k, v, do, kv_mask, False, 20, 0)])
     for us, name, count in top:
-        if any(f"{k}_kernel" in name for k in ("fwd", "bwd_dq", "bwd_dkv")):
-            _log(f"[kernel] model shape device time per launch "
-                 f"{us / count / 1e3:.6f} ms ({count} x {name[:70]}) | "
-                 f"card: {card}")
+        for kernel, tag in zip(FLASH_KERNELS, ("fwd", "bwd_dq", "bwd_dkv")):
+            if f"{tag}_kernel" in name:
+                records[kernel]["device_ms_per_launch"] = us / count / 1e3
+                _log(f"[kernel] model shape device time per launch "
+                     f"{us / count / 1e3:.6f} ms ({count} x {name[:70]}) | "
+                     f"card: {card}")
     del q, k, v, do, out, lse, dq, dk, dv
 
     # the attention-bench shape of bench.py --mode attn, causal
@@ -431,7 +513,25 @@ def kernel_phase(torch, card: str) -> dict:
     errs_b, _ = check_all("bench shape T=2048 causal", q, k, v, do, None,
                           True)
     plain_peak_2048 = torch.cuda.max_memory_allocated() - base
-    del q, k, v, do
+    # the model path's key mask at long length, not causal: ragged
+    # lengths, batch row 0 empty
+    lengths = torch.randint(1, 2048 + 1, (b,), generator=gen, device=dev)
+    lengths[0] = 0
+    kv_mask = torch.arange(2048, device=dev)[None, :] < lengths[:, None]
+    errs_m, (out, lse, _, dq, dk, dv) = check_all(
+        "bench shape T=2048 key mask", q, k, v, do, kv_mask, False)
+    if any(bool(x[0].float().abs().max() != 0) for x in (out, dq, dk, dv)) \
+            or not bool((lse[0] <= fa.NEG_INF / 2).all()):
+        raise AssertionError("bench shape, key mask: the empty batch row's "
+                             "output or gradients are not 0, or its lse is "
+                             "above -1e30 / 2")
+    for name in FLASH_KERNELS:
+        records[name]["max_abs_err"] = max(errs[name], errs_b[name],
+                                           errs_m[name])
+        _log(f"[kernel] {name} bench width B={b} H={h} T=2048 Dh={dh} bf16 "
+             f"key mask (lengths {lengths.tolist()}): max_abs_err="
+             f"{errs_m[name]:.3e} | card: {card}")
+    del q, k, v, do, out, lse, dq, dk, dv, kv_mask
     torch.cuda.empty_cache()
     q, k, v, do = rand(b, h, 8192, dh, 4)
     # the plain versions hold a few (B, H, T, T) f32 matrices: time them at
@@ -441,9 +541,17 @@ def kernel_phase(torch, card: str) -> dict:
     while plain_peak_2048 * (plain_t / 2048) ** 2 > 0.8 * free:
         plain_t //= 2
     ms_b, _ = time_all(q, k, v, do, None, True, 3, 0)
-    lib_b_fwd, lib_b_fwd_bwd = sdpa_ms(q, k, v, do, None, True, 5)
+    # K2 again over more launches, with and without its lse, between two
+    # timings of SDPA's forward
+    lib_b_fwd, lib_b_fwd_bwd = sdpa_ms(q, k, v, do, None, True, 20)
+    ms_b["flash_attention_fwd"] = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, None, True, return_lse=True), 20)
+    serve_b = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, None, True), 20)
+    lib_b_fwd2, _ = sdpa_ms(q, k, v, do, None, True, 20)
     bounds_b = dict(zip(FLASH_KERNELS, attention_bounds(q, k, None, True,
                                                         True)))
+    k2_flops = 4.0 * visible_pairs(q, k, None, True) * dh
     if plain_t != 8192:
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -460,6 +568,19 @@ def kernel_phase(torch, card: str) -> dict:
     _log(f"[kernel] bench shape T=8192: library sdpa forward ms="
          f"{lib_b_fwd:.4f}; sdpa forward+backward ms={lib_b_fwd_bwd:.4f} "
          f"vs K2(lse)+K3+K4 ms={sum(ms_b.values()):.4f} | card: {card}")
+    k2 = ms_b["flash_attention_fwd"]
+    k2_bound = bounds_b["flash_attention_fwd"][0]
+    records["flash_attention_fwd"].update({
+        "bench_shape": f"B={b} H={h} T=8192 Dh={dh} bf16 causal",
+        "bench_ms": k2, "bench_serving_ms": serve_b,
+        "bench_library_ms": min(lib_b_fwd, lib_b_fwd2),
+        "bench_bound_ms": k2_bound,
+        "bench_tflops": k2_flops / k2 / 1e9,
+        "bench_bound_share": k2_bound / k2})
+    _log(f"[kernel] K2 bench shape: lse ms={k2:.4f} serving (no lse) ms="
+         f"{serve_b:.4f}, {k2_flops / k2 / 1e9:.1f} TFLOP/s, "
+         f"{k2_bound / k2:.4f} of its bound {k2_bound:.4f} ms; sdpa forward "
+         f"ms={lib_b_fwd:.4f} before, {lib_b_fwd2:.4f} after | card: {card}")
     return records
 
 
@@ -1190,12 +1311,9 @@ def main() -> int:
         sources = sorted({s.split("/")[-1][:-3] for s, _ in
                           KERNEL_INFO.values()})
         t0 = time.perf_counter()
-        _build.build(sources)
+        paths = _build.build(sources)
         _log(f"[setup] built {sources} in {time.perf_counter() - t0:.1f}s")
-        for name in sources:
-            for line in _build.build_logs.get(name, "").splitlines():
-                if "registers" in line or "spill" in line:
-                    _log(f"[setup] ptxas {name}: {line.strip()}")
+        report_build(paths, sources)
         records = kernel_phase(torch, card)
         records.update(sparse_kernel_phase(torch, card))
         serving_phase(torch, card)

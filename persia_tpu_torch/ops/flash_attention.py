@@ -4,7 +4,11 @@ The kernels replace the Pallas TPU kernels of
 ``persia_tpu/ops/flash_attention.py``:
 
 - K2 (``csrc/flash_attention_fwd.cu``) the forward ``_fwd_kernel``, with
-  the optional (B, H, T_q) f32 logsumexp the backward reads;
+  the optional (B, H, T_q) f32 logsumexp the backward reads. It has two
+  bodies (:func:`fwd_plan`): bf16 on the tensor cores (``wgmma``, K/V
+  tiles by TMA or cp.async), which rounds the probabilities to bf16
+  before the p·v product as the TPU kernel does, and f32 on the CUDA
+  cores;
 - K3 and K4 (``csrc/flash_attention_bwd.cu``) the backward
   ``_bwd_dq_kernel`` (dq) and ``_bwd_dkv_kernel`` (dk, dv). K3 also
   computes ``delta = rowsum(dO * O)``, which the JAX package leaves to an
@@ -209,8 +213,29 @@ def _call(kernel: str, symbol: str, argtypes, device, *args):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the launchers' arguments before the stream, which _build.launch appends
-_FWD_ARGS = [_P] * 6 + [_I] * 7 + [_F]
+_FWD_ARGS = [_P] * 6 + [_I] * 8 + [_F]
 _BWD_ARGS = [_P] * 9 + [_I] * 7 + [_F]  # K3 and K4
+
+# K2's bodies (the enum Body of csrc/flash_attention_fwd.cu)
+BODY_F32_CUDA_CORES = 0  # f32 products on the CUDA cores
+BODY_BF16_CP_ASYNC = 1  # wgmma on the tensor cores, tiles by cp.async
+BODY_BF16_TMA = 2  # wgmma on the tensor cores, tiles by TMA
+
+
+def fwd_plan(dtype: torch.dtype, dh: int, t_q: int,
+             aligned: bool = True) -> Tuple[int, int]:
+    """K2's (body, query rows of a CTA) for a launch. f32 keeps the
+    CUDA-core body: its agreement gates need f32 products, which the tensor
+    cores give only as TF32. bf16 runs on the tensor cores; its K/V tiles
+    come by TMA where a row is a multiple of 16 bytes (``dh % 8 == 0``)
+    and q, k, v are 16-byte ``aligned``, by cp.async otherwise. A CTA
+    takes 128 query rows (two warpgroups), or 64 when ``t_q <= 64``."""
+    if dtype == torch.float32:
+        return BODY_F32_CUDA_CORES, 64
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K2 takes f32 or bf16, got {dtype}")
+    body = BODY_BF16_TMA if dh % 8 == 0 and aligned else BODY_BF16_CP_ASYNC
+    return body, 64 if t_q <= 64 else 128
 
 
 def _dims(q, k, causal):
@@ -225,7 +250,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, return_lse: bool = False):
     """Kernel K2's wrapper: the output, and with ``return_lse`` the
     (B, H, T_q) f32 logsumexp. Plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors, in the body :func:`fwd_plan` picks."""
     _check(q, k, v, kv_mask)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, kv_mask, causal,
@@ -240,9 +265,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.fill_(NEG_INF)
     else:
         mask = _mask_bytes(kv_mask)  # referenced until the launch returns
+        bh, h, t_q, t_k, dh, _, causal_i, scale = _dims(q, k, causal)
+        body, block_q = fwd_plan(q.dtype, dh, t_q, all(
+            t.data_ptr() % 16 == 0 for t in (q, k, v)))
         _call(FWD_KERNEL, "persia_flash_attention_fwd", _FWD_ARGS, q.device,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-              out.data_ptr(), _ptr(lse), *_dims(q, k, causal))
+              out.data_ptr(), _ptr(lse), bh, h, t_q, t_k, dh, body, block_q,
+              causal_i, scale)
     return (out, lse) if return_lse else out
 
 

@@ -4,20 +4,24 @@ the JAX tests run it on the CPU, and against ``reference_attention``.
 
 On the CPU the port's wrapper runs the plain PyTorch version; the CUDA
 kernel itself is held against that plain version on the card
-(``chip_smoke.py`` and the ``gpu``-marked test below). The backward
-kernels K3 and K4 are tested in ``test_torch_flash_attention_bwd.py``.
+(``chip_smoke.py`` and the ``gpu``-marked tests below, which cover both of
+K2's bodies). The backward kernels K3 and K4 are tested in
+``test_torch_flash_attention_bwd.py``.
 
 Tolerances: f32 rtol=atol=2e-5 — the same math in another summation
 order (blockwise online softmax in Pallas, one dense softmax in the plain
 version). bf16 rtol=atol=2e-2 — both round the output to bf16 (2**-8
-relative), and the Pallas kernel also rounds the probabilities to bf16
-before the p·v product, where the port keeps them in f32.
+relative), and the Pallas kernel and K2's bf16 body also round the
+probabilities to bf16 before the p·v product, where the plain version
+keeps them in f32. The logsumexp is f32 everywhere: 1e-4 absolute, the
+same sums in another order.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from persia_tpu_torch.ops import flash_attention as fa
 from persia_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_reference,
     flash_attention_masked,
@@ -162,3 +166,108 @@ def test_cuda_kernel_matches_plain_and_refuses_grad():
         np.testing.assert_allclose(g.float().cpu().numpy(),
                                    w.float().cpu().numpy(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,dh,t_q,aligned,want", [
+    # the attention bench's shape: tensor cores, TMA, two warpgroups
+    (torch.bfloat16, 128, 8192, True, (fa.BODY_BF16_TMA, 128)),
+    # the sequence tower's Dh=4: rows of 8 bytes are no TMA rows
+    (torch.bfloat16, 4, 64, True, (fa.BODY_BF16_CP_ASYNC, 64)),
+    (torch.bfloat16, 8, 65, True, (fa.BODY_BF16_TMA, 128)),
+    (torch.bfloat16, 12, 100, True, (fa.BODY_BF16_CP_ASYNC, 128)),
+    # a view that starts off a 16-byte boundary cannot be a TMA source
+    (torch.bfloat16, 64, 40, False, (fa.BODY_BF16_CP_ASYNC, 64)),
+    # f32 keeps the CUDA-core body at every width
+    (torch.float32, 128, 8192, True, (fa.BODY_F32_CUDA_CORES, 64)),
+    (torch.float32, 4, 64, True, (fa.BODY_F32_CUDA_CORES, 64)),
+])
+def test_fwd_plan_picks_the_body(dtype, dh, t_q, aligned, want):
+    assert fa.fwd_plan(dtype, dh, t_q, aligned) == want
+
+
+def test_fwd_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        fa.fwd_plan(torch.float16, 64, 128)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu)")
+
+
+def _check_fwd(q, k, v, mask, causal, want_body):
+    """K2 with its lse against the plain version; fully masked rows give
+    exactly 0 and an lse at or below -1e30 / 2; the launch used the body
+    ``fwd_plan`` names."""
+    dh, t_q = q.shape[-1], q.shape[2]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    assert fa.fwd_plan(q.dtype, dh, t_q, aligned)[0] == want_body
+    fa.reset_launch_count()
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, return_lse=True)
+    serve = fa.flash_attention_fwd(q, k, v, mask, causal)
+    w_out, w_lse = flash_attention_fwd_reference(q, k, v, mask, causal,
+                                                 return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launch_count(fa.FWD_KERNEL) == 2
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = TOL["bfloat16" if q.dtype == torch.bfloat16 else "float32"]
+    for got in (out, serve):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   w_out.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+    live = w_lse > fa.NEG_INF / 2
+    assert torch.equal(lse > fa.NEG_INF / 2, live)
+    np.testing.assert_allclose(lse[live].cpu().numpy(),
+                               w_lse[live].cpu().numpy(), rtol=0, atol=1e-4)
+    if mask is not None:
+        assert not bool(mask[0].any())
+        assert bool((out[0] == 0).all()) and bool((serve[0] == 0).all())
+        assert bool((lse[0] <= fa.NEG_INF / 2).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t_q,t_k", [(100, 173), (64, 40)])
+@pytest.mark.parametrize("dh", [4, 8, 16, 64, 128])
+def test_cuda_bf16_body_matches_plain(dh, t_q, t_k, causal, masked):
+    """The tensor-core body at every padded width, ragged T_q != T_k
+    (neither a multiple of a tile), causal and not, a key mask whose first
+    batch row is empty."""
+    _card()
+    q, k, v, mask = _inputs(dh + t_q + causal, 3, 2, t_q, t_k, dh, masked)
+    tq, tk, tv = (_torch(x, "bfloat16").cuda() for x in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask).cuda()
+    _check_fwd(tq, tk, tv, tmask, causal, fa.BODY_BF16_TMA if dh % 8 == 0
+               else fa.BODY_BF16_CP_ASYNC)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,shift", [(5, False), (6, False), (64, True)])
+def test_cuda_bf16_body_unaligned_rows(dh, shift):
+    """cp.async tiles where TMA cannot go: rows of 10 bytes (copied a value
+    at a time) and 12 bytes (4-byte copies), and q, k, v that start 2 bytes
+    off a 16-byte boundary."""
+    _card()
+    q, k, v, mask = _inputs(dh, 2, 2, 150, 150, dh, True)
+
+    def on_card(x):
+        if not shift:
+            return _torch(x, "bfloat16").cuda()
+        flat = torch.empty(x.size + 1, dtype=torch.bfloat16, device="cuda")
+        flat[1:] = _torch(x, "bfloat16").reshape(-1).cuda()
+        return flat[1:].view(x.shape)
+
+    tq, tk, tv = (on_card(x) for x in (q, k, v))
+    _check_fwd(tq, tk, tv, torch.from_numpy(mask).cuda(), True,
+               fa.BODY_BF16_CP_ASYNC)
+
+
+@pytest.mark.gpu
+def test_cuda_f32_body_matches_plain():
+    """f32 keeps the CUDA-core body."""
+    _card()
+    q, k, v, mask = _inputs(5, 2, 2, 100, 173, 64, True)
+    tq, tk, tv = (_torch(x, "float32").cuda() for x in (q, k, v))
+    _check_fwd(tq, tk, tv, torch.from_numpy(mask).cuda(), True,
+               fa.BODY_F32_CUDA_CORES)
