@@ -9,9 +9,9 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 1. Setup: versions, the card's name and power limit, and the build of
    every kernel of the port from the sources in this checkout, one nvcc
    per source, all started together; ptxas's registers and spills of
-   every kernel entry, K2's shared memory per body, and the count of
-   tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in each built
-   library.
+   every kernel entry, K2's, K3's and K4's shared memory per body, and
+   the count of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
+   in each built library.
 2. Kernel phase: each kernel is held against its plain PyTorch version on
    the card and timed beside its bound, its plain version and, where one
    exists, a PyTorch library call computing the same function (a
@@ -19,8 +19,11 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    forward, here with its logsumexp), K3 and K4 (the backward) at the
    sequence tower's shape, at the attention-bench width with T=2048
    causal and with a ragged key mask (not causal), and timed at the
-   attention-bench shape (T=8192, causal), where K2's record also carries
-   its time, TFLOP/s, share of the bound and SDPA's forward; K1 (the
+   attention-bench shape (T=8192, causal), where each record also carries
+   its time, TFLOP/s and share of the bound, K2's beside SDPA's forward
+   and K3 + K4 between two runs of them beside the library's flash
+   backward (``aten._scaled_dot_product_flash_attention_backward`` on the
+   outputs of its own forward of the same q, k, v); K1 (the
    embedding bag) at device mode's shape and at the v5e shape of
    ``persia_tpu/ops/embedding_bag.py``.
 3. Serving phase: two PS shards hold rows for the whole sign space of the
@@ -76,6 +79,11 @@ import traceback
 # Kernel against its plain version in bf16: both accumulate in f32 and
 # round the output to bf16 once; the summation orders differ, which can
 # flip the last bit of the bf16 result (2**-8 relative; outputs are O(1)).
+# The tensor-core bodies also round p (K2's p.v, K4's p^T.dO) and ds (K3's
+# ds.K, K4's ds^T.Q) to bf16 before the product, as the TPU kernels do,
+# where the plain versions keep them in f32: 2**-9 relative a term, and
+# over T terms of random sign ~2**-9 sqrt(T) of a term, well inside 2e-2
+# on O(1) gradients at T = 2048.
 KERNEL_ATOL = 2e-2
 KERNEL_RTOL = 2e-2
 # The logsumexp is f32 in every path: f32 sums in another order.
@@ -234,8 +242,9 @@ def sass_counts(lib_path) -> str:
 
 
 def report_build(paths, sources):
-    """ptxas's registers and spills of every kernel entry, K2's dynamic
-    shared memory per body, and the SASS instruction counts."""
+    """ptxas's registers and spills of every kernel entry, K2's, K3's and
+    K4's dynamic shared memory per body, and the SASS instruction
+    counts."""
     import ctypes
 
     from persia_tpu_torch.ops import _build
@@ -254,6 +263,14 @@ def report_build(paths, sources):
     _log("[setup] K2 bf16 body dynamic shared memory per CTA (bytes): "
          + " ".join(f"block_q={bq},dh<={dh}:{smem(bq, dh)}"
                     for bq in (64, 128) for dh in (16, 32, 64, 128)))
+    smem = _build.load("flash_attention_bwd").persia_flash_attention_bwd_smem
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_int
+    for kernel, tag in ((0, "K3"), (1, "K4")):
+        _log(f"[setup] {tag} bf16 body dynamic shared memory per CTA "
+             f"(bytes): " + " ".join(
+                 f"rows={rows},dh<={dh}:{smem(kernel, rows, dh)}"
+                 for rows in (64, 128) for dh in (16, 32, 64, 128)))
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -447,6 +464,19 @@ def kernel_phase(torch, card: str) -> dict:
             f_ms = cuda_ms(torch, fwd, iters)
         return f_ms, cuda_ms(torch, fwd_bwd, iters)
 
+    def aten_flash_backward(q, k, v, do, causal):
+        """One PyTorch call computing (dq, dk, dv) like K3 + K4: the
+        library's flash backward, fed the outputs of its own flash forward
+        on the same q, k, v (a yardstick; the port never calls it)."""
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+        with torch.no_grad():
+            (out, lse, cum_q, cum_k, max_q, max_k, seed, offset,
+             _) = torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, causal, False, scale=scale)
+        return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal,
+            seed, offset, scale=scale)
+
     records = {}
     # the training path's shape: batch 256, 4 heads, t_hist 64, dh 4, a
     # key mask from ragged history lengths, some of them empty
@@ -540,7 +570,21 @@ def kernel_phase(torch, card: str) -> dict:
     plain_t = 8192
     while plain_peak_2048 * (plain_t / 2048) ** 2 > 0.8 * free:
         plain_t //= 2
-    ms_b, _ = time_all(q, k, v, do, None, True, 3, 0)
+    ms_b, _ = time_all(q, k, v, do, None, True, 10, 0)
+    # K3 + K4 between two runs of the library's flash backward
+    out_b, lse_b = fa.flash_attention_fwd(q, k, v, None, True,
+                                          return_lse=True)
+    lib_bwd = aten_flash_backward(q, k, v, do, True)
+    k34_ms = [cuda_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out_b, lse_b, do, None, True), 10)]
+    lib_bwd_ms = cuda_ms(torch, lib_bwd, 10)
+    k34_ms.append(cuda_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out_b, lse_b, do, None, True), 10))
+    ours_g = fa.flash_attention_bwd(q, k, v, out_b, lse_b, do, None, True)
+    lib_g = lib_bwd()
+    lib_gap = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(ours_g, lib_g))
+    del out_b, lse_b, ours_g, lib_g, lib_bwd
     # K2 again over more launches, with and without its lse, between two
     # timings of SDPA's forward
     lib_b_fwd, lib_b_fwd_bwd = sdpa_ms(q, k, v, do, None, True, 20)
@@ -551,7 +595,11 @@ def kernel_phase(torch, card: str) -> dict:
     lib_b_fwd2, _ = sdpa_ms(q, k, v, do, None, True, 20)
     bounds_b = dict(zip(FLASH_KERNELS, attention_bounds(q, k, None, True,
                                                         True)))
-    k2_flops = 4.0 * visible_pairs(q, k, None, True) * dh
+    pairs_b = visible_pairs(q, k, None, True)
+    flops_b = {"flash_attention_fwd": 4.0 * pairs_b * dh,
+               "flash_attention_bwd_dq": 6.0 * pairs_b * dh,
+               "flash_attention_bwd_dkv": 8.0 * pairs_b * dh}
+    k2_flops = flops_b["flash_attention_fwd"]
     if plain_t != 8192:
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -568,6 +616,25 @@ def kernel_phase(torch, card: str) -> dict:
     _log(f"[kernel] bench shape T=8192: library sdpa forward ms="
          f"{lib_b_fwd:.4f}; sdpa forward+backward ms={lib_b_fwd_bwd:.4f} "
          f"vs K2(lse)+K3+K4 ms={sum(ms_b.values()):.4f} | card: {card}")
+    _log(f"[kernel] bench shape T=8192: K3+K4 ms={k34_ms[0]:.4f} before, "
+         f"{k34_ms[1]:.4f} after the library flash backward "
+         f"(aten._scaled_dot_product_flash_attention_backward) ms="
+         f"{lib_bwd_ms:.4f}: K3+K4 / library = "
+         f"{min(k34_ms) / lib_bwd_ms:.3f}; max abs gap between the two "
+         f"gradients {lib_gap:.3e} | card: {card}")
+    for name in FLASH_KERNELS[1:]:
+        t_ms, bound = ms_b[name], bounds_b[name][0]
+        records[name].update({
+            "bench_shape": f"B={b} H={h} T=8192 Dh={dh} bf16 causal",
+            "bench_ms": t_ms, "bench_bound_ms": bound,
+            "bench_tflops": flops_b[name] / t_ms / 1e9,
+            "bench_bound_share": bound / t_ms,
+            # one library call computes dq, dk and dv together
+            "bench_library_ms_k3_plus_k4": lib_bwd_ms,
+            "bench_k3_plus_k4_ms": k34_ms})
+        _log(f"[kernel] {name} bench shape: {t_ms:.4f} ms over 10 launches, "
+             f"{flops_b[name] / t_ms / 1e9:.1f} TFLOP/s, {bound / t_ms:.4f} "
+             f"of its bound {bound:.4f} ms | card: {card}")
     k2 = ms_b["flash_attention_fwd"]
     k2_bound = bounds_b["flash_attention_fwd"][0]
     records["flash_attention_fwd"].update({

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the
-package (git-ignored); the hash of the source names the library, so an
-edited source is rebuilt and an unchanged one is reused. Nothing here
+package (git-ignored); the hash of the source and of the shared headers
+``csrc/*.cuh`` names the library, so an edited source or header is
+rebuilt and an unchanged one is reused. Nothing here
 runs at import time: the CPU tests import every module of the port on a
 machine without ``nvcc``.
 """
@@ -47,6 +48,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    # every shared header, since a source may include any of them
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -12,7 +12,12 @@ The kernels replace the Pallas TPU kernels of
 - K3 and K4 (``csrc/flash_attention_bwd.cu``) the backward
   ``_bwd_dq_kernel`` (dq) and ``_bwd_dkv_kernel`` (dk, dv). K3 also
   computes ``delta = rowsum(dO * O)``, which the JAX package leaves to an
-  XLA reduce, and hands it to K4.
+  XLA reduce, and hands it to K4. They have the same two bodies
+  (:func:`bwd_plan`); the bf16 one rounds p and ds to bf16 before their
+  products, as the TPU kernels do.
+
+The Hopper helpers both sources share (``wgmma``, descriptors, mbarriers,
+TMA) are in ``csrc/sm90.cuh``.
 
 The layout is the JAX one: q (B, H, T_q, Dh), k/v (B, H, T_k, Dh), an
 optional (B, T_k) key mask broadcast over heads, output like q.
@@ -214,9 +219,9 @@ def _call(kernel: str, symbol: str, argtypes, device, *args):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the launchers' arguments before the stream, which _build.launch appends
 _FWD_ARGS = [_P] * 6 + [_I] * 8 + [_F]
-_BWD_ARGS = [_P] * 9 + [_I] * 7 + [_F]  # K3 and K4
+_BWD_ARGS = [_P] * 9 + [_I] * 8 + [_F]  # K3 and K4
 
-# K2's bodies (the enum Body of csrc/flash_attention_fwd.cu)
+# the kernels' bodies (the enum Body of csrc/flash_attention_{fwd,bwd}.cu)
 BODY_F32_CUDA_CORES = 0  # f32 products on the CUDA cores
 BODY_BF16_CP_ASYNC = 1  # wgmma on the tensor cores, tiles by cp.async
 BODY_BF16_TMA = 2  # wgmma on the tensor cores, tiles by TMA
@@ -238,11 +243,33 @@ def fwd_plan(dtype: torch.dtype, dh: int, t_q: int,
     return body, 64 if t_q <= 64 else 128
 
 
-def _dims(q, k, causal):
+def bwd_plan(dtype: torch.dtype, dh: int, t: int,
+             aligned: bool = True) -> Tuple[int, int]:
+    """K3's or K4's (body, rows of a CTA) for a launch: ``t`` is T_q for
+    K3, whose CTA owns query rows, and T_k for K4, whose CTA owns keys.
+    As :func:`fwd_plan`: f32 keeps the CUDA-core body; bf16 runs on the
+    tensor cores, its tiles by TMA where ``dh % 8 == 0`` and q, k, v (and
+    out and dO) are 16-byte ``aligned``, by cp.async otherwise. A CTA
+    takes 128 rows (two warpgroups), or 64 when ``t <= 64``."""
+    if dtype == torch.float32:
+        return BODY_F32_CUDA_CORES, 64
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K3/K4 take f32 or bf16, got {dtype}")
+    body = BODY_BF16_TMA if dh % 8 == 0 and aligned else BODY_BF16_CP_ASYNC
+    return body, 64 if t <= 64 else 128
+
+
+def _dims(q, k):
     b, h, t_q, dh = q.shape
-    return (b * h, h, t_q, k.shape[2], dh,
-            0 if q.dtype == torch.float32 else 1, int(bool(causal)),
-            1.0 / float(dh) ** 0.5)
+    return b * h, h, t_q, k.shape[2], dh
+
+
+def _scale(dh: int) -> float:
+    return 1.0 / float(dh) ** 0.5
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -265,13 +292,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.fill_(NEG_INF)
     else:
         mask = _mask_bytes(kv_mask)  # referenced until the launch returns
-        bh, h, t_q, t_k, dh, _, causal_i, scale = _dims(q, k, causal)
-        body, block_q = fwd_plan(q.dtype, dh, t_q, all(
-            t.data_ptr() % 16 == 0 for t in (q, k, v)))
+        bh, h, t_q, t_k, dh = _dims(q, k)
+        body, block_q = fwd_plan(q.dtype, dh, t_q, _aligned(q, k, v))
         _call(FWD_KERNEL, "persia_flash_attention_fwd", _FWD_ARGS, q.device,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
               out.data_ptr(), _ptr(lse), bh, h, t_q, t_k, dh, body, block_q,
-              causal_i, scale)
+              int(bool(causal)), _scale(dh))
     return (out, lse) if return_lse else out
 
 
@@ -279,7 +305,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, kv_mask=None,
                            causal: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K3's wrapper: (dq, delta). Plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
+    the CUDA kernel for CUDA tensors, in the body :func:`bwd_plan` picks."""
     _check(q, k, v, kv_mask, out, lse, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, out, lse, do,
@@ -290,10 +316,14 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, kv_mask=None,
     if q.numel() == 0 or k.shape[2] == 0:
         return dq.zero_(), torch.sum(do.float() * out.float(), -1)
     mask = _mask_bytes(kv_mask)
+    dims = _dims(q, k)
+    body, rows = bwd_plan(q.dtype, dims[4], dims[2],
+                          _aligned(q, k, v, out, do))
     _call(DQ_KERNEL, "persia_flash_attention_bwd_dq", _BWD_ARGS, q.device,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
           do.data_ptr(), lse.data_ptr(), _ptr(mask), dq.data_ptr(),
-          delta.data_ptr(), *_dims(q, k, causal))
+          delta.data_ptr(), *dims, body, rows, int(bool(causal)),
+          _scale(dims[4]))
     return dq, delta
 
 
@@ -301,7 +331,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_mask=None,
                             causal: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K4's wrapper: (dk, dv), with ``delta`` from K3. Plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    version for CPU tensors, the CUDA kernel for CUDA tensors, in the body
+    :func:`bwd_plan` picks."""
     _check(q, k, v, kv_mask, do, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -312,10 +343,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_mask=None,
     if k.numel() == 0 or q.shape[2] == 0:
         return dk.zero_(), dv.zero_()
     mask = _mask_bytes(kv_mask)
+    dims = _dims(q, k)
+    body, rows = bwd_plan(q.dtype, dims[4], dims[3], _aligned(q, k, v, do))
     _call(DKV_KERNEL, "persia_flash_attention_bwd_dkv", _BWD_ARGS, q.device,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
           lse.data_ptr(), delta.data_ptr(), _ptr(mask), dk.data_ptr(),
-          dv.data_ptr(), *_dims(q, k, causal))
+          dv.data_ptr(), *dims, body, rows, int(bool(causal)),
+          _scale(dims[4]))
     return dk, dv
 
 

@@ -12,8 +12,11 @@ Tolerances:
   einsum), on O(1) inputs and gradients;
 - bf16: the bounds of ``tests/test_flash_attention.py``'s bf16 gradient
   test (rtol 1e-1, atol 1e-2). The Pallas kernels round p and ds to bf16
-  before their products; the port keeps them in f32 and rounds only the
-  outputs.
+  before their products; the port's plain version keeps them in f32 and
+  rounds only the outputs. The card's bf16 bodies round p and ds as
+  Pallas does, so against the plain version they differ by that rounding
+  (2**-9 relative a term, summed over up to 200 terms with random signs)
+  besides the outputs' own bf16 rounding: within 2e-2 on O(1) gradients.
 """
 
 import numpy as np
@@ -206,3 +209,130 @@ def test_cuda_kernels_match_plain(dtype, causal, t_q, t_k, dh):
         np.testing.assert_allclose(_np(g.cpu()), _np(w.cpu()), rtol=tol,
                                    atol=tol)
         assert (g[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,dh,t,aligned,want", [
+    # the attention bench's shape: tensor cores, TMA, two warpgroups
+    (torch.bfloat16, 128, 8192, True, (fa.BODY_BF16_TMA, 128)),
+    (torch.bfloat16, 64, 65, True, (fa.BODY_BF16_TMA, 128)),
+    (torch.bfloat16, 16, 64, True, (fa.BODY_BF16_TMA, 64)),
+    # the sequence tower's Dh=4 (rows of 8 bytes are no TMA rows), t = 64
+    (torch.bfloat16, 4, 64, True, (fa.BODY_BF16_CP_ASYNC, 64)),
+    (torch.bfloat16, 4, 200, True, (fa.BODY_BF16_CP_ASYNC, 128)),
+    # a view that starts off a 16-byte boundary cannot be a TMA source
+    (torch.bfloat16, 128, 40, False, (fa.BODY_BF16_CP_ASYNC, 64)),
+    (torch.bfloat16, 128, 300, False, (fa.BODY_BF16_CP_ASYNC, 128)),
+    (torch.bfloat16, 16, 130, False, (fa.BODY_BF16_CP_ASYNC, 128)),
+    # f32 keeps the CUDA-core bodies at every width
+    (torch.float32, 128, 8192, True, (fa.BODY_F32_CUDA_CORES, 64)),
+    (torch.float32, 4, 64, False, (fa.BODY_F32_CUDA_CORES, 64)),
+])
+def test_bwd_plan_picks_the_body(dtype, dh, t, aligned, want):
+    assert fa.bwd_plan(dtype, dh, t, aligned) == want
+
+
+def test_bwd_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        fa.bwd_plan(torch.float16, 64, 128)
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """A library is rebuilt when a header it may include changes: the
+    name hashes every ``csrc/*.cuh`` beside the source."""
+    import shutil
+
+    from persia_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = _build._lib_path("flash_attention_bwd")
+    assert before == _build._lib_path("flash_attention_bwd")
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _build._lib_path("flash_attention_bwd")
+    assert after != before and after.parent == before.parent
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert _build._lib_path("flash_attention_bwd") not in (before, after)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu)")
+
+
+def _check_bwd(seed, t_q, t_k, dh, causal, masked, place=None):
+    """K3 and K4 on the card in the body bwd_plan names, against the
+    plain versions fed the kernel's own forward; an empty batch row gives
+    exactly zero gradients. Returns the gradients."""
+    q, k, v, do, mask = _inputs(seed, 3, 2, t_q, t_k, dh)
+    place = place or (lambda x: _t(x, "bfloat16").cuda())
+    tq, tk, tv, tdo = (place(x) for x in (q, k, v, do))
+    tmask = torch.from_numpy(mask).cuda() if masked else None
+    fa.reset_launch_count()
+    out, lse = fa.flash_attention_fwd(tq, tk, tv, tmask, causal,
+                                      return_lse=True)
+    dq, delta = fa.flash_attention_bwd_dq(tq, tk, tv, out, lse, tdo, tmask,
+                                          causal)
+    dk, dv = fa.flash_attention_bwd_dkv(tq, tk, tv, tdo, lse, delta, tmask,
+                                        causal)
+    torch.cuda.synchronize()
+    assert [fa.launch_count(n) for n in fa.KERNEL_SOURCES] == [1, 1, 1]
+    w_dq, w_delta = fa.flash_attention_bwd_dq_reference(
+        tq, tk, tv, out, lse, tdo, tmask, causal)
+    w_dk, w_dv = fa.flash_attention_bwd_dkv_reference(
+        tq, tk, tv, tdo, lse, w_delta, tmask, causal)
+    np.testing.assert_allclose(delta.cpu().numpy(), w_delta.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    for g, w in ((dq, w_dq), (dk, w_dk), (dv, w_dv)):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        np.testing.assert_allclose(_np(g.cpu()), _np(w.cpu()), rtol=2e-2,
+                                   atol=2e-2)
+        if masked:
+            assert bool((g[1] == 0).all())
+    return dq, dk, dv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t_q,t_k", [(48, 112), (200, 200), (130, 70)])
+@pytest.mark.parametrize("dh", [4, 8, 16, 32, 64, 128])
+def test_cuda_bf16_bodies_match_plain(dh, t_q, t_k, causal, masked):
+    """The tensor-core bodies at every padded width, T neither a multiple
+    of 64 nor of 128, T_q != T_k both ways, causal and not, with and
+    without a key mask whose second batch row is empty."""
+    _card()
+    assert fa.bwd_plan(torch.bfloat16, dh, t_q)[0] == (
+        fa.BODY_BF16_TMA if dh % 8 == 0 else fa.BODY_BF16_CP_ASYNC)
+    _check_bwd(dh + t_q + causal, t_q, t_k, dh, causal, masked)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,shift", [(5, False), (6, False), (64, True),
+                                      (128, True)])
+def test_cuda_bf16_bodies_unaligned_rows(dh, shift):
+    """cp.async tiles where TMA cannot go: rows of 10 bytes (a value at a
+    time) and 12 bytes (4-byte copies), and operands 2 bytes off a 16-byte
+    boundary."""
+    _card()
+
+    def place(x):
+        if not shift:
+            return _t(x, "bfloat16").cuda()
+        flat = torch.empty(x.size + 1, dtype=torch.bfloat16, device="cuda")
+        flat[1:] = _t(x, "bfloat16").reshape(-1).cuda()
+        return flat[1:].view(x.shape)
+
+    _check_bwd(dh, 150, 150, dh, True, True, place)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [4, 128])
+def test_cuda_bf16_bodies_are_deterministic(dh):
+    """No atomics: two runs on the same inputs give bit-equal gradients."""
+    _card()
+    first = _check_bwd(3, 200, 200, dh, True, True)
+    second = _check_bwd(3, 200, 200, dh, True, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
