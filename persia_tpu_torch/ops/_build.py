@@ -7,6 +7,11 @@ package (git-ignored); the hash of the source and of the shared headers
 rebuilt and an unchanged one is reused. Nothing here
 runs at import time: the CPU tests import every module of the port on a
 machine without ``nvcc``.
+
+A kernel is launched through its :class:`Launcher`, resolved once per C
+entry by :func:`launcher`: the hot path is one Python call and one ctypes
+call, with the stream read as a raw pointer and no device guard unless
+the caller's current device differs.
 """
 
 import ctypes
@@ -17,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -29,8 +36,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # what the last build of each kernel printed (the ptxas register, shared
 # memory and spill report), for the chip smoke run
 build_logs: Dict[str, str] = {}
-# launches of each kernel since its last reset, counted by launch() when
-# the launcher succeeds; the plain versions on the CPU never count
+# launches of each kernel since its last reset, counted by a Launcher when
+# the launch succeeds; the plain versions on the CPU never count
 _launches: Dict[str, int] = {}
 _count_lock = threading.Lock()
 
@@ -115,25 +122,71 @@ def reset_launch_counts(kernels: Iterable[str]):
             _launches[kernel] = 0
 
 
-def launch(kernel: str, source: str, symbol: str, argtypes, device, *args):
-    """Launch ``kernel``: call the C launcher ``symbol`` of
-    ``csrc/<source>.cu`` with ``args`` and torch's current stream on
-    ``device``, raise on a non-zero ``cudaError_t`` (every launcher
-    returns one and every source defines ``persia_cuda_error_string``),
-    and count the launch."""
-    import torch
+# The current device and the raw pointer of torch's current stream on a
+# device, read without building a ``torch.cuda.Stream``; module functions
+# so that a test without a card can stand in for them.
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
 
-    lib = load(source)
-    fn = getattr(lib, symbol)  # ctypes caches the function object
-    if fn.argtypes is None:
-        fn.argtypes = [*argtypes, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        err = lib.persia_cuda_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
-                           f"({err(rc).decode()})")
-    count_launch(kernel)
+
+def _raw_stream(index: int) -> int:
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _device_guard(index: int):
+    return torch.cuda.device(index)
+
+
+class Launcher:
+    """One C launcher ``symbol`` of ``csrc/<source>.cu`` resolved once: its
+    ctypes function has its ``argtypes`` (``argtypes`` then the stream)
+    and ``restype`` set here, so a launch is one Python call and one
+    ctypes call. ``launcher(device, *args)`` passes ``args`` and torch's
+    current stream on ``device``, raises on a non-zero ``cudaError_t``
+    (every launcher returns one and every source defines
+    ``persia_cuda_error_string``), and counts ``kernel``'s launch only
+    when it succeeded. A device guard is entered only when the calling
+    thread's current device is another one."""
+
+    __slots__ = ("kernel", "fn", "error_string")
+
+    def __init__(self, kernel: str, lib, symbol: str, argtypes):
+        self.kernel = kernel
+        self.fn = getattr(lib, symbol)
+        self.fn.argtypes = [*argtypes, ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+        self.error_string = lib.persia_cuda_error_string
+        self.error_string.argtypes = [ctypes.c_int]
+        self.error_string.restype = ctypes.c_char_p
+
+    def __call__(self, device, *args):
+        index = device.index
+        current = _current_device()
+        if index is None or index == current:
+            rc = self.fn(*args, _raw_stream(current))
+        else:
+            with _device_guard(index):
+                rc = self.fn(*args, _raw_stream(index))
+        if rc:
+            raise RuntimeError(
+                f"{self.kernel} kernel launch failed: CUDA error {rc} "
+                f"({self.error_string(rc).decode()})")
+        count_launch(self.kernel)
+
+
+_launchers: Dict[tuple, Launcher] = {}
+
+
+def launcher(kernel: str, source: str, symbol: str, argtypes) -> Launcher:
+    """The :class:`Launcher` of ``symbol`` in ``csrc/<source>.cu``,
+    building and loading the library at first use."""
+    key = (source, symbol)
+    fn = _launchers.get(key)
+    if fn is None:
+        lib = load(source)
+        with _lock:
+            fn = _launchers.get(key)
+            if fn is None:
+                fn = Launcher(kernel, lib, symbol, argtypes)
+                _launchers[key] = fn
+    return fn

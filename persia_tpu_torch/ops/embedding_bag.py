@@ -1,4 +1,4 @@
-"""Embedding bag: the CUDA kernel K1 and its plain version.
+"""Embedding bag: the CUDA kernel K1 and its plain versions.
 
 K1 (``csrc/embedding_bag.cu``) replaces the Pallas TPU kernel
 ``_packed_bag_kernel`` of ``persia_tpu/ops/embedding_bag.py`` (driven by
@@ -19,24 +19,46 @@ clips to [0, ceil(V/P)·P - 1] of its packed table, so an id >= V reads a
 zero padding row when P = 128/D does not divide V, and -1 reads row 0.
 The port clips every id to [0, V - 1], in the kernel and in the plain
 version alike. That equals the Pallas kernel whenever P divides V, as it
-does for every device-mode table (V = 2^20).
+does for every device-mode table (V = 2^20). The backward adds at the
+clipped rows too, where the JAX package's ``_bwd`` scatters at the raw
+ids (``.at[].add`` wraps -1 to row V - 1 and drops ids >= V).
 
-:func:`embedding_bag_fwd` is K1's wrapper: the plain version for CPU
-tensors, the kernel for CUDA tensors, or it raises; it counts the
-kernel's launches. :func:`embedding_bag` is the differentiable entry, a
-``torch.autograd.Function`` whose forward is K1 and whose backward is the
-JAX package's ``_bwd`` (XLA there, not Pallas; PyTorch ops here): a dense
-``d_table`` built by ``index_add_`` at the clipped ids, and ``d_weights``
-only when the weights require grad.
+Two entries share the kernel:
+
+- :func:`embedding_bag_fwd`, the Pallas kernel's function on one table
+  (clipped ids, any weights, f32 out), and :func:`embedding_bag`, its
+  ``torch.autograd.Function`` whose backward is the JAX package's
+  ``_bwd`` (XLA there, not Pallas; PyTorch ops here): a dense ``d_table``
+  built by ``index_add_`` at the clipped ids, and ``d_weights`` only when
+  the weights require grad;
+- :func:`embedding_bag_slots_fwd`, device mode's whole collection in one
+  launch: every slot's table and raw ids, with the collection's hash and
+  mask (``DeviceEmbeddingCollection``) fused in, giving (B, slots, D) in
+  bf16 (or f32) and the int32 rows read; :func:`embedding_bag_slots` is
+  its ``torch.autograd.Function``, whose backward scatters at those rows.
+
+Each wrapper runs its plain version for CPU tensors, launches the kernel
+for CUDA tensors or raises, and counts the kernel's launches.
 """
 
 import ctypes
+from array import array
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from persia_tpu_torch.ops import _build
 
 KERNEL = "embedding_bag"  # K1; also the name of its CUDA source
+# slots one launch pools (MAX_SLOTS of csrc/embedding_bag.cu: their
+# descriptors travel in the kernel's 4 KB of parameters); more are split
+# into several launches
+MAX_SLOTS = 64
+_DESC_WORDS = 7  # int64 words of one slot's descriptor
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# persia_embedding_bag_slots(desc, n_slots, batch, dim, out, rows,
+# out_cols, slot0, out_bf16, hash); the launcher appends the stream
+_ARGS = [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I]
 
 
 def launch_count() -> int:
@@ -79,14 +101,27 @@ def _check(table, ids, weights):
         raise ValueError(f"unsupported device {table.device}")
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+def _launch(device, desc: array, n_slots: int, batch: int, dim: int,
+            out: torch.Tensor, rows: Optional[torch.Tensor], out_cols: int,
+            slot0: int, hash_ids: bool):
+    _build.launcher(KERNEL, KERNEL, "persia_embedding_bag_slots", _ARGS)(
+        device, desc.buffer_info()[0], n_slots, batch, dim, out.data_ptr(),
+        None if rows is None else rows.data_ptr(), out_cols, slot0,
+        int(out.dtype == torch.bfloat16), int(hash_ids))
+
+
+def _kernel_ids(ids: torch.Tensor) -> torch.Tensor:
+    """ids as the kernel reads them: int32 or int64, contiguous."""
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int64)
+    return ids.contiguous()
 
 
 def embedding_bag_fwd(table: torch.Tensor, ids: torch.Tensor,
                       weights: torch.Tensor) -> torch.Tensor:
-    """K1's wrapper: (B, D) f32. The plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors (an f32 contiguous table; ids are made
-    int32 and weights f32 once here)."""
+    """K1's wrapper on one table: (B, D) f32. The plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (an f32 contiguous table;
+    int32 or int64 ids and f32 weights are read as they are)."""
     _check(table, ids, weights)
     if table.device.type == "cpu":
         return embedding_bag_reference(table, ids, weights)
@@ -99,13 +134,13 @@ def embedding_bag_fwd(table: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((batch, dim), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
         return out
-    if bag == 0:
-        return out.zero_()
-    ids32 = ids.to(torch.int32).contiguous()  # referenced until launched
-    w32 = weights.to(torch.float32).contiguous()
-    _build.launch(KERNEL, KERNEL, "persia_embedding_bag", _ARGS,
-                  table.device, table.data_ptr(), ids32.data_ptr(),
-                  w32.data_ptr(), out.data_ptr(), batch, bag, dim, vocab)
+    ids = _kernel_ids(ids)  # referenced until launched
+    if weights.dtype != torch.float32:
+        weights = weights.to(torch.float32)
+    weights = weights.contiguous()
+    desc = array("q", (table.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+                       0, vocab, bag, ids.element_size()))
+    _launch(table.device, desc, 1, batch, dim, out, None, 1, 0, False)
     return out
 
 
@@ -139,3 +174,192 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     """Pooled lookup, differentiable in ``table`` and ``weights``: (B, D)
     f32 through K1 on the card, its plain version on the CPU."""
     return _EmbeddingBag.apply(table, ids, weights)
+
+
+# --- device mode: every slot of the collection in one launch ----------------
+
+SLOT_DTYPES = (torch.bfloat16, torch.float32)  # outputs the kernel writes
+
+
+def hash_ids(ids: torch.Tensor, vocab: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The collection's hash and mask (``persia_tpu/parallel/
+    device_embedding.py:72-73``): ``mask = ids > 0`` and ``rows = ((ids %
+    (vocab - 1)) + 1) * mask`` in int32, so padding (0 or negative) reads
+    row 0 and every row is in [0, vocab - 1]."""
+    mask = ids > 0
+    return ((ids % (vocab - 1)) + 1).to(torch.int32) * mask, mask
+
+
+def slot_rows(rows: torch.Tensor, batch: int, bags: Sequence[int]
+              ) -> List[torch.Tensor]:
+    """The (B, bag) int32 views of each slot in the flat rows buffer of
+    :func:`embedding_bag_slots_fwd` (slot-major)."""
+    out, at = [], 0
+    for bag in bags:
+        out.append(rows[at:at + batch * bag].view(batch, bag))
+        at += batch * bag
+    return out
+
+
+def embedding_bag_slots_reference(tables: Sequence[torch.Tensor],
+                                  ids: Sequence[torch.Tensor],
+                                  out_dtype: torch.dtype = torch.bfloat16
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The multi-slot entry's plain version: per slot the hash
+    (:func:`hash_ids`), :func:`embedding_bag_reference` with the mask as
+    weights, and the cast to ``out_dtype``. Returns ((B, slots, D)
+    ``out_dtype``, the flat int32 rows, slot-major)."""
+    pooled, rows = [], []
+    for table, slot_ids in zip(tables, ids):
+        r, mask = hash_ids(slot_ids, table.shape[0])
+        pooled.append(embedding_bag_reference(table, r, mask.float())
+                      .to(out_dtype))
+        rows.append(r.reshape(-1))
+    return torch.stack(pooled, dim=1), torch.cat(rows)
+
+
+_ID_SIZES = {torch.int32: 4, torch.int64: 8}  # the ids the kernel reads
+
+
+def _check_slot(table, slot_ids, dim, batch, index) -> Tuple[int, int, int]:
+    """One slot's checks: a (V >= 2, dim) table and (batch, S) integer ids
+    on device ``index`` (``get_device()``: -1 for the CPU). Returns (V, S,
+    the element size of the ids the kernel reads: 4, 8, or 0 for ids it
+    needs as int64)."""
+    try:
+        vocab, table_dim = table.shape
+        slot_batch, bag = slot_ids.shape
+    except ValueError:
+        raise ValueError(f"expected a (V, D) table and (B, S) ids, got "
+                         f"{tuple(table.shape)} and "
+                         f"{tuple(slot_ids.shape)}") from None
+    if table_dim != dim or slot_batch != batch:
+        raise ValueError(f"expected tables of one D ({dim}) and ids of one "
+                         f"B ({batch}), got {tuple(table.shape)} and "
+                         f"{tuple(slot_ids.shape)}")
+    if vocab < 2:
+        raise ValueError("a hashed table needs a row beside the padding "
+                         "row 0")
+    size = _ID_SIZES.get(slot_ids.dtype, 0)
+    if not size and (slot_ids.dtype.is_floating_point
+                     or slot_ids.dtype == torch.bool):
+        raise TypeError(f"ids must be integers, got {slot_ids.dtype}")
+    if table.get_device() != index or slot_ids.get_device() != index:
+        raise ValueError("inputs on several devices")
+    return vocab, bag, size
+
+
+def _check_slots(tables, ids, out_dtype):
+    if len(tables) == 0 or len(tables) != len(ids):
+        raise ValueError(f"expected one ids tensor per table and at least "
+                         f"one, got {len(tables)} tables and {len(ids)} ids")
+    if out_dtype not in SLOT_DTYPES:
+        raise TypeError(f"the pooled output is bf16 or f32, got {out_dtype}")
+    device = tables[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
+def embedding_bag_slots_fwd(tables: Sequence[torch.Tensor],
+                            ids: Sequence[torch.Tensor],
+                            out_dtype: torch.dtype = torch.bfloat16
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's multi-slot wrapper: the raw (B, S_i) ids of every slot through
+    the collection's hash into its (V_i, D) f32 table. Returns ((B, slots,
+    D) ``out_dtype``, the flat int32 rows read, slot-major). The plain
+    version for CPU tensors; for CUDA tensors one launch per
+    :data:`MAX_SLOTS` slots."""
+    _check_slots(tables, ids, out_dtype)
+    device = tables[0].device
+    dim, batch = tables[0].shape[-1], ids[0].shape[0]
+    index = tables[0].get_device()
+    if device.type == "cpu":
+        for table, slot_ids in zip(tables, ids):
+            _check_slot(table, slot_ids, dim, batch, index)
+        return embedding_bag_slots_reference(tables, ids, out_dtype)
+    # one pass checks each slot and packs its descriptor (the wrapper's
+    # host time grows with the slots: keep it lean)
+    words, keep, total = [], [], 0
+    for table, slot_ids in zip(tables, ids):
+        vocab, bag, size = _check_slot(table, slot_ids, dim, batch, index)
+        if table.dtype != torch.float32 or not table.is_contiguous():
+            raise TypeError("K1 takes contiguous f32 tables")
+        if not size:
+            slot_ids, size = slot_ids.to(torch.int64), 8
+        if not slot_ids.is_contiguous():
+            slot_ids = slot_ids.contiguous()
+        keep.append(slot_ids)  # referenced until launched
+        words += (table.data_ptr(), slot_ids.data_ptr(), 0, batch * total,
+                  vocab, bag, size)
+        total += bag
+    n = len(tables)
+    if max(batch, dim, batch * total, *words[4::_DESC_WORDS]) > 2**31 - 1:
+        raise ValueError("a dimension does not fit in int32")
+    out = torch.empty((batch, n, dim), dtype=out_dtype, device=device)
+    rows = torch.empty(batch * total, dtype=torch.int32, device=device)
+    if out.numel() == 0:
+        return out, rows
+    for start in range(0, n, MAX_SLOTS):
+        part = array("q", words[start * _DESC_WORDS:
+                                (start + MAX_SLOTS) * _DESC_WORDS])
+        _launch(device, part, min(MAX_SLOTS, n - start), batch, dim, out,
+                rows, n, start, True)
+    return out, rows
+
+
+class _SlotBags(torch.autograd.Function):
+    """Forward :func:`embedding_bag_slots_fwd`; backward the JAX package's
+    scatter-add at the rows the forward read (no hash recomputed): the
+    cotangent times the mask for every slot in one op, then per slot a
+    dense ``d_table`` by ``zeros`` and ``index_add_``. The ids get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, out_dtype, ids, *tables):
+        pooled, rows = embedding_bag_slots_fwd(tables, ids, out_dtype)
+        ctx.save_for_backward(rows)
+        ctx.batch = ids[0].shape[0]
+        ctx.bags = [i.shape[1] for i in ids]
+        ctx.table_shapes = [t.shape for t in tables]
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        batch, bags = ctx.batch, ctx.bags
+        n, dim = len(bags), g.shape[2]
+        if len(set(bags)) == 1:
+            # (slots, B, S, D) f32 in one op: the cotangent (exact in f32)
+            # times the mask, as JAX's cotangent of gathered * mask
+            r = rows.view(n, batch, bags[0])
+            contrib = torch.empty((n, batch, bags[0], dim),
+                                  dtype=torch.float32, device=g.device)
+            torch.mul(g.transpose(0, 1).unsqueeze(2), (r > 0).unsqueeze(-1),
+                      out=contrib)
+            parts = list(zip(r, contrib))
+        else:
+            parts = [(r, g[:, i].float().unsqueeze(1) * (r > 0).unsqueeze(-1))
+                     for i, r in enumerate(slot_rows(rows, batch, bags))]
+        d_tables = []
+        for i, (r, c) in enumerate(parts):
+            if not ctx.needs_input_grad[2 + i]:
+                d_tables.append(None)
+                continue
+            d_tables.append(torch.zeros(
+                ctx.table_shapes[i], dtype=torch.float32,
+                device=g.device).index_add_(0, r.reshape(-1),
+                                            c.reshape(-1, dim)))
+        return (None, None, *d_tables)
+
+
+def embedding_bag_slots(tables: Sequence[torch.Tensor],
+                        ids: Sequence[torch.Tensor],
+                        out_dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
+    """Device mode's pooled lookup of every slot, differentiable in the
+    tables: (B, slots, D) ``out_dtype`` through one K1 launch on the card
+    (per :data:`MAX_SLOTS` slots), its plain version on the CPU."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        return _SlotBags.apply(out_dtype, tuple(ids), *tables)
+    return embedding_bag_slots_fwd(tables, ids, out_dtype)[0]

@@ -212,12 +212,12 @@ def _ptr(t):
 
 
 def _call(kernel: str, symbol: str, argtypes, device, *args):
-    _build.launch(kernel, KERNEL_SOURCES[kernel], symbol, argtypes, device,
-                  *args)
+    _build.launcher(kernel, KERNEL_SOURCES[kernel], symbol, argtypes)(
+        device, *args)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the launchers' arguments before the stream, which _build.launch appends
+# the launchers' arguments before the stream, which _build.Launcher appends
 _FWD_ARGS = [_P] * 6 + [_I] * 8 + [_F]
 _BWD_ARGS = [_P] * 9 + [_I] * 8 + [_F]  # K3 and K4
 

@@ -65,31 +65,33 @@ def probe_copy(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K5's wrapper. The plain version for CPU tensors; for CUDA tensors
     the kernel, which takes a contiguous f32 ``src`` whose rows
     (``src[i]``) are a multiple of 16 bytes, and a (1,) int32 ``idx``."""
-    if src.dim() < 2 or src.shape[0] == 0 or tuple(idx.shape) != (1,):
+    shape = src.shape
+    if len(shape) < 2 or shape[0] == 0 or idx.shape != (1,):
         raise ValueError(f"expected src (N, ...) and idx (1,), got "
-                         f"{tuple(src.shape)} and {tuple(idx.shape)}")
-    if src.device != idx.device:
-        raise ValueError(f"inputs on several devices: {src.device}, "
+                         f"{tuple(shape)} and {tuple(idx.shape)}")
+    device = src.device
+    if device != idx.device:
+        raise ValueError(f"inputs on several devices: {device}, "
                          f"{idx.device}")
-    if src.device.type == "cpu":
+    if device.type == "cpu":
         return probe_copy_reference(src, idx)
-    if src.device.type != "cuda":
-        raise ValueError(f"unsupported device {src.device}")
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
     if src.dtype != torch.float32 or not src.is_contiguous():
         raise TypeError("K5 takes a contiguous f32 src")
     if idx.dtype != torch.int32:
         raise TypeError(f"K5 takes an int32 idx, got {idx.dtype}")
-    row_floats = src[0].numel()
-    if (4 * row_floats) % 16 or src.data_ptr() % 16:
+    row_floats = src.numel() // shape[0]
+    ptr = src.data_ptr()
+    if (4 * row_floats) % 16 or ptr % 16:
         raise ValueError(
             f"a bulk copy moves 16-byte aligned multiples of 16 bytes; a "
-            f"row here is {4 * row_floats} bytes at address "
-            f"{src.data_ptr():#x}")
+            f"row here is {4 * row_floats} bytes at address {ptr:#x}")
     n_out = min(OUT_FLOATS, row_floats)
-    out = torch.empty((1, n_out), dtype=torch.float32, device=src.device)
-    _build.launch(KERNEL, KERNEL, "persia_probe_copy", _ARGS, src.device,
-                  src.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                  src.shape[0], row_floats, n_out)
+    out = torch.empty((1, n_out), dtype=torch.float32, device=device)
+    _build.launcher(KERNEL, KERNEL, "persia_probe_copy", _ARGS)(
+        device, ptr, idx.data_ptr(), out.data_ptr(), src.shape[0],
+        row_floats, n_out)
     return out
 
 

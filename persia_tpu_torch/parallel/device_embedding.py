@@ -4,9 +4,12 @@ device_embedding.py``): the sparse half of device mode.
 The sign space is hashed into a fixed-vocab table that lives in the
 card's memory and trains with the dense tower's optimizer; no parameter
 server is involved. The pooled lookup is the embedding-bag kernel K1
-(:mod:`persia_tpu_torch.ops.embedding_bag`). Tables are single-device in
-this slice: the JAX package shards them over a mesh's ``model`` axis,
-which waits for ROADMAP queue A item 3.
+(:mod:`persia_tpu_torch.ops.embedding_bag`): the collection pools all
+its slots of one embedding dim, hash and mask included, in one launch
+(:func:`~persia_tpu_torch.ops.embedding_bag.embedding_bag_slots`), and a
+lone :class:`DeviceEmbeddingBag` takes K1's single-table entry. Tables
+are single-device in this slice: the JAX package shards them over a
+mesh's ``model`` axis, which waits for ROADMAP queue A item 3.
 """
 
 from typing import Any, Dict, List, Sequence
@@ -16,8 +19,11 @@ from torch import nn
 
 from persia_tpu_torch.device import DeviceLike, resolve_device
 from persia_tpu_torch.ops.embedding_bag import (
+    SLOT_DTYPES,
     embedding_bag,
     embedding_bag_reference,
+    embedding_bag_slots,
+    hash_ids,
 )
 
 BAG_IMPLS = ("kernel", "reference")
@@ -70,7 +76,11 @@ class DeviceEmbeddingCollection(nn.Module):
     slot ``name`` is ``bag_{name}``. ``forward`` takes a dict name ->
     (bs, sfs) integer id tensor where ids <= 0 are padding: ``mask = ids >
     0`` and ``hashed = ((ids % (vocab - 1)) + 1) * mask`` in int32, so
-    row 0 is only ever read with weight 0.
+    row 0 is only ever read with weight 0. With ``bag_impl="kernel"`` the
+    slots of each embedding dim go through one K1 call (hash fused in;
+    its plain version on the CPU) and the outputs are views of its (bs,
+    slots, dim) result; ``"reference"`` runs the plain per-slot path on
+    any device.
     """
 
     def __init__(self, slot_specs: Sequence[Any],
@@ -78,6 +88,8 @@ class DeviceEmbeddingCollection(nn.Module):
                  bag_impl: str = "kernel", device: DeviceLike = None):
         super().__init__()
         self.slot_specs = [tuple(s) for s in slot_specs]
+        self.compute_dtype = compute_dtype
+        self.bag_impl = bag_impl
         for name, vocab, dim in self.slot_specs:
             if vocab < 2:
                 raise ValueError(f"slot {name}: vocab {vocab} leaves no row "
@@ -85,13 +97,32 @@ class DeviceEmbeddingCollection(nn.Module):
             self.add_module(f"bag_{name}", DeviceEmbeddingBag(
                 vocab, dim, compute_dtype=compute_dtype, bag_impl=bag_impl,
                 device=device))
+        # slot positions grouped by embedding dim, in order of appearance,
+        # with their names and bags (a plain list: the children stay the
+        # registered bag_{name} modules)
+        groups: Dict[int, List[int]] = {}
+        for i, (_, _, dim) in enumerate(self.slot_specs):
+            groups.setdefault(dim, []).append(i)
+        self._groups = [
+            (group, [self.slot_specs[i][0] for i in group],
+             [getattr(self, f"bag_{self.slot_specs[i][0]}") for i in group])
+            for group in groups.values()]
 
     def forward(self, id_tensors: Dict[str, torch.Tensor]
                 ) -> List[torch.Tensor]:
-        out = []
-        for name, vocab, _ in self.slot_specs:
-            ids = id_tensors[name]
-            mask = ids > 0
-            hashed = ((ids % (vocab - 1)) + 1).to(torch.int32)
-            out.append(getattr(self, f"bag_{name}")(hashed * mask, mask))
+        if self.bag_impl == "reference":
+            return [getattr(self, f"bag_{name}")(
+                *hash_ids(id_tensors[name], vocab))
+                for name, vocab, _ in self.slot_specs]
+        dtype = self.compute_dtype
+        kernel_dtype = dtype if dtype in SLOT_DTYPES else torch.float32
+        out: List[torch.Tensor] = [None] * len(self.slot_specs)
+        for group, names, bags in self._groups:
+            pooled = embedding_bag_slots([bag.table for bag in bags],
+                                         [id_tensors[n] for n in names],
+                                         kernel_dtype)
+            if kernel_dtype != dtype:
+                pooled = pooled.to(dtype)
+            for i, emb in zip(group, pooled.unbind(1)):
+                out[i] = emb
         return out

@@ -141,6 +141,102 @@ def test_device_embedding_collection_matches_flax():
                                    rtol=2**-8, atol=1e-6)
 
 
+@pytest.mark.parametrize("sfs", [1, 4, "mixed"])
+def test_collection_slots_and_gradients_match_flax(sfs):
+    """The collection's kernel path (K1's multi-slot plain version on the
+    CPU, through its autograd Function) against the flax collection: two
+    dims, several vocabs (one of 2 rows), padding ids 0 and negative;
+    the bf16 outputs bit-equal at sfs 1 (one product by 1 or 0, rounded
+    once) and within 2**-8 otherwise, every table's gradient against
+    ``jax.grad`` within 1e-6 (f32 scatter-adds in another order), and the
+    rows the entry reports equal to the JAX hash."""
+    import jax
+    import jax.numpy as jnp
+    from flax.core import meta
+
+    from persia_tpu.parallel.device_embedding import (
+        DeviceEmbeddingCollection as J,
+    )
+    from persia_tpu_torch.ops import embedding_bag as eb
+
+    specs = [("a", 64, 8), ("b", 257, 16), ("c", 2, 8), ("d", 1000, 16),
+             ("e", 300, 16)]
+    bags = {"mixed": [1, 4, 2, 3, 4]}.get(sfs, [sfs] * len(specs))
+    ids = {name: _ids(10 + i, (BS, bag), vocab)
+           for i, ((name, vocab, _), bag) in enumerate(zip(specs, bags))}
+    rng = np.random.default_rng(12)
+    cots = [rng.normal(size=(BS, dim)).astype(np.float32)
+            for _, _, dim in specs]
+    jcoll = J(slot_specs=specs)
+    jids = {k: jnp.asarray(v) for k, v in ids.items()}
+    params = meta.unbox(jcoll.init(jax.random.key(3), jids))
+
+    def jloss(p):
+        return sum((o.astype(jnp.float32) * c).sum()
+                   for o, c in zip(jcoll.apply(p, jids), cots))
+
+    want = jcoll.apply(params, jids)
+    want_grads = jax.grad(jloss)(params)["params"]
+    tcoll = DeviceEmbeddingCollection(specs, device="cpu")
+    load_flax_params(tcoll, numpy_tree(params["params"]))
+    tids = {k: torch.from_numpy(v) for k, v in ids.items()}
+    got = tcoll(tids)
+    sum((g.float() * torch.from_numpy(c)).sum()
+        for g, c in zip(got, cots)).backward()
+    for (name, vocab, _), g, w in zip(specs, got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.dtype == torch.bfloat16
+        if sfs == 1:
+            np.testing.assert_array_equal(g.detach().float().numpy(), w)
+        else:
+            np.testing.assert_allclose(g.detach().float().numpy(), w,
+                                       rtol=2**-8, atol=1e-6)
+        np.testing.assert_allclose(
+            getattr(tcoll, f"bag_{name}").table.grad.numpy(),
+            np.asarray(want_grads[f"bag_{name}"]["table"]), rtol=1e-6,
+            atol=1e-6, err_msg=name)
+    # the rows of one group, as the backward scatters at them
+    group = [i for i, s in enumerate(specs) if s[2] == 16]
+    _, rows = eb.embedding_bag_slots_fwd(
+        [getattr(tcoll, f"bag_{specs[i][0]}").table.detach() for i in group],
+        [tids[specs[i][0]] for i in group])
+    for i, r in zip(group, eb.slot_rows(rows, BS, [bags[i] for i in group])):
+        raw, vocab = ids[specs[i][0]], specs[i][1]
+        np.testing.assert_array_equal(
+            r.numpy(), ((raw % (vocab - 1)) + 1) * (raw > 0))
+
+
+def test_collection_makes_one_kernel_call_per_dim(monkeypatch):
+    """``bag_impl="kernel"``: one multi-slot call per distinct embedding
+    dim, each over that dim's slots in order, and the outputs are views
+    of its (bs, slots, dim) result; ``"reference"`` makes none."""
+    from persia_tpu_torch.parallel import device_embedding as de
+
+    calls = []
+    inner = de.embedding_bag_slots
+
+    def spy(tables, ids, out_dtype):
+        calls.append([tuple(t.shape) for t in tables])
+        return inner(tables, ids, out_dtype)
+
+    monkeypatch.setattr(de, "embedding_bag_slots", spy)
+    specs = [("a", 64, 8), ("b", 257, 16), ("c", 2, 8), ("d", 1000, 16)]
+    ids = {name: torch.from_numpy(_ids(i, (BS, 2), vocab))
+           for i, (name, vocab, _) in enumerate(specs)}
+    out = DeviceEmbeddingCollection(specs, device="cpu")(ids)
+    assert calls == [[(64, 8), (2, 8)], [(257, 16), (1000, 16)]]
+    assert out[0]._base is out[2]._base and out[1]._base is out[3]._base
+    assert [tuple(o.shape) for o in out] == [(BS, 8), (BS, 16), (BS, 8),
+                                             (BS, 16)]
+    calls.clear()
+    ref = DeviceEmbeddingCollection(specs, bag_impl="reference",
+                                    device="cpu")
+    ref.load_state_dict(DeviceEmbeddingCollection(specs,
+                                                  device="cpu").state_dict())
+    ref(ids)
+    assert calls == []
+
+
 def test_dlrm_pair_order_and_width():
     import jax.numpy as jnp
 
