@@ -382,41 +382,21 @@ def profile_window(torch, fn):
 
 
 def launch_path_phase(torch, card: str) -> dict:
-    """What a launch costs on this card and host: the launch floor (the
-    device time of the smallest PyTorch kernel, ``torch.cuda._sleep(0)``,
-    from the profiler, and its host time a call), and the host time of
-    the pieces of the port's launch path (``ops/_build.Launcher``): the
-    raw current stream read as ``Launcher`` reads it against through a
-    ``torch.cuda.Stream`` object, the current device, a device guard."""
-    stream_old = torch.cuda.current_stream(0).cuda_stream
-    if torch._C._cuda_getCurrentRawStream(0) != stream_old:
+    """The launch floor on this card and host: the device time of the
+    smallest PyTorch kernel, ``torch.cuda._sleep(0)``, from the profiler,
+    and its host time a call. Also holds the raw current stream that
+    ``ops/_build.Launcher`` reads to ``torch.cuda.current_stream()``."""
+    if torch._C._cuda_getCurrentRawStream(0) != torch.cuda.current_stream(
+            0).cuda_stream:
         raise AssertionError("the raw current stream differs from "
                              "torch.cuda.current_stream().cuda_stream")
-
-    def guard():
-        with torch.cuda.device(0):
-            pass
-
-    pieces = {
-        "torch.cuda.current_stream(0).cuda_stream":
-            lambda: torch.cuda.current_stream(0).cuda_stream,
-        "torch._C._cuda_getCurrentRawStream(0)":
-            lambda: torch._C._cuda_getCurrentRawStream(0),
-        "torch.cuda.current_device()": torch.cuda.current_device,
-        "torch._C._cuda_getDevice()": torch._C._cuda_getDevice,
-        "with torch.cuda.device(0)": guard,
-    }
-    us = {n: host_us(torch, f, 2000) for n, f in pieces.items()}
     floor_dev = kernel_device_ms(torch, lambda: torch.cuda._sleep(0),
                                  "spin_kernel", calls=200)
     floor_host = host_us(torch, lambda: torch.cuda._sleep(0), 2000)
-    _log("[launch] host us a call: " + "; ".join(
-        f"{n}={v:.3f}" for n, v in us.items()) + f" | card: {card}")
     _log(f"[launch] launch floor: torch.cuda._sleep(0) device_ms_per_launch="
          f"{'not measured' if floor_dev is None else f'{floor_dev:.6f}'} "
          f"host_us_per_call={floor_host:.3f} | card: {card}")
-    return {"floor_device_ms": floor_dev, "floor_host_us": floor_host,
-            "pieces_us": us}
+    return {"floor_device_ms": floor_dev, "floor_host_us": floor_host}
 
 
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
@@ -856,22 +836,33 @@ def bag_inputs(torch, gen, vocab, dim, batch, bag, edge_ids: bool):
     return table, ids, weights
 
 
-def slot_inputs(torch, gen, n_slots, vocab, dim, batch, bag):
-    """Device mode's multi-slot call: ``n_slots`` (vocab, dim) f32 tables
-    and raw int32 ids in [1, 2^31) as ``synthetic_device_batch`` draws
-    them, about a quarter of them padding (0, or -1 in every 7th)."""
+def slot_inputs(torch, gen):
+    """Device mode's multi-slot call: ``DM_SLOTS`` (DM_VOCAB, DM_DIM) f32
+    tables; the ids of the main path's batch, drawn by
+    ``synthetic_device_batch`` with the main path's arguments (every id in
+    [1, 2^31), one a slot, no padding); and, for the bit-equality check
+    alone, a copy of them with about a quarter turned to padding (0, or -1
+    in every 7th)."""
+    from persia_tpu_torch.parallel.device_mode import (
+        criteo_like_specs,
+        synthetic_device_batch,
+    )
+
     dev = torch.device("cuda")
+    specs = criteo_like_specs(DM_SLOTS, DM_VOCAB, DM_DIM)
     tables = [torch.randn((vocab, dim), generator=gen, device=dev)
-              for _ in range(n_slots)]
-    ids = []
-    for _ in range(n_slots):
-        i = torch.randint(1, 2**31 - 1, (batch, bag), generator=gen,
-                          device=dev, dtype=torch.int32)
-        pad = torch.rand((batch, bag), generator=gen, device=dev) < 0.25
+              for _, vocab, dim in specs]
+    _, batch_ids, _ = synthetic_device_batch(DM_BATCH, DM_DENSE, specs,
+                                             seed=SEED, device=dev)
+    ids = [batch_ids[name] for name, _, _ in specs]
+    padded = []
+    for i in ids:
+        i = i.clone()
+        pad = torch.rand(i.shape, generator=gen, device=dev) < 0.25
         i[pad] = 0
         i.view(-1)[::7][pad.view(-1)[::7]] = -1
-        ids.append(i)
-    return tables, ids
+        padded.append(i)
+    return tables, ids, padded
 
 
 def sparse_kernel_phase(torch, card: str) -> dict:
@@ -888,17 +879,20 @@ def sparse_kernel_phase(torch, card: str) -> dict:
     from persia_tpu_torch.ops import embedding_bag as eb
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    tables, ids = slot_inputs(torch, gen, DM_SLOTS, DM_VOCAB, DM_DIM,
-                              DM_BATCH, 1)
-    got, rows = eb.embedding_bag_slots_fwd(tables, ids)
-    want, want_rows = eb.embedding_bag_slots_reference(tables, ids)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(rows, want_rows)):
-        raise AssertionError(
-            f"K1 multi-slot: not bit-equal to its plain version at S=1 (max "
-            f"abs err {float((got.float() - want.float()).abs().max())}, "
-            f"rows equal {torch.equal(rows, want_rows)})")
-    multi_err = float((got.float() - want.float()).abs().max())
+    tables, ids, padded = slot_inputs(torch, gen)
+    multi_err = 0.0
+    # the main path's ids last: what follows times them, with their rows
+    for tag, slot_ids in (("with padding", padded), ("main-path ids", ids)):
+        got, rows = eb.embedding_bag_slots_fwd(tables, slot_ids)
+        want, want_rows = eb.embedding_bag_slots_reference(tables, slot_ids)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not (torch.equal(got, want) and torch.equal(rows, want_rows)):
+            raise AssertionError(
+                f"K1 multi-slot, {tag}: not bit-equal to its plain version "
+                f"at S=1 (max abs err {err}, rows equal "
+                f"{torch.equal(rows, want_rows)})")
+        multi_err = max(multi_err, err)
 
     def old_path():
         """The per-slot work the call replaces, with the library's bag."""
@@ -926,8 +920,10 @@ def sparse_kernel_phase(torch, card: str) -> dict:
                      2.0 * DM_SLOTS * DM_BATCH * DM_DIM, PEAK_F32_FLOPS)
     share = "not measured" if dev_ms is None else f"{bound[0] / dev_ms:.4f}"
     _log(f"[kernel] embedding_bag multi-slot device-mode shape {DM_SLOTS} x "
-         f"V={DM_VOCAB} D={DM_DIM} B={DM_BATCH} S=1, hash fused, bf16 out: "
-         f"bit-equal (outputs and rows) kernel_ms={ms:.6f} (again "
+         f"V={DM_VOCAB} D={DM_DIM} B={DM_BATCH} S=1, hash fused, bf16 out, "
+         f"the main path's ids (synthetic_device_batch, seed {SEED}): "
+         f"bit-equal (outputs and rows; also with ~25% padding) "
+         f"kernel_ms={ms:.6f} (again "
          f"{ms_again:.6f}) host_us_per_call={host:.3f} device_ms_per_launch="
          f"{'not measured' if dev_ms is None else f'{dev_ms:.6f}'} "
          f"bound_ms={bound[0]:.6f} ({bound[1]}, {distinct} distinct rows) "
@@ -944,7 +940,7 @@ def sparse_kernel_phase(torch, card: str) -> dict:
                  f"S=1 (one call)",
         "device_ms_per_launch": dev_ms, "host_us_per_call": host,
         "old_per_slot_path_ms": old_ms}
-    del tables, ids, got, want, rows, want_rows
+    del tables, ids, padded, got, want, rows, want_rows
     torch.cuda.empty_cache()
 
     for tag, (vocab, dim, batch, bag, edge) in {

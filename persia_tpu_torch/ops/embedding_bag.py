@@ -328,28 +328,24 @@ class _SlotBags(torch.autograd.Function):
     def backward(ctx, g):
         (rows,) = ctx.saved_tensors
         batch, bags = ctx.batch, ctx.bags
-        n, dim = len(bags), g.shape[2]
-        if len(set(bags)) == 1:
-            # (slots, B, S, D) f32 in one op: the cotangent (exact in f32)
-            # times the mask, as JAX's cotangent of gathered * mask
-            r = rows.view(n, batch, bags[0])
-            contrib = torch.empty((n, batch, bags[0], dim),
-                                  dtype=torch.float32, device=g.device)
-            torch.mul(g.transpose(0, 1).unsqueeze(2), (r > 0).unsqueeze(-1),
-                      out=contrib)
-            parts = list(zip(r, contrib))
-        else:
-            parts = [(r, g[:, i].float().unsqueeze(1) * (r > 0).unsqueeze(-1))
-                     for i, r in enumerate(slot_rows(rows, batch, bags))]
-        d_tables = []
-        for i, (r, c) in enumerate(parts):
-            if not ctx.needs_input_grad[2 + i]:
-                d_tables.append(None)
-                continue
-            d_tables.append(torch.zeros(
-                ctx.table_shapes[i], dtype=torch.float32,
-                device=g.device).index_add_(0, r.reshape(-1),
-                                            c.reshape(-1, dim)))
+        dim = g.shape[2]
+        # the rows are slot-major (slot, b, s): the (slot, b) row of the
+        # cotangent repeated S times, times the mask, is every slot's
+        # contribution at once (JAX's cotangent of gathered * mask, exact in
+        # f32). An int repeat when the bags agree needs no tensor on the card
+        reps = (bags[0] if len(set(bags)) == 1 else torch.tensor(
+            bags, device=g.device).repeat_interleave(batch))
+        contrib = torch.empty((rows.numel(), dim), dtype=torch.float32,
+                              device=g.device)
+        torch.mul(g.transpose(0, 1).reshape(-1, dim).repeat_interleave(
+            reps, dim=0, output_size=rows.numel()), (rows > 0).unsqueeze(-1),
+            out=contrib)
+        sizes = [batch * bag for bag in bags]
+        d_tables = [
+            torch.zeros(shape, dtype=torch.float32, device=g.device)
+            .index_add_(0, r, c) if ctx.needs_input_grad[2 + i] else None
+            for i, (shape, r, c) in enumerate(zip(
+                ctx.table_shapes, rows.split(sizes), contrib.split(sizes)))]
         return (None, None, *d_tables)
 
 
