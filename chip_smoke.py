@@ -40,16 +40,32 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    ``examples/seq_rec/train.py``. Every prediction must be finite and in
    (0, 1) and agree with a second server whose tower uses the dense
    reference attention; K2 must have launched.
-4. Training phase, the sequence tower's main path: ``TrainCtx`` on the
-   card trains ``SequenceTower(attn_impl="flash")`` at the example's
-   widths over two fresh PS shards (sparse Adagrad, dense Adam) for 300
-   steps of batch 256 of ``seqrec`` traffic, then ``eval_ctx`` scores 4096
-   held-out samples; the AUC must pass the example's own bar (0.62). The
-   launch counters are zeroed just before the 300 steps and read just
-   after: K2, K3 and K4 must each have launched. Before that, a flash
-   tower and a reference tower train 3 steps from the same weights and
-   fresh PS rows in f32 and must agree.
-5. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
+4. Training phase, the sequence tower's synchronous path: ``TrainCtx``
+   on the card trains ``SequenceTower(attn_impl="flash")`` at the
+   example's widths over two fresh PS shards, each
+   ``make_holder(2_000_000, 8)`` (the arena holder; sparse Adagrad,
+   dense Adam), for 300 steps of batch 256 of ``seqrec`` traffic, then
+   ``eval_ctx`` scores 4096 held-out samples; the AUC must pass the
+   example's own bar (0.62). The launch counters are zeroed just before
+   the 300 steps and read just after: K2, K3 and K4 must each have
+   launched. Before that, a flash tower and a reference tower train 3
+   steps from the same weights and fresh PS rows in f32 and must agree.
+   After it, the A/B of the PS holder: the first 60 steps again on the
+   per-entry holder (``backend="python-legacy"``); both print samples/s,
+   step p50/p99 and the split synchronized after each stage, and the
+   arena its shard calls by path (batched, rounds, sequential).
+5. Pipelined phase, the sequence tower's pipelined path:
+   ``DataLoader`` (4 lookup workers, embedding staleness 8, forward
+   buffer 8: ``bench.py``'s ``bench_hybrid``) over the same 300 batches
+   into a fresh arena-backed ``TrainCtx``; samples/s, step p50/p99, the
+   training thread's split, a profiled window's device busy share, the
+   AUC on the same 4096 held-out samples (bar 0.62), K2, K3 and K4
+   launched (counters zeroed just before, read just after), and after
+   the loop the pipeline at rest: worker staleness 0, every permit back,
+   no lost update. Before that, 10 pipelined steps (reproducible,
+   staleness 1) must agree with 10 synchronous steps from the same
+   weights in f32, losses and PS rows.
+6. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
    configuration (26 hashed tables of 2^20 x 16 resident on the card,
    ``DLRM(embedding_dim=16)`` in bf16, ``OptaxAdagrad(0.02)``, batch
    4096): first a kernel tower and a plain tower train 3 steps from one
@@ -61,7 +77,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    per step (the collection pools its 26 slots in one call); every loss
    must be finite, the repeated batch's loss must fall below step 0's
    and an eval forward must give predictions in (0, 1).
-6. Probe phase, K5's path: ``run_probe`` of
+7. Probe phase, K5's path: ``run_probe`` of
    ``python -m persia_tpu_torch.ops.probe_copy``, counters zeroed just
    before; every case (the TPU probe's four) must match. Each case's
    plain version, its library yardstick (``index_select``), K5's device
@@ -109,6 +125,9 @@ SERVING_ATOL = 2e-2
 # gradient relative to its largest element.
 TRAIN_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
+# Also the pipelined run (reproducible, staleness 1) against the
+# synchronous run in f32: the same operations in the same order, so equal
+# unless a stream ordering across threads is wrong.
 # the example's own pass bar (examples/seq_rec/train.py:166)
 AUC_BAR = 0.62
 # K1 against its plain version: at S = 1 each output is one rounded
@@ -157,6 +176,12 @@ SEED = 0
 TRAIN_SEED = 42  # the example's --seed
 TRAIN_STEPS = 300
 TRAIN_BATCH = 256
+LEGACY_STEPS = 60  # synchronous steps on the per-entry PS holder (the A/B)
+# the pipelined phase: bench.py's bench_hybrid and the criteo example
+PIPE_WORKERS = 4
+PIPE_STALENESS = 8
+PIPE_BUFFER = 8
+PIPE_AGREE_STEPS = 10
 EVAL_SAMPLES = 4096
 # device mode: bench.py's bench_device configuration (26 hashed slots of
 # 2^20 x 16, 13 dense features, DLRM(embedding_dim=16), adagrad(0.02),
@@ -1088,13 +1113,24 @@ def build_schema():
     return EmbeddingSchema(slots_config=slots)
 
 
-def fresh_worker(schema):
-    """A worker over ``N_PS`` empty PS shards, as the example builds."""
-    from persia_tpu_torch.ps.store import EmbeddingHolder
+def fresh_worker(schema, backend=None):
+    """A worker over ``N_PS`` empty PS shards, each
+    ``make_holder(2_000_000, 8)`` as the example builds them (the arena
+    holder); ``backend="python-legacy"`` gives the per-entry holder."""
+    from persia_tpu_torch.ps.native import make_holder
     from persia_tpu_torch.worker.worker import EmbeddingWorker
 
     return EmbeddingWorker(
-        schema, [EmbeddingHolder(2_000_000, 8) for _ in range(N_PS)])
+        schema, [make_holder(2_000_000, 8, backend=backend)
+                 for _ in range(N_PS)])
+
+
+def ps_paths(worker) -> str:
+    """The arena holders' shard calls by path, summed over the PS."""
+    from persia_tpu_torch.ps.arena import PATHS
+
+    stats = [h.arena_stats() for h in worker.ps_clients]
+    return " ".join(f"{k}={sum(int(st[k]) for st in stats)}" for k in PATHS)
 
 
 def build_world():
@@ -1240,6 +1276,83 @@ def serving_phase(torch, card: str):
          f"(atol {SERVING_ATOL}) | card: {card}")
 
 
+def thread_cpu_s() -> dict:
+    """CPU seconds (user + system, from /proc) of this process's threads
+    so far, by group: each Python thread by its name without the worker
+    number, every other thread (the intra-op pool, CUDA's and autograd's
+    threads) as "other"."""
+    tick = os.sysconf("SC_CLK_TCK")
+    named = {t.native_id: re.sub(r"-\d+$", "", t.name)
+             for t in threading.enumerate()}
+    out: dict = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except FileNotFoundError:  # the thread ended meanwhile
+            continue
+        group = named.get(int(tid), "other")
+        out[group] = out.get(group, 0.0) + (
+            int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def cpu_by_thread(before: dict, after: dict, steps: int) -> str:
+    """Host CPU ms a step between two ``thread_cpu_s`` readings, by
+    group (threads that ended in between count from ``after`` alone)."""
+    return " ".join(
+        f"{g}={max(0.0, after[g] - before.get(g, 0.0)) / steps * 1e3:.1f}"
+        for g in sorted(after))
+
+
+def report_steps(phase: str, what: str, steps_ms, card: str):
+    import numpy as np
+
+    _log(f"[{phase}] {what}: {len(steps_ms)} steady steps of batch "
+         f"{TRAIN_BATCH}: samples_per_s="
+         f"{TRAIN_BATCH / (steps_ms.mean() / 1e3):.1f} "
+         f"step_p50_ms={np.percentile(steps_ms, 50):.3f} "
+         f"step_p99_ms={np.percentile(steps_ms, 99):.3f} | card: {card}")
+
+
+def report_split(phase: str, what: str, steps, split_s, stages, card: str):
+    _log(f"[{phase}] {what}: step split over steps {steps.start}-"
+         f"{steps.stop - 1}, device synchronized after each stage (ms per "
+         "step): " + " ".join(f"{k}={split_s[k] / len(steps) * 1e3:.3f}"
+                              for k in stages) + f" | card: {card}")
+
+
+def legacy_ab(torch, card: str, spec, batches):
+    """The A/B of the PS holder: the same first steps, synchronous, on the
+    per-entry holder (``make_holder(..., backend="python-legacy")``) from
+    the same seeded weights: steps 10-39 timed, 40-59 synchronized after
+    each stage."""
+    import numpy as np
+
+    from persia_tpu_torch.ctx import STAGES
+
+    ctx = train_ctx(torch, build_schema(),
+                    build_tower(spec.num_dense, "flash"),
+                    backend="python-legacy")
+    split = range(40, len(batches))
+    step_s = []
+    with ctx:
+        for step, batch in enumerate(batches):
+            if step == split.start:
+                ctx.sync_stages = True
+                ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
+            t = time.perf_counter()
+            loss, _ = ctx.train_step(batch)
+            step_s.append(time.perf_counter() - t)
+            if not np.isfinite(float(loss)):
+                raise AssertionError(f"per-entry PS step {step}: non-finite "
+                                     f"loss")
+    report_steps("training", "per-entry PS, steps 10-39",
+                 np.asarray(step_s[10:split.start]) * 1e3, card)
+    report_split("training", "per-entry PS", split, ctx.stage_seconds,
+                 STAGES, card)
+
+
 def report_window(phase: str, what: str, window, card: str):
     wall, busy, top = window
     if busy <= 0:
@@ -1254,13 +1367,13 @@ def report_window(phase: str, what: str, window, card: str):
              f"{name[:200]} | card: {card}")
 
 
-def train_ctx(torch, schema, model, global_config=None):
+def train_ctx(torch, schema, model, global_config=None, backend=None):
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
 
     return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3),
-                    Adagrad(lr=1e-2), schema, fresh_worker(schema),
+                    Adagrad(lr=1e-2), schema, fresh_worker(schema, backend),
                     embedding_config=EmbeddingConfig(
                         emb_initialization=(-0.05, 0.05)),
                     global_config=global_config, device="cuda")
@@ -1354,7 +1467,11 @@ def training_phase(torch, card: str):
     with ctx:
         fa.reset_launch_count()
         for step, batch in enumerate(batches):
+            if step == 10:
+                cpu0 = thread_cpu_s()
             if step == split.start:
+                cpu_split = cpu_by_thread(cpu0, thread_cpu_s(),
+                                          split.start - 10)
                 ctx.sync_stages = True
                 ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
             if step == prof.start:
@@ -1389,16 +1506,16 @@ def training_phase(torch, card: str):
     auc = roc_auc(np.concatenate(labels), preds)
 
     steady = np.asarray(step_s[10:len(timed)]) * 1e3  # past the warm-up
-    _log(f"[training] {len(steady)} steady steps of batch {TRAIN_BATCH}: "
-         f"samples_per_s={TRAIN_BATCH / (steady.mean() / 1e3):.1f} "
-         f"step_p50_ms={np.percentile(steady, 50):.3f} "
-         f"step_p99_ms={np.percentile(steady, 99):.3f} | card: {card}")
-    n_split = len(split)
-    _log("[training] step split over steps "
-         f"{split.start}-{split.stop - 1}, device synchronized after each "
-         "stage (ms per step): " + " ".join(
-             f"{k}={split_s[k] / n_split * 1e3:.3f}" for k in STAGES)
-         + f" | card: {card}")
+    report_steps("training", "arena PS", steady, card)
+    _log(f"[training] arena PS: host CPU ms a step over the steady steps, "
+         f"by thread: {cpu_split} | card: {card}")
+    # the same steps the per-entry run below times
+    report_steps("training", "arena PS, steps 10-39",
+                 np.asarray(step_s[10:40]) * 1e3, card)
+    report_split("training", "arena PS", split, split_s, STAGES, card)
+    _log(f"[training] arena PS shard calls by path over {TRAIN_STEPS} "
+         f"steps: {ps_paths(ctx.worker)} | card: {card}")
+    legacy_ab(torch, card, spec, batches[:LEGACY_STEPS])
     _log("[training] loss " + " ".join(
         f"step{s}={v:.4f}" for s, v in sorted(losses.items()))
         + f" | card: {card}")
@@ -1412,6 +1529,216 @@ def training_phase(torch, card: str):
     if any(c <= 0 for c in launches.values()):
         raise AssertionError(f"a kernel of the training path never "
                              f"launched: {launches}")
+    if not auc > AUC_BAR:
+        raise AssertionError(f"test AUC {auc:.4f} is not above {AUC_BAR}")
+    return launches
+
+
+def ps_rows(worker):
+    """Every PS row of the worker's shards: (shard, sign) -> f32
+    [emb|state], read back from each holder's PSD dump."""
+    import io
+
+    from persia_tpu_torch.ps.store import iter_psd_records, read_psd_header
+
+    rows = {}
+    for r, h in enumerate(worker.ps_clients):
+        buf = io.BytesIO(h.dump_bytes())
+        version, count = read_psd_header(buf)
+        for sign, _dim, vec in iter_psd_records(buf.read, version, count):
+            rows[(r, sign)] = vec
+    return rows
+
+
+def pipelined_loader(batches, reproducible=False, staleness=PIPE_STALENESS):
+    from persia_tpu_torch.data.dataloader import DataLoader, IterableDataset
+
+    return DataLoader(IterableDataset(iter(batches)), num_workers=PIPE_WORKERS,
+                      reproducible=reproducible,
+                      embedding_staleness=staleness,
+                      forward_buffer_size=PIPE_BUFFER)
+
+
+def pipelined_agreement(torch, card: str, spec):
+    """``PIPE_AGREE_STEPS`` pipelined steps (reproducible, staleness 1)
+    against as many synchronous steps from the same weights and fresh PS
+    rows, f32 tower, f32 wire, no TF32: the prefetch threads' copies and
+    the backward threads' downloads must be ordered with the training
+    thread's kernels, so losses and PS rows agree."""
+    import numpy as np
+
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+    from persia_tpu_torch.workloads.generator import seqrec_batches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    schema = build_schema()
+    batches = list(seqrec_batches(PIPE_AGREE_STEPS * TRAIN_BATCH,
+                                  TRAIN_BATCH, seed=TRAIN_SEED, spec=spec))
+    first = build_tower(spec.num_dense, "flash", compute_dtype=torch.float32)
+    second = build_tower(spec.num_dense, "flash",
+                         state_dict=first.state_dict(),
+                         compute_dtype=torch.float32)
+    wire = GlobalConfig(CommonConfig("f32"))
+    sync_ctx = train_ctx(torch, schema, first, wire)
+    with sync_ctx:
+        sync = [float(sync_ctx.train_step(b)[0]) for b in batches]
+    pipe_ctx = train_ctx(torch, schema, second, wire)
+    loader = pipelined_loader(batches, reproducible=True, staleness=1)
+    with pipe_ctx:
+        pipe = [float(pipe_ctx.train_step(lb)[0]) for lb in loader]
+    loader._engine.shutdown()
+    if len(pipe) != len(sync):
+        raise AssertionError(f"pipelined run took {len(pipe)} steps, not "
+                             f"{len(sync)}")
+    loss_err = max(abs(a - b) for a, b in zip(sync, pipe))
+    want, got = ps_rows(sync_ctx.worker), ps_rows(pipe_ctx.worker)
+    if set(want) != set(got):
+        raise AssertionError("pipelined and synchronous runs hold "
+                             "different PS rows")
+    row_err = max(float(np.abs(want[k] - got[k]).max()) for k in want)
+    _log(f"[pipelined] reproducible (staleness 1, {PIPE_WORKERS} workers) "
+         f"vs synchronous, {len(sync)} steps f32: loss max_abs_err="
+         f"{loss_err:.3e} PS rows ({len(want)}) max_abs_err={row_err:.3e} "
+         f"(atol {TRAIN_ATOL}) | card: {card}")
+    if not (loss_err <= TRAIN_ATOL and row_err <= TRAIN_ATOL):
+        raise AssertionError("pipelined and synchronous runs disagree")
+
+
+def pipelined_phase(torch, card: str) -> dict:
+    """The pipelined main path: ``DataLoader`` (4 lookup workers,
+    staleness 8, buffer 8) over the training phase's 300 batches into a
+    fresh arena-backed ``TrainCtx``; the AUC, the launches, and the
+    pipeline back at rest. Returns the launches of each kernel."""
+    import numpy as np
+
+    from persia_tpu_torch.ctx import STAGES, eval_ctx
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.utils import roc_auc
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    pipelined_agreement(torch, card, spec)
+
+    schema = build_schema()
+    model = build_tower(spec.num_dense, "flash")
+    ctx = train_ctx(torch, schema, model)
+    batches = list(seqrec_batches(TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED, spec=spec))
+    loader = pipelined_loader(batches)
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    # as the training phase: [10, 250) timed, [250, 270) synchronized
+    # after each stage, [270, 275) under the profiler
+    timed, split, prof = range(10, 250), range(250, 270), range(270, 275)
+    step_ms, wait_ms, losses = [], [], {}
+    host_allocs = []
+    with ctx:
+        fa.reset_launch_count()
+        it = iter(loader)
+        for step in range(TRAIN_STEPS):
+            if step == timed.start:
+                torch.cuda.synchronize()
+                if host_stats is not None:
+                    host_allocs.append(host_stats().get("num_host_alloc"))
+                t_steady = time.perf_counter()
+                cpu0 = thread_cpu_s()
+            if step == split.start:
+                torch.cuda.synchronize()
+                steady_wall = time.perf_counter() - t_steady
+                cpu_split = cpu_by_thread(cpu0, thread_cpu_s(), len(timed))
+                ctx.sync_stages = True
+                ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
+                split_wait = 0.0
+            if step == prof.start:
+                split_s = dict(ctx.stage_seconds)
+                ctx.sync_stages = False
+                window = profile_window(torch, lambda: [
+                    ctx.train_step(next(it)) for _ in prof])
+            if step in prof:
+                continue
+            t0 = time.perf_counter()
+            lb = next(it)
+            t1 = time.perf_counter()
+            loss, pred = ctx.train_step(lb)
+            t2 = time.perf_counter()
+            if step in timed:
+                step_ms.append((t2 - t0) * 1e3)
+                wait_ms.append((t1 - t0) * 1e3)
+            if step in split:
+                split_wait += t1 - t0
+            if step % 50 == 0:
+                losses[step] = float(loss)
+                if not (np.isfinite(losses[step])
+                        and bool(torch.isfinite(pred).all())):
+                    raise AssertionError(f"step {step}: non-finite output")
+        for _ in it:  # ends the iteration: the loader flushes the updates
+            raise AssertionError("the loader yielded more batches than "
+                                 "steps")
+        torch.cuda.synchronize()
+        launches = {n: fa.launch_count(n) for n in FLASH_KERNELS}
+        if host_stats is not None:
+            host_allocs.append(host_stats().get("num_host_alloc"))
+        engine = loader._engine
+        at_rest = (ctx.worker.staleness, engine.staleness_sem._value,
+                   engine.backward.lost_updates)
+        engine.shutdown()
+
+        preds, labels = [], []
+        with eval_ctx(ctx) as ectx:
+            for b in seqrec_batches(EVAL_SAMPLES, TRAIN_BATCH,
+                                    seed=TRAIN_SEED + 1000, spec=spec,
+                                    requires_grad=False):
+                pred, lab = ectx.forward(b)
+                preds.append(pred.float().cpu().numpy().reshape(-1))
+                labels.append(lab[0].numpy().reshape(-1))
+    preds = np.concatenate(preds)
+    if not np.isfinite(preds).all():
+        raise AssertionError("non-finite eval predictions")
+    auc = roc_auc(np.concatenate(labels), preds)
+
+    what = (f"{PIPE_WORKERS} lookup workers, staleness {PIPE_STALENESS}, "
+            f"buffer {PIPE_BUFFER}")
+    steps = np.asarray(step_ms)
+    _log(f"[pipelined] {what}: {len(steps)} steady steps of batch "
+         f"{TRAIN_BATCH} in {steady_wall:.3f}s (synchronized at both ends): "
+         f"samples_per_s={TRAIN_BATCH * len(steps) / steady_wall:.1f} "
+         f"step_p50_ms={np.percentile(steps, 50):.3f} "
+         f"step_p99_ms={np.percentile(steps, 99):.3f} "
+         f"wait_for_batch_mean_ms={np.mean(wait_ms):.3f} "
+         f"wait_for_batch_p99_ms={np.percentile(wait_ms, 99):.3f} | card: "
+         f"{card}")
+    _log(f"[pipelined] host CPU ms a step over the steady steps, by thread: "
+         f"{cpu_split} | card: {card}")
+    split_s["wait"] = split_wait
+    report_split("pipelined", "training thread (lookup and h2d ran in the "
+                 "prefetch workers, d2h and the PS update in the backward "
+                 "workers; update = the hand-over)", split, split_s,
+                 ("wait",) + STAGES, card)
+    _log(f"[pipelined] arena PS shard calls by path: "
+         f"{ps_paths(ctx.worker)}; cudaHostAlloc calls (caching host "
+         f"allocator) after the warm-up / at the end: "
+         + ("not measured (no torch.cuda.host_memory_stats)"
+            if host_stats is None else
+            f"{host_allocs[0]} / {host_allocs[1]}") + f" | card: {card}")
+    _log("[pipelined] loss " + " ".join(
+        f"step{s}={v:.4f}" for s, v in sorted(losses.items()))
+        + f" | card: {card}")
+    _log(f"[pipelined] launches in {TRAIN_STEPS} steps: " + " ".join(
+        f"{n}={c}" for n, c in launches.items()) + f" | card: {card}")
+    _log(f"[pipelined] at rest after the loop: worker staleness="
+         f"{at_rest[0]} free permits={at_rest[1]}/{PIPE_STALENESS} "
+         f"lost_updates={at_rest[2]} | card: {card}")
+    _log(f"[pipelined] test AUC on {EVAL_SAMPLES} held-out samples: "
+         f"{auc:.4f} (bar {AUC_BAR}) | card: {card}")
+    report_window("pipelined", f"{len(prof)} steps", window, card)
+    if any(c <= 0 for c in launches.values()):
+        raise AssertionError(f"a kernel of the pipelined path never "
+                             f"launched: {launches}")
+    if at_rest != (0, PIPE_STALENESS, 0):
+        raise AssertionError(f"the pipeline is not at rest after the loop: "
+                             f"(staleness, free permits, lost updates) = "
+                             f"{at_rest}")
     if not auc > AUC_BAR:
         raise AssertionError(f"test AUC {auc:.4f} is not above {AUC_BAR}")
     return launches
@@ -1663,6 +1990,8 @@ def main() -> int:
         serving_phase(torch, card)
         for name, n in training_phase(torch, card).items():
             records[name]["launches"] = n
+        for name, n in pipelined_phase(torch, card).items():
+            records[name]["launches_pipelined"] = n
         records["embedding_bag"]["launches"] = device_mode_phase(torch, card)
         records["probe_copy"] = probe_phase(torch, card)
         k1 = records["embedding_bag"]

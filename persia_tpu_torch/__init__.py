@@ -11,10 +11,13 @@ sequence-tower model, and device-mode training of DLRM:
     InferenceServer -> EmbeddingWorker lookup -> InferCtx.forward_prepared
     -> SequenceTower -> flash-attention forward (hand-written CUDA kernel)
 
-    TrainCtx.train_step -> EmbeddingWorker training lookup (numpy PS)
-    -> packed bf16 wire -> SequenceTower forward (K2 with logsumexp)
-    -> backward (CUDA kernels K3, K4) -> dense Adam -> bf16 gradient wire
-    -> EmbeddingWorker.update_gradients -> sparse optimizer on the PS
+    TrainCtx.train_step -> EmbeddingWorker training lookup (the numpy
+    arena PS) -> packed bf16 wire -> SequenceTower forward (K2 with
+    logsumexp) -> backward (CUDA kernels K3, K4) -> dense Adam -> bf16
+    gradient wire -> EmbeddingWorker.update_gradients -> sparse optimizer
+    on the PS; pipelined, a DataLoader's ForwardEngine runs the lookup and
+    the device staging in prefetch threads and a BackwardEngine the
+    gradient download and the PS update in background threads
 
     make_device_mode_trainer step -> DeviceModeModel: hashed tables on
     the card -> pooled lookups (CUDA kernel K1) -> DLRM -> backward

@@ -5,8 +5,9 @@
   through it).
 - :class:`EmbeddingCtx`: parameter-server configuration, feature
   preparation and the eval forward.
-- :class:`TrainCtx`: the synchronous hybrid train step (training lookup ->
-  packed dense step on the device -> sparse update), and
+- :class:`TrainCtx`: the hybrid train step (training lookup -> packed
+  dense step on the device -> sparse update), synchronous on a raw
+  batch or pipelined on a ``DataLoader``'s looked-up batch, and
   :func:`eval_ctx` over it.
 - :class:`InferCtx`: eval-mode lookups and forward for serving.
 
@@ -154,7 +155,7 @@ STAGES = ("lookup", "h2d", "dense", "d2h", "update")
 
 
 class TrainCtx(EmbeddingCtx):
-    """Training context: synchronous lookup, dense step, sparse update.
+    """Training context: lookup, dense step, sparse update.
 
     ``dense_optimizer`` is a ``torch.optim.Optimizer`` over the model's
     parameters (``torch.optim.Adam(model.parameters(), lr=1e-3)`` is the
@@ -169,7 +170,14 @@ class TrainCtx(EmbeddingCtx):
     (:data:`STAGES`). The device runs asynchronously, so its work lands in
     whichever stage waits for it (``d2h`` at the latest); with
     ``sync_stages`` the context synchronizes the device at the end of
-    each stage, which makes the split honest and the step slower.
+    each stage, which makes the split honest and the step slower. On a
+    pipelined step the lookup and ``h2d`` ran in a prefetch worker and the
+    ``d2h`` and sparse update run in a backward worker, so the training
+    thread books ``dense`` and, for the hand-over to the backward engine,
+    ``update``.
+
+    ``grad_update_interval`` is stored, as the JAX package stores it; no
+    step reads it there either.
     """
 
     def __init__(self, model, dense_optimizer: torch.optim.Optimizer,
@@ -183,9 +191,6 @@ class TrainCtx(EmbeddingCtx):
                  resume_from: Optional[str] = None):
         waits = {
             "mesh": (mesh is not None, "ROADMAP.md queue A item 3 (DDP)"),
-            "grad_update_interval": (
-                grad_update_interval != 1,
-                "ROADMAP.md queue A item 2b (the training pipeline)"),
             "device_cache_capacity": (
                 bool(device_cache_capacity),
                 "ROADMAP.md queue A item 5 (on-device sparse)"),
@@ -211,6 +216,7 @@ class TrainCtx(EmbeddingCtx):
             init_params(model, seed)
         self.dense_optimizer = dense_optimizer
         self.embedding_optimizer = embedding_optimizer
+        self.grad_update_interval = grad_update_interval
         self.wire_dtype = WIRE_DTYPES[
             self.global_config.common.embedding_wire_dtype]
         self.sync_stages = sync_stages
@@ -258,29 +264,50 @@ class TrainCtx(EmbeddingCtx):
                                                         self.wire_dtype))
         return non_id, emb_shapes, flat_emb, emb_indices, label
 
-    def train_step(self, batch: PersiaBatch
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One full hybrid step on a raw batch: training lookup -> dense
-        forward, backward and update on the device -> sparse update.
-        Embedding values and gradients cross the host <-> device boundary
-        as one packed array in the wire dtype each way. Returns (loss,
-        pred) on the device."""
+    def stage_batch(self, batch: PersiaBatch, lookup: Dict[str, Any]):
+        """Host-to-device staging of one looked-up batch, run by the
+        forward engine's prefetch workers: the train-step inputs the next
+        ``train_step`` of this batch takes. The copies are issued on the
+        worker thread's current stream, the default stream, which orders
+        them before any kernel the training thread issues after the batch
+        reaches it."""
+        return self._prep_train_inputs(batch, lookup)
+
+    def train_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One full hybrid step: training lookup -> dense forward,
+        backward and update on the device -> sparse update. Embedding
+        values and gradients cross the host <-> device boundary as one
+        packed array in the wire dtype each way. Returns (loss, pred) on
+        the device.
+
+        ``batch`` is a raw :class:`PersiaBatch` (synchronous lookup and
+        update) or a :class:`~persia_tpu_torch.pipeline.LookedUpBatch`
+        from a ``DataLoader``, whose lookup and staging already ran in a
+        prefetch worker; its packed gradients then go to the batch's
+        backward engine still on the device."""
         from persia_tpu_torch.parallel.train import (
             make_train_step,
             unpack_embedding_grads,
         )
+        from persia_tpu_torch.pipeline import LookedUpBatch
 
-        if not isinstance(batch, PersiaBatch):
-            raise NotImplementedError(
-                "TrainCtx.train_step takes a raw PersiaBatch; pre-looked-up "
-                "batches from a DataLoader wait for ROADMAP.md queue A "
-                "item 2b (the training pipeline)")
-        with self._stage("lookup"):
-            ref_id, lookup = self.worker.lookup_direct_training(
-                batch.id_type_features)
-        with self._stage("h2d"):
-            non_id, emb_shapes, flat_emb, emb_indices, label = \
-                self._prep_train_inputs(batch, lookup)
+        engine = staged = None
+        if isinstance(batch, LookedUpBatch):
+            ref_id, lookup, engine = batch.ref_id, batch.lookup, batch.engine
+            staged = batch.staged
+            batch = batch.batch
+        elif isinstance(batch, PersiaBatch):
+            with self._stage("lookup"):
+                ref_id, lookup = self.worker.lookup_direct_training(
+                    batch.id_type_features)
+        else:
+            raise TypeError(
+                f"TrainCtx.train_step takes a PersiaBatch or a "
+                f"LookedUpBatch, not {type(batch).__name__}")
+        if staged is None:
+            with self._stage("h2d"):
+                staged = self._prep_train_inputs(batch, lookup)
+        non_id, emb_shapes, flat_emb, emb_indices, label = staged
         if self._train_step is None or emb_shapes != self._emb_shapes:
             self._emb_shapes = emb_shapes
             self._train_step = make_train_step(
@@ -289,10 +316,15 @@ class TrainCtx(EmbeddingCtx):
         with self._stage("dense"):
             loss, flat_grads, pred = self._train_step(
                 non_id, flat_emb, emb_indices, label)
+        names = [f.name for f in batch.id_type_features]
+        if engine is not None:
+            with self._stage("update"):
+                engine.backward.submit_packed(ref_id, flat_grads, emb_shapes,
+                                              names)
+            return loss, pred
         with self._stage("d2h"):
             per_slot = unpack_embedding_grads(flat_grads.cpu(), emb_shapes)
         with self._stage("update"):
-            names = [f.name for f in batch.id_type_features]
             self.worker.update_gradients(ref_id, dict(zip(names, per_slot)))
         return loss, pred
 

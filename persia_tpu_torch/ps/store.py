@@ -20,22 +20,34 @@ A copy of the semantics of ``persia_tpu/ps/store.py``'s
   bound; signs absent or of another layout are skipped and counted;
 - ``set_entries`` / ``get_entries`` write and read whole rows.
 
-Half-precision rows, the disk spill tier, hotness sketches and the PSD
-dump format belong to later slices of the port.
+Half-precision rows, the disk spill tier and hotness sketches belong to
+the arena holder (``ps/arena.py``) or to later slices of the port. The
+PSD dump format's header and record reader live here, as in the JAX
+package, and the arena holder writes and reads it.
 """
 
+import struct
 import threading
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from persia_tpu_torch.ps.optim import SparseOptimizer, apply_weight_bound
+from persia_tpu_torch.ps.optim import (
+    RowPrecision,
+    SparseOptimizer,
+    apply_weight_bound,
+)
 from persia_tpu_torch.ps.rng import (
     admit_mask,
     initialize_entries,
     internal_shard_of,
 )
+
+DUMP_MAGIC = b"PSD1"
+# PSD v2 per-record embedding dtype tags
+_DTYPE_CODES = {"fp32": 0, "fp16": 1, "bf16": 2}
+_DTYPE_NAMES = {v: k for k, v in _DTYPE_CODES.items()}
 
 
 class EmbeddingHolder:
@@ -228,3 +240,48 @@ class EmbeddingHolder:
 
     def __len__(self) -> int:
         return sum(len(s) for s in self._shards)
+
+
+def read_psd_header(f, name: str = "<psd>"):
+    """Validate magic + version off a file-like; returns (version,
+    count)."""
+    head = f.read(4 + struct.calcsize("<IQ"))
+    if head[:4] != DUMP_MAGIC:
+        raise ValueError(f"{name}: bad PSD1 magic")
+    version, count = struct.unpack_from("<IQ", head, 4)
+    if version not in (1, 2):
+        raise ValueError(f"{name}: unsupported PSD version {version}")
+    return version, count
+
+
+def iter_psd_records(read, version: int, count: int):
+    """Yield ``(sign, dim, f32 [emb|state] vec)`` records via a
+    ``read(n) -> bytes`` callable. v1 records are ``sign u64 | dim u32 |
+    len u32 | f32 [emb|state]``; v2 records are ``sign u64 | dim u32 |
+    emb-dtype u8 | state_len u32 | emb bytes | state f32 bytes``, and
+    their embedding slices widen from the tagged dtype, so any holder
+    reads any version. Yielded vecs are fresh writable arrays."""
+    rec1 = struct.calcsize("<QII")
+    rec2 = struct.calcsize("<QIBI")
+    rp_by_code: Dict[int, RowPrecision] = {}
+    for _ in range(count):
+        if version == 1:
+            sign, dim, total = struct.unpack("<QII", read(rec1))
+            vec = np.frombuffer(read(4 * total), dtype=np.float32).copy()
+        else:
+            sign, dim, code, state_len = struct.unpack("<QIBI", read(rec2))
+            rp = rp_by_code.get(code)
+            if rp is None:
+                name = _DTYPE_NAMES.get(code)
+                if name is None:
+                    raise ValueError(f"unknown PSD2 dtype code {code}")
+                rp = rp_by_code[code] = RowPrecision(name)
+            raw = np.frombuffer(read(rp.entry_nbytes(dim, state_len)),
+                                dtype=np.uint8)
+            if rp.is_fp32:
+                # code 0 is legal in a v2 record: the bytes ARE f32, so
+                # reinterpret (unpack would value-convert each byte)
+                vec = raw.view(np.float32).copy()
+            else:
+                vec = rp.unpack(raw, dim)
+        yield sign, dim, vec

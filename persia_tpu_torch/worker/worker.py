@@ -10,9 +10,13 @@ dim) group to its PS's optimizer.
 A training batch is kept between the two directions: ``put_batch`` files
 its preprocessed features under a ``ref_id`` in the forward buffer, a
 training ``lookup`` moves them (with the shard split) to the post-forward
-buffer, and ``update_gradients`` consumes them. PS calls are serialized
-(one group after another); routing epochs, retries, buffer expiry and the
-streaming update plane belong to later slices of the port.
+buffer, and ``update_gradients`` consumes them. ``staleness`` counts the
+batches looked up for training whose gradients have not been taken yet
+(the pipeline's bounded-staleness observable). A failed lookup or update
+puts its buffer entry back, so a retry by ``ref_id`` still finds its
+batch. PS calls are serialized (one group after another); routing epochs,
+buffer expiry and the streaming update plane belong to later slices of
+the port.
 """
 
 import threading
@@ -52,6 +56,8 @@ class EmbeddingWorker:
         # ref_id -> (features, shard groups), awaiting their gradients
         self._post_forward_buffer: Dict[
             int, Tuple[List[mw.DedupedFeature], List[mw.ShardGroup]]] = {}
+        # training lookups whose gradients are not taken yet (under _lock)
+        self.staleness = 0
 
     def configure_parameter_servers(self, init_method: str,
                                     init_params: dict,
@@ -90,10 +96,17 @@ class EmbeddingWorker:
             feats = self._forward_id_buffer.pop(ref_id, None)
         if feats is None:
             raise KeyError(f"ref_id {ref_id} not in forward buffer")
-        result, groups = self._lookup_feats(feats, training)
+        try:
+            result, groups = self._lookup_feats(feats, training)
+        except BaseException:
+            # a retry after the PS recovers must still find its batch
+            with self._lock:
+                self._forward_id_buffer[ref_id] = feats
+            raise
         if training:
             with self._lock:
                 self._post_forward_buffer[ref_id] = (feats, groups)
+                self.staleness += 1
         return result
 
     def lookup_direct(self, id_type_features: List[IDTypeFeature],
@@ -132,13 +145,24 @@ class EmbeddingWorker:
         to the parameter servers' optimizers."""
         with self._lock:
             item = self._post_forward_buffer.pop(ref_id, None)
+            if item is not None:
+                self.staleness -= 1
         if item is None:
             raise KeyError(f"ref_id {ref_id} not in post-forward buffer")
+        try:
+            self._update_gradients_inner(item, grads, loss_scale)
+        except BaseException:
+            # put the batch back so a retry still finds it; shard groups
+            # applied before the failure apply again on that retry
+            with self._lock:
+                self._post_forward_buffer[ref_id] = item
+                self.staleness += 1
+            raise
+
+    def _update_gradients_inner(self, item, grads, loss_scale):
         feats, groups = item
         missing = [f.name for f in feats if f.name not in grads]
         if missing:
-            with self._lock:
-                self._post_forward_buffer[ref_id] = item
             raise KeyError(f"missing gradients for features {missing}")
         per_feature = [
             mw.aggregate_gradients(feat, self.schema.get_slot(feat.name),

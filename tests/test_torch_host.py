@@ -207,6 +207,11 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'persia_tpu'))\n"
+        "missing = [n for n in ('persia_tpu_torch.ps.arena', "
+        "'persia_tpu_torch.ps.native', 'persia_tpu_torch.pipeline', "
+        "'persia_tpu_torch.data.dataloader', 'persia_tpu_torch.ctx', "
+        "'persia_tpu_torch.worker.worker') if n not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([n for n in sys.modules "
         "if n.startswith('persia_tpu_torch.')]))\n"
         "assert not bad, bad\n")

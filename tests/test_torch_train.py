@@ -546,12 +546,15 @@ def test_train_ctx_refusals():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainCtx(model, opt, None, schema, worker)
     for kw in (dict(mesh=object()), dict(device_cache_capacity=8),
-               dict(resume_from="snap"), dict(profiler=object()),
-               dict(grad_update_interval=2)):
+               dict(resume_from="snap"), dict(profiler=object())):
         with pytest.raises(NotImplementedError, match="queue A"):
             TrainCtx(model, opt, None, schema, worker, device="cpu", **kw)
+    # stored, as the JAX TrainCtx stores it
+    assert TrainCtx(model, opt, None, schema, worker, device="cpu",
+                    grad_update_interval=2).grad_update_interval == 2
     ctx = TrainCtx(model, opt, None, schema, worker, device="cpu")
-    with pytest.raises(NotImplementedError, match="raw PersiaBatch"):
+    # a raw PersiaBatch or a DataLoader's LookedUpBatch; nothing else
+    with pytest.raises(TypeError, match="PersiaBatch or a LookedUpBatch"):
         ctx.train_step(object())
     with pytest.raises(ValueError, match="wire"):
         tcfg.CommonConfig("fp8")
