@@ -492,3 +492,60 @@ def test_pipelined_steps_match_sync_steps_on_the_card():
         assert sl == pl
         np.testing.assert_array_equal(sp, pp)
     assert _ps_bytes(sync_ctx) == _ps_bytes(pipe_ctx)
+
+
+def test_engines_under_thread_stress():
+    """12 lookup workers (more than this host's cores) and staleness 5,
+    with a 10 µs interpreter switch interval, over one worker and two
+    arena PS shards: every batch's update lands exactly once. With SGD
+    and all-ones gradients each row's final value depends only on how
+    often its sign was updated, so the rows must equal a synchronous
+    run's (to f32 rounding of the reordered subtractions; one lost or
+    doubled update moves a row by 1e-3)."""
+    import sys
+    from types import SimpleNamespace
+
+    def make_worker():
+        w = TWorker(_seq_schema(tcfg), [
+            make_holder(100_000, 4, backend="arena") for _ in range(2)])
+        w.configure_parameter_servers(
+            "bounded_uniform", {"lower": -0.05, "upper": 0.05}, 1.0, 10.0)
+        w.register_optimizer({"type": "sgd", "lr": 1e-3})
+        return w
+
+    def ones(lookup):
+        return {n: np.ones_like(r.embeddings) for n, r in lookup.items()}
+
+    sync_w = make_worker()
+    for b in _batches(60, seed=4, bs=8):
+        ref, lookup = sync_w.lookup_direct_training(b.id_type_features)
+        sync_w.update_gradients(ref, ones(lookup))
+    w = make_worker()
+    updates = []
+    inner = w.update_gradients
+
+    def counted(ref_id, grads, loss_scale=1.0):
+        inner(ref_id, grads, loss_scale)
+        updates.append(ref_id)
+
+    w.update_gradients = counted
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        engine = ForwardEngine(SimpleNamespace(worker=w), num_workers=12,
+                               embedding_staleness=5)
+        for lb in engine.run(_batches(60, seed=4, bs=8)):
+            engine.backward.submit(lb.ref_id, ones(lb.lookup))
+        engine.flush(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+        engine.shutdown()
+    assert sorted(updates) == list(range(60))
+    assert (w.staleness, engine.staleness_sem._value) == (0, 5)
+    assert not w._forward_id_buffer and not w._post_forward_buffer
+    for a, b in zip(_ps_bytes(types.SimpleNamespace(worker=sync_w)),
+                    _ps_bytes(types.SimpleNamespace(worker=w))):
+        want, got = _psd_rows(a), _psd_rows(b)
+        assert set(want) == set(got)
+        for s, (d, v) in want.items():
+            np.testing.assert_allclose(got[s][1], v, rtol=0, atol=1e-5)
