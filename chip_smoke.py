@@ -8,8 +8,10 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 
 1. Setup: versions, the card's name and power limit, and the build of
    every kernel of the port from the sources in this checkout, one nvcc
-   per source, all started together; ptxas's registers and spills of
-   every kernel entry, K2's, K3's and K4's shared memory per body, and
+   per source, all started together with the g++ build of the native PS
+   library from ``native/src/`` (its SIMD path and the host's cores);
+   ptxas's registers and spills of every kernel entry, K2's, K3's and
+   K4's shared memory per body, and
    the count of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
    in each built library. Then the launch path: the launch floor (the
    device and host time of ``torch.cuda._sleep(0)``) and the host time of
@@ -43,7 +45,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 4. Training phase, the sequence tower's synchronous path: ``TrainCtx``
    on the card trains ``SequenceTower(attn_impl="flash")`` at the
    example's widths over two fresh PS shards, each
-   ``make_holder(2_000_000, 8)`` (the arena holder; sparse Adagrad,
+   ``make_holder(2_000_000, 8)`` (the native C++ store; sparse Adagrad,
    dense Adam), for 300 steps of batch 256 of ``seqrec`` traffic, then
    ``eval_ctx`` scores 4096 held-out samples; the AUC must pass the
    example's own bar (0.62). The launch counters are zeroed just before
@@ -51,20 +53,26 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    launched. Before that, a flash tower and a reference tower train 3
    steps from the same weights and fresh PS rows in f32 and must agree.
    After it, the A/B of the PS holder: the first 60 steps again on the
-   per-entry holder (``backend="python-legacy"``); both print samples/s,
-   step p50/p99 and the split synchronized after each stage, and the
-   arena its shard calls by path (batched, rounds, sequential).
+   Python arena holder (``backend="arena"``) and the first 30 on the
+   per-entry holder (``backend="python-legacy"``); each run prints
+   samples/s, step p50/p99, host CPU by thread and the split synchronized
+   after each stage, the arena its shard calls by path (batched, rounds,
+   sequential), the native store its threads a call and SIMD path.
 5. Pipelined phase, the sequence tower's pipelined path:
    ``DataLoader`` (4 lookup workers, embedding staleness 8, forward
    buffer 8: ``bench.py``'s ``bench_hybrid``) over the same 300 batches
-   into a fresh arena-backed ``TrainCtx``; samples/s, step p50/p99, the
-   training thread's split, a profiled window's device busy share, the
+   into a fresh ``TrainCtx`` on the native store; samples/s, step
+   p50/p99, host CPU by thread, the training thread's split, a profiled
+   window's device busy share, the
    AUC on the same 4096 held-out samples (bar 0.62), K2, K3 and K4
    launched (counters zeroed just before, read just after), and after
    the loop the pipeline at rest: worker staleness 0, every permit back,
    no lost update. Before that, 10 pipelined steps (reproducible,
    staleness 1) must agree with 10 synchronous steps from the same
-   weights in f32, losses and PS rows.
+   weights in f32, losses and PS rows. After it, the A/B: the first 100
+   batches pipelined on the arena holder, with the same numbers and the
+   pipeline at rest; a summary line gives every training run's samples/s
+   and the pipelined / synchronous ratio of each holder.
 6. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
    configuration (26 hashed tables of 2^20 x 16 resident on the card,
    ``DLRM(embedding_dim=16)`` in bf16, ``OptaxAdagrad(0.02)``, batch
@@ -176,7 +184,9 @@ SEED = 0
 TRAIN_SEED = 42  # the example's --seed
 TRAIN_STEPS = 300
 TRAIN_BATCH = 256
-LEGACY_STEPS = 60  # synchronous steps on the per-entry PS holder (the A/B)
+AB_STEPS = 60  # synchronous steps on the arena PS holder (the A/B)
+LEGACY_STEPS = 30  # synchronous steps on the per-entry PS holder
+PIPE_AB_STEPS = 100  # pipelined steps on the arena PS holder
 # the pipelined phase: bench.py's bench_hybrid and the criteo example
 PIPE_WORKERS = 4
 PIPE_STALENESS = 8
@@ -1115,8 +1125,9 @@ def build_schema():
 
 def fresh_worker(schema, backend=None):
     """A worker over ``N_PS`` empty PS shards, each
-    ``make_holder(2_000_000, 8)`` as the example builds them (the arena
-    holder); ``backend="python-legacy"`` gives the per-entry holder."""
+    ``make_holder(2_000_000, 8)`` as the example builds them (the native
+    C++ store); ``backend="arena"`` gives the Python arena holder,
+    ``"python-legacy"`` the per-entry holder."""
     from persia_tpu_torch.ps.native import make_holder
     from persia_tpu_torch.worker.worker import EmbeddingWorker
 
@@ -1282,7 +1293,7 @@ def thread_cpu_s() -> dict:
     number, every other thread (the intra-op pool, CUDA's and autograd's
     threads) as "other"."""
     tick = os.sysconf("SC_CLK_TCK")
-    named = {t.native_id: re.sub(r"-\d+$", "", t.name)
+    named = {t.native_id: re.sub(r"[-_]\d+$", "", t.name)
              for t in threading.enumerate()}
     out: dict = {}
     for tid in os.listdir("/proc/self/task"):
@@ -1322,35 +1333,52 @@ def report_split(phase: str, what: str, steps, split_s, stages, card: str):
                               for k in stages) + f" | card: {card}")
 
 
-def legacy_ab(torch, card: str, spec, batches):
-    """The A/B of the PS holder: the same first steps, synchronous, on the
-    per-entry holder (``make_holder(..., backend="python-legacy")``) from
-    the same seeded weights: steps 10-39 timed, 40-59 synchronized after
-    each stage."""
+def holder_ab(torch, card: str, spec, batches, backend: str, what: str):
+    """The A/B of the PS holder: the first steps again, synchronous, on
+    ``make_holder(..., backend=backend)`` from the same seeded weights:
+    steps 10 to two thirds timed (with host CPU by thread), the rest
+    synchronized after each stage. Returns the worker and its samples/s
+    over the timed steps."""
     import numpy as np
 
     from persia_tpu_torch.ctx import STAGES
 
     ctx = train_ctx(torch, build_schema(),
-                    build_tower(spec.num_dense, "flash"),
-                    backend="python-legacy")
-    split = range(40, len(batches))
+                    build_tower(spec.num_dense, "flash"), backend=backend)
+    split = range(len(batches) * 2 // 3, len(batches))
     step_s = []
     with ctx:
         for step, batch in enumerate(batches):
+            if step == 10:
+                cpu0 = thread_cpu_s()
             if step == split.start:
+                cpu = cpu_by_thread(cpu0, thread_cpu_s(), split.start - 10)
                 ctx.sync_stages = True
                 ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
             t = time.perf_counter()
             loss, _ = ctx.train_step(batch)
             step_s.append(time.perf_counter() - t)
             if not np.isfinite(float(loss)):
-                raise AssertionError(f"per-entry PS step {step}: non-finite "
-                                     f"loss")
-    report_steps("training", "per-entry PS, steps 10-39",
-                 np.asarray(step_s[10:split.start]) * 1e3, card)
-    report_split("training", "per-entry PS", split, ctx.stage_seconds,
-                 STAGES, card)
+                raise AssertionError(f"{what} step {step}: non-finite loss")
+    steps_ms = np.asarray(step_s[10:split.start]) * 1e3
+    report_steps("training", f"{what}, steps 10-{split.start - 1}",
+                 steps_ms, card)
+    _log(f"[training] {what}: host CPU ms a step over steps 10-"
+         f"{split.start - 1}, by thread: {cpu} | card: {card}")
+    report_split("training", what, split, ctx.stage_seconds, STAGES, card)
+    ctx.worker.close()
+    return ctx.worker, TRAIN_BATCH / (steps_ms.mean() / 1e3)
+
+
+def holder_info(worker) -> str:
+    """The native store's threads for one call and SIMD path, beside the
+    host's cores: the fan-out, lookup and backward threads all share
+    them."""
+    h = worker.ps_clients[0]
+    return (f"os.cpu_count()={os.cpu_count()} {type(h).__name__} "
+            f"parallel_info={h.parallel_info()} simd_path={h.simd_path} "
+            f"fan-out threads="
+            f"{worker._fanout._max_workers if worker._fanout else 0}")
 
 
 def report_window(phase: str, what: str, window, card: str):
@@ -1365,6 +1393,10 @@ def report_window(phase: str, what: str, window, card: str):
     for us, name, count in top:
         _log(f"[{phase}]   device {us / 1e3:.3f} ms in {count} x "
              f"{name[:200]} | card: {card}")
+
+
+# samples/s of each training run in this call, for the summary line
+RATES = {}
 
 
 def train_ctx(torch, schema, model, global_config=None, backend=None):
@@ -1506,16 +1538,27 @@ def training_phase(torch, card: str):
     auc = roc_auc(np.concatenate(labels), preds)
 
     steady = np.asarray(step_s[10:len(timed)]) * 1e3  # past the warm-up
-    report_steps("training", "arena PS", steady, card)
-    _log(f"[training] arena PS: host CPU ms a step over the steady steps, "
+    report_steps("training", "native PS", steady, card)
+    RATES["synchronous native"] = TRAIN_BATCH / (steady.mean() / 1e3)
+    _log(f"[training] native PS: host CPU ms a step over the steady steps, "
          f"by thread: {cpu_split} | card: {card}")
-    # the same steps the per-entry run below times
-    report_steps("training", "arena PS, steps 10-39",
-                 np.asarray(step_s[10:40]) * 1e3, card)
-    report_split("training", "arena PS", split, split_s, STAGES, card)
-    _log(f"[training] arena PS shard calls by path over {TRAIN_STEPS} "
-         f"steps: {ps_paths(ctx.worker)} | card: {card}")
-    legacy_ab(torch, card, spec, batches[:LEGACY_STEPS])
+    _log(f"[training] native PS: {holder_info(ctx.worker)} | card: {card}")
+    # the same steps the A/B runs below time
+    for end in (AB_STEPS, LEGACY_STEPS):
+        steps_ms = np.asarray(step_s[10:end * 2 // 3]) * 1e3
+        report_steps("training", f"native PS, steps 10-{end * 2 // 3 - 1}",
+                     steps_ms, card)
+        RATES[f"synchronous native, steps 10-{end * 2 // 3 - 1}"] = \
+            TRAIN_BATCH / (steps_ms.mean() / 1e3)
+    report_split("training", "native PS", split, split_s, STAGES, card)
+    ctx.worker.close()
+    arena, RATES["synchronous arena, steps 10-39"] = holder_ab(
+        torch, card, spec, batches[:AB_STEPS], "arena", "arena PS")
+    _log(f"[training] arena PS shard calls by path over {AB_STEPS} steps: "
+         f"{ps_paths(arena)} | card: {card}")
+    _, RATES["synchronous per-entry, steps 10-19"] = holder_ab(
+        torch, card, spec, batches[:LEGACY_STEPS], "python-legacy",
+        "per-entry PS")
     _log("[training] loss " + " ".join(
         f"step{s}={v:.4f}" for s, v in sorted(losses.items()))
         + f" | card: {card}")
@@ -1536,17 +1579,21 @@ def training_phase(torch, card: str):
 
 def ps_rows(worker):
     """Every PS row of the worker's shards: (shard, sign) -> f32
-    [emb|state], read back from each holder's PSD dump."""
-    import io
+    [emb|state], read back from each holder's PSD file."""
+    import tempfile
 
     from persia_tpu_torch.ps.store import iter_psd_records, read_psd_header
 
     rows = {}
-    for r, h in enumerate(worker.ps_clients):
-        buf = io.BytesIO(h.dump_bytes())
-        version, count = read_psd_header(buf)
-        for sign, _dim, vec in iter_psd_records(buf.read, version, count):
-            rows[(r, sign)] = vec
+    with tempfile.TemporaryDirectory() as tmp:
+        for r, h in enumerate(worker.ps_clients):
+            path = os.path.join(tmp, f"{r}.psd")
+            h.dump_file(path)
+            with open(path, "rb") as f:
+                version, count = read_psd_header(f)
+                for sign, _dim, vec in iter_psd_records(f.read, version,
+                                                        count):
+                    rows[(r, sign)] = vec
     return rows
 
 
@@ -1605,14 +1652,117 @@ def pipelined_agreement(torch, card: str, spec):
         raise AssertionError("pipelined and synchronous runs disagree")
 
 
+def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
+                    prof=None) -> dict:
+    """``n_steps`` training steps of ``ctx`` on ``loader``'s batches:
+    ``timed`` on the host clock, synchronized at both ends (with host
+    CPU by thread), ``split`` synchronized after each stage, ``prof``
+    under the profiler. Then the iteration ends (the loader flushes the
+    updates) and the pipeline must be at rest. Call inside ``with ctx``.
+    Returns the measurements."""
+    import numpy as np
+
+    from persia_tpu_torch.ctx import STAGES
+
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    step_ms, wait_ms, losses, host_allocs = [], [], {}, []
+    out = {"window": None}
+    it = iter(loader)
+    for step in range(n_steps):
+        if step == timed.start:
+            torch.cuda.synchronize()
+            if host_stats is not None:
+                host_allocs.append(host_stats().get("num_host_alloc"))
+            t_steady = time.perf_counter()
+            cpu0 = thread_cpu_s()
+        if step == split.start:
+            torch.cuda.synchronize()
+            out["steady_wall"] = time.perf_counter() - t_steady
+            out["cpu"] = cpu_by_thread(cpu0, thread_cpu_s(), len(timed))
+            ctx.sync_stages = True
+            ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
+            split_wait = 0.0
+        if prof is not None and step == prof.start:
+            out["split_s"] = dict(ctx.stage_seconds)
+            ctx.sync_stages = False
+            out["window"] = profile_window(torch, lambda: [
+                ctx.train_step(next(it)) for _ in prof])
+        if prof is not None and step in prof:
+            continue
+        t0 = time.perf_counter()
+        lb = next(it)
+        t1 = time.perf_counter()
+        loss, pred = ctx.train_step(lb)
+        t2 = time.perf_counter()
+        if step in timed:
+            step_ms.append((t2 - t0) * 1e3)
+            wait_ms.append((t1 - t0) * 1e3)
+        if step in split:
+            split_wait += t1 - t0
+        if step % 50 == 0:
+            losses[step] = float(loss)
+            if not (np.isfinite(losses[step])
+                    and bool(torch.isfinite(pred).all())):
+                raise AssertionError(f"step {step}: non-finite output")
+    if "split_s" not in out:
+        out["split_s"] = dict(ctx.stage_seconds)
+        ctx.sync_stages = False
+    out["split_s"]["wait"] = split_wait
+    for _ in it:  # ends the iteration: the loader flushes the updates
+        raise AssertionError("the loader yielded more batches than steps")
+    torch.cuda.synchronize()
+    if host_stats is not None:
+        host_allocs.append(host_stats().get("num_host_alloc"))
+    engine = loader._engine
+    at_rest = (ctx.worker.staleness, engine.staleness_sem._value,
+               engine.backward.lost_updates)
+    engine.shutdown()
+    if at_rest != (0, PIPE_STALENESS, 0):
+        raise AssertionError(f"the pipeline is not at rest after the loop: "
+                             f"(staleness, free permits, lost updates) = "
+                             f"{at_rest}")
+    out.update(step_ms=np.asarray(step_ms), wait_ms=np.asarray(wait_ms),
+               losses=losses, host_allocs=host_allocs, at_rest=at_rest)
+    return out
+
+
+def report_pipelined(what: str, run: dict, split, card: str):
+    import numpy as np
+
+    from persia_tpu_torch.ctx import STAGES
+
+    steps = run["step_ms"]
+    rate = TRAIN_BATCH * len(steps) / run["steady_wall"]
+    _log(f"[pipelined] {what}: {len(steps)} steady steps of batch "
+         f"{TRAIN_BATCH} in {run['steady_wall']:.3f}s (synchronized at both "
+         f"ends): samples_per_s={rate:.1f} "
+         f"step_p50_ms={np.percentile(steps, 50):.3f} "
+         f"step_p99_ms={np.percentile(steps, 99):.3f} "
+         f"wait_for_batch_mean_ms={np.mean(run['wait_ms']):.3f} "
+         f"wait_for_batch_p99_ms={np.percentile(run['wait_ms'], 99):.3f} | "
+         f"card: {card}")
+    _log(f"[pipelined] {what}: host CPU ms a step over the steady steps, "
+         f"by thread: {run['cpu']} | card: {card}")
+    report_split("pipelined", f"{what}: training thread (lookup and h2d ran "
+                 "in the prefetch workers, d2h and the PS update in the "
+                 "backward workers; update = the hand-over)", split,
+                 run["split_s"], ("wait",) + STAGES, card)
+    _log(f"[pipelined] {what}: at rest after the loop: worker staleness="
+         f"{run['at_rest'][0]} free permits={run['at_rest'][1]}/"
+         f"{PIPE_STALENESS} lost_updates={run['at_rest'][2]} | card: {card}")
+    return rate
+
+
 def pipelined_phase(torch, card: str) -> dict:
     """The pipelined main path: ``DataLoader`` (4 lookup workers,
     staleness 8, buffer 8) over the training phase's 300 batches into a
-    fresh arena-backed ``TrainCtx``; the AUC, the launches, and the
-    pipeline back at rest. Returns the launches of each kernel."""
+    fresh ``TrainCtx`` on the native PS; the AUC, the launches, and the
+    pipeline back at rest. Then the A/B: the first ``PIPE_AB_STEPS`` of
+    them on the arena PS. Returns the main run's launches of each
+    kernel."""
     import numpy as np
 
-    from persia_tpu_torch.ctx import STAGES, eval_ctx
+    from persia_tpu_torch.ctx import eval_ctx
     from persia_tpu_torch.ops import flash_attention as fa
     from persia_tpu_torch.utils import roc_auc
     from persia_tpu_torch.workloads.generator import SeqRecSpec, \
@@ -1626,63 +1776,14 @@ def pipelined_phase(torch, card: str) -> dict:
     ctx = train_ctx(torch, schema, model)
     batches = list(seqrec_batches(TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH,
                                   seed=TRAIN_SEED, spec=spec))
-    loader = pipelined_loader(batches)
-    host_stats = getattr(torch.cuda, "host_memory_stats", None)
     # as the training phase: [10, 250) timed, [250, 270) synchronized
     # after each stage, [270, 275) under the profiler
     timed, split, prof = range(10, 250), range(250, 270), range(270, 275)
-    step_ms, wait_ms, losses = [], [], {}
-    host_allocs = []
     with ctx:
         fa.reset_launch_count()
-        it = iter(loader)
-        for step in range(TRAIN_STEPS):
-            if step == timed.start:
-                torch.cuda.synchronize()
-                if host_stats is not None:
-                    host_allocs.append(host_stats().get("num_host_alloc"))
-                t_steady = time.perf_counter()
-                cpu0 = thread_cpu_s()
-            if step == split.start:
-                torch.cuda.synchronize()
-                steady_wall = time.perf_counter() - t_steady
-                cpu_split = cpu_by_thread(cpu0, thread_cpu_s(), len(timed))
-                ctx.sync_stages = True
-                ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
-                split_wait = 0.0
-            if step == prof.start:
-                split_s = dict(ctx.stage_seconds)
-                ctx.sync_stages = False
-                window = profile_window(torch, lambda: [
-                    ctx.train_step(next(it)) for _ in prof])
-            if step in prof:
-                continue
-            t0 = time.perf_counter()
-            lb = next(it)
-            t1 = time.perf_counter()
-            loss, pred = ctx.train_step(lb)
-            t2 = time.perf_counter()
-            if step in timed:
-                step_ms.append((t2 - t0) * 1e3)
-                wait_ms.append((t1 - t0) * 1e3)
-            if step in split:
-                split_wait += t1 - t0
-            if step % 50 == 0:
-                losses[step] = float(loss)
-                if not (np.isfinite(losses[step])
-                        and bool(torch.isfinite(pred).all())):
-                    raise AssertionError(f"step {step}: non-finite output")
-        for _ in it:  # ends the iteration: the loader flushes the updates
-            raise AssertionError("the loader yielded more batches than "
-                                 "steps")
-        torch.cuda.synchronize()
+        run = pipelined_steps(torch, ctx, pipelined_loader(batches),
+                              TRAIN_STEPS, timed, split, prof)
         launches = {n: fa.launch_count(n) for n in FLASH_KERNELS}
-        if host_stats is not None:
-            host_allocs.append(host_stats().get("num_host_alloc"))
-        engine = loader._engine
-        at_rest = (ctx.worker.staleness, engine.staleness_sem._value,
-                   engine.backward.lost_updates)
-        engine.shutdown()
 
         preds, labels = [], []
         with eval_ctx(ctx) as ectx:
@@ -1692,55 +1793,49 @@ def pipelined_phase(torch, card: str) -> dict:
                 pred, lab = ectx.forward(b)
                 preds.append(pred.float().cpu().numpy().reshape(-1))
                 labels.append(lab[0].numpy().reshape(-1))
+    ctx.worker.close()
     preds = np.concatenate(preds)
     if not np.isfinite(preds).all():
         raise AssertionError("non-finite eval predictions")
     auc = roc_auc(np.concatenate(labels), preds)
 
-    what = (f"{PIPE_WORKERS} lookup workers, staleness {PIPE_STALENESS}, "
-            f"buffer {PIPE_BUFFER}")
-    steps = np.asarray(step_ms)
-    _log(f"[pipelined] {what}: {len(steps)} steady steps of batch "
-         f"{TRAIN_BATCH} in {steady_wall:.3f}s (synchronized at both ends): "
-         f"samples_per_s={TRAIN_BATCH * len(steps) / steady_wall:.1f} "
-         f"step_p50_ms={np.percentile(steps, 50):.3f} "
-         f"step_p99_ms={np.percentile(steps, 99):.3f} "
-         f"wait_for_batch_mean_ms={np.mean(wait_ms):.3f} "
-         f"wait_for_batch_p99_ms={np.percentile(wait_ms, 99):.3f} | card: "
-         f"{card}")
-    _log(f"[pipelined] host CPU ms a step over the steady steps, by thread: "
-         f"{cpu_split} | card: {card}")
-    split_s["wait"] = split_wait
-    report_split("pipelined", "training thread (lookup and h2d ran in the "
-                 "prefetch workers, d2h and the PS update in the backward "
-                 "workers; update = the hand-over)", split, split_s,
-                 ("wait",) + STAGES, card)
-    _log(f"[pipelined] arena PS shard calls by path: "
-         f"{ps_paths(ctx.worker)}; cudaHostAlloc calls (caching host "
-         f"allocator) after the warm-up / at the end: "
+    what = (f"native PS, {PIPE_WORKERS} lookup workers, staleness "
+            f"{PIPE_STALENESS}, buffer {PIPE_BUFFER}")
+    RATES["pipelined native"] = report_pipelined(what, run, split, card)
+    host_allocs = run["host_allocs"]
+    _log("[pipelined] cudaHostAlloc calls (caching host allocator) after "
+         "the warm-up / at the end: "
          + ("not measured (no torch.cuda.host_memory_stats)"
-            if host_stats is None else
-            f"{host_allocs[0]} / {host_allocs[1]}") + f" | card: {card}")
+            if not host_allocs else f"{host_allocs[0]} / {host_allocs[1]}")
+         + f" | card: {card}")
     _log("[pipelined] loss " + " ".join(
-        f"step{s}={v:.4f}" for s, v in sorted(losses.items()))
+        f"step{s}={v:.4f}" for s, v in sorted(run["losses"].items()))
         + f" | card: {card}")
     _log(f"[pipelined] launches in {TRAIN_STEPS} steps: " + " ".join(
         f"{n}={c}" for n, c in launches.items()) + f" | card: {card}")
-    _log(f"[pipelined] at rest after the loop: worker staleness="
-         f"{at_rest[0]} free permits={at_rest[1]}/{PIPE_STALENESS} "
-         f"lost_updates={at_rest[2]} | card: {card}")
     _log(f"[pipelined] test AUC on {EVAL_SAMPLES} held-out samples: "
          f"{auc:.4f} (bar {AUC_BAR}) | card: {card}")
-    report_window("pipelined", f"{len(prof)} steps", window, card)
+    report_window("pipelined", f"{len(prof)} steps", run["window"], card)
     if any(c <= 0 for c in launches.values()):
         raise AssertionError(f"a kernel of the pipelined path never "
                              f"launched: {launches}")
-    if at_rest != (0, PIPE_STALENESS, 0):
-        raise AssertionError(f"the pipeline is not at rest after the loop: "
-                             f"(staleness, free permits, lost updates) = "
-                             f"{at_rest}")
     if not auc > AUC_BAR:
         raise AssertionError(f"test AUC {auc:.4f} is not above {AUC_BAR}")
+
+    # the A/B on the arena PS: [10, 70) timed, [70, 100) synchronized
+    ab_timed = range(10, PIPE_AB_STEPS * 7 // 10)
+    ab_split = range(ab_timed.stop, PIPE_AB_STEPS)
+    ctx = train_ctx(torch, schema, build_tower(spec.num_dense, "flash"),
+                    backend="arena")
+    with ctx:
+        run = pipelined_steps(torch, ctx,
+                              pipelined_loader(batches[:PIPE_AB_STEPS]),
+                              PIPE_AB_STEPS, ab_timed, ab_split)
+    ctx.worker.close()
+    RATES["pipelined arena, steps 10-69"] = report_pipelined(
+        "arena PS", run, ab_split, card)
+    _log(f"[pipelined] arena PS shard calls by path: {ps_paths(ctx.worker)}"
+         f" | card: {card}")
     return launches
 
 
@@ -1981,8 +2076,14 @@ def main() -> int:
         sources = sorted({s.split("/")[-1][:-3] for s, _ in
                           KERNEL_INFO.values()})
         t0 = time.perf_counter()
-        paths = _build.build(sources)
-        _log(f"[setup] built {sources} in {time.perf_counter() - t0:.1f}s")
+        # the native PS library (g++) builds beside the kernels (nvcc)
+        from persia_tpu_torch.ps import native
+        paths = _build.build(sources, extra_jobs=native.native_jobs())
+        native.load_native_lib()
+        _log(f"[setup] built {sources} and the native PS library "
+             f"{native.native_lib_path().name} in "
+             f"{time.perf_counter() - t0:.1f}s; its SIMD path "
+             f"{native.native_simd_path()}, os.cpu_count()={os.cpu_count()}")
         report_build(paths, sources)
         floor = launch_path_phase(torch, card)
         records = kernel_phase(torch, card)
@@ -1992,6 +2093,14 @@ def main() -> int:
             records[name]["launches"] = n
         for name, n in pipelined_phase(torch, card).items():
             records[name]["launches_pipelined"] = n
+        native_ratio = (RATES["pipelined native"]
+                        / RATES["synchronous native"])
+        arena_ratio = (RATES["pipelined arena, steps 10-69"]
+                       / RATES["synchronous arena, steps 10-39"])
+        _log("[summary] training samples/s in this call: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in RATES.items())
+            + f"; pipelined / synchronous: native {native_ratio:.3f}, "
+            f"arena {arena_ratio:.3f} | card: {card}")
         records["embedding_bag"]["launches"] = device_mode_phase(torch, card)
         records["probe_copy"] = probe_phase(torch, card)
         k1 = records["embedding_bag"]

@@ -6,7 +6,9 @@ package (git-ignored); the hash of the source and of the shared headers
 ``csrc/*.cuh`` names the library, so an edited source or header is
 rebuilt and an unchanged one is reused. Nothing here
 runs at import time: the CPU tests import every module of the port on a
-machine without ``nvcc``.
+machine without ``nvcc``. :func:`compile_all` (private output name, then
+a rename) also builds the native PS library of
+:mod:`persia_tpu_torch.ps.native` with ``g++``.
 
 A kernel is launched through its :class:`Launcher`, resolved once per C
 entry by :func:`launcher`: the hot path is one Python call and one ctypes
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, NamedTuple, Sequence
 
 import torch
 
@@ -63,34 +65,64 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str]) -> List[Path]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns the library paths."""
-    paths = [_lib_path(n) for n in names]
-    todo = [(n, p) for n, p in zip(names, paths) if not p.exists()]
-    if not todo:
-        return paths
+class Job(NamedTuple):
+    """One compiler run: ``cmd -o <private name> source``, renamed to
+    ``path`` once it succeeded."""
+
+    name: str
+    path: Path
+    cmd: Sequence[str]
+    source: Path
+
+
+def compile_all(jobs: Sequence[Job]) -> Dict[str, str]:
+    """Run every job's compiler, all started together. Each writes to a
+    private name and is renamed into place, so a concurrent build (another
+    process, another test file) never loads a half-written library.
+    Returns each job's compiler output; raises with the output of every
+    job that failed."""
+    if not jobs:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = []
-    for name, path in todo:
-        # build to a private name, then rename: a concurrent build never
-        # loads a half-written library
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs.append((name, path, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, path, tmp, proc in procs:
+    for job in jobs:
+        tmp = job.path.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((job, tmp, subprocess.Popen(
+            [*job.cmd, "-o", str(tmp), str(job.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = {}, []
+    for job, tmp, proc in procs:
         log, _ = proc.communicate()
-        build_logs[name] = log
+        logs[job.name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{job.name}: {job.cmd[0]} exited "
+                          f"{proc.returncode}\n{log}")
             continue
-        os.replace(tmp, path)
+        os.replace(tmp, job.path)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def kernel_jobs(names: Sequence[str]) -> List[Job]:
+    """The nvcc jobs of the named kernels that are not built yet."""
+    todo = [(n, _lib_path(n)) for n in names]
+    todo = [(n, p) for n, p in todo if not p.exists()]
+    if not todo:
+        return []
+    cmd = (_nvcc(), *NVCC_FLAGS)
+    return [Job(n, p, cmd, CSRC_DIR / f"{n}.cu") for n, p in todo]
+
+
+def build(names: Sequence[str], extra_jobs: Sequence[Job] = ()
+          ) -> List[Path]:
+    """Compile every named kernel that is not built yet, one ``nvcc`` per
+    source, together with ``extra_jobs``, all started at once. Returns
+    the kernels' library paths."""
+    jobs = kernel_jobs(names)
+    logs = compile_all([*jobs, *extra_jobs])
+    build_logs.update({j.name: logs[j.name] for j in jobs})
+    return [_lib_path(n) for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -24,7 +24,13 @@ Backward (gradient) direction, the transpose of postprocess:
 
 Every sum accumulates with ``np.add.at``, which adds strictly in element
 order: that order is what makes the results bit-identical to the JAX
-package (and its native C++ kernels), which the parity tests rely on.
+package (and to the C++ kernels), which the parity tests rely on.
+
+Dedup, the shard split, the row scatter, the summed and raw postprocess
+and the gradient aggregation run the C++ kernels of
+:mod:`persia_tpu_torch.worker.mw_native` where the JAX middleware runs
+them (last-k pooling has no kernel and stays on numpy); the numpy path
+beside each is their twin, reached by patching ``_mw_native``.
 """
 
 from dataclasses import dataclass
@@ -35,8 +41,15 @@ import numpy as np
 from persia_tpu_torch.config import EmbeddingSchema, SlotConfig
 from persia_tpu_torch.data.batch import IDTypeFeature
 from persia_tpu_torch.hashing import farmhash64_np, sign_to_shard
+from persia_tpu_torch.worker import mw_native
 
 _U64 = np.uint64
+
+
+def _mw_native():
+    """The C++ kernels, whose library is built at first use (a failed
+    build raises); the tests patch this to ``None`` for the numpy twin."""
+    return mw_native
 
 
 @dataclass
@@ -77,7 +90,11 @@ def dedup_feature(feature: IDTypeFeature) -> DedupedFeature:
     elem_sample = np.repeat(np.arange(bs, dtype=np.int32), counts)
     elem_col = (np.arange(nnz, dtype=np.int32)
                 - np.repeat(offsets[:-1], counts).astype(np.int32))
-    distinct, inverse = np.unique(feature.signs, return_inverse=True)
+    native = _mw_native()
+    if native is not None:
+        distinct, inverse = native.dedup(feature.signs)
+    else:
+        distinct, inverse = np.unique(feature.signs, return_inverse=True)
     return DedupedFeature(
         name=feature.name,
         batch_size=bs,
@@ -179,10 +196,23 @@ class ShardGroup:
 def shard_split(feats: List[DedupedFeature], schema: EmbeddingSchema,
                 replica_size: int) -> List[ShardGroup]:
     """Group every feature's distinct signs by (PS shard, dim), in
-    ascending (shard, dim) order with features in batch order."""
+    ascending (shard, dim) order with features in batch order. (The
+    port has no routing table yet, so the native split always applies.)"""
+    native = _mw_native()
     by_key: Dict[Tuple[int, int], List[Tuple[np.ndarray, int]]] = {}
     for fi, feat in enumerate(feats):
         dim = schema.get_slot(feat.name).dim
+        if native is not None:
+            # fused farmhash and counting sort; ascending within a shard,
+            # as the nonzero split below
+            order, starts = native.shard_order(feat.distinct_signs,
+                                               replica_size)
+            for shard in range(replica_size):
+                a, b = int(starts[shard]), int(starts[shard + 1])
+                if a < b:
+                    by_key.setdefault((shard, dim), []).append(
+                        (order[a:b], fi))
+            continue
         shards = sign_to_shard(feat.distinct_signs, replica_size)
         for shard in np.unique(shards):
             sel = np.nonzero(shards == shard)[0].astype(np.int32)
@@ -222,8 +252,13 @@ def scatter_group(mats: List[np.ndarray], group: ShardGroup,
     matrices. Groups partition the distinct signs, so scatters of
     different groups write disjoint rows."""
     res = np.ascontiguousarray(res, dtype=np.float32)
+    native = _mw_native()
     for a, b, fi in _feature_runs(group.feature_idx):
-        mats[fi][group.distinct_idx[a:b]] = res[a:b]
+        if native is not None:
+            native.scatter_rows(mats[fi], group.distinct_idx[a:b], res[a:b],
+                                group.dim)
+        else:
+            mats[fi][group.distinct_idx[a:b]] = res[a:b]
 
 
 @dataclass
@@ -250,23 +285,22 @@ def postprocess_feature(feat: DedupedFeature, slot: SlotConfig,
     """One feature's distinct embeddings -> model-ready tensors."""
     bs = feat.batch_size
     dim = slot.dim
+    native = _mw_native()
     if slot.embedding_summation:
         last_n = slot.pooling_last_n
         if last_n:
             # recency pooling: sum of each sample's LAST k signs (CSR
-            # order is arrival order)
+            # order is arrival order); sum_post has no element mask
             keep = feat.elem_col >= (
                 feat.sample_num_signs - last_n)[feat.elem_sample]
             out = _segment_sum(emb[feat.elem_distinct[keep]],
                                feat.elem_sample[keep], bs)
             return SumEmbedding(feat.name, out)
-        scale = None
-        if slot.pooling == "mean":
-            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
-            scale = 1.0 / n
-        elif slot.sqrt_scaling:
-            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
-            scale = 1.0 / np.sqrt(n)
+        scale = _pool_scale(feat, slot)
+        if native is not None:
+            return SumEmbedding(feat.name, native.sum_post(
+                emb, feat.elem_distinct, feat.sample_num_signs, bs, dim,
+                scale))
         out = _segment_sum(emb[feat.elem_distinct], feat.elem_sample, bs)
         if scale is not None:
             out *= scale[:, None]
@@ -278,7 +312,10 @@ def postprocess_feature(feat: DedupedFeature, slot: SlotConfig,
             if feat.raw_row_of_distinct is not None
             else np.arange(feat.num_distinct, dtype=np.int32))
     emb_out = np.zeros((capacity, dim), dtype=np.float32)
-    np.add.at(emb_out, rows + 1, emb)
+    if native is not None:
+        native.scatter_add_rows(emb_out, rows + 1, emb, dim)
+    else:
+        np.add.at(emb_out, rows + 1, emb)
     if slot.sqrt_scaling and feat.hash_stack_rounds > 1:
         emb_out *= 1.0 / np.sqrt(float(feat.hash_stack_rounds))
     index = np.zeros((bs, sfs), dtype=np.int32)
@@ -300,6 +337,10 @@ def aggregate_gradients(feat: DedupedFeature, slot: SlotConfig,
     out."""
     grad = np.ascontiguousarray(grad, dtype=np.float32)
     last_n = slot.pooling_last_n
+    # last-k pooling has no kernel (no element mask in sum_grad)
+    native = _mw_native() if not last_n else None
+    if native is not None:
+        return _aggregate_native(native, feat, slot, grad, loss_scale)
     if not np.isfinite(grad).all():
         grad = np.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
     if loss_scale != 1.0:
@@ -312,18 +353,45 @@ def aggregate_gradients(feat: DedupedFeature, slot: SlotConfig,
                 feat.sample_num_signs - last_n)[feat.elem_sample]
             return _segment_sum(grad[feat.elem_sample[keep]],
                                 feat.elem_distinct[keep], feat.num_distinct)
-        if slot.pooling == "mean":
-            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
-            grad = grad * (1.0 / n)[:, None]
-        elif slot.sqrt_scaling:
-            n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
-            grad = grad * (1.0 / np.sqrt(n))[:, None]
+        scale = _pool_scale(feat, slot)
+        if scale is not None:
+            grad = grad * scale[:, None]
         return _segment_sum(grad[feat.elem_sample], feat.elem_distinct,
                             feat.num_distinct)
     rows = (feat.raw_row_of_distinct
             if feat.raw_row_of_distinct is not None
             else np.arange(feat.num_distinct, dtype=np.int32))
     out = grad[rows + 1].copy()
+    if slot.sqrt_scaling and feat.hash_stack_rounds > 1:
+        out *= 1.0 / np.sqrt(float(feat.hash_stack_rounds))
+    return out
+
+
+def _pool_scale(feat: DedupedFeature, slot: SlotConfig
+                ) -> Optional[np.ndarray]:
+    n = np.maximum(feat.sample_num_signs, 1).astype(np.float32)
+    if slot.pooling == "mean":
+        return 1.0 / n
+    if slot.sqrt_scaling:
+        return 1.0 / np.sqrt(n)
+    return None
+
+
+def _aggregate_native(native, feat: DedupedFeature, slot: SlotConfig,
+                      grad: np.ndarray, loss_scale: float) -> np.ndarray:
+    """:func:`aggregate_gradients` on the C++ kernels, which zero the
+    non-finite values and divide the loss scale out themselves."""
+    inv_ls = float(np.float32(1.0 / loss_scale)) if loss_scale != 1.0 \
+        else 1.0
+    if slot.embedding_summation:
+        return native.sum_grad(grad, feat.elem_sample, feat.elem_distinct,
+                               feat.num_distinct, slot.dim, inv_ls,
+                               _pool_scale(feat, slot))
+    rows = (feat.raw_row_of_distinct
+            if feat.raw_row_of_distinct is not None
+            else np.arange(feat.num_distinct, dtype=np.int32))
+    out = native.gather_rows(grad, rows + 1, slot.dim, filter_scale=inv_ls,
+                             filter_nonfinite=True)
     if slot.sqrt_scaling and feat.hash_stack_rounds > 1:
         out *= 1.0 / np.sqrt(float(feat.hash_stack_rounds))
     return out

@@ -14,13 +14,34 @@ buffer, and ``update_gradients`` consumes them. ``staleness`` counts the
 batches looked up for training whose gradients have not been taken yet
 (the pipeline's bounded-staleness observable). A failed lookup or update
 puts its buffer entry back, so a retry by ``ref_id`` still finds its
-batch. PS calls are serialized (one group after another); routing epochs,
-buffer expiry and the streaming update plane belong to later slices of
-the port.
+batch. A batch left in either buffer longer than
+``buffered_data_expired_sec`` is dropped, by the next ``put_batch`` or by
+a sweep thread, and gives its staleness count back.
+
+Fan-out: with more than one PS shard on a host with more than one core,
+the (shard, dim) groups go to their shards through a thread pool
+(``2 * shards`` threads, at most 32); the native store releases the
+interpreter lock for each call, so the shards work at once. Two planes:
+
+- **streaming** (the default): one task per group, whose result scatters
+  into the output as soon as it completes; a gradient group ships as
+  soon as its last feature has aggregated, while later features are
+  still aggregating (with one dim, every group waits for the last
+  feature, so the update takes the serialized plane);
+- **serialized** (``streaming=False``): every lookup result is gathered,
+  then scattered; every gradient aggregated, then every group shipped.
+
+Routing tables, resharding, retries across replicas, tracing spans and
+registry gauges belong to later slices of the port.
 """
 
+import os
 import threading
-from typing import Dict, List, Sequence, Tuple
+import time
+import weakref
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -30,34 +51,70 @@ from persia_tpu_torch.hashing import sign_to_shard
 from persia_tpu_torch.worker import middleware as mw
 
 
+def _wait_all(futures):
+    """Wait for every future, then raise the first one's error: no PS call
+    of a failed fan-out is still running when its caller retries (a retry
+    applies again what had landed)."""
+    for f in futures:
+        f.exception()
+    for f in futures:
+        f.result()
+
+
 class ForwardBufferFull(RuntimeError):
-    """The forward buffer holds ``FORWARD_BUFFER_SIZE`` batches already."""
+    """The forward buffer holds ``forward_buffer_size`` batches already."""
 
 
 class EmbeddingWorker:
     """``ps_clients`` are objects with the ``EmbeddingHolder`` interface
     (``configure``, ``register_optimizer``, ``lookup``,
     ``update_gradients``, ``set_entries``); shard r owns the signs with
-    ``farmhash64(sign) % len(ps_clients) == r``."""
+    ``farmhash64(sign) % len(ps_clients) == r``. ``forward_buffer_size``
+    bounds the batches put but not yet looked up; ``streaming`` picks the
+    data plane (module docstring). Call :meth:`close` when done."""
 
-    # batches put but not yet looked up that the worker will hold
-    FORWARD_BUFFER_SIZE = 1000
-
-    def __init__(self, schema: EmbeddingSchema, ps_clients: Sequence):
+    def __init__(self, schema: EmbeddingSchema, ps_clients: Sequence,
+                 forward_buffer_size: int = 1000,
+                 buffered_data_expired_sec: float = 1800,
+                 streaming: bool = True):
         self.schema = schema
         self.ps_clients = list(ps_clients)
         self.replica_size = len(self.ps_clients)
         if self.replica_size == 0:
             raise ValueError("EmbeddingWorker needs at least one PS client")
+        self.forward_buffer_size = forward_buffer_size
+        self.buffered_data_expired_sec = buffered_data_expired_sec
+        self.streaming = bool(streaming)
+        # in-process holders on one core gain nothing from threads
+        self._fanout: Optional[ThreadPoolExecutor] = (
+            ThreadPoolExecutor(max_workers=min(2 * self.replica_size, 32),
+                               thread_name_prefix="ps-fanout")
+            if self.replica_size > 1 and (os.cpu_count() or 1) > 1
+            else None)
         self._lock = threading.Lock()
         self._next_ref_id = 0
-        # ref_id -> preprocessed features, awaiting their training lookup
-        self._forward_id_buffer: Dict[int, List[mw.DedupedFeature]] = {}
-        # ref_id -> (features, shard groups), awaiting their gradients
+        # ref_id -> (preprocessed features, enter time), awaiting their
+        # training lookup
+        self._forward_id_buffer: Dict[
+            int, Tuple[List[mw.DedupedFeature], float]] = {}
+        # ref_id -> (features, shard groups, enter time), awaiting their
+        # gradients
         self._post_forward_buffer: Dict[
-            int, Tuple[List[mw.DedupedFeature], List[mw.ShardGroup]]] = {}
+            int, Tuple[List[mw.DedupedFeature], List[mw.ShardGroup],
+                       float]] = {}
         # training lookups whose gradients are not taken yet (under _lock)
         self.staleness = 0
+        # the expiry sweep: without it a dead pipeline's entries (and
+        # their staleness counts) stay until the next put_batch, which
+        # for a dead pipeline never comes. It holds the worker weakly,
+        # so an unclosed worker is still freed.
+        self._sweep_stop = threading.Event()
+        self._sweep_thread = threading.Thread(
+            target=self._sweep_loop,
+            args=(weakref.ref(self), self._sweep_stop,
+                  max(1.0, min(buffered_data_expired_sec / 4.0, 30.0))),
+            daemon=True, name="worker-expiry-sweep")
+        self._sweep_thread.start()
 
     def configure_parameter_servers(self, init_method: str,
                                     init_params: dict,
@@ -78,34 +135,65 @@ class EmbeddingWorker:
 
     def put_batch(self, id_type_features: List[IDTypeFeature]) -> int:
         """Ingest a batch before its lookup; returns its ref_id."""
+        self._expire_stale()
         with self._lock:
-            if len(self._forward_id_buffer) >= self.FORWARD_BUFFER_SIZE:
+            if len(self._forward_id_buffer) >= self.forward_buffer_size:
                 raise ForwardBufferFull(
-                    f"forward buffer full ({self.FORWARD_BUFFER_SIZE})")
+                    f"forward buffer full ({self.forward_buffer_size})")
             ref_id = self._next_ref_id
             self._next_ref_id += 1
         feats = mw.preprocess_batch(id_type_features, self.schema)
         with self._lock:
-            self._forward_id_buffer[ref_id] = feats
+            self._forward_id_buffer[ref_id] = (feats, time.monotonic())
         return ref_id
+
+    def _expire_stale(self):
+        """Drop the entries of both buffers older than
+        ``buffered_data_expired_sec``; each post-forward entry gives back
+        the staleness count its lookup took."""
+        horizon = time.monotonic() - self.buffered_data_expired_sec
+        with self._lock:
+            for buf in (self._forward_id_buffer, self._post_forward_buffer):
+                expired = [r for r, item in buf.items() if item[-1] < horizon]
+                for r in expired:
+                    del buf[r]
+                if buf is self._post_forward_buffer:
+                    self.staleness -= len(expired)
+
+    @staticmethod
+    def _sweep_loop(ref, stop: threading.Event, interval: float):
+        while not stop.wait(interval):
+            worker = ref()
+            if worker is None:
+                return
+            worker._expire_stale()
+            del worker
+
+    def close(self):
+        """Stop the expiry sweep and the fan-out pool."""
+        self._sweep_stop.set()
+        if self._fanout is not None:
+            self._fanout.shutdown(wait=False)
 
     def lookup(self, ref_id: int, training: bool = True) -> Dict[str, object]:
         """Look up a batch filed by ``put_batch``. A training lookup keeps
         the batch for its ``update_gradients``."""
         with self._lock:
-            feats = self._forward_id_buffer.pop(ref_id, None)
-        if feats is None:
+            item = self._forward_id_buffer.pop(ref_id, None)
+        if item is None:
             raise KeyError(f"ref_id {ref_id} not in forward buffer")
+        feats = item[0]
         try:
             result, groups = self._lookup_feats(feats, training)
         except BaseException:
             # a retry after the PS recovers must still find its batch
             with self._lock:
-                self._forward_id_buffer[ref_id] = feats
+                self._forward_id_buffer[ref_id] = item
             raise
         if training:
             with self._lock:
-                self._post_forward_buffer[ref_id] = (feats, groups)
+                self._post_forward_buffer[ref_id] = (feats, groups,
+                                                     time.monotonic())
                 self.staleness += 1
         return result
 
@@ -127,10 +215,25 @@ class EmbeddingWorker:
                       ) -> Tuple[Dict[str, object], List[mw.ShardGroup]]:
         groups = mw.shard_split(feats, self.schema, self.replica_size)
         mats = mw.alloc_lookup_mats(feats, self.schema)
-        for g in groups:
-            mw.scatter_group(
-                mats, g, self.ps_clients[g.shard].lookup(g.signs, g.dim,
-                                                         training))
+
+        def ps_lookup(g):
+            return self.ps_clients[g.shard].lookup(g.signs, g.dim, training)
+
+        def lookup_and_scatter(g):
+            mw.scatter_group(mats, g, ps_lookup(g))
+
+        if self.streaming:
+            # each result scatters as its call completes; groups
+            # partition the distinct signs, so the scatters are disjoint.
+            # (The JAX worker multiplexes a shard's groups on one
+            # connection through lookup_future, which only remote
+            # clients have: that waits for the service tier, ROADMAP.md
+            # queue A item 9.)
+            self._fan_out([partial(lookup_and_scatter, g) for g in groups])
+        else:
+            results = self._fan_out([partial(ps_lookup, g) for g in groups])
+            for g, res in zip(groups, results):
+                mw.scatter_group(mats, g, res)
         out = {feat.name: mw.postprocess_feature(
             feat, self.schema.get_slot(feat.name), mat)
             for feat, mat in zip(feats, mats)}
@@ -160,18 +263,55 @@ class EmbeddingWorker:
             raise
 
     def _update_gradients_inner(self, item, grads, loss_scale):
-        feats, groups = item
+        feats, groups, _ = item
+        # before any group ships (the streaming plane ships as it goes)
         missing = [f.name for f in feats if f.name not in grads]
         if missing:
             raise KeyError(f"missing gradients for features {missing}")
+        # a group can ship once its last feature (feature_idx is
+        # nondecreasing) has aggregated
+        by_last: Dict[int, List[mw.ShardGroup]] = {}
+        for g in groups:
+            by_last.setdefault(int(g.feature_idx[-1]), []).append(g)
+        if not self.streaming or self._fanout is None or len(by_last) <= 1:
+            self._update_serialized(feats, groups, grads, loss_scale)
+            return
+        futures = []
+        per_feature: List[Optional[np.ndarray]] = [None] * len(feats)
+        try:
+            for fi, feat in enumerate(feats):
+                per_feature[fi] = mw.aggregate_gradients(
+                    feat, self.schema.get_slot(feat.name), grads[feat.name],
+                    loss_scale)
+                for g in by_last.get(fi, ()):
+                    futures.append(self._fanout.submit(
+                        self.ps_clients[g.shard].update_gradients, g.signs,
+                        mw.gather_group_grads(g, per_feature), g.dim))
+        finally:
+            _wait_all(futures)
+
+    def _update_serialized(self, feats, groups, grads, loss_scale):
+        """Aggregate every feature, then ship every group."""
         per_feature = [
             mw.aggregate_gradients(feat, self.schema.get_slot(feat.name),
                                    grads[feat.name], loss_scale)
             for feat in feats]
-        for shard, dim, signs, g in mw.shard_gradients(
+        self._fan_out([
+            partial(self.ps_clients[shard].update_gradients, signs, g, dim)
+            for shard, dim, signs, g in mw.shard_gradients(
                 feats, self.schema, per_feature, self.replica_size,
-                groups=groups):
-            self.ps_clients[shard].update_gradients(signs, g, dim)
+                groups=groups)])
+
+    def _fan_out(self, calls) -> list:
+        """Run ``calls`` (callables without arguments) on the fan-out
+        pool, or in order on this thread when there is no pool or one
+        call; wait for every one, then raise the first error. Returns
+        their results."""
+        if self._fanout is None or len(calls) <= 1:
+            return [call() for call in calls]
+        futures = [self._fanout.submit(call) for call in calls]
+        _wait_all(futures)
+        return [f.result() for f in futures]
 
     # --- rows ------------------------------------------------------------
 
@@ -181,17 +321,24 @@ class EmbeddingWorker:
         and are never created."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         out = np.zeros((len(signs), dim), np.float32)
-        shards = sign_to_shard(signs, self.replica_size)
-        for r in np.unique(shards):
-            sel = np.nonzero(shards == r)[0]
-            out[sel] = self.ps_clients[int(r)].lookup(signs[sel], dim, False)
+        for sel, rows in zip(*self._per_shard(
+                signs, lambda r, sel: self.ps_clients[r].lookup(
+                    signs[sel], dim, False))):
+            out[sel] = rows
         return out
+
+    def _per_shard(self, signs: np.ndarray, call):
+        """``call(shard, sel)`` for each shard owning some of ``signs``
+        (``sel`` their indices), fanned out. Returns (the selections, the
+        results)."""
+        shards = sign_to_shard(signs, self.replica_size)
+        sels = [np.nonzero(shards == r)[0] for r in np.unique(shards)]
+        return sels, self._fan_out([partial(call, int(shards[sel[0]]), sel)
+                                    for sel in sels])
 
     def set_rows(self, signs: np.ndarray, vecs: np.ndarray, dim: int):
         """Write whole rows to their owning PS shards."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         vecs = np.ascontiguousarray(vecs, dtype=np.float32)
-        shards = sign_to_shard(signs, self.replica_size)
-        for r in np.unique(shards):
-            sel = np.nonzero(shards == r)[0]
-            self.ps_clients[int(r)].set_entries(signs[sel], dim, vecs[sel])
+        self._per_shard(signs, lambda r, sel: self.ps_clients[r].set_entries(
+            signs[sel], dim, vecs[sel]))

@@ -196,21 +196,59 @@ def test_lookup_direct_is_bit_exact():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port and
-    chip_smoke (without running it): no jax, flax, optax or persia_tpu
-    module may load."""
+    chip_smoke (without running it), then builds and loads the port's
+    native library and runs one worker lookup on the native store through
+    the middleware's C++ kernels: no jax, flax, optax or persia_tpu
+    module may load, and no file under ``native/build/`` or
+    ``persia_tpu/native_bin/`` may be mapped or open."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import persia_tpu_torch\n"
         "for m in pkgutil.walk_packages(persia_tpu_torch.__path__, "
         "'persia_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from persia_tpu_torch.ps.native import make_holder, "
+        "native_lib_path\n"
+        "from persia_tpu_torch.worker import mw_native\n"
+        "from persia_tpu_torch.worker.worker import EmbeddingWorker\n"
+        "from persia_tpu_torch.workloads import generator as gen\n"
+        "calls = []\n"
+        "for name in ('dedup', 'shard_order', 'scatter_rows', "
+        "'sum_post', 'scatter_add_rows'):\n"
+        "    def wrap(*a, _f=getattr(mw_native, name), _n=name):\n"
+        "        calls.append(_n)\n"
+        "        return _f(*a)\n"
+        "    setattr(mw_native, name, wrap)\n"
+        "schema = chip_smoke.build_schema()\n"
+        "w = EmbeddingWorker(schema, [make_holder(10000, 4) "
+        "for _ in range(2)])\n"
+        "w.configure_parameter_servers('bounded_uniform', "
+        "{'lower': -0.1, 'upper': 0.1}, 1.0, 1.0)\n"
+        "w.register_optimizer({'type': 'sgd', 'lr': 0.1})\n"
+        "b = next(iter(gen.seqrec_batches(16, 16, seed=1, "
+        "spec=gen.SeqRecSpec(item_vocab=500, t_hist=64))))\n"
+        "out = w.lookup_direct(b.id_type_features, training=True)\n"
+        "assert all(v.embeddings.any() for v in out.values())\n"
+        "assert set(calls) == {'dedup', 'shard_order', 'scatter_rows', "
+        "'sum_post', 'scatter_add_rows'}, calls\n"
+        "w.close()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert str(native_lib_path()) in maps\n"
+        "fds = [os.path.realpath(f'/proc/self/fd/{fd}') "
+        "for fd in os.listdir('/proc/self/fd')]\n"
+        "root = os.path.dirname(os.path.dirname(persia_tpu_torch.__file__))\n"
+        "for d in ('native/build', 'persia_tpu/native_bin'):\n"
+        "    d = os.path.join(root, d)\n"
+        "    assert d not in maps and not any(f.startswith(d) "
+        "for f in fds), d\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'persia_tpu'))\n"
         "missing = [n for n in ('persia_tpu_torch.ps.arena', "
         "'persia_tpu_torch.ps.native', 'persia_tpu_torch.pipeline', "
         "'persia_tpu_torch.data.dataloader', 'persia_tpu_torch.ctx', "
-        "'persia_tpu_torch.worker.worker') if n not in sys.modules]\n"
+        "'persia_tpu_torch.worker.worker', "
+        "'persia_tpu_torch.worker.mw_native') if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([n for n in sys.modules "
         "if n.startswith('persia_tpu_torch.')]))\n"

@@ -2,10 +2,11 @@
 ``persia_tpu_torch.data.dataloader`` and ``TrainCtx`` on looked-up
 batches), on the CPU, mirroring ``tests/test_pipeline.py`` with the
 sequence tower of ``tests/test_torch_train.py`` at its small widths, over
-arena PS holders.
+arena PS holders (and the native store where a test says so).
 
 - ``reproducible=True`` with staleness 1 equals the port's synchronous
-  run bit for bit: the same lookups, steps and updates in the same order.
+  run bit for bit: the same lookups, steps and updates in the same order,
+  on either holder, and the thread-stress run lands every update once.
 - The same pipelined run against the JAX package's pipelined run, from
   transplanted weights on both packages' arena holders: f32 compute and
   f32 wire, 1e-5 on losses and predictions and 2e-5 on PS rows, the
@@ -17,7 +18,7 @@ arena PS holders.
   error reaches the trainer.
 
 One ``gpu`` test holds 10 pipelined steps against 10 synchronous steps on
-the card (run there with ``python -m pytest tests/test_torch_pipeline.py
+the card, on each holder (run there with ``python -m pytest tests/test_torch_pipeline.py
 -m gpu --noconftest``).
 """
 
@@ -71,9 +72,11 @@ def _batches(n_steps, seed=9, bs=BS, requires_grad=True):
                                requires_grad=requires_grad)
 
 
-def _port_ctx(device="cpu", seed=3, jparams=None, holders=None, lr=1e-3):
-    """An f32 seq tower (f32 wire) over two fresh arena PS shards, seeded
-    or with transplanted flax weights."""
+def _port_ctx(device="cpu", seed=3, jparams=None, holders=None, lr=1e-3,
+              backend="arena"):
+    """An f32 seq tower (f32 wire) over two fresh PS shards (arena
+    holders unless ``backend`` says otherwise), seeded or with
+    transplanted flax weights."""
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
@@ -89,7 +92,7 @@ def _port_ctx(device="cpu", seed=3, jparams=None, holders=None, lr=1e-3):
         seed = None
     schema = _seq_schema(tcfg)
     worker = TWorker(schema, holders or [
-        make_holder(100_000, 4, backend="arena") for _ in range(2)])
+        make_holder(100_000, 4, backend=backend) for _ in range(2)])
     return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=lr),
                     Adagrad(lr=1e-2), schema, worker, seed=seed,
                     embedding_config=EmbeddingConfig(
@@ -125,11 +128,25 @@ def _run_pipelined(ctx, batches, **loader_kw):
 
 
 def _ps_bytes(ctx):
-    return [h.dump_bytes() for h in ctx.worker.ps_clients]
+    """Each PS holder's PSD dump (the native store's through a file)."""
+    import tempfile
+    from pathlib import Path
+
+    out = []
+    for h in ctx.worker.ps_clients:
+        if hasattr(h, "dump_bytes"):
+            out.append(h.dump_bytes())
+            continue
+        with tempfile.TemporaryDirectory() as d:
+            h.dump_file(str(Path(d) / "ps.psd"))
+            out.append((Path(d) / "ps.psd").read_bytes())
+    return out
 
 
-def test_reproducible_pipeline_equals_sync_bit_for_bit():
-    sync_ctx, pipe_ctx = _port_ctx(), _port_ctx()
+@pytest.mark.parametrize("backend", ["arena", "native"])
+def test_reproducible_pipeline_equals_sync_bit_for_bit(backend):
+    sync_ctx, pipe_ctx = (_port_ctx(backend=backend),
+                          _port_ctx(backend=backend))
     sync = _run_sync(sync_ctx, _batches(8))
     pipe = _run_pipelined(pipe_ctx, _batches(8), num_workers=4,
                           reproducible=True, embedding_staleness=1)
@@ -330,16 +347,17 @@ def no_pause(monkeypatch):
 
 def test_connection_failures_are_retried_and_the_batch_found(no_pause):
     """A lookup and an update that fail once are retried; the worker put
-    each batch back, so the run equals the synchronous one. (Shard 0 is
-    the first each call reaches: a group applied before the failure would
-    apply again on the retry, as in the JAX package.)"""
-    holders = [_Flaky(make_holder(100_000, 4, backend="arena")),
-               make_holder(100_000, 4, backend="arena")]
+    each batch back, so the run equals the synchronous one. (The worker
+    calls both shards at once, and a group applied before the failure
+    would apply again on the retry, as in the JAX package: so both shards
+    fail their first lookup and their first update.)"""
+    holders = [_Flaky(make_holder(100_000, 4, backend="arena"))
+               for _ in range(2)]
     sync_ctx, pipe_ctx = _port_ctx(), _port_ctx(holders=holders)
     sync = _run_sync(sync_ctx, _batches(4))
     pipe = _run_pipelined(pipe_ctx, _batches(4), num_workers=2,
                           reproducible=True, embedding_staleness=1)
-    assert holders[0].lookup_fails == holders[0].update_fails == 0
+    assert all(h.lookup_fails == h.update_fails == 0 for h in holders)
     assert [loss for loss, _ in sync] == [loss for loss, _ in pipe]
     assert _ps_bytes(sync_ctx) == _ps_bytes(pipe_ctx)
 
@@ -476,7 +494,8 @@ def test_dataloader_needs_a_context():
 
 
 @pytest.mark.gpu
-def test_pipelined_steps_match_sync_steps_on_the_card():
+@pytest.mark.parametrize("backend", ["arena", "native"])
+def test_pipelined_steps_match_sync_steps_on_the_card(backend):
     """10 pipelined steps (reproducible, staleness 1, prefetch workers
     staging on their own threads) against 10 synchronous steps from the
     same weights, on the card: the copies and kernels the training thread
@@ -484,7 +503,8 @@ def test_pipelined_steps_match_sync_steps_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m gpu)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    sync_ctx, pipe_ctx = _port_ctx("cuda"), _port_ctx("cuda")
+    sync_ctx, pipe_ctx = (_port_ctx("cuda", backend=backend),
+                          _port_ctx("cuda", backend=backend))
     sync = _run_sync(sync_ctx, _batches(10))
     pipe = _run_pipelined(pipe_ctx, _batches(10), num_workers=4,
                           reproducible=True, embedding_staleness=1)
@@ -494,10 +514,11 @@ def test_pipelined_steps_match_sync_steps_on_the_card():
     assert _ps_bytes(sync_ctx) == _ps_bytes(pipe_ctx)
 
 
-def test_engines_under_thread_stress():
+@pytest.mark.parametrize("backend", ["arena", "native"])
+def test_engines_under_thread_stress(backend):
     """12 lookup workers (more than this host's cores) and staleness 5,
-    with a 10 µs interpreter switch interval, over one worker and two
-    arena PS shards: every batch's update lands exactly once. With SGD
+    with a 10 µs interpreter switch interval, over one worker and two PS
+    shards of each holder: every batch's update lands exactly once. With SGD
     and all-ones gradients each row's final value depends only on how
     often its sign was updated, so the rows must equal a synchronous
     run's (to f32 rounding of the reordered subtractions; one lost or
@@ -507,7 +528,7 @@ def test_engines_under_thread_stress():
 
     def make_worker():
         w = TWorker(_seq_schema(tcfg), [
-            make_holder(100_000, 4, backend="arena") for _ in range(2)])
+            make_holder(100_000, 4, backend=backend) for _ in range(2)])
         w.configure_parameter_servers(
             "bounded_uniform", {"lower": -0.05, "upper": 0.05}, 1.0, 10.0)
         w.register_optimizer({"type": "sgd", "lr": 1e-3})

@@ -317,14 +317,20 @@ def test_row_precision_matches_jax(row_dtype):
 
 
 def test_make_holder_backends_and_refusals(caplog):
+    """``auto`` (the default) and ``native`` give the native C++ store,
+    without a warning; ``arena`` and ``python-legacy`` stay explicit."""
     from persia_tpu_torch.ps import native as tnative
 
-    tnative._native_noted = False
     with caplog.at_level("WARNING", logger="persia_tpu_torch.ps.native"):
         h = make_holder(1000, 4)
-        make_holder(1000, 4, backend="auto")
-    assert isinstance(h, tarena.ArenaEmbeddingHolder)
-    assert sum("not ported" in r.message for r in caplog.records) == 1
+        assert type(make_holder(1000, 4, backend="auto")) is type(h)
+    assert isinstance(h, tnative.NativeEmbeddingHolder)
+    assert not caplog.records
+    native = make_holder(1000, 2, backend="native", row_dtype="fp16",
+                         capacity_bytes=4096)
+    assert isinstance(native, tnative.NativeEmbeddingHolder)
+    assert (native.row_dtype, native.capacity_bytes,
+            native.num_internal_shards) == ("fp16", 4096, 2)
     assert isinstance(make_holder(1000, 4, prefer_native=False),
                       tarena.ArenaEmbeddingHolder)
     h = make_holder(1000, 2, backend="arena", row_dtype="bf16",
@@ -333,8 +339,6 @@ def test_make_holder_backends_and_refusals(caplog):
         "bf16", 4096, 2)
     legacy = make_holder(1000, 4, backend="python-legacy")
     assert type(legacy) is TLegacy and legacy.capacity == 1000
-    with pytest.raises(NotImplementedError, match="item 2d"):
-        make_holder(1000, 4, backend="native")
     with pytest.raises(NotImplementedError, match="backend='arena'"):
         make_holder(1000, 4, backend="python-legacy", row_dtype="fp16")
     with pytest.raises(ValueError, match="unknown PS backend"):
@@ -442,8 +446,11 @@ def test_hit_evicted_mid_batch_then_not_admitted(repeat):
     batch and keeps that read when it falls back to the sequential path,
     so it returns the evicted row (ROADMAP.md §C); a batch with repeated
     signs reads zeros. The port's arena gives the JAX arena's bytes in
-    both cases."""
+    both cases. The native C++ store (the JAX package's and the port's)
+    reads zeros in both, as the per-entry holder does."""
     from persia_tpu.ps.arena import ArenaEmbeddingHolder as JArena
+    from persia_tpu.ps.native import NativeEmbeddingHolder as JNative
+    from persia_tpu_torch.ps.native import NativeEmbeddingHolder as TNative
     from persia_tpu_torch.ps.rng import admit_mask
 
     cand = np.arange(1, 200, dtype=np.uint64)
@@ -452,7 +459,8 @@ def test_hit_evicted_mid_batch_then_not_admitted(repeat):
     s = cand[~admitted][0]
     batch = np.array([a, b, s, s] if repeat else [a, b, s], np.uint64)
     outs = []
-    for cls in (JArena, tarena.ArenaEmbeddingHolder, TLegacy):
+    for cls in (JArena, tarena.ArenaEmbeddingHolder, TLegacy, JNative,
+                TNative):
         h = cls(2, 1)
         h.configure("bounded_uniform", {"lower": -0.1, "upper": 0.1},
                     admit_probability=0.5)
@@ -460,8 +468,11 @@ def test_hit_evicted_mid_batch_then_not_admitted(repeat):
         h.set_entries(np.array([s], np.uint64), 4,
                       np.full((1, 4), 7.0, np.float32))
         outs.append((h.lookup(batch, 4, True), h.index_miss_count))
-    (jout, jmiss), (tout, tmiss), (lout, lmiss) = outs
+    (jout, jmiss), (tout, tmiss), (lout, lmiss), (jn, jnmiss), (tn, tnmiss) \
+        = outs
     _eq(jout, tout)
-    assert jmiss == tmiss == lmiss == len(batch)
+    _eq(jn, tn)
+    _eq(tn, lout)
+    assert jmiss == tmiss == lmiss == jnmiss == tnmiss == len(batch)
     assert not lout[2:].any()
     assert (tout[2:] == 7.0).all() != repeat
