@@ -15,8 +15,11 @@ itself, at first use, from the sources in the checkout:
   (:func:`persia_tpu_torch.ops._build.compile_all`), so test processes
   building at once never load a half-written library;
 - a failed build raises with the compiler's output, and a library missing
-  any symbol of :data:`REQUIRED_SYMBOLS` is an error: it is always built
-  from the current sources, so there is nothing to negotiate down to.
+  any symbol the port calls is an error (:func:`bind_symbols`): it is
+  always built from the current sources, so there is nothing to negotiate
+  down to. Each module binds the entries it calls: this one the store's
+  ``ptps_*``, :mod:`persia_tpu_torch.worker.mw_native` the middleware's
+  ``ptmw_*``.
 
 Nothing runs at import time. :class:`NativeEmbeddingHolder` has the
 interface of the Python holders, and the same semantics and PSD v1/v2
@@ -89,27 +92,9 @@ _SIGNATURES = {
     "ptps_set_parallel": (None, [_vp, _u32, _u64]),
     "ptps_get_parallel": (None, [_vp, _P(_u64)]),
 }
-# the middleware kernels (persia_tpu_torch/worker/mw_native.py)
-_MW_SIGNATURES = {
-    "ptmw_dedup": (_i64, [_P(_u64), _i64, _P(_u64), _P(ctypes.c_int32)]),
-    "ptmw_sum_post": (None, [_P(_f32), _P(ctypes.c_int32),
-                             _P(ctypes.c_int32), ctypes.c_int32,
-                             ctypes.c_int32, _P(_f32), _P(_f32)]),
-    "ptmw_sum_grad": (None, [_P(_f32), _P(ctypes.c_int32),
-                             _P(ctypes.c_int32), _i64, _i64, ctypes.c_int32,
-                             _f32, _P(_f32), _P(_f32)]),
-    "ptmw_shard_order": (None, [_P(_u64), _i64, _u32, _P(ctypes.c_int32),
-                                _P(_u32)]),
-    "ptmw_gather_rows": (None, [_P(_f32), _P(ctypes.c_int32), _i64,
-                                ctypes.c_int32, _f32, _i32, _P(_f32)]),
-    "ptmw_scatter_rows": (None, [_P(_f32), _P(ctypes.c_int32), _i64,
-                                 ctypes.c_int32, _P(_f32)]),
-    "ptmw_scatter_add_rows": (None, [_P(_f32), _P(ctypes.c_int32), _i64,
-                                     ctypes.c_int32, _P(_f32)]),
-}
-REQUIRED_SYMBOLS = (*_SIGNATURES, *_MW_SIGNATURES)
 
-# the JAX package's capability sets, by the symbols that carry them
+# the JAX package's capability sets, by the symbols that carry them (the
+# port only reports them: its library always has both)
 _ARENA_SYMBOLS = ("ptps_new2", "ptps_row_dtype", "ptps_resident_bytes",
                   "ptps_resident_emb_bytes", "ptps_shard_resident_bytes",
                   "ptps_arena_stats")
@@ -170,17 +155,22 @@ def load_native_lib() -> ctypes.CDLL:
         if _lib is None:
             compile_all(native_jobs())
             lib = ctypes.CDLL(str(native_lib_path()))
-            missing = [s for s in REQUIRED_SYMBOLS if not hasattr(lib, s)]
-            if missing:
-                raise RuntimeError(f"the native library built from "
-                                   f"{NATIVE_SRC_DIR} lacks {missing}")
-            for table in (_SIGNATURES, _MW_SIGNATURES):
-                for name, (restype, argtypes) in table.items():
-                    fn = getattr(lib, name)
-                    fn.restype = restype
-                    fn.argtypes = argtypes
+            bind_symbols(lib, _SIGNATURES)
             _lib = lib
     return _lib
+
+
+def bind_symbols(lib: ctypes.CDLL, signatures: Dict[str, tuple]):
+    """Set the types of ``signatures`` (symbol -> (restype, argtypes)) on
+    ``lib``; raises naming every symbol the library lacks."""
+    missing = [s for s in signatures if not hasattr(lib, s)]
+    if missing:
+        raise RuntimeError(f"the native library built from "
+                           f"{NATIVE_SRC_DIR} lacks {missing}")
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
 
 
 def native_capabilities(lib=None) -> frozenset:

@@ -1,7 +1,8 @@
 """The middleware's C++ kernels (``persia_tpu/worker/mw_native.py``).
 
 The ``ptmw_*`` entries of ``native/src/mw_kernels.h``, in the native
-library that :func:`persia_tpu_torch.ps.native.load_native_lib` builds:
+library that :func:`persia_tpu_torch.ps.native.load_native_lib` builds;
+this module binds their signatures at first use. Kernels:
 dedup, the summed-slot postprocess and its gradient, the shard order, and
 the row gather, scatter and scatter-add. Each is bit-identical to its
 numpy twin in :mod:`persia_tpu_torch.worker.middleware`, which calls them
@@ -9,11 +10,47 @@ through ``_mw_native()``.
 """
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
-from persia_tpu_torch.ps.native import load_native_lib
+from persia_tpu_torch.ps.native import bind_symbols, load_native_lib
+
+_i32, _i64, _u32, _u64, _f32 = (ctypes.c_int32, ctypes.c_int64,
+                                ctypes.c_uint32, ctypes.c_uint64,
+                                ctypes.c_float)
+_P = ctypes.POINTER
+# symbol -> (restype, argtypes)
+_SIGNATURES = {
+    "ptmw_dedup": (_i64, [_P(_u64), _i64, _P(_u64), _P(_i32)]),
+    "ptmw_sum_post": (None, [_P(_f32), _P(_i32), _P(_i32), _i32, _i32,
+                             _P(_f32), _P(_f32)]),
+    "ptmw_sum_grad": (None, [_P(_f32), _P(_i32), _P(_i32), _i64, _i64, _i32,
+                             _f32, _P(_f32), _P(_f32)]),
+    "ptmw_shard_order": (None, [_P(_u64), _i64, _u32, _P(_i32), _P(_u32)]),
+    "ptmw_gather_rows": (None, [_P(_f32), _P(_i32), _i64, _i32, _f32, _i32,
+                                _P(_f32)]),
+    "ptmw_scatter_rows": (None, [_P(_f32), _P(_i32), _i64, _i32,
+                                 _P(_f32)]),
+    "ptmw_scatter_add_rows": (None, [_P(_f32), _P(_i32), _i64, _i32,
+                                     _P(_f32)]),
+}
+
+_lock = threading.Lock()
+_bound: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The native library with the ``ptmw_*`` entries bound."""
+    global _bound
+    if _bound is None:
+        with _lock:
+            if _bound is None:
+                lib = load_native_lib()
+                bind_symbols(lib, _SIGNATURES)
+                _bound = lib
+    return _bound
 
 
 def _p(a: np.ndarray, ctype):
@@ -51,7 +88,7 @@ def _opt_f32(scale: Optional[np.ndarray], n: int):
 def dedup(signs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """``np.unique(signs, return_inverse=True)``: sorted distinct signs
     and each element's index among them (int32)."""
-    lib = load_native_lib()
+    lib = _lib()
     signs = np.ascontiguousarray(signs, dtype=np.uint64)
     nnz = len(signs)
     distinct = np.empty(nnz, dtype=np.uint64)
@@ -66,7 +103,7 @@ def sum_post(emb: np.ndarray, elem_distinct: np.ndarray, counts: np.ndarray,
              bs: int, dim: int, scale: Optional[np.ndarray]) -> np.ndarray:
     """Each sample's sum of its elements' rows, times ``scale`` per
     sample when given: (bs, dim)."""
-    lib = load_native_lib()
+    lib = _lib()
     emb = np.ascontiguousarray(emb, dtype=np.float32)
     elem_distinct = np.ascontiguousarray(elem_distinct, dtype=np.int32)
     counts = np.ascontiguousarray(counts, dtype=np.int32)
@@ -90,7 +127,7 @@ def sum_grad(grad: np.ndarray, elem_sample: np.ndarray,
     """The transpose of :func:`sum_post`: per distinct sign, the sum of
     its elements' sample gradients (non-finite values zeroed, times
     ``inv_loss_scale`` and the sample's ``scale``)."""
-    lib = load_native_lib()
+    lib = _lib()
     grad = np.ascontiguousarray(grad, dtype=np.float32)
     elem_sample = np.ascontiguousarray(elem_sample, dtype=np.int32)
     elem_distinct = np.ascontiguousarray(elem_distinct, dtype=np.int32)
@@ -114,7 +151,7 @@ def shard_order(signs: np.ndarray, replica: int
     """Counting sort of sign indices by ``farmhash64(sign) % replica``:
     (order int32 (n,), starts uint32 (replica + 1,)); shard s holds
     ``signs[order[starts[s]:starts[s + 1]]]``, in ascending index order."""
-    lib = load_native_lib()
+    lib = _lib()
     signs = np.ascontiguousarray(signs, dtype=np.uint64)
     order = np.empty(len(signs), dtype=np.int32)
     starts = np.empty(replica + 1, dtype=np.uint32)
@@ -129,7 +166,7 @@ def gather_rows(src: np.ndarray, idx: np.ndarray, dim: int,
                 filter_nonfinite: bool = False) -> np.ndarray:
     """``src[idx]``; with ``filter_nonfinite`` non-finite values read 0
     and every value is multiplied by ``filter_scale``."""
-    lib = load_native_lib()
+    lib = _lib()
     src = np.ascontiguousarray(src, dtype=np.float32)
     idx = np.ascontiguousarray(idx, dtype=np.int32)
     _check_index(idx, len(src), "idx")
@@ -145,7 +182,7 @@ def gather_rows(src: np.ndarray, idx: np.ndarray, dim: int,
 def scatter_rows(dst: np.ndarray, idx: np.ndarray, src: np.ndarray,
                  dim: int):
     """``dst[idx] = src`` in place (``dst`` C-contiguous f32)."""
-    lib = load_native_lib()
+    lib = _lib()
     idx = np.ascontiguousarray(idx, dtype=np.int32)
     src = np.ascontiguousarray(src, dtype=np.float32)
     _check_dst(dst, dim)
@@ -158,7 +195,7 @@ def scatter_rows(dst: np.ndarray, idx: np.ndarray, src: np.ndarray,
 def scatter_add_rows(dst: np.ndarray, idx: np.ndarray, src: np.ndarray,
                      dim: int):
     """``np.add.at(dst, idx, src)`` in place, in element order."""
-    lib = load_native_lib()
+    lib = _lib()
     idx = np.ascontiguousarray(idx, dtype=np.int32)
     src = np.ascontiguousarray(src, dtype=np.float32)
     _check_dst(dst, dim)

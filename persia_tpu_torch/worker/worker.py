@@ -14,7 +14,8 @@ buffer, and ``update_gradients`` consumes them. ``staleness`` counts the
 batches looked up for training whose gradients have not been taken yet
 (the pipeline's bounded-staleness observable). A failed lookup or update
 puts its buffer entry back, so a retry by ``ref_id`` still finds its
-batch. A batch left in either buffer longer than
+batch; an update's entry remembers which (shard, dim) groups landed, and
+the retry ships only the others, so no group applies twice. A batch left in either buffer longer than
 ``buffered_data_expired_sec`` is dropped, by the next ``put_batch`` or by
 a sweep thread, and gives its staleness count back.
 
@@ -41,7 +42,7 @@ import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -53,8 +54,7 @@ from persia_tpu_torch.worker import middleware as mw
 
 def _wait_all(futures):
     """Wait for every future, then raise the first one's error: no PS call
-    of a failed fan-out is still running when its caller retries (a retry
-    applies again what had landed)."""
+    of a failed fan-out is still running when its caller retries."""
     for f in futures:
         f.exception()
     for f in futures:
@@ -62,19 +62,19 @@ def _wait_all(futures):
 
 
 class ForwardBufferFull(RuntimeError):
-    """The forward buffer holds ``forward_buffer_size`` batches already."""
+    """The forward buffer holds ``FORWARD_BUFFER_SIZE`` batches already."""
 
 
 class EmbeddingWorker:
     """``ps_clients`` are objects with the ``EmbeddingHolder`` interface
     (``configure``, ``register_optimizer``, ``lookup``,
     ``update_gradients``, ``set_entries``); shard r owns the signs with
-    ``farmhash64(sign) % len(ps_clients) == r``. ``forward_buffer_size``
-    bounds the batches put but not yet looked up; ``streaming`` picks the
+    ``farmhash64(sign) % len(ps_clients) == r``. ``streaming`` picks the
     data plane (module docstring). Call :meth:`close` when done."""
 
+    FORWARD_BUFFER_SIZE = 1000
+
     def __init__(self, schema: EmbeddingSchema, ps_clients: Sequence,
-                 forward_buffer_size: int = 1000,
                  buffered_data_expired_sec: float = 1800,
                  streaming: bool = True):
         self.schema = schema
@@ -82,7 +82,6 @@ class EmbeddingWorker:
         self.replica_size = len(self.ps_clients)
         if self.replica_size == 0:
             raise ValueError("EmbeddingWorker needs at least one PS client")
-        self.forward_buffer_size = forward_buffer_size
         self.buffered_data_expired_sec = buffered_data_expired_sec
         self.streaming = bool(streaming)
         # in-process holders on one core gain nothing from threads
@@ -97,11 +96,11 @@ class EmbeddingWorker:
         # training lookup
         self._forward_id_buffer: Dict[
             int, Tuple[List[mw.DedupedFeature], float]] = {}
-        # ref_id -> (features, shard groups, enter time), awaiting their
-        # gradients
+        # ref_id -> (features, shard groups, indices of the groups whose
+        # update landed, enter time), awaiting their gradients
         self._post_forward_buffer: Dict[
             int, Tuple[List[mw.DedupedFeature], List[mw.ShardGroup],
-                       float]] = {}
+                       Set[int], float]] = {}
         # training lookups whose gradients are not taken yet (under _lock)
         self.staleness = 0
         # the expiry sweep: without it a dead pipeline's entries (and
@@ -137,9 +136,9 @@ class EmbeddingWorker:
         """Ingest a batch before its lookup; returns its ref_id."""
         self._expire_stale()
         with self._lock:
-            if len(self._forward_id_buffer) >= self.forward_buffer_size:
+            if len(self._forward_id_buffer) >= self.FORWARD_BUFFER_SIZE:
                 raise ForwardBufferFull(
-                    f"forward buffer full ({self.forward_buffer_size})")
+                    f"forward buffer full ({self.FORWARD_BUFFER_SIZE})")
             ref_id = self._next_ref_id
             self._next_ref_id += 1
         feats = mw.preprocess_batch(id_type_features, self.schema)
@@ -192,7 +191,7 @@ class EmbeddingWorker:
             raise
         if training:
             with self._lock:
-                self._post_forward_buffer[ref_id] = (feats, groups,
+                self._post_forward_buffer[ref_id] = (feats, groups, set(),
                                                      time.monotonic())
                 self.staleness += 1
         return result
@@ -255,26 +254,35 @@ class EmbeddingWorker:
         try:
             self._update_gradients_inner(item, grads, loss_scale)
         except BaseException:
-            # put the batch back so a retry still finds it; shard groups
-            # applied before the failure apply again on that retry
+            # put the batch back so a retry still finds it; its landed
+            # set keeps the retry from applying those groups again
             with self._lock:
                 self._post_forward_buffer[ref_id] = item
                 self.staleness += 1
             raise
 
     def _update_gradients_inner(self, item, grads, loss_scale):
-        feats, groups, _ = item
+        feats, groups, landed, _ = item
         # before any group ships (the streaming plane ships as it goes)
         missing = [f.name for f in feats if f.name not in grads]
         if missing:
             raise KeyError(f"missing gradients for features {missing}")
+        todo = [i for i in range(len(groups)) if i not in landed]
+
+        def ship(i, group_grads):
+            g = groups[i]
+            self.ps_clients[g.shard].update_gradients(g.signs, group_grads,
+                                                      g.dim)
+            landed.add(i)
+
         # a group can ship once its last feature (feature_idx is
         # nondecreasing) has aggregated
-        by_last: Dict[int, List[mw.ShardGroup]] = {}
-        for g in groups:
-            by_last.setdefault(int(g.feature_idx[-1]), []).append(g)
+        by_last: Dict[int, List[int]] = {}
+        for i in todo:
+            by_last.setdefault(int(groups[i].feature_idx[-1]), []).append(i)
         if not self.streaming or self._fanout is None or len(by_last) <= 1:
-            self._update_serialized(feats, groups, grads, loss_scale)
+            self._update_serialized(feats, groups, todo, ship, grads,
+                                    loss_scale)
             return
         futures = []
         per_feature: List[Optional[np.ndarray]] = [None] * len(feats)
@@ -283,24 +291,23 @@ class EmbeddingWorker:
                 per_feature[fi] = mw.aggregate_gradients(
                     feat, self.schema.get_slot(feat.name), grads[feat.name],
                     loss_scale)
-                for g in by_last.get(fi, ()):
+                for i in by_last.get(fi, ()):
                     futures.append(self._fanout.submit(
-                        self.ps_clients[g.shard].update_gradients, g.signs,
-                        mw.gather_group_grads(g, per_feature), g.dim))
+                        ship, i, mw.gather_group_grads(groups[i],
+                                                       per_feature)))
         finally:
             _wait_all(futures)
 
-    def _update_serialized(self, feats, groups, grads, loss_scale):
-        """Aggregate every feature, then ship every group."""
+    def _update_serialized(self, feats, groups, todo, ship, grads,
+                           loss_scale):
+        """Aggregate every feature, then ship the groups ``todo``."""
         per_feature = [
             mw.aggregate_gradients(feat, self.schema.get_slot(feat.name),
                                    grads[feat.name], loss_scale)
             for feat in feats]
         self._fan_out([
-            partial(self.ps_clients[shard].update_gradients, signs, g, dim)
-            for shard, dim, signs, g in mw.shard_gradients(
-                feats, self.schema, per_feature, self.replica_size,
-                groups=groups)])
+            partial(ship, i, mw.gather_group_grads(groups[i], per_feature))
+            for i in todo])
 
     def _fan_out(self, calls) -> list:
         """Run ``calls`` (callables without arguments) on the fan-out

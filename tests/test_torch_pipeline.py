@@ -345,14 +345,17 @@ def no_pause(monkeypatch):
         sleep=lambda s: None, monotonic=time.monotonic))
 
 
-def test_connection_failures_are_retried_and_the_batch_found(no_pause):
-    """A lookup and an update that fail once are retried; the worker put
-    each batch back, so the run equals the synchronous one. (The worker
-    calls both shards at once, and a group applied before the failure
-    would apply again on the retry, as in the JAX package: so both shards
-    fail their first lookup and their first update.)"""
-    holders = [_Flaky(make_holder(100_000, 4, backend="arena"))
-               for _ in range(2)]
+@pytest.mark.parametrize("failing", [(0,), (1,), (0, 1)])
+def test_connection_failures_are_retried_and_the_batch_found(no_pause,
+                                                             failing):
+    """A lookup and an update that fail once on the ``failing`` shards are
+    retried; the worker put each batch back, so the run equals the
+    synchronous one. With one shard failing, the other's groups have
+    landed when the failure comes back (the worker calls the shards at
+    once): the retry ships only the groups that had not landed, so none
+    applies twice (the JAX worker re-applies them, ROADMAP.md section C)."""
+    holders = [_Flaky(make_holder(100_000, 4, backend="arena"),
+                      fail=int(r in failing)) for r in range(2)]
     sync_ctx, pipe_ctx = _port_ctx(), _port_ctx(holders=holders)
     sync = _run_sync(sync_ctx, _batches(4))
     pipe = _run_pipelined(pipe_ctx, _batches(4), num_workers=2,

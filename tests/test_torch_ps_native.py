@@ -696,6 +696,76 @@ def test_worker_matches_the_jax_worker(backend, streaming, tmp_path):
         tw.close()
 
 
+class _FailsOnce(_Recording):
+    """A holder whose first gradient update raises before touching
+    anything; it counts the updates that reach the store."""
+
+    def __init__(self, inner):
+        super().__init__(inner)
+        self.failed = False
+        self.updates = 0
+
+    def update_gradients(self, *a):
+        if not self.failed:
+            self.failed = True
+            raise ConnectionError("PS restarting")
+        self.updates += 1
+        return super().update_gradients(*a)
+
+
+@pytest.mark.parametrize("streaming", [True, False],
+                         ids=["streaming", "serialized"])
+def test_a_retried_update_ships_only_the_groups_that_had_not_landed(
+        streaming, tmp_path):
+    """Shard 1 fails its first update while the other shards' groups land:
+    the worker keeps the batch, and the retry by ``ref_id`` ships only the
+    failed group, so every row equals a run without the failure."""
+    schema = _mixed_schemas()[1]
+    flaky = _FailsOnce(tnative.make_holder(100_000, 4))
+    workers = [TWorker(schema, [tnative.make_holder(100_000, 4)
+                                for _ in range(3)], streaming=streaming),
+               TWorker(schema, [tnative.make_holder(100_000, 4), flaky,
+                                tnative.make_holder(100_000, 4)],
+                       streaming=streaming)]
+    rng = np.random.default_rng(21)
+    try:
+        for w in workers:
+            w.configure_parameter_servers(
+                "bounded_uniform", {"lower": -0.05, "upper": 0.05}, 1.0, 1.0)
+            w.register_optimizer(OPTIMIZERS["adagrad"])
+        for step, feats in enumerate(_mixed_batches(tgen, 3)):
+            grads = None
+            for w in workers:
+                ref, looked = w.lookup_direct_training(feats)
+                if grads is None:
+                    grads = {n: rng.normal(size=r.embeddings.shape).astype(
+                        np.float32) for n, r in looked.items()}
+                if step == 0 and w is workers[1]:
+                    with pytest.raises(ConnectionError):
+                        w.update_gradients(ref, grads)
+                    assert w.staleness == 1
+                w.update_gradients(ref, grads)
+                assert w.staleness == 0
+        # shard 1 holds a group for each dim: one failed, and was shipped
+        # once more by the retry
+        n_groups = {(g.shard, g.dim) for g in tmw.shard_split(
+            tmw.preprocess_batch(next(_mixed_batches(tgen, 1)), schema),
+            schema, 3)}
+        assert flaky.updates == 3 * sum(s == 1 for s, _ in n_groups)
+        for clean, retried in zip(*(w.ps_clients for w in workers)):
+            (cv, crows), (rv, rrows) = (
+                _records(_dump(getattr(h, "_inner", h), tmp_path))
+                for h in (clean, retried))
+            assert cv == rv and len(crows) == len(rrows)
+            rrows = {s: (d, v) for s, d, v in rrows}
+            for s, d, v in crows:
+                assert rrows[s][0] == d
+                _eq(rrows[s][1], v)
+    finally:
+        for w in workers:
+            w.close()
+
+
 def test_worker_without_a_pool_on_one_shard():
     """One PS shard: no pool, every call on the caller's thread."""
     holder = _Recording(tnative.make_holder(1000, 2))
