@@ -73,7 +73,33 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    batches pipelined on the arena holder, with the same numbers and the
    pipeline at rest; a summary line gives every training run's samples/s
    and the pipelined / synchronous ratio of each holder.
-6. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
+6. The dense model zoo on the hybrid path, on the native PS, none of
+   whose phases may launch K1-K5 (the towers read PS rows and have no
+   attention):
+   - ``dlrm_hybrid``: ``bench.py``'s ``bench_hybrid`` configuration
+     (``DLRM(embedding_dim=16)`` over 26 slots of dim 16 and 13 dense
+     features, 2 shards of ``make_holder(50_000_000, 16)``,
+     ``OptaxAdagrad(0.02)`` dense, ``Adagrad(0.02)`` sparse, batch 4096
+     of fresh uniform signs): 3 steps in f32 on the card must agree with
+     the same 3 steps of the port on the CPU (loss, dense parameters and
+     touched PS rows), 10 reproducible pipelined steps at staleness 1
+     must equal 10 synchronous ones, then a synchronous and a pipelined
+     run (4 workers, staleness 8, buffer 8) report samples/s, step
+     p50/p99, host CPU by thread, the synchronized split, the busy share,
+     the resident PS rows and the process RSS;
+   - ``zoo``: the registry's ``dlrm``, ``seqrec`` and ``multitask``
+     scenarios at full size on ``bench.py``'s e2e stack, 200 steps at
+     each bench batch: samples/s, the loss falling, the held-out AUC of
+     each task at the scenario's bar;
+   - ``adult_income``: ``DNN`` with its two batch norms at
+     ``examples/adult_income/train.py``'s widths and optimizers, 300
+     steps of batch 256 synchronous and pipelined: AUC above 0.70 on
+     both, the running statistics moved from their init;
+   - ``criteo_towers``: ``DCNv2``, ``DeepFM`` and ``WideAndDeep`` at the
+     criteo example's widths and optimizers, 50 steps of batch 4096 of
+     ``criteo_learnable_batches``: every loss finite, the last 10 steps'
+     mean below the first 10's, eval predictions in (0, 1).
+7. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
    configuration (26 hashed tables of 2^20 x 16 resident on the card,
    ``DLRM(embedding_dim=16)`` in bf16, ``OptaxAdagrad(0.02)``, batch
    4096): first a kernel tower and a plain tower train 3 steps from one
@@ -85,7 +111,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    per step (the collection pools its 26 slots in one call); every loss
    must be finite, the repeated batch's loss must fall below step 0's
    and an eval forward must give predictions in (0, 1).
-7. Probe phase, K5's path: ``run_probe`` of
+8. Probe phase, K5's path: ``run_probe`` of
    ``python -m persia_tpu_torch.ops.probe_copy``, counters zeroed just
    before; every case (the TPU probe's four) must match. Each case's
    plain version, its library yardstick (``index_select``), K5's device
@@ -207,6 +233,43 @@ DM_STEPS = 30  # per timed loop, as tools/probe_device_step.py
 DM_SPLIT_STEPS = 10
 DM_PROFILE_STEPS = 5
 DM_AGREE_SFS = 4
+
+# training / dlrm_hybrid: bench.py's bench_hybrid configuration, not cut
+# (26 slots of dim 16 over 2 x make_holder(50_000_000, 16), 13 dense,
+# DLRM(embedding_dim=16), adagrad(0.02) dense and sparse, batch 4096);
+# every step inserts ~26 x 4096 fresh PS rows, so the runs are short
+DH_SLOTS = 26
+DH_DIM = 16
+DH_DENSE = 13
+DH_BATCH = 4096
+DH_LR = 0.02
+DH_PS_CAPACITY = 50_000_000
+DH_PS_SHARDS = 16
+DH_STEPS = 75  # each run: [10, 60) timed, [60, 70) split, [70, 75) profiled
+DH_AGREE_STEPS = 3
+# DLRM on the card against the port on the CPU, f32 tower and wire, no
+# TF32, 3 steps: the same math in another summation order (cuBLAS against
+# the CPU's GEMM, ~1e-7 relative an operation) carried through three
+# Adagrad steps, which move a weight by lr g / sqrt(s) and so carry the
+# gradients' relative error; the loss absolute, each dense tensor and the
+# touched PS rows relative to their largest element.
+DH_LOSS_ATOL = 1e-4
+DH_REL_TOL = 1e-4
+# training / zoo: the registry's scenarios at full size on bench.py's e2e
+# stack, at least 200 steps each (bench.py --mode e2e)
+ZOO_STEPS = 200
+ZOO_EVAL = 8192
+# training / adult_income: examples/adult_income/train.py's widths and
+# optimizers; the AUC bar of tests/test_e2e_local.py
+AI_DIM = 8
+AI_SEED = 42
+AI_STEPS = 300
+AI_BATCH = 256
+AI_EVAL = 4096
+AI_BAR = 0.70
+# training / criteo_towers: examples/criteo/train.py's widths
+CT_STEPS = 50
+CT_BATCH = 4096
 
 KERNEL_INFO = {
     # name -> (source, the TPU kernel it replaces)
@@ -1316,12 +1379,13 @@ def cpu_by_thread(before: dict, after: dict, steps: int) -> str:
         for g in sorted(after))
 
 
-def report_steps(phase: str, what: str, steps_ms, card: str):
+def report_steps(phase: str, what: str, steps_ms, card: str,
+                 batch: int = TRAIN_BATCH):
     import numpy as np
 
     _log(f"[{phase}] {what}: {len(steps_ms)} steady steps of batch "
-         f"{TRAIN_BATCH}: samples_per_s="
-         f"{TRAIN_BATCH / (steps_ms.mean() / 1e3):.1f} "
+         f"{batch}: samples_per_s="
+         f"{batch / (steps_ms.mean() / 1e3):.1f} "
          f"step_p50_ms={np.percentile(steps_ms, 50):.3f} "
          f"step_p99_ms={np.percentile(steps_ms, 99):.3f} | card: {card}")
 
@@ -1400,15 +1464,35 @@ RATES = {}
 
 
 def train_ctx(torch, schema, model, global_config=None, backend=None):
+    """The seq_rec example's stack (Adam(1e-3), Adagrad(1e-2), rows from
+    U(-0.05, 0.05), 2 fresh shards of make_holder(2_000_000, 8) of
+    ``backend``), the tower's weights as they are."""
+    return hybrid_ctx(torch, model, schema, [(2_000_000, 8)] * N_PS,
+                      lambda p: torch.optim.Adam(p, lr=1e-3), 1e-2,
+                      (-0.05, 0.05), global_config, seed=None,
+                      backend=backend)
+
+
+def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
+               emb_init, global_config=None, loss_fn=None, seed=SEED,
+               backend=None):
+    """A TrainCtx on the model's device over a fresh worker whose PS
+    shards are ``make_holder(capacity, shards, backend=backend)`` for each
+    ``(capacity, shards)`` of ``holders``; the tower seeded unless
+    ``seed`` is None."""
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.ps.native import make_holder
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
 
-    return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3),
-                    Adagrad(lr=1e-2), schema, fresh_worker(schema, backend),
-                    embedding_config=EmbeddingConfig(
-                        emb_initialization=(-0.05, 0.05)),
-                    global_config=global_config, device="cuda")
+    worker = EmbeddingWorker(schema, [make_holder(c, n, backend=backend)
+                                      for c, n in holders])
+    return TrainCtx(model, dense_optimizer(model.parameters()),
+                    Adagrad(lr=sparse_lr), schema, worker,
+                    embedding_config=EmbeddingConfig(emb_init),
+                    global_config=global_config, loss_fn=loss_fn, seed=seed,
+                    device=next(model.parameters()).device)
 
 
 def training_agreement(torch, card: str, spec):
@@ -1666,6 +1750,7 @@ def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
 
     host_stats = getattr(torch.cuda, "host_memory_stats", None)
     step_ms, wait_ms, losses, host_allocs = [], [], {}, []
+    all_losses = []  # every step's loss, on the device until the end
     out = {"window": None}
     it = iter(loader)
     for step in range(n_steps):
@@ -1686,7 +1771,8 @@ def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
             out["split_s"] = dict(ctx.stage_seconds)
             ctx.sync_stages = False
             out["window"] = profile_window(torch, lambda: [
-                ctx.train_step(next(it)) for _ in prof])
+                all_losses.append(ctx.train_step(next(it))[0])
+                for _ in prof])
         if prof is not None and step in prof:
             continue
         t0 = time.perf_counter()
@@ -1694,6 +1780,7 @@ def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
         t1 = time.perf_counter()
         loss, pred = ctx.train_step(lb)
         t2 = time.perf_counter()
+        all_losses.append(loss)
         if step in timed:
             step_ms.append((t2 - t0) * 1e3)
             wait_ms.append((t1 - t0) * 1e3)
@@ -1713,6 +1800,8 @@ def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
     torch.cuda.synchronize()
     if host_stats is not None:
         host_allocs.append(host_stats().get("num_host_alloc"))
+    if not bool(torch.isfinite(torch.stack(all_losses)).all()):
+        raise AssertionError("a pipelined step's loss is not finite")
     engine = loader._engine
     at_rest = (ctx.worker.staleness, engine.staleness_sem._value,
                engine.backward.lost_updates)
@@ -1726,28 +1815,29 @@ def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
     return out
 
 
-def report_pipelined(what: str, run: dict, split, card: str):
+def report_pipelined(what: str, run: dict, split, card: str,
+                     batch: int = TRAIN_BATCH, phase: str = "pipelined"):
     import numpy as np
 
     from persia_tpu_torch.ctx import STAGES
 
     steps = run["step_ms"]
-    rate = TRAIN_BATCH * len(steps) / run["steady_wall"]
-    _log(f"[pipelined] {what}: {len(steps)} steady steps of batch "
-         f"{TRAIN_BATCH} in {run['steady_wall']:.3f}s (synchronized at both "
+    rate = batch * len(steps) / run["steady_wall"]
+    _log(f"[{phase}] {what}: {len(steps)} steady steps of batch "
+         f"{batch} in {run['steady_wall']:.3f}s (synchronized at both "
          f"ends): samples_per_s={rate:.1f} "
          f"step_p50_ms={np.percentile(steps, 50):.3f} "
          f"step_p99_ms={np.percentile(steps, 99):.3f} "
          f"wait_for_batch_mean_ms={np.mean(run['wait_ms']):.3f} "
          f"wait_for_batch_p99_ms={np.percentile(run['wait_ms'], 99):.3f} | "
          f"card: {card}")
-    _log(f"[pipelined] {what}: host CPU ms a step over the steady steps, "
+    _log(f"[{phase}] {what}: host CPU ms a step over the steady steps, "
          f"by thread: {run['cpu']} | card: {card}")
-    report_split("pipelined", f"{what}: training thread (lookup and h2d ran "
+    report_split(phase, f"{what}: training thread (lookup and h2d ran "
                  "in the prefetch workers, d2h and the PS update in the "
                  "backward workers; update = the hand-over)", split,
                  run["split_s"], ("wait",) + STAGES, card)
-    _log(f"[pipelined] {what}: at rest after the loop: worker staleness="
+    _log(f"[{phase}] {what}: at rest after the loop: worker staleness="
          f"{run['at_rest'][0]} free permits={run['at_rest'][1]}/"
          f"{PIPE_STALENESS} lost_updates={run['at_rest'][2]} | card: {card}")
     return rate
@@ -1837,6 +1927,464 @@ def pipelined_phase(torch, card: str) -> dict:
     _log(f"[pipelined] arena PS shard calls by path: {ps_paths(ctx.worker)}"
          f" | card: {card}")
     return launches
+
+
+# --- the dense model zoo on the hybrid path --------------------------------
+
+
+def reset_launch_counts():
+    """Every kernel's launch count (K1-K5) set to 0, just before a path
+    that must launch none of them."""
+    from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.ops import probe_copy as pc
+
+    for module in (eb, fa, pc):
+        module.reset_launch_count()
+
+
+def assert_no_kernel_launched(phase: str, card: str):
+    """Read just after the path: the hybrid towers read PS rows and have
+    no attention, so none of K1-K5 may have launched."""
+    from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.ops import probe_copy as pc
+
+    counts = {n: fa.launch_count(n) for n in FLASH_KERNELS}
+    counts.update(embedding_bag=eb.launch_count(),
+                  probe_copy=pc.launch_count())
+    _log(f"[{phase}] kernel launches over the phase: " + " ".join(
+        f"{n}={c}" for n, c in counts.items()) + f" | card: {card}")
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: a kernel launched on a path that "
+                             f"runs none: {counts}")
+
+
+def rss_gb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def dh_ctx(torch, device: str, compute_dtype=None, global_config=None,
+           state_dict=None):
+    """bench_hybrid's stack: DLRM(embedding_dim=16) over 26 slots and 13
+    dense features, OptaxAdagrad(0.02) dense, Adagrad(0.02) sparse at the
+    default row init, 2 shards of make_holder(50_000_000, 16); seeded
+    weights, or a copy of ``state_dict``."""
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.optim import OptaxAdagrad
+
+    schema = EmbeddingSchema(slots_config=uniform_slots(
+        [f"slot_{s}" for s in range(DH_SLOTS)], dim=DH_DIM))
+    model = DLRM(DH_DENSE, DH_SLOTS, embedding_dim=DH_DIM,
+                 compute_dtype=compute_dtype or torch.bfloat16,
+                 device=device)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return hybrid_ctx(
+        torch, model, schema, [(DH_PS_CAPACITY, DH_PS_SHARDS)] * N_PS,
+        lambda p: OptaxAdagrad(p, DH_LR), DH_LR, (-0.01, 0.01),
+        global_config=global_config,
+        seed=SEED if state_dict is None else None)
+
+
+def touched_rows(worker, signs):
+    """[embedding | Adagrad state] of ``signs`` from the worker's PS
+    shards: (how many shards hold each sign, the rows; zeros where none
+    does)."""
+    import numpy as np
+
+    got = [h.get_entries(signs, 2 * DH_DIM) for h in worker.ps_clients]
+    return (np.sum([f for f, _ in got], axis=0),
+            np.sum([v for _, v in got], axis=0))
+
+
+def batch_signs(batches):
+    import numpy as np
+
+    return np.unique(np.concatenate([f.data for b in batches
+                                     for f in b.id_type_features]))
+
+
+def dlrm_hybrid_agreement(torch, card: str, batches):
+    """The card against the port on the CPU: 3 steps from one weight set
+    and fresh PS rows, f32 tower and wire, no TF32; then 10 pipelined
+    steps (reproducible, staleness 1) against 10 synchronous ones on the
+    card, which must be equal."""
+    import numpy as np
+
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+    from persia_tpu_torch.weights import flax_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wire = GlobalConfig(CommonConfig("f32"))
+    agree = batches[:DH_AGREE_STEPS]
+    runs, start = [], None
+    for device in ("cuda", "cpu"):
+        ctx = dh_ctx(torch, device, torch.float32, wire, state_dict=start)
+        if start is None:
+            start = {k: v.clone() for k, v in ctx.model.state_dict().items()}
+        with ctx:
+            losses = [float(ctx.train_step(b)[0]) for b in agree]
+        runs.append((losses, flax_params(ctx.model)[0],
+                     touched_rows(ctx.worker, batch_signs(agree))))
+        ctx.worker.close()
+    (gl, gp, (gf, gr)), (cl, cp, (cf, cr)) = runs
+    loss_err = max(abs(a - b) for a, b in zip(gl, cl))
+    param_err = 0.0
+    for layer, leaves in gp.items():
+        for name, leaf in leaves.items():
+            for k, v in leaf.items():
+                ref = cp[layer][name][k]
+                param_err = max(param_err, float(np.abs(v - ref).max())
+                                / max(float(np.abs(ref).max()), 1e-30))
+    if not ((gf == 1).all() and (cf == 1).all()):
+        raise AssertionError("a touched PS row is missing after 3 steps")
+    row_err = float(np.abs(gr - cr).max()) / float(np.abs(cr).max())
+    _log(f"[dlrm_hybrid] card vs CPU, {DH_AGREE_STEPS} steps of batch "
+         f"{DH_BATCH} f32: loss max_abs_err={loss_err:.3e} (atol "
+         f"{DH_LOSS_ATOL}); dense params max_abs_err / max|param| per "
+         f"tensor={param_err:.3e}, {len(gf)} touched PS rows max_abs_err / "
+         f"max|row|={row_err:.3e} (rtol {DH_REL_TOL}) | card: {card}")
+    if not (loss_err <= DH_LOSS_ATOL and param_err <= DH_REL_TOL
+            and row_err <= DH_REL_TOL and np.isfinite(gl).all()):
+        raise AssertionError("DLRM on the card and on the CPU disagree")
+
+    repro = batches[:PIPE_AGREE_STEPS]
+    sync_ctx = dh_ctx(torch, "cuda", torch.float32, wire)
+    with sync_ctx:
+        sync = [float(sync_ctx.train_step(b)[0]) for b in repro]
+    pipe_ctx = dh_ctx(torch, "cuda", torch.float32, wire)
+    loader = pipelined_loader(repro, reproducible=True, staleness=1)
+    with pipe_ctx:
+        pipe = [float(pipe_ctx.train_step(lb)[0]) for lb in loader]
+    loader._engine.shutdown()
+    signs = batch_signs(repro)
+    (sf, sr), (pf, pr) = (touched_rows(c.worker, signs)
+                          for c in (sync_ctx, pipe_ctx))
+    rows = [sum(len(h) for h in c.worker.ps_clients)
+            for c in (sync_ctx, pipe_ctx)]
+    for c in (sync_ctx, pipe_ctx):
+        c.worker.close()
+    loss_err = max(abs(a - b) for a, b in zip(sync, pipe))
+    row_diff = int((sr.view(np.uint32) != pr.view(np.uint32))
+                   .any(axis=-1).sum())
+    _log(f"[dlrm_hybrid] reproducible (staleness 1, {PIPE_WORKERS} workers) "
+         f"vs synchronous, {len(sync)} steps f32: loss max_abs_err="
+         f"{loss_err:.3e}; PS rows {rows[0]} / {rows[1]}, rows that differ "
+         f"in any bit: {row_diff} | card: {card}")
+    if not (len(pipe) == len(sync) and loss_err == 0.0 and row_diff == 0
+            and rows[0] == rows[1] == len(signs) and (sf == 1).all()
+            and (pf == 1).all()):
+        raise AssertionError("DLRM's pipelined and synchronous runs differ")
+
+
+def dlrm_hybrid_phase(torch, card: str):
+    """bench_hybrid's configuration on the card: the agreements, then a
+    synchronous and a pipelined run (4 workers, staleness 8, buffer 8) of
+    ``DH_STEPS`` steps of fresh signs each: steps [10, 60) timed, [60,
+    70) synchronized after each stage, [70, 75) profiled."""
+    import numpy as np
+
+    from persia_tpu_torch.ctx import STAGES
+    from persia_tpu_torch.workloads.generator import hybrid_bench_batches
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    batches = list(hybrid_bench_batches(DH_STEPS, DH_BATCH, seed=SEED))
+    _log(f"[dlrm_hybrid] setup {time.perf_counter() - t0:.2f}s: "
+         f"{DH_STEPS} batches of {DH_BATCH} x {DH_SLOTS} fresh signs; "
+         f"process RSS {rss_gb():.2f} GiB")
+    dlrm_hybrid_agreement(torch, card, batches)
+
+    what = (f"DLRM(embedding_dim={DH_DIM}) {DH_SLOTS} slots, {N_PS} x "
+            f"make_holder({DH_PS_CAPACITY}, {DH_PS_SHARDS})")
+    timed, split, prof = range(10, 60), range(60, 70), range(70, DH_STEPS)
+    ctx = dh_ctx(torch, "cuda")
+    step_s, losses = [], []
+    with ctx:
+        for step, batch in enumerate(batches):
+            if step == timed.start:
+                cpu0 = thread_cpu_s()
+            if step == split.start:
+                cpu = cpu_by_thread(cpu0, thread_cpu_s(), len(timed))
+                ctx.sync_stages = True
+                ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
+            if step == prof.start:
+                split_s = dict(ctx.stage_seconds)
+                ctx.sync_stages = False
+                window = profile_window(torch, lambda: [
+                    losses.append(ctx.train_step(batches[s])[0])
+                    for s in prof])
+            if step in prof:
+                continue
+            t = time.perf_counter()
+            loss, _ = ctx.train_step(batch)
+            step_s.append(time.perf_counter() - t)
+            losses.append(loss)
+        torch.cuda.synchronize()
+    rows = sum(len(h) for h in ctx.worker.ps_clients)
+    rss = rss_gb()
+    ctx.worker.close()
+    del ctx
+    steady = np.asarray(step_s[timed.start:timed.stop]) * 1e3
+    report_steps("dlrm_hybrid", f"synchronous, {what}", steady, card,
+                 DH_BATCH)
+    sync_key = "dlrm_hybrid synchronous"
+    RATES[sync_key] = DH_BATCH / (steady.mean() / 1e3)
+    _log(f"[dlrm_hybrid] synchronous: host CPU ms a step over steps "
+         f"{timed.start}-{timed.stop - 1}, by thread: {cpu} | card: {card}")
+    report_split("dlrm_hybrid", "synchronous", split, split_s, STAGES, card)
+    report_window("dlrm_hybrid", f"{len(prof)} synchronous steps", window,
+                  card)
+    all_losses = torch.stack(losses).float().cpu().numpy()
+    _log(f"[dlrm_hybrid] synchronous: {rows} PS rows resident after "
+         f"{DH_STEPS} steps, process RSS {rss:.2f} GiB (after its PS is "
+         f"freed {rss_gb():.2f}); loss "
+         f"step0={all_losses[0]:.4f} last={all_losses[-1]:.4f} | card: "
+         f"{card}")
+    if not np.isfinite(all_losses).all():
+        raise AssertionError("a synchronous DLRM loss is not finite")
+
+    ctx = dh_ctx(torch, "cuda")
+    with ctx:
+        run = pipelined_steps(torch, ctx, pipelined_loader(batches),
+                              DH_STEPS, timed, split, prof)
+    rows = sum(len(h) for h in ctx.worker.ps_clients)
+    rss = rss_gb()
+    ctx.worker.close()
+    del ctx
+    RATES["dlrm_hybrid pipelined"] = report_pipelined(
+        f"pipelined, {what}, {PIPE_WORKERS} lookup workers, staleness "
+        f"{PIPE_STALENESS}, buffer {PIPE_BUFFER}", run, split, card,
+        DH_BATCH, "dlrm_hybrid")
+    report_window("dlrm_hybrid", f"{len(prof)} pipelined steps",
+                  run["window"], card)
+    _log(f"[dlrm_hybrid] pipelined: {rows} PS rows resident after "
+         f"{DH_STEPS} steps, process RSS {rss:.2f} GiB (after its PS is "
+         f"freed {rss_gb():.2f}); pipelined / synchronous samples/s "
+         f"{RATES['dlrm_hybrid pipelined'] / RATES[sync_key]:.3f} | card: "
+         f"{card}")
+    assert_no_kernel_launched("dlrm_hybrid", card)
+
+
+def train_run(torch, ctx, batches, pipelined: bool, steady_from: int):
+    """Every batch through ``ctx.train_step`` (call inside ``with ctx``),
+    synchronously or through a ``DataLoader`` (``PIPE_WORKERS`` lookup
+    workers, staleness ``PIPE_STALENESS``), which must end at rest.
+    Returns (every step's loss, all finite; the seconds from step
+    ``steady_from`` to the end, synchronized at both ends)."""
+    import numpy as np
+
+    loader = pipelined_loader(batches) if pipelined else None
+    losses = []
+    for i, b in enumerate(loader or batches):
+        if i == steady_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(ctx.train_step(b)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if loader is not None:
+        staleness = ctx.worker.staleness
+        loader._engine.shutdown()
+        if staleness != 0:
+            raise AssertionError(f"worker staleness {staleness} after the "
+                                 f"pipelined loop")
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("a training loss is not finite")
+    return losses, wall
+
+
+PATHS = {False: "synchronous",
+         True: f"pipelined ({PIPE_WORKERS} workers, staleness "
+               f"{PIPE_STALENESS})"}
+
+
+def zoo_phase(torch, card: str):
+    """The zoo's three scenarios at full size on bench.py's e2e stack
+    (adam(2e-3) dense, Adagrad(0.1) sparse, rows from U(-0.05, 0.05), 2
+    shards of make_holder(2_000_000, 8)): ``ZOO_STEPS`` steps at each
+    scenario's bench batch, synchronous then pipelined, each with
+    samples/s over the steps past the first fifth, the loss falling and
+    the held-out AUC of each task at the scenario's bar."""
+    from persia_tpu_torch.workloads import (
+        evaluate_auc,
+        get_scenario,
+        scenario_names,
+    )
+
+    reset_launch_counts()
+    for name in scenario_names():
+        sc = get_scenario(name)
+        bs = sc.bench_batch_size
+        batches = list(sc.batches(ZOO_STEPS * bs, bs))
+        for pipelined, how in PATHS.items():
+            ctx = hybrid_ctx(
+                torch, sc.model(device="cuda"), sc.schema,
+                [(2_000_000, 8)] * N_PS,
+                lambda p: torch.optim.Adam(p, lr=2e-3), 0.1, (-0.05, 0.05),
+                loss_fn=sc.loss_fn, seed=sc.seed)
+            steady_from = ZOO_STEPS // 5
+            with ctx:
+                losses, wall = train_run(torch, ctx, batches, pipelined,
+                                         steady_from)
+                aucs = evaluate_auc(ctx, sc, num_samples=ZOO_EVAL,
+                                    batch_size=min(bs, 512))
+            ctx.worker.close()
+            sps = (ZOO_STEPS - steady_from) * bs / wall
+            RATES[f"zoo {name} {how.split()[0]}"] = sps
+            first5, last5 = float(losses[:5].mean()), float(losses[-5:].mean())
+            _log(f"[zoo] {name}: {type(ctx.model).__name__}, {how}, "
+                 f"{ZOO_STEPS} steps of batch {bs}: samples_per_s={sps:.1f} "
+                 f"(steps {steady_from}-{ZOO_STEPS - 1}, synchronized at both "
+                 f"ends); loss {first5:.4f} -> {last5:.4f}; held-out AUC on "
+                 f"{ZOO_EVAL} samples "
+                 + ", ".join(f"{t}={v:.4f}" for t, v in aucs.items())
+                 + f" (bar {sc.auc_gate}) | card: {card}")
+            if not last5 < first5:
+                raise AssertionError(f"zoo {name} {how}: the loss did not "
+                                     f"fall ({first5} -> {last5})")
+            if min(aucs.values()) < sc.auc_gate:
+                raise AssertionError(f"zoo {name} {how}: held-out AUC {aucs}"
+                                     f" below {sc.auc_gate}")
+    assert_no_kernel_launched("zoo", card)
+
+
+def adult_income_phase(torch, card: str):
+    """examples/adult_income/train.py on the card: DNN (two batch norms)
+    over 8 slots of dim 8 and 5 dense features, Adam(1e-3) dense,
+    Adagrad(1e-2) sparse, rows from U(-0.05, 0.05), 2 shards of
+    make_holder(1_000_000, 8), seed 42; ``AI_STEPS`` steps of batch
+    ``AI_BATCH`` synchronous, then pipelined, each with the test AUC (bar
+    0.70) and the running statistics, which must have moved."""
+    import numpy as np
+
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.ctx import eval_ctx
+    from persia_tpu_torch.models import DNN
+    from persia_tpu_torch.utils import roc_auc
+    from persia_tpu_torch.workloads.generator import (
+        ADULT_NUM_DENSE,
+        ADULT_NUM_SLOTS,
+        adult_income_batches,
+    )
+
+    reset_launch_counts()
+    schema = EmbeddingSchema(slots_config=uniform_slots(
+        [f"slot_{s}" for s in range(ADULT_NUM_SLOTS)], dim=AI_DIM))
+    batches = list(adult_income_batches(AI_STEPS * AI_BATCH, AI_BATCH,
+                                        seed=1))
+    for pipelined, how in PATHS.items():
+        model = DNN(ADULT_NUM_DENSE, [AI_DIM] * ADULT_NUM_SLOTS,
+                    sparse_mlp_output_size=128, device="cuda")
+        ctx = hybrid_ctx(torch, model, schema, [(1_000_000, 8)] * N_PS,
+                         lambda p: torch.optim.Adam(p, lr=1e-3), 1e-2,
+                         (-0.05, 0.05), seed=AI_SEED)
+        with ctx:
+            losses, wall = train_run(torch, ctx, batches, pipelined, 10)
+            preds, labels = [], []
+            with eval_ctx(ctx) as ectx:
+                for b in adult_income_batches(AI_EVAL, 512, seed=99,
+                                              requires_grad=False):
+                    pred, lab = ectx.forward(b)
+                    preds.append(pred.float().cpu().numpy().reshape(-1))
+                    labels.append(lab[0].numpy().reshape(-1))
+        ctx.worker.close()
+        preds = np.concatenate(preds)
+        auc = roc_auc(np.concatenate(labels), preds)
+        sps = (AI_STEPS - 10) * AI_BATCH / wall
+        RATES[f"adult_income {how.split()[0]}"] = sps
+        stats = {n: (float(getattr(model, n).mean.abs().mean()),
+                     float(getattr(model, n).var.mean()))
+                 for n in ("BatchNorm_0", "BatchNorm_1")}
+        _log(f"[adult_income] DNN, {how}, {AI_STEPS} steps of batch "
+             f"{AI_BATCH}: samples_per_s={sps:.1f} (steps 10-{AI_STEPS - 1}, "
+             f"synchronized at both ends); loss step0={losses[0]:.4f} last="
+             f"{losses[-1]:.4f}; test AUC on {AI_EVAL} samples {auc:.4f} "
+             f"(bar {AI_BAR}); running statistics mean |mean| / mean var: "
+             + ", ".join(f"{n} {m:.4f} / {v:.4f}" for n, (m, v)
+                         in stats.items()) + " (init 0 / 1) | card: "
+             + card)
+        if not np.isfinite(preds).all():
+            raise AssertionError(f"adult_income {how}: non-finite prediction")
+        if not auc > AI_BAR:
+            raise AssertionError(f"adult_income {how}: AUC {auc:.4f} is not "
+                                 f"above {AI_BAR}")
+        if any(m == 0.0 or v == 1.0 for m, v in stats.values()):
+            raise AssertionError(f"adult_income {how}: a batch norm's running "
+                                 f"statistics did not move: {stats}")
+    assert_no_kernel_launched("adult_income", card)
+
+
+def criteo_towers_phase(torch, card: str):
+    """DCNv2, DeepFM and WideAndDeep at examples/criteo/train.py's widths
+    and optimizers (26 slots of dim 16, 13 dense features, OptaxAdagrad
+    (0.02) dense, Adagrad(0.02) sparse, rows from U(-0.01, 0.01), 2 shards
+    of make_holder(1_000_000_000, 16)): ``CT_STEPS`` steps of batch
+    ``CT_BATCH`` of criteo_learnable_batches each, synchronous then
+    pipelined; every loss finite, the last 10 steps' mean loss below the
+    first 10's, eval predictions in (0, 1)."""
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.ctx import eval_ctx
+    from persia_tpu_torch.models import DCNv2, DeepFM, WideAndDeep
+    from persia_tpu_torch.parallel.optim import OptaxAdagrad
+    from persia_tpu_torch.workloads.generator import (
+        CRITEO_SLOT_NAMES,
+        NUM_DENSE,
+        NUM_TABLES,
+        criteo_learnable_batches,
+    )
+
+    reset_launch_counts()
+    schema = EmbeddingSchema(slots_config=uniform_slots(CRITEO_SLOT_NAMES,
+                                                        dim=DH_DIM))
+    batches = list(criteo_learnable_batches(CT_STEPS * CT_BATCH, CT_BATCH,
+                                            seed=SEED))
+    held = next(criteo_learnable_batches(CT_BATCH, CT_BATCH, seed=99,
+                                         requires_grad=False))
+    towers = {
+        "DCNv2": lambda: DCNv2(NUM_DENSE, [DH_DIM] * NUM_TABLES,
+                               device="cuda"),
+        "DeepFM": lambda: DeepFM(NUM_DENSE, NUM_TABLES,
+                                 embedding_dim=DH_DIM, device="cuda"),
+        "WideAndDeep": lambda: WideAndDeep(NUM_DENSE, [DH_DIM] * NUM_TABLES,
+                                           device="cuda"),
+    }
+    for name, build in towers.items():
+        for pipelined, how in PATHS.items():
+            ctx = hybrid_ctx(torch, build(), schema,
+                             [(1_000_000_000, 16)] * N_PS,
+                             lambda p: OptaxAdagrad(p, 0.02), 0.02,
+                             (-0.01, 0.01))
+            with ctx:
+                losses, wall = train_run(torch, ctx, batches, pipelined, 10)
+                with eval_ctx(ctx) as ectx:
+                    pred, _ = ectx.forward(held)
+                pred = pred.float().cpu().numpy()
+            ctx.worker.close()
+            sps = (CT_STEPS - 10) * CT_BATCH / wall
+            RATES[f"criteo_towers {name} {how.split()[0]}"] = sps
+            first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+            _log(f"[criteo_towers] {name}, {how}: {CT_STEPS} steps of batch "
+                 f"{CT_BATCH}: samples_per_s={sps:.1f} (steps 10-"
+                 f"{CT_STEPS - 1}, synchronized at both ends); mean loss of "
+                 f"the first / last 10 steps {first:.4f} / {last:.4f}; eval "
+                 f"predictions in [{pred.min():.4f}, {pred.max():.4f}] | "
+                 f"card: {card}")
+            if not last < first:
+                raise AssertionError(f"criteo_towers {name} {how}: the loss "
+                                     f"did not fall ({first} -> {last})")
+            if not ((pred > 0) & (pred < 1)).all():
+                raise AssertionError(f"criteo_towers {name} {how}: eval "
+                                     f"predictions outside (0, 1)")
+    assert_no_kernel_launched("criteo_towers", card)
 
 
 def device_mode_model(torch, bag_impl: str, compute_dtype):
@@ -2093,6 +2641,10 @@ def main() -> int:
             records[name]["launches"] = n
         for name, n in pipelined_phase(torch, card).items():
             records[name]["launches_pipelined"] = n
+        dlrm_hybrid_phase(torch, card)
+        zoo_phase(torch, card)
+        adult_income_phase(torch, card)
+        criteo_towers_phase(torch, card)
         native_ratio = (RATES["pipelined native"]
                         / RATES["synchronous native"])
         arena_ratio = (RATES["pipelined arena, steps 10-69"]

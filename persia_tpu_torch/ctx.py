@@ -176,6 +176,13 @@ class TrainCtx(EmbeddingCtx):
     thread books ``dense`` and, for the hand-over to the backward engine,
     ``update``.
 
+    ``loss_fn(pred, label)`` is the step's loss on the device, by default
+    :func:`~persia_tpu_torch.parallel.train.bce_loss`; the label is the
+    batch's first label as it is, (bs, 1) or (bs, k) for k tasks. The
+    step runs the model in train mode (batch norm takes the batch's
+    statistics and moves its running ones); the eval forward runs it in
+    eval mode (batch norm reads the running statistics).
+
     ``grad_update_interval`` is stored, as the JAX package stores it; no
     step reads it there either.
     """
@@ -185,7 +192,7 @@ class TrainCtx(EmbeddingCtx):
                  embedding_config: Optional[EmbeddingConfig] = None,
                  global_config: Optional[GlobalConfig] = None,
                  seed: Optional[int] = None, device: DeviceLike = None,
-                 sync_stages: bool = False, mesh=None,
+                 sync_stages: bool = False, mesh=None, loss_fn=None,
                  grad_update_interval: int = 1,
                  device_cache_capacity: int = 0, profiler=None,
                  resume_from: Optional[str] = None):
@@ -207,7 +214,7 @@ class TrainCtx(EmbeddingCtx):
         super().__init__(model=model, schema=schema, worker=worker,
                          embedding_config=embedding_config,
                          global_config=global_config, device=device)
-        from persia_tpu_torch.parallel.train import WIRE_DTYPES
+        from persia_tpu_torch.parallel.train import WIRE_DTYPES, bce_loss
 
         _check_model_device(model, self.device)
         if seed is not None:
@@ -216,6 +223,7 @@ class TrainCtx(EmbeddingCtx):
             init_params(model, seed)
         self.dense_optimizer = dense_optimizer
         self.embedding_optimizer = embedding_optimizer
+        self.loss_fn = loss_fn or bce_loss
         self.grad_update_interval = grad_update_interval
         self.wire_dtype = WIRE_DTYPES[
             self.global_config.common.embedding_wire_dtype]
@@ -312,7 +320,7 @@ class TrainCtx(EmbeddingCtx):
             self._emb_shapes = emb_shapes
             self._train_step = make_train_step(
                 self.model, self.dense_optimizer, emb_shapes,
-                wire_dtype=self.wire_dtype)
+                loss_fn=self.loss_fn, wire_dtype=self.wire_dtype)
         with self._stage("dense"):
             loss, flat_grads, pred = self._train_step(
                 non_id, flat_emb, emb_indices, label)

@@ -61,8 +61,27 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
 
 
 class FlaxBatchNorm(nn.Module):
-    """Eval-mode flax ``nn.BatchNorm``: parameters ``scale``/``bias`` and
-    the running ``mean``/``var`` the JAX package keeps in batch_stats."""
+    """flax ``nn.BatchNorm`` of a (batch, features) input: ``scale`` /
+    ``bias`` and the running ``mean`` / ``var`` the JAX package keeps in
+    ``batch_stats``.
+
+    Not ``nn.BatchNorm1d``: torch's momentum weighs the batch where
+    flax's weighs the running value, and torch keeps the unbiased
+    variance. As flax (``flax.linen.normalization._compute_stats``) does:
+
+    - the batch statistics are f32: ``mean = E[x]`` and the "fast"
+      variance ``var = max(0, E[x^2] - E[x]^2)``;
+    - ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``, with the
+      batch's statistics in training and the running ones in eval;
+    - in training, ``ra = momentum * ra + (1 - momentum) * batch`` for
+      the mean and that same biased variance, in place, outside autograd.
+
+    The train-mode forward is plain tensor ops, so autograd gives flax's
+    gradient through the batch statistics (``torch.maximum`` splits a tie
+    at 0 evenly, as ``jnp.maximum`` does).
+    """
+
+    MOMENTUM = 0.99  # flax's default, which every tower keeps
 
     def __init__(self, features: int, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -72,12 +91,28 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
+    def reset_parameters(self):
+        """flax's init: scale 1, bias 0, running mean 0 and var 1."""
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if self.training:
-            raise NotImplementedError(
-                "train-mode batch norm belongs to the training slice")
-        return ((x - self.mean) * torch.rsqrt(self.var + self.epsilon)
-                * self.scale + self.bias)
+            mean = x.mean(dim=0)
+            var = torch.maximum(torch.zeros_like(mean),
+                                (x * x).mean(dim=0) - mean * mean)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean) * mul + self.bias
 
 
 class MLP(nn.Module):

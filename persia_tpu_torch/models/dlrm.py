@@ -9,6 +9,10 @@ dot product with one batched matmul and keeps the strict upper triangle
 in row-major order (``jnp.triu_indices(F + 1, k=1)``), so the top MLP
 reads ``embedding_dim + (F + 1) F / 2`` features. Batch norm stays off,
 as in the JAX DLRM.
+
+The fields are whatever the caller pools: the device tables' bags in
+device mode, the worker's summed (bs, dim) slots on the hybrid
+``TrainCtx`` path.
 """
 
 from typing import Any, Sequence

@@ -75,11 +75,15 @@ def unpack_embedding_grads(flat: torch.Tensor,
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     emb_shapes: Sequence[Tuple[int, ...]],
+                    loss_fn: Callable = bce_loss,
                     wire_dtype: torch.dtype = torch.bfloat16) -> Callable:
     """``step(non_id, flat_emb, emb_indices, label) -> (loss, flat_grads,
-    pred)``: the packed train step with ``bce_loss``. ``flat_emb`` is the wire array on the
-    model's device; ``flat_grads`` is the embedding gradients' wire array
-    there. The dense parameters are updated in place by ``optimizer``."""
+    pred)``: the packed train step, ``loss_fn(pred, label)`` its loss.
+    ``flat_emb`` is the wire array on the model's device; ``flat_grads``
+    is the embedding gradients' wire array there. The dense parameters
+    are updated in place by ``optimizer``; the model runs in train mode,
+    so its batch-norm buffers take the batch's statistics during the
+    forward (the JAX step's mutated ``batch_stats``)."""
     sizes = [int(np.prod(s)) for s in emb_shapes]
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
 
@@ -94,7 +98,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         pred = model(non_id_tensors,
                      _rebuild_embedding_inputs(emb_values, emb_indices))
-        loss = bce_loss(pred, label)
+        loss = loss_fn(pred, label)
         loss.backward()
         optimizer.step()
         # a slot the model does not read has zero gradient, as in JAX

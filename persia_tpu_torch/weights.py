@@ -2,9 +2,22 @@
 
 :func:`load_flax_params` turns the JAX package's ``state.params`` (and
 ``state.batch_stats``), given as nested dicts of numpy arrays, into the
-weights of the torch module. The torch modules carry flax's auto-names
-(``SequenceSelfAttention_0/Dense_0..3``, ``MLP_0/Dense_i``, ``Dense_0``),
-so the two trees are walked name by name. A flax ``Dense`` kernel is
+weights of the torch module. The torch modules carry flax's names, so
+the two trees are walked name by name:
+
+- ``SequenceTower``: ``SequenceSelfAttention_0/Dense_0..3``,
+  ``MLP_0/Dense_i``, ``Dense_0``; ``DLRM``: ``MLP_0``, ``MLP_1``;
+- ``DNN``: ``Dense_0``, ``BatchNorm_0``, ``Dense_1``, ``BatchNorm_1``,
+  ``Dense_2..4``, with ``batch_stats`` ``BatchNorm_0/1`` ``mean`` /
+  ``var``;
+- ``DCNv2``: ``CrossLayer_i/Dense_0``, ``MLP_0``, ``Dense_0``;
+- ``DeepFM``: ``Dense_0``, ``Dense_1`` (dense first order, only with
+  dense features), ``MLP_0``, and the head ``Dense_2`` (``Dense_1``
+  without dense features);
+- ``WideAndDeep``: ``wide``, ``MLP_0``, ``deep_head``;
+- the zoo's ``ZooDLRM``: ``MLP_0``, ``field_proj_{i}`` (the fields whose
+  dim is not ``proj_dim``), ``MLP_1``; ``PooledSessionNet``: ``MLP_0``;
+  ``MultiTaskDNN``: ``MLP_0``, ``head_{t}``. A flax ``Dense`` kernel is
 (in, out) and becomes a ``Linear.weight`` (out, in); a device-mode
 ``DeviceEmbeddingBag`` ``table`` is (V, D) in both and is copied as it is.
 An unknown key, a missing one or a shape mismatch raises. :func:`flax_params` is the reverse
@@ -106,12 +119,15 @@ def flax_params(model: nn.Module) -> Tuple[Dict, Dict]:
 
 
 def init_params(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded init with flax's ``Dense`` defaults: kernel ~ N(0, 1/fan_in)
-    truncated at two standard deviations, bias zero. The draws come from
+    """Seeded init with flax's defaults: a ``Dense`` kernel ~ N(0,
+    1/fan_in) truncated at two standard deviations, bias zero; a batch
+    norm's scale 1, bias 0, running mean 0 and var 1. The draws come from
     an explicit CPU ``torch.Generator``, so a seed gives the same weights
     on every device."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     for mod in model.modules():
+        if isinstance(mod, FlaxBatchNorm):
+            mod.reset_parameters()
         if isinstance(mod, nn.Linear):
             fan_in = mod.weight.shape[1]
             w = torch.empty(mod.weight.shape, dtype=torch.float32)

@@ -195,8 +195,9 @@ def test_lookup_direct_is_bit_exact():
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports every module of the port and
-    chip_smoke (without running it), then builds and loads the port's
+    """A fresh interpreter imports every module of the port (the model
+    zoo and the workload registry among them) and chip_smoke (without
+    running it), then builds and loads the port's
     native library and runs one worker lookup on the native store through
     the middleware's C++ kernels: no jax, flax, optax or persia_tpu
     module may load, and no file under ``native/build/`` or
@@ -248,7 +249,13 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.ps.native', 'persia_tpu_torch.pipeline', "
         "'persia_tpu_torch.data.dataloader', 'persia_tpu_torch.ctx', "
         "'persia_tpu_torch.worker.worker', "
-        "'persia_tpu_torch.worker.mw_native') if n not in sys.modules]\n"
+        "'persia_tpu_torch.worker.mw_native', "
+        "'persia_tpu_torch.models.dnn', 'persia_tpu_torch.models.dcn', "
+        "'persia_tpu_torch.models.deepfm', "
+        "'persia_tpu_torch.models.wide_deep', "
+        "'persia_tpu_torch.workloads.models', "
+        "'persia_tpu_torch.workloads.registry') "
+        "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([n for n in sys.modules "
         "if n.startswith('persia_tpu_torch.')]))\n"
