@@ -99,7 +99,34 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      criteo example's widths and optimizers, 50 steps of batch 4096 of
      ``criteo_learnable_batches``: every loss finite, the last 10 steps'
      mean below the first 10's, eval predictions in (0, 1).
-7. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
+7. ``snapshot_resume``, the spill tier, the hotness sketches, job
+   snapshots and ``TrainCtx(resume_from=)``:
+   - seq_rec at the example's widths through K2-K4, on 2 ×
+     ``make_holder(10_000, 8, spill_dir=..., hotness=True)`` (the 60
+     batches touch 40,945 rows, about twice what the replicas keep
+     resident; spill packets of 256 KiB, so rows reach the disk), batches
+     from a ``ResumableDataset``: run A trains 60 steps straight; run B
+     trains 30, ``ctx.snapshot(dir, cursor=ds.cursor(30))`` and is
+     closed; a fresh stack (new holders and spill directories, a fresh
+     tower and optimizer) built with ``TrainCtx(resume_from=dir)`` trains
+     the other 30 from the cursor. Its losses, its dense state (model and
+     optimizer) and its PS rows (resident and spilled, from a dump of
+     each replica) must equal run A's bit for bit; both runs must spill
+     to disk and fault back in, the hotness snapshots must be non-empty,
+     and K2, K3 and K4 must launch once a step in every run (counters
+     zeroed before each run, read after it). Run A again at the spill
+     store's default 4 MiB packets (every spilled row stays staged in
+     memory) must give the same losses. Printed: samples/s with the tier
+     armed, at 256 KiB and at 4 MiB packets, against the same steps on
+     the plain native holder at full capacity, ``spill_stats``, the snapshot's wall ms and bytes on
+     disk, the restore ms (construction to the end of the first resumed
+     step), the launches;
+   - ``bench.py``'s ``_chaos_job_convergence_cell`` on the registry's
+     ``dlrm`` scenario at full size: 120 steps of batch 2048 straight
+     against 60, a snapshot and 60 resumed; the suffix losses and the
+     dense parameters within 1e-5, the held-out AUC within 1e-6, and no
+     kernel launched.
+8. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
    configuration (26 hashed tables of 2^20 x 16 resident on the card,
    ``DLRM(embedding_dim=16)`` in bf16, ``OptaxAdagrad(0.02)``, batch
    4096): first a kernel tower and a plain tower train 3 steps from one
@@ -111,7 +138,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    per step (the collection pools its 26 slots in one call); every loss
    must be finite, the repeated batch's loss must fall below step 0's
    and an eval forward must give predictions in (0, 1).
-8. Probe phase, K5's path: ``run_probe`` of
+9. Probe phase, K5's path: ``run_probe`` of
    ``python -m persia_tpu_torch.ops.probe_copy``, counters zeroed just
    before; every case (the TPU probe's four) must match. Each case's
    plain version, its library yardstick (``index_select``), K5's device
@@ -270,6 +297,28 @@ AI_BAR = 0.70
 # training / criteo_towers: examples/criteo/train.py's widths
 CT_STEPS = 50
 CT_BATCH = 4096
+# snapshot_resume: seq_rec at the example's widths on spill-armed native
+# holders. Run A trains 2 N steps straight; run B trains N, snapshots and
+# is closed; a fresh stack resumes from the snapshot and trains N more.
+# The 2 N batches touch 40,945 PS rows, ~20.5k a replica; a replica of
+# SR_CAPACITY keeps under half of them resident.
+SR_STEPS = 30  # N
+SR_CAPACITY = 10_000
+SR_SHARDS = 8
+SR_TIMED_FROM = 10
+# The example's whole sign space (50,564 signs, ~25k a replica at 128
+# bytes a row) fits in one of the spill store's 4 MiB packets, so at the
+# default no row would reach the disk at any capacity: runs A-C take
+# 256 KiB packets, and fault-ins read rows back from packet files. Run D
+# repeats run A at the default packet size, for the rate a user of
+# make_holder gets.
+SR_PACKET_BYTES = 256 << 10
+# bench.py's _chaos_job_convergence_cell on the registry's dlrm scenario:
+# 120 steps of its bench batch, resumed at 60, with bench.py's gates
+DRILL_STEPS = 120
+DRILL_EVAL = 2048
+DRILL_ATOL = 1e-5  # suffix losses and dense parameters
+DRILL_AUC_ATOL = 1e-6
 
 KERNEL_INFO = {
     # name -> (source, the TPU kernel it replaces)
@@ -1475,24 +1524,31 @@ def train_ctx(torch, schema, model, global_config=None, backend=None):
 
 def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
                emb_init, global_config=None, loss_fn=None, seed=SEED,
-               backend=None):
+               backend=None, spill_root=None, hotness=None,
+               resume_from=None):
     """A TrainCtx on the model's device over a fresh worker whose PS
     shards are ``make_holder(capacity, shards, backend=backend)`` for each
     ``(capacity, shards)`` of ``holders``; the tower seeded unless
-    ``seed`` is None."""
+    ``seed`` is None. ``spill_root`` arms each shard's spill tier in
+    ``<spill_root>/spill_<i>``, ``hotness`` its sketches; ``resume_from``
+    goes to the TrainCtx."""
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
     from persia_tpu_torch.ps.native import make_holder
     from persia_tpu_torch.worker.worker import EmbeddingWorker
 
-    worker = EmbeddingWorker(schema, [make_holder(c, n, backend=backend)
-                                      for c, n in holders])
+    worker = EmbeddingWorker(schema, [
+        make_holder(c, n, backend=backend, hotness=hotness,
+                    spill_dir=(os.path.join(spill_root, f"spill_{i}")
+                               if spill_root else None))
+        for i, (c, n) in enumerate(holders)])
     return TrainCtx(model, dense_optimizer(model.parameters()),
                     Adagrad(lr=sparse_lr), schema, worker,
                     embedding_config=EmbeddingConfig(emb_init),
                     global_config=global_config, loss_fn=loss_fn, seed=seed,
-                    device=next(model.parameters()).device)
+                    device=next(model.parameters()).device,
+                    resume_from=resume_from)
 
 
 def training_agreement(torch, card: str, spec):
@@ -2387,6 +2443,375 @@ def criteo_towers_phase(torch, card: str):
     assert_no_kernel_launched("criteo_towers", card)
 
 
+def ps_map(worker, tmp: str) -> dict:
+    """(replica, sign) -> the row's f32 [emb|state] bytes over resident
+    and spilled rows, from a PSD dump of each replica."""
+    from persia_tpu_torch.checkpoint import iter_psd_entries
+
+    out = {}
+    for r, h in enumerate(worker.ps_clients):
+        path = os.path.join(tmp, f"ps_map_{r}.psd")
+        h.dump_file(path)
+        for sign, _dim, vec in iter_psd_entries(path):
+            out[(r, sign)] = vec.tobytes()
+        os.remove(path)
+    return out
+
+
+def dense_state(ctx) -> dict:
+    """The model's and the dense optimizer's tensors, copied to the host."""
+    import torch
+
+    out = {f"model.{k}": v.detach().cpu().clone()
+           for k, v in ctx.model.state_dict().items()}
+    for i, st in ctx.dense_optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor):
+                out[f"optimizer.{i}.{k}"] = v.detach().cpu().clone()
+    return out
+
+
+def first_difference(want: dict, got: dict) -> str:
+    """The first tensor of ``got`` that differs from ``want`` and its max
+    abs delta, or '' when they are equal bit for bit."""
+    import torch
+
+    if set(want) != set(got):
+        return f"tensor names differ: {sorted(set(want) ^ set(got))[:5]}"
+    for k in want:
+        if not torch.equal(want[k], got[k]):
+            delta = float((want[k].double() - got[k].double()).abs().max())
+            return f"{k} (max |delta| {delta:.3e})"
+    return ""
+
+
+def seqrec_resume(torch, card: str, tmp: str) -> dict:
+    """seq_rec through K2-K4 on spill-armed native holders: run A trains
+    2 ``SR_STEPS`` steps straight; run B trains ``SR_STEPS``, takes a job
+    snapshot with its data cursor and is closed; run C, a fresh stack
+    (new holders and spill directories, a fresh tower and optimizer),
+    resumes with ``TrainCtx(resume_from=)`` and trains the rest from the
+    cursor. C must equal A bit for bit: the suffix losses, the dense
+    state and the PS rows, resident and spilled. Then the same 2 N steps
+    on the plain native holder at full capacity, and run D, run A again
+    at the spill store's default packet size, for the throughput of the
+    armed tier. Returns the K2-K4 launches of runs A, B and C."""
+    import itertools
+
+    import numpy as np
+
+    from persia_tpu_torch.data.dataloader import ResumableDataset
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.ps.spill import SpillStore
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = build_schema()
+    n = SR_STEPS
+    snap_dir = os.path.join(tmp, "seqrec_snapshots")
+
+    def factory(stop):
+        return lambda seed: itertools.islice(seqrec_batches(
+            2 * n * TRAIN_BATCH, TRAIN_BATCH, seed=seed, spec=spec), stop)
+
+    def stack(tag, capacity, armed, resume_from=None,
+              packet_bytes=SR_PACKET_BYTES):
+        """A fresh seq_rec stack; its spill stores, if armed, flush
+        packets of ``packet_bytes``."""
+        default_packet_bytes = SpillStore.PACKET_BYTES
+        SpillStore.PACKET_BYTES = packet_bytes
+        try:
+            return hybrid_ctx(
+                torch, build_tower(spec.num_dense, "flash"), schema,
+                [(capacity, SR_SHARDS)] * N_PS,
+                lambda p: torch.optim.Adam(p, lr=1e-3), 1e-2, (-0.05, 0.05),
+                seed=None,
+                spill_root=os.path.join(tmp, tag) if armed else None,
+                hotness=armed, resume_from=resume_from)
+        finally:
+            SpillStore.PACKET_BYTES = default_packet_bytes
+
+    def run(ctx, dataset, t_start=None):
+        """Every batch of ``dataset`` through ``ctx.train_step``, counters
+        zeroed just before and read just after. Returns (losses, seconds
+        from step SR_TIMED_FROM to the end, the time from ``t_start`` to
+        the end of the first step in ms, launches)."""
+        fa.reset_launch_count()
+        losses, first_ms, t0 = [], None, None
+        for i, b in enumerate(dataset):
+            if i == SR_TIMED_FROM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(ctx.train_step(b)[0])
+            if i == 0 and t_start is not None:
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t_start) * 1e3
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 if t0 is not None else float("nan")
+        launches = {k: fa.launch_count(k) for k in FLASH_KERNELS}
+        losses = torch.stack(losses).float().cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError("snapshot_resume: a loss is not finite")
+        return losses, wall, first_ms, launches
+
+    def tier(ctx):
+        stats = [h.spill_stats() for h in ctx.worker.ps_clients]
+        hot = [h.hotness_snapshot() for h in ctx.worker.ps_clients]
+        return stats, hot
+
+    # A: 2 N steps straight
+    ctx_a = stack("a", SR_CAPACITY, True)
+    with ctx_a:
+        losses_a, wall_a, _, launch_a = run(
+            ctx_a, ResumableDataset(factory(2 * n), seed=TRAIN_SEED))
+        state_a = dense_state(ctx_a)
+        map_a = ps_map(ctx_a.worker, tmp)
+        spill_a, hot_a = tier(ctx_a)
+    ctx_a.worker.close()
+
+    # B: N steps, the snapshot, closed
+    ctx_b = stack("b", SR_CAPACITY, True)
+    ds_b = ResumableDataset(factory(n), seed=TRAIN_SEED)
+    with ctx_b:
+        losses_b, _, _, launch_b = run(ctx_b, ds_b)
+        t0 = time.perf_counter()
+        snap = ctx_b.snapshot(snap_dir, cursor=ds_b.cursor(n))
+        snap_ms = (time.perf_counter() - t0) * 1e3
+    ctx_b.worker.close()
+    snap_bytes = sum(os.path.getsize(os.path.join(snap, f))
+                     for f in os.listdir(snap))
+    snap_files = len(os.listdir(snap))
+
+    # C: a fresh stack resumes from the snapshot and trains the rest
+    t0 = time.perf_counter()
+    ctx_c = stack("c", SR_CAPACITY, True, resume_from=snap_dir)
+    with ctx_c:
+        ds_c = ResumableDataset.from_cursor(factory(2 * n),
+                                            ctx_c.resume_cursor)
+        losses_c, _, restore_ms, launch_c = run(ctx_c, ds_c, t_start=t0)
+        state_c = dense_state(ctx_c)
+        map_c = ps_map(ctx_c.worker, tmp)
+        spill_c, hot_c = tier(ctx_c)
+    ctx_c.worker.close()
+
+    # the plain native holder at full capacity, the same 2 N steps
+    ctx_p = stack("p", 2_000_000, False)
+    with ctx_p:
+        losses_p, wall_p, _, launch_p = run(
+            ctx_p, ResumableDataset(factory(2 * n), seed=TRAIN_SEED))
+    ctx_p.worker.close()
+
+    # D: run A at the spill store's default packet size
+    ctx_d = stack("d", SR_CAPACITY, True,
+                  packet_bytes=SpillStore.PACKET_BYTES)
+    with ctx_d:
+        losses_d, wall_d, _, launch_d = run(
+            ctx_d, ResumableDataset(factory(2 * n), seed=TRAIN_SEED))
+        spill_d, _ = tier(ctx_d)
+    ctx_d.worker.close()
+
+    timed = 2 * n - SR_TIMED_FROM
+    sps_a = timed * TRAIN_BATCH / wall_a
+    sps_p = timed * TRAIN_BATCH / wall_p
+    sps_d = timed * TRAIN_BATCH / wall_d
+    RATES["synchronous native, spill + hotness armed, capacity "
+          f"{SR_CAPACITY}, {SR_PACKET_BYTES >> 10} KiB packets"] = sps_a
+    RATES["synchronous native, spill + hotness armed, capacity "
+          f"{SR_CAPACITY}, default {SpillStore.PACKET_BYTES >> 20} MiB "
+          f"packets"] = sps_d
+    RATES["synchronous native, full capacity, the same steps"] = sps_p
+    packet_delta = float(np.abs(losses_d - losses_a).max())
+    loss_delta = float(np.abs(losses_c - losses_a[n:]).max())
+    prefix_delta = float(np.abs(losses_b - losses_a[:n]).max())
+    dense_diff = first_difference(state_a, state_c)
+    rows_equal = map_a == map_c
+    first_step = next((i for i in range(n)
+                       if losses_c[i] != losses_a[n + i]), None)
+    _log(f"[snapshot_resume] seq_rec SequenceTower(num_heads={HEADS}, "
+         f"attn_impl='flash') dim {DIM} t_hist {T_HIST} MLP {MLP}, batch "
+         f"{TRAIN_BATCH}, {N_PS} x make_holder({SR_CAPACITY}, {SR_SHARDS}, "
+         f"spill_dir, hotness=True): {2 * n} steps touch {len(map_a)} PS "
+         f"rows ({len(map_a) / (N_PS * SR_CAPACITY):.2f} x the resident "
+         f"capacity) | card: {card}")
+    _log(f"[snapshot_resume] resumed run vs unbroken run: suffix losses "
+         f"max |delta| {loss_delta:.3e} (first differing step "
+         f"{first_step}), prefix {prefix_delta:.3e}; dense state "
+         f"({len(state_a)} tensors) "
+         f"{'equal' if not dense_diff else 'first differs at ' + dense_diff}"
+         f"; PS rows {len(map_c)} vs {len(map_a)}, "
+         f"{'equal' if rows_equal else 'DIFFER'} | card: {card}")
+    _log(f"[snapshot_resume] samples_per_s over steps {SR_TIMED_FROM}-"
+         f"{2 * n - 1} (synchronized at both ends): spill + hotness armed "
+         f"at capacity {SR_CAPACITY}, {SR_PACKET_BYTES >> 10} KiB packets "
+         f"{sps_a:.1f} (ratio {sps_a / sps_p:.3f}), default "
+         f"{SpillStore.PACKET_BYTES >> 20} MiB packets {sps_d:.1f} (ratio "
+         f"{sps_d / sps_p:.3f}; losses against the 256 KiB run max |delta| "
+         f"{packet_delta:.3e}), plain native holder at full capacity "
+         f"{sps_p:.1f} | card: {card}")
+    for what, stats, hot in (("unbroken", spill_a, hot_a),
+                             ("resumed", spill_c, hot_c),
+                             ("default-packet", spill_d, None)):
+        _log(f"[snapshot_resume] {what} run, spill_stats by replica: "
+             + "; ".join(
+                 f"puts={st['spilled_rows_total']} "
+                 f"takes={st['spill_fault_ins_total']} "
+                 f"spilled={st['spilled_rows']} "
+                 f"disk_bytes={st['spill_disk_bytes']} "
+                 f"staged_bytes={st['spill_staged_bytes']} "
+                 f"packets={st['spill_packets']}" for st in stats)
+             + ("; hotness totals " + ", ".join(
+                 f"{h['total']} over {len(h['tables'])} table(s), top-K "
+                 f"{sum(len(t['topk']) for t in h['tables'].values())}"
+                 for h in hot) if hot else "") + f" | card: {card}")
+    _log(f"[snapshot_resume] snapshot after step {n}: {snap_ms:.1f} ms "
+         f"wall, {snap_files} files, {snap_bytes} bytes on disk; restore "
+         f"(TrainCtx(resume_from=) construction to the end of the first "
+         f"resumed step) {restore_ms:.1f} ms | card: {card}")
+    launches = {k: launch_a[k] + launch_b[k] + launch_c[k]
+                for k in FLASH_KERNELS}
+    _log("[snapshot_resume] K2-K4 launches: unbroken "
+         + " ".join(f"{k}={v}" for k, v in launch_a.items())
+         + f" in {2 * n} steps; first half "
+         + " ".join(f"{k}={v}" for k, v in launch_b.items())
+         + f" in {n}; resumed " + " ".join(
+             f"{k}={v}" for k, v in launch_c.items())
+         + f" in {n}; plain holder " + " ".join(
+             f"{k}={v}" for k, v in launch_p.items())
+         + f" in {2 * n}; default packets " + " ".join(
+             f"{k}={v}" for k, v in launch_d.items())
+         + f" in {2 * n} | card: {card}")
+    for what, counts, steps in (("unbroken", launch_a, 2 * n),
+                                ("first half", launch_b, n),
+                                ("resumed", launch_c, n),
+                                ("plain", launch_p, 2 * n),
+                                ("default-packet", launch_d, 2 * n)):
+        if any(c != steps for c in counts.values()):
+            raise AssertionError(f"snapshot_resume {what} run: K2-K4 "
+                                 f"launched {counts}, not once in each "
+                                 f"of its {steps} steps")
+    if prefix_delta != 0.0 or loss_delta != 0.0:
+        raise AssertionError(
+            f"snapshot_resume: the resumed run's losses differ from the "
+            f"unbroken run's (prefix {prefix_delta}, suffix {loss_delta}, "
+            f"first at resumed step {first_step})")
+    if packet_delta != 0.0:
+        raise AssertionError(f"snapshot_resume: the default-packet run's "
+                             f"losses differ from the unbroken run's "
+                             f"(max |delta| {packet_delta})")
+    if dense_diff:
+        raise AssertionError(f"snapshot_resume: the resumed dense state "
+                             f"differs: {dense_diff}")
+    if not rows_equal:
+        diff = sorted(k for k in set(map_a) | set(map_c)
+                      if map_a.get(k) != map_c.get(k))
+        raise AssertionError(f"snapshot_resume: {len(diff)} PS rows differ,"
+                             f" first {diff[:3]}")
+    for stats in (spill_a, spill_c):
+        if not all(st["spilled_rows_total"] > 0
+                   and st["spill_fault_ins_total"] > 0
+                   and st["spill_packets"] > 0 for st in stats):
+            raise AssertionError(f"snapshot_resume: a replica did not spill "
+                                 f"to disk and fault back in: {stats}")
+    for hot in (hot_a, hot_c):
+        if not all(h["enabled"] and h["total"] > 0 and h["tables"]
+                   for h in hot):
+            raise AssertionError("snapshot_resume: a hotness snapshot is "
+                                 "empty")
+    return launches
+
+
+def dlrm_resume_drill(torch, card: str, tmp: str):
+    """bench.py's _chaos_job_convergence_cell on the registry's dlrm
+    scenario at full size: a baseline trains ``DRILL_STEPS`` steps of the
+    bench batch straight; a second run trains half, snapshots and is
+    closed; a fresh stack resumes from the snapshot and trains the rest.
+    The suffix losses and the dense parameters within ``DRILL_ATOL`` of
+    the baseline's, the held-out AUC within ``DRILL_AUC_ATOL``."""
+    import numpy as np
+
+    from persia_tpu_torch import snapshot as snapmod
+    from persia_tpu_torch.workloads import evaluate_auc, get_scenario
+
+    sc = get_scenario("dlrm")
+    bs = sc.bench_batch_size
+    half = DRILL_STEPS // 2
+    snap_dir = os.path.join(tmp, "dlrm_snapshots")
+    batches = list(sc.batches(DRILL_STEPS * bs, bs))
+
+    def run(start=0, stop=None, resume_from=None):
+        ctx = hybrid_ctx(
+            torch, sc.model(device="cuda"), sc.schema,
+            [(2_000_000, 8)] * N_PS, lambda p: torch.optim.Adam(p, lr=2e-3),
+            0.1, (-0.05, 0.05), loss_fn=sc.loss_fn, seed=sc.seed,
+            resume_from=resume_from)
+        aucs = params = None
+        with ctx:
+            losses = torch.stack([ctx.train_step(b)[0]
+                                  for b in batches[start:stop]])
+            losses = losses.float().cpu().numpy()
+            if stop is not None:
+                ctx.snapshot(snap_dir,
+                             cursor={"seed": sc.seed, "consumed": stop})
+            else:
+                aucs = evaluate_auc(ctx, sc, num_samples=DRILL_EVAL,
+                                    batch_size=min(bs, 512))
+                params = {k: v.detach().double().cpu()
+                          for k, v in ctx.model.state_dict().items()}
+        ctx.worker.close()
+        return losses, aucs, params
+
+    reset_launch_counts()
+    base_losses, base_aucs, base_params = run()
+    run(stop=half)
+    found = snapmod.latest_snapshot(snap_dir)
+    if found is None:
+        raise AssertionError("dlrm drill: the mid-run snapshot is missing")
+    start = int((found[1].get("cursor") or {}).get("consumed", 0))
+    if start != half:
+        raise AssertionError(f"dlrm drill: snapshot cursor {start}, wanted "
+                             f"{half}")
+    res_losses, res_aucs, res_params = run(start=start,
+                                           resume_from=snap_dir)
+    dl = float(np.max(np.abs(base_losses[half:] - res_losses)))
+    dp = max(float((base_params[k] - res_params[k]).abs().max())
+             for k in base_params)
+    da = max(abs(base_aucs[k] - res_aucs[k]) for k in base_aucs)
+    _log(f"[snapshot_resume] dlrm drill (scenario {sc.name}, "
+         f"{len(sc.schema.slots_config)} slots, batch {bs}, {DRILL_STEPS} "
+         f"steps resumed at {half}): suffix losses max |delta| {dl:.3e}, "
+         f"dense parameters {dp:.3e} (gates {DRILL_ATOL}), held-out AUC "
+         f"baseline {base_aucs} resumed {res_aucs} |delta| {da:.3e} (gate "
+         f"{DRILL_AUC_ATOL}) | card: {card}")
+    assert_no_kernel_launched("snapshot_resume dlrm drill", card)
+    if dl > DRILL_ATOL:
+        raise AssertionError(f"dlrm drill: replayed-suffix losses diverged "
+                             f"(max |delta| {dl:.2e})")
+    if dp > DRILL_ATOL:
+        raise AssertionError(f"dlrm drill: final dense parameters diverged "
+                             f"(max |delta| {dp:.2e})")
+    if da > DRILL_AUC_ATOL:
+        raise AssertionError(f"dlrm drill: held-out AUC diverged: baseline "
+                             f"{base_aucs}, resumed {res_aucs}")
+
+
+def snapshot_resume_phase(torch, card: str) -> dict:
+    """Job snapshots and resume on the card (the spill tier, the hotness
+    sketches, checkpoints, snapshots and ``TrainCtx(resume_from=)``):
+    seq_rec through K2-K4 (:func:`seqrec_resume`), then the zoo DLRM
+    drill (:func:`dlrm_resume_drill`). Returns the K2-K4 launches of the
+    seq_rec runs A-C."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as tmp:
+        launches = seqrec_resume(torch, card, tmp)
+        dlrm_resume_drill(torch, card, tmp)
+    _log(f"[snapshot_resume] phase wall {time.perf_counter() - t0:.1f}s | "
+         f"card: {card}")
+    return launches
+
+
 def device_mode_model(torch, bag_impl: str, compute_dtype):
     """bench_device's DeviceModeModel(DLRM) on the card, weights not yet
     drawn. Returns (slot specs, model)."""
@@ -2645,6 +3070,8 @@ def main() -> int:
         zoo_phase(torch, card)
         adult_income_phase(torch, card)
         criteo_towers_phase(torch, card)
+        for name, n in snapshot_resume_phase(torch, card).items():
+            records[name]["launches_snapshot_resume"] = n
         native_ratio = (RATES["pipelined native"]
                         / RATES["synchronous native"])
         arena_ratio = (RATES["pipelined arena, steps 10-69"]

@@ -11,9 +11,10 @@ sequence-tower model, and device-mode training of DLRM:
     InferenceServer -> EmbeddingWorker lookup -> InferCtx.forward_prepared
     -> SequenceTower -> flash-attention forward (hand-written CUDA kernel)
 
-    TrainCtx.train_step -> EmbeddingWorker training lookup (the numpy
-    arena PS) -> packed bf16 wire -> SequenceTower forward (K2 with
-    logsumexp) -> backward (CUDA kernels K3, K4) -> dense Adam -> bf16
+    TrainCtx.train_step -> EmbeddingWorker training lookup (the native
+    C++ PS, its spill tier and hotness sketches) -> packed bf16 wire ->
+    SequenceTower forward (K2 with logsumexp) -> backward (CUDA kernels
+    K3, K4) -> dense Adam -> bf16
     gradient wire -> EmbeddingWorker.update_gradients -> sparse optimizer
     on the PS; pipelined, a DataLoader's ForwardEngine runs the lookup and
     the device staging in prefetch threads and a BackwardEngine the
@@ -22,6 +23,11 @@ sequence-tower model, and device-mode training of DLRM:
     make_device_mode_trainer step -> DeviceModeModel: hashed tables on
     the card -> pooled lookups (CUDA kernel K1) -> DLRM -> backward
     (dense table gradients) -> OptaxAdagrad over tables and tower
+
+A job survives a trainer restart: ``TrainCtx.snapshot`` writes the PS
+shards (resident and spilled rows), the dense state and the data cursor
+as one manifest-stamped unit, and ``TrainCtx(resume_from=)`` rolls a
+fresh stack back to it.
 
 The copy-shape probe (CUDA kernel K5) is ``python -m
 persia_tpu_torch.ops.probe_copy``.

@@ -7,7 +7,8 @@
   preparation and the eval forward.
 - :class:`TrainCtx`: the hybrid train step (training lookup -> packed
   dense step on the device -> sparse update), synchronous on a raw
-  batch or pipelined on a ``DataLoader``'s looked-up batch, and
+  batch or pipelined on a ``DataLoader``'s looked-up batch, job
+  snapshots and ``resume_from`` (:mod:`persia_tpu_torch.snapshot`), and
   :func:`eval_ctx` over it.
 - :class:`InferCtx`: eval-mode lookups and forward for serving.
 
@@ -150,6 +151,20 @@ class EmbeddingCtx(BaseCtx):
     def _apply_model(self, non_id, emb_inputs):
         raise NotImplementedError
 
+    # --- checkpoints --------------------------------------------------------
+
+    def dump_checkpoint(self, dst_dir: str, with_dense: bool = True):
+        """The PS shards and, with ``with_dense``, the model's (and a
+        training context's dense optimizer's) state as ``dense.pt``."""
+        from persia_tpu_torch import checkpoint as ckpt
+
+        ckpt.dump_checkpoint(self, dst_dir, with_dense=with_dense)
+
+    def load_checkpoint(self, src_dir: str, with_dense: bool = True):
+        from persia_tpu_torch import checkpoint as ckpt
+
+        ckpt.load_checkpoint(self, src_dir, with_dense=with_dense)
+
 
 STAGES = ("lookup", "h2d", "dense", "d2h", "update")
 
@@ -185,6 +200,13 @@ class TrainCtx(EmbeddingCtx):
 
     ``grad_update_interval`` is stored, as the JAX package stores it; no
     step reads it there either.
+
+    ``resume_from`` names a snapshot directory or a parent of snapshots
+    (the newest complete one is taken), resolved and verified here; on
+    ``__enter__`` the PS shards roll back to it, the model and
+    ``dense_optimizer`` take its dense state and the step counter its
+    step. ``resume_cursor`` is its data cursor, from which the caller
+    resumes the batch stream. :meth:`snapshot` takes one.
     """
 
     def __init__(self, model, dense_optimizer: torch.optim.Optimizer,
@@ -203,8 +225,6 @@ class TrainCtx(EmbeddingCtx):
                 "ROADMAP.md queue A item 5 (on-device sparse)"),
             "profiler": (profiler is not None,
                          "ROADMAP.md queue A item 8 (tooling)"),
-            "resume_from": (bool(resume_from),
-                            "ROADMAP.md queue A item 7 (snapshots)"),
         }
         for name, (asked, item) in waits.items():
             if asked:
@@ -232,12 +252,56 @@ class TrainCtx(EmbeddingCtx):
         self._train_step = None
         self._emb_shapes = None
         self._eval_step = None
+        self._step_count = 0
+        # resolved and verified here, so a torn or absent snapshot fails
+        # at construction; the rollback runs on __enter__
+        self.resume_manifest: Optional[dict] = None
+        self.resume_cursor: Optional[dict] = None
+        self._resume_snap: Optional[str] = None
+        if resume_from:
+            from persia_tpu_torch import snapshot as _snapshot
+
+            self._resume_snap, self.resume_manifest = (
+                _snapshot.resolve_snapshot(resume_from))
+            self.resume_cursor = _snapshot.load_cursor(self._resume_snap)
 
     def __enter__(self):
         super().__enter__()
         if self.embedding_optimizer is not None:
             self.embedding_optimizer.apply()
+        if self._resume_snap is not None:
+            self._restore_from_snapshot()
         return self
+
+    def _restore_from_snapshot(self):
+        """Roll the job back to the resolved snapshot, once: the PS
+        shards are replaced by its dump (updates after it are derived
+        again by replaying the batches from ``resume_cursor``), the model
+        and dense optimizer take its dense state, the step counter its
+        step. Entering the context again does not roll back again."""
+        from persia_tpu_torch import checkpoint as ckpt
+        from persia_tpu_torch import snapshot as _snapshot
+
+        snap, self._resume_snap = self._resume_snap, None
+        self.worker.load(snap)
+        dense = _snapshot.dense_bytes(snap)
+        if dense is not None:
+            ckpt.apply_dense_bytes((self.model, self.dense_optimizer), dense)
+        self._step_count = int(self.resume_manifest.get("step", 0))
+
+    def snapshot(self, snapshot_dir: str, cursor: Optional[dict] = None,
+                 inc_dir: Optional[str] = None,
+                 keep: Optional[int] = None) -> str:
+        """One coordinated job snapshot under ``snapshot_dir``: the
+        backward pipeline drained, then the PS shards, the dense state
+        and ``cursor`` captured as one manifest-stamped unit. Returns its
+        path."""
+        from persia_tpu_torch import snapshot as _snapshot
+
+        return _snapshot.snapshot_job(
+            snapshot_dir, self.worker,
+            state=(self.model, self.dense_optimizer), cursor=cursor,
+            inc_dir=inc_dir, step=self._step_count, keep=keep)
 
     @contextmanager
     def _stage(self, name: str):
@@ -299,6 +363,7 @@ class TrainCtx(EmbeddingCtx):
         )
         from persia_tpu_torch.pipeline import LookedUpBatch
 
+        self._step_count += 1
         engine = staged = None
         if isinstance(batch, LookedUpBatch):
             ref_id, lookup, engine = batch.ref_id, batch.lookup, batch.engine

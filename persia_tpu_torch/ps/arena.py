@@ -38,9 +38,12 @@ A shard's batch takes one of three paths, counted in :meth:`arena_stats`:
   byte budget (capacity below one batch) runs the exact per-sign
   sequence, where each access sees every earlier eviction.
 
-The disk spill tier (``spill_dir``), the hotness sketches (``hotness``)
-and the metrics-registry counters are not ported; the miss counters are
-plain per-shard ints.
+With ``spill_dir`` the rows eviction would drop are demoted to the disk
+spill tier (:mod:`persia_tpu_torch.ps.spill`) and any later access faults
+them back in: a training access takes the row and re-inserts it resident,
+a read-only access peeks. With ``hotness`` the lookups feed the workload
+sketches (:mod:`persia_tpu_torch.hotness`). The metrics-registry counters
+are not ported; the miss counters are plain per-shard ints.
 
 Lock discipline: each ``_ArenaShard`` carries its own ``lock`` and every
 mutating shard method is suffixed ``_locked`` (the caller holds it).
@@ -53,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from persia_tpu_torch.hotness import disabled_snapshot, make_tracker
 from persia_tpu_torch.ps.optim import (
     RowPrecision,
     SparseOptimizer,
@@ -63,6 +67,7 @@ from persia_tpu_torch.ps.rng import (
     initialize_entries,
     internal_shard_of,
 )
+from persia_tpu_torch.ps.spill import SpillStore
 from persia_tpu_torch.ps.store import (
     _DTYPE_CODES,
     DUMP_MAGIC,
@@ -178,6 +183,12 @@ class _RowClass:
             out[:, self.emb_bytes:] = (
                 np.ascontiguousarray(self.state[slots]).view(np.uint8))
         return out
+
+    def write_raw_locked(self, slot: int, raw: np.ndarray):
+        """Store a logical record byte-exactly (spill fault-in)."""
+        self.emb[slot] = raw[: self.emb_bytes].view(self.np_dtype)
+        if self.space:
+            self.state[slot] = raw[self.emb_bytes:].view(np.float32)
 
     def slab_bytes(self) -> int:
         return self.cap * self.stride
@@ -394,8 +405,11 @@ class _ArenaShard:
             and self.resident_bytes > self.byte_capacity
             and live > 1)
 
-    def evict_locked(self) -> int:
-        """Restore the row/byte budget; returns rows evicted."""
+    def evict_locked(self, spill_rows: Optional[List] = None) -> int:
+        """Restore the row/byte budget; returns rows evicted. With
+        ``spill_rows`` a list, evicted rows are appended as ``(sign, dim,
+        cls_id, slot)`` for :meth:`extract_spill_locked` (a freed slot
+        keeps its bytes until it is reallocated)."""
         evicted = 0
         while self.over_budget_locked():
             victim = self.pop_victim_locked()
@@ -403,11 +417,29 @@ class _ArenaShard:
                 break
             cid, slot = victim
             cls = self.classes[cid]
-            self.index_del_locked(int(cls.signs[slot]))
+            sign = int(cls.signs[slot])
+            self.index_del_locked(sign)
             self.resident_bytes -= cls.logical_bytes
             cls.free_locked(slot)
+            if spill_rows is not None:
+                spill_rows.append((sign, cls.dim, cid, slot))
             evicted += 1
         return evicted
+
+    def extract_spill_locked(self, spill_rows: List):
+        """The logical bytes of the rows :meth:`evict_locked` collected,
+        one vectorized pass per class: ``[(signs u64, dim, (k, logical)
+        uint8), ...]``. Valid only right after the eviction."""
+        out = []
+        by_class: Dict[int, List[Tuple[int, int]]] = {}
+        for sign, _dim, cid, slot in spill_rows:
+            by_class.setdefault(cid, []).append((sign, slot))
+        for cid, pairs in by_class.items():
+            cls = self.classes[cid]
+            signs = np.array([p[0] for p in pairs], np.uint64)
+            slots = np.array([p[1] for p in pairs], np.int64)
+            out.append((signs, cls.dim, cls.logical_rows_locked(slots)))
+        return out
 
     def free_entry_locked(self, cid: int, slot: int):
         """Release one live row (dim-mismatch reinit path)."""
@@ -425,10 +457,15 @@ class _ArenaShard:
         return v >> _SLOT_BITS, v & _SLOT_MASK
 
     def insert_row_locked(self, sign: int, dim: int,
-                          full_f32: np.ndarray) -> Tuple[int, int]:
+                          full_f32: Optional[np.ndarray],
+                          raw: Optional[np.ndarray] = None
+                          ) -> Tuple[int, int]:
         """Insert/replace one row (refreshing recency) WITHOUT budget
-        enforcement; the caller runs eviction after."""
-        cid = self.class_id_locked(dim, len(full_f32) - dim)
+        enforcement; the caller runs eviction after. ``raw`` given stores
+        a logical record's bytes exactly; else ``full_f32`` narrows in."""
+        space = ((len(raw) - dim * self.rp.itemsize) // 4 if raw is not None
+                 else len(full_f32) - dim)
+        cid = self.class_id_locked(dim, space)
         cls = self.classes[cid]
         existing = self.get_locked(sign)
         if existing is not None and existing[0] == cid:
@@ -440,9 +477,12 @@ class _ArenaShard:
             cls.signs[slot] = sign
             self.index_put_locked(sign, (cid << _SLOT_BITS) | slot)
             self.resident_bytes += cls.logical_bytes
-        cls.set_emb(slot, full_f32[:dim])
-        if cls.space:
-            cls.state[slot] = full_f32[dim:]
+        if raw is not None:
+            cls.write_raw_locked(slot, raw)
+        else:
+            cls.set_emb(slot, full_f32[:dim])
+            if cls.space:
+                cls.state[slot] = full_f32[dim:]
         self.stamp_one_locked(cid, slot)
         return cid, slot
 
@@ -474,9 +514,11 @@ class ArenaEmbeddingHolder:
     """Drop-in twin of :class:`~persia_tpu_torch.ps.store.EmbeddingHolder`
     over the contiguous row arena (module docstring has the layout and
     the paths). ``row_dtype`` narrows the stored embedding slice,
-    ``capacity_bytes`` arms byte-accounted eviction; ``slab_rows`` and
-    ``index_slots`` size the arena's growth quantum and each shard's
-    initial sign index."""
+    ``capacity_bytes`` arms byte-accounted eviction, ``spill_dir`` demotes
+    evictions to the disk tier (at most ``spill_bytes`` on disk, oldest
+    packets dropped first), ``hotness`` arms the workload sketches (None:
+    the ``PERSIA_HOTNESS`` knob); ``slab_rows`` and ``index_slots`` size
+    the arena's growth quantum and each shard's initial sign index."""
 
     def __init__(self, capacity: int = 1_000_000_000,
                  num_internal_shards: int = 8, row_dtype: str = "fp32",
@@ -488,16 +530,6 @@ class ArenaEmbeddingHolder:
                  index_slots: int = INDEX_SLOTS):
         if num_internal_shards <= 0:
             raise ValueError("num_internal_shards must be positive")
-        if spill_dir:
-            raise NotImplementedError(
-                "ArenaEmbeddingHolder(spill_dir=...): the disk spill tier "
-                "(persia_tpu/ps/spill.py) is not ported yet; it waits for "
-                "ROADMAP.md queue A item 2c")
-        if hotness:
-            raise NotImplementedError(
-                "ArenaEmbeddingHolder(hotness=True): the hotness sketches "
-                "(persia_tpu/hotness.py) are not ported yet; they wait for "
-                "ROADMAP.md queue A item 2c")
         capacity_bytes = capacity_bytes or None
         self.capacity = capacity
         self.capacity_bytes = capacity_bytes
@@ -523,6 +555,10 @@ class ArenaEmbeddingHolder:
         # per-shard cells, each written only under its shard's lock
         self._index_miss = [0] * num_internal_shards
         self._gradient_id_miss = [0] * num_internal_shards
+        self.hotness = make_tracker(num_internal_shards, enabled=hotness)
+        self.spill: Optional[SpillStore] = (
+            SpillStore(spill_dir, max_bytes=spill_bytes or None)
+            if spill_dir else None)
 
     # --- observables ------------------------------------------------------
 
@@ -557,6 +593,21 @@ class ArenaEmbeddingHolder:
             round(1.0 - totals["live_rows"] / alloc, 6) if alloc else 0.0)
         return totals
 
+    def hotness_snapshot(self) -> dict:
+        """The hotness sketches' snapshot, each table stamped with its
+        stored bytes a row (``row_bytes``); the disabled marker when
+        unarmed."""
+        if self.hotness is None:
+            return disabled_snapshot()
+        snap = self.hotness.snapshot()
+        for table, t in snap.get("tables", {}).items():
+            t["row_bytes"] = int(table) * self._rp.itemsize
+        return snap
+
+    def spill_stats(self) -> dict:
+        """The disk tier's counters (empty when unarmed)."""
+        return self.spill.stats() if self.spill is not None else {}
+
     # --- control plane ---------------------------------------------------
 
     def configure(self, init_method: str, init_params: dict,
@@ -578,6 +629,34 @@ class ArenaEmbeddingHolder:
         shard_ids = internal_shard_of(signs, self.num_internal_shards)
         for shard_idx in np.unique(shard_ids):
             yield int(shard_idx), np.nonzero(shard_ids == shard_idx)[0]
+
+    # --- spill helpers ----------------------------------------------------
+
+    def _evict_and_spill_locked(self, shard: _ArenaShard):
+        """Restore the shard's budget; with the spill tier armed, the
+        evicted rows are demoted to it (one slab-slice pass per class)."""
+        if self.spill is None:
+            shard.evict_locked()
+            return
+        spill_rows: List = []
+        shard.evict_locked(spill_rows)
+        for signs, dim, rows in shard.extract_spill_locked(spill_rows):
+            self.spill.put_batch(signs, dim, rows)
+
+    def _fault_in_locked(self, shard: _ArenaShard, sign: int,
+                         training: bool):
+        """Fault a spilled row in: training takes it and re-inserts it
+        resident, a read-only access peeks. Returns ``(dim, raw logical
+        bytes)`` or None."""
+        got = (self.spill.take(sign) if training
+               else self.spill.peek(sign))
+        if got is None:
+            return None
+        dim0, raw = got
+        if training:
+            shard.insert_row_locked(sign, dim0, None, raw=raw)
+            self._evict_and_spill_locked(shard)
+        return dim0, raw
 
     # --- data plane -------------------------------------------------------
 
@@ -603,6 +682,9 @@ class ArenaEmbeddingHolder:
                 signs, dim, self.init_method, self.init_params)
             if space:
                 self.optimizer.state_initialization(init_vecs, dim)
+        if self.hotness is not None:
+            # outside the shard locks: the tracker's locks are leaves
+            self.hotness.observe(dim, signs)
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
             with shard.lock:
@@ -660,7 +742,7 @@ class ArenaEmbeddingHolder:
             shard.stamp_batch_locked(p_cls0[k][touched],
                                      p_slot0[k][touched], has_dups=True)
             shard.path_calls["lookup_rounds"] += 1
-        shard.evict_locked()
+        self._evict_and_spill_locked(shard)
         return n_miss
 
     def _lookup_batch_locked(self, shard, ssigns, sel, dim, space,
@@ -689,19 +771,44 @@ class ArenaEmbeddingHolder:
         # evicts nothing: pessimistically, any insert past the row/byte
         # budget sends the shard's batch down the sequential path
         n_nonhit = int((~hit).sum())
+        # a row faulted in from the spill tier may belong to a wider class
+        worst_row = cls.logical_bytes
+        if self.spill is not None and shard.byte_capacity is not None:
+            worst_row = max(c.logical_bytes for c in shard.classes)
         if n_nonhit and (
                 shard.live_rows() + n_nonhit > shard.capacity
                 or (shard.byte_capacity is not None
-                    and shard.resident_bytes + n_nonhit * cls.logical_bytes
+                    and shard.resident_bytes + n_nonhit * worst_row
                     > shard.byte_capacity)):
             return None
         # resident under another dim: reinitialized unconditionally
         # (admission does not apply to dim mismatches)
         stale = (packed >= 0) & ~hit
-        miss = ~hit & (admitted[sel] | stale)
+        if self.spill is not None and (~hit & ~stale).any():
+            # fault spilled rows in before deciding miss-init: a faulted
+            # row of this dim is a plain hit (read, not a miss), one of
+            # another dim is reinitialized
+            for j in np.nonzero(~hit & ~stale)[0]:
+                got = self._fault_in_locked(shard, int(ssigns[j]), True)
+                if got is None:
+                    continue
+                loc = shard.get_locked(int(ssigns[j]))
+                if loc is None:
+                    continue
+                p_cls[j], p_slot[j] = loc
+                if got[0] == dim:
+                    hit[j] = True
+                    out[sel[j]] = shard.classes[loc[0]].emb_f32(loc[1])
+                else:
+                    stale[j] = True
         n_miss = int((~hit).sum())
+        miss = ~hit & (admitted[sel] | stale)
         miss_idx = np.nonzero(miss)[0]
         if len(miss_idx):
+            if self.spill is not None:
+                # a resident row never shadows a stale disk copy
+                for s in ssigns[miss_idx].tolist():
+                    self.spill.discard(s)
             # dim-mismatched residents release their old slots first
             for j in np.nonzero(stale)[0].tolist():
                 shard.free_entry_locked(int(p_cls[j]), int(p_slot[j]))
@@ -730,15 +837,20 @@ class ArenaEmbeddingHolder:
         for j, pos in enumerate(sel.tolist()):
             sign = int(ssigns[j])
             loc = shard.get_locked(sign)
+            if loc is None and self.spill is not None:
+                if self._fault_in_locked(shard, sign, True) is not None:
+                    loc = shard.get_locked(sign)
             if loc is not None and shard.classes[loc[0]].dim == dim:
                 out[pos] = shard.classes[loc[0]].emb_f32(loc[1])
                 shard.stamp_one_locked(loc[0], loc[1])
             elif loc is None and not admitted[pos]:
                 n_miss += 1
             else:
+                if self.spill is not None:
+                    self.spill.discard(sign)
                 _, slot = shard.insert_row_locked(sign, dim, init_vecs[pos])
                 out[pos] = cls.emb_f32(slot)
-                shard.evict_locked()
+                self._evict_and_spill_locked(shard)
                 n_miss += 1
         return n_miss
 
@@ -754,6 +866,13 @@ class ArenaEmbeddingHolder:
             m = (packed >= 0) & (p_cls == cid)
             out[sel[m]] = cls.emb_f32(p_slot[m])
             hit |= m
+        if self.spill is not None:
+            # a read-only lookup peeks the disk tier, residency unchanged
+            for j in np.nonzero(~hit)[0]:
+                got = self._fault_in_locked(shard, int(ssigns[j]), False)
+                if got is not None and got[0] == dim:
+                    out[sel[j]] = self._rp.unpack_raw(got[1], dim)[:dim]
+                    hit[j] = True
         return int((~hit).sum())
 
     def update_gradients(self, signs: np.ndarray, grads: np.ndarray,
@@ -776,6 +895,20 @@ class ArenaEmbeddingHolder:
     def _update_locked(self, shard, ssigns, sel, grads, dim, space,
                        batch_state) -> int:
         packed = shard.probe_locked(ssigns)
+        if self.spill is not None:
+            # a gradient for a spilled row faults it in first. A fault-in
+            # may evict (and a freed slot be reused), so the batch probes
+            # again after; two rounds, since a fault-in's eviction can
+            # demote a sign later in this batch
+            for _ in range(2):
+                faulted = False
+                for j in np.nonzero(packed < 0)[0]:
+                    if self._fault_in_locked(shard, int(ssigns[j]),
+                                             True) is not None:
+                        faulted = True
+                if not faulted:
+                    break
+                packed = shard.probe_locked(ssigns)
         cid = shard.class_id_locked(dim, space, create=False)
         if cid is None:
             return len(ssigns)
@@ -820,10 +953,15 @@ class ArenaEmbeddingHolder:
     def get_entry(self, sign: int) -> Optional[Tuple[int, np.ndarray]]:
         """(dim, f32 [emb|state]) or None: a live f32 view over the arena
         record under fp32 (valid until the next insert, which may grow
-        the slab), a widened copy under half precision."""
+        the slab), a widened copy under half precision. A spilled row reads
+        through (peek)."""
         shard = self._shard_of(sign)
         with shard.lock:
             loc = shard.get_locked(int(sign))
+            if loc is None and self.spill is not None:
+                got = self._fault_in_locked(shard, int(sign), False)
+                if got is not None:
+                    return got[0], self._rp.unpack_raw(got[1], got[0])
             if loc is None:
                 return None
             cid, slot = loc
@@ -842,12 +980,15 @@ class ArenaEmbeddingHolder:
         vec = np.ascontiguousarray(vec, dtype=np.float32)
         shard = self._shard_of(sign)
         with shard.lock:
+            if self.spill is not None:
+                self.spill.discard(int(sign))
             shard.insert_row_locked(int(sign), dim, vec)
-            shard.evict_locked()
+            self._evict_and_spill_locked(shard)
 
     def get_entries(self, signs: np.ndarray, width: int):
         """Returns (found (n,) bool, vecs (n, width) f32); entries absent
-        or of another width read as not found."""
+        or of another width read as not found; spilled rows read through
+        (peek)."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         n = len(signs)
         found = np.zeros(n, dtype=bool)
@@ -868,6 +1009,16 @@ class ArenaEmbeddingHolder:
                     if cls.space:
                         vecs[sel[m], cls.dim:] = cls.state[rows]
                     found[sel[m]] = True
+                if self.spill is not None:
+                    for j in np.nonzero(packed < 0)[0]:
+                        got = self._fault_in_locked(
+                            shard, int(signs[sel[j]]), False)
+                        if got is None:
+                            continue
+                        vec = self._rp.unpack_raw(got[1], got[0])
+                        if len(vec) == width:
+                            vecs[sel[j]] = vec
+                            found[sel[j]] = True
         return found, vecs
 
     def set_entries(self, signs: np.ndarray, dim: int, vecs: np.ndarray):
@@ -879,9 +1030,11 @@ class ArenaEmbeddingHolder:
             shard = self._shards[shard_idx]
             with shard.lock:
                 for pos in sel.tolist():
+                    if self.spill is not None:
+                        self.spill.discard(int(signs[pos]))
                     shard.insert_row_locked(int(signs[pos]), dim,
                                             vecs[pos])
-                    shard.evict_locked()
+                    self._evict_and_spill_locked(shard)
 
     def clear(self):
         for shard in self._shards:
@@ -895,9 +1048,15 @@ class ArenaEmbeddingHolder:
                 shard._h_fill = 0
                 shard._vq_cls = shard._vq_slot = shard._vq_stamp = None
                 shard._vq_cursor = 0
+        if self.spill is not None:
+            self.spill.clear()
 
     def __len__(self) -> int:
-        return sum(s.live_rows() for s in self._shards)
+        """Rows of the logical table: resident plus spilled."""
+        n = sum(s.live_rows() for s in self._shards)
+        if self.spill is not None:
+            n += len(self.spill)
+        return n
 
     # --- serialization (PSD1 / PSD2) --------------------------------------
 
@@ -929,31 +1088,57 @@ class ArenaEmbeddingHolder:
             yield (int(cls.signs[slot]), cls.dim, cls.space,
                    mats[cid][row_pos[cid][slot]])
 
+    def _record_head(self, sign: int, dim: int, state_len: int) -> bytes:
+        if self._rp.is_fp32:
+            return struct.pack("<QII", sign, dim, dim + state_len)
+        return struct.pack("<QIBI", sign, dim, _DTYPE_CODES[self._rp.name],
+                           state_len)
+
     def dump_bytes(self) -> bytes:
         """Every entry, per shard in LRU order: PSD v1 (``sign u64 | dim
         u32 | len u32 | f32 [emb|state]``) for fp32 rows, v2 (``sign u64 |
         dim u32 | emb-dtype u8 | state_len u32 | emb bytes | state f32``)
         for half rows. The header count is the records serialized, each
-        shard under its own lock."""
+        shard under its own lock.
+
+        A spill-armed holder dumps the logical table: the shards, then the
+        spilled rows, and in front of both the rows that left the spill
+        tier while the dump ran (the spill store's dump capture), so any
+        newer record of the same sign wins on load."""
         rp = self._rp
         chunks = []
-        count = 0
-        for shard in self._shards:
-            with shard.lock:
-                for sign, dim, state_len, raw in \
-                        self._iter_records_locked(shard):
-                    if rp.is_fp32:
-                        chunks.append(struct.pack("<QII", sign, dim,
-                                                  dim + state_len))
-                    else:
-                        chunks.append(struct.pack(
-                            "<QIBI", sign, dim, _DTYPE_CODES[rp.name],
-                            state_len))
+        front = []
+        if self.spill is not None:
+            self.spill.start_dump_capture()
+        try:
+            for shard in self._shards:
+                with shard.lock:
+                    for sign, dim, state_len, raw in \
+                            self._iter_records_locked(shard):
+                        chunks.append(self._record_head(sign, dim,
+                                                        state_len))
+                        chunks.append(raw.tobytes())
+            if self.spill is not None:
+                # spilled records keep the logical bytes of their row
+                def state_len(raw, dim):
+                    return ((len(raw) - dim * rp.itemsize) // 4)
+
+                for sign, dim, raw in self.spill.items():
+                    chunks.append(self._record_head(sign, dim,
+                                                    state_len(raw, dim)))
                     chunks.append(raw.tobytes())
-                    count += 1
+                for sign, (dim, raw) in \
+                        self.spill.stop_dump_capture().items():
+                    front.append(self._record_head(sign, dim,
+                                                   state_len(raw, dim)))
+                    front.append(raw.tobytes())
+        finally:
+            if self.spill is not None:
+                self.spill.stop_dump_capture()
+        count = (len(chunks) + len(front)) // 2
         version = 1 if rp.is_fp32 else 2
         return b"".join([DUMP_MAGIC, struct.pack("<IQ", version, count)]
-                        + chunks)
+                        + front + chunks)
 
     def load_bytes(self, buf: bytes, clear: bool = True):
         reader = io.BytesIO(buf)

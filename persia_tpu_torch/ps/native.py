@@ -26,22 +26,37 @@ interface of the Python holders, and the same semantics and PSD v1/v2
 bytes. ctypes releases the interpreter lock for every foreign call, so
 lookups and updates on other threads run while the training thread holds
 it. :func:`make_holder` returns it by default.
+
+The disk spill tier and the hotness sketches live in the Python wrapper,
+as in the JAX package: with ``spill_dir`` the store retains its evicted
+rows (``ptps_set_retain_evicted``), the wrapper drains them after each
+call into the shared :class:`~persia_tpu_torch.ps.spill.SpillStore` and
+faults spilled rows back in before a call that needs them.
 """
 
+import contextlib
 import ctypes
 import hashlib
+import os
 import platform
 import shutil
+import struct
 import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from persia_tpu_torch.hotness import disabled_snapshot, make_tracker
 from persia_tpu_torch.ops._build import BUILD_DIR, Job, compile_all
 from persia_tpu_torch.ps.arena import ArenaEmbeddingHolder
 from persia_tpu_torch.ps.optim import RowPrecision, SparseOptimizer
-from persia_tpu_torch.ps.store import EmbeddingHolder
+from persia_tpu_torch.ps.spill import SpillStore
+from persia_tpu_torch.ps.store import (
+    EmbeddingHolder,
+    iter_psd_records,
+    read_psd_header,
+)
 
 REPO_DIR = Path(__file__).resolve().parent.parent.parent
 NATIVE_SRC_DIR = REPO_DIR / "native" / "src"
@@ -61,6 +76,7 @@ _ROW_DTYPE_CODES = {"fp32": 0, "fp16": 1, "bf16": 2}
 
 _u64, _u32, _i32, _i64 = (ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int,
                           ctypes.c_int64)
+_u8 = ctypes.c_uint8
 _vp, _f32 = ctypes.c_void_p, ctypes.c_float
 _P = ctypes.POINTER
 # symbol -> (restype, argtypes) of every entry the port calls
@@ -91,13 +107,21 @@ _SIGNATURES = {
     "ptps_simd_path": (ctypes.c_char_p, []),
     "ptps_set_parallel": (None, [_vp, _u32, _u64]),
     "ptps_get_parallel": (None, [_vp, _P(_u64)]),
+    "ptps_set_retain_evicted": (None, [_vp, _i32]),
+    "ptps_evicted_bytes": (_u64, [_vp]),
+    "ptps_drain_evicted": (_u64, [_vp, _P(_u8), _u64]),
+    "ptps_contains": (None, [_vp, _P(_u64), _u64, _P(_u8)]),
 }
+# the eviction drain's record framing: sign u64 | dim u32 | nbytes u32
+_DRAIN_REC = struct.Struct("<QII")
 
 # the JAX package's capability sets, by the symbols that carry them (the
 # port only reports them: its library always has both)
 _ARENA_SYMBOLS = ("ptps_new2", "ptps_row_dtype", "ptps_resident_bytes",
                   "ptps_resident_emb_bytes", "ptps_shard_resident_bytes",
-                  "ptps_arena_stats")
+                  "ptps_arena_stats", "ptps_set_retain_evicted",
+                  "ptps_evicted_bytes", "ptps_drain_evicted",
+                  "ptps_contains")
 _SIMD_SYMBOLS = ("ptps_simd_path", "ptps_set_parallel", "ptps_get_parallel",
                  "ptps_set_entries", "ptps_get_entries")
 
@@ -179,14 +203,15 @@ def native_capabilities(lib=None) -> frozenset:
     lib = lib if lib is not None else load_native_lib()
     caps = set()
     if all(hasattr(lib, s) for s in _ARENA_SYMBOLS):
-        caps.update({"row_dtype", "capacity_bytes", "psd_v2",
+        caps.update({"row_dtype", "capacity_bytes", "psd_v2", "spill",
                      "arena_stats"})
     if all(hasattr(lib, s) for s in _SIMD_SYMBOLS):
         caps.update({"simd", "parallel_tuning", "batched_entries"})
     return frozenset(caps)
 
 
-def required_capabilities(row_dtype=None, capacity_bytes=None) -> frozenset:
+def required_capabilities(row_dtype=None, capacity_bytes=None,
+                          spill_dir=None) -> frozenset:
     """The capabilities a storage policy needs (empty: plain fp32 rows
     under a row budget)."""
     need = set()
@@ -194,6 +219,8 @@ def required_capabilities(row_dtype=None, capacity_bytes=None) -> frozenset:
         need.update({"row_dtype", "psd_v2"})
     if capacity_bytes:
         need.add("capacity_bytes")
+    if spill_dir:
+        need.add("spill")
     return frozenset(need)
 
 
@@ -240,8 +267,16 @@ def _params_array(params: dict):
 class NativeEmbeddingHolder:
     """The C++ arena store behind the Python holders' interface: fp32,
     fp16 or bf16 rows under a row budget and, with ``capacity_bytes``, a
-    byte budget over the rows' logical bytes. The disk spill tier and the
-    hotness sketches are not ported (ROADMAP.md queue A item 2c)."""
+    byte budget over the rows' logical bytes. ``spill_dir`` demotes
+    evictions to the disk tier (at most ``spill_bytes`` on disk),
+    ``hotness`` arms the workload sketches (None: the ``PERSIA_HOTNESS``
+    knob).
+
+    While spill-armed every call is serialized by the wrapper's lock: the
+    drain -> resident filter -> spill handoff spans several foreign
+    calls, and a training lookup landing between them would reinitialize
+    a demoted row. The C++ store still runs its shards in parallel within
+    a call; an unarmed holder takes no lock."""
 
     # ctypes releases the interpreter lock for the duration of every
     # foreign call
@@ -253,16 +288,6 @@ class NativeEmbeddingHolder:
                  capacity_bytes: Optional[int] = None,
                  spill_dir: Optional[str] = None,
                  spill_bytes: Optional[int] = None):
-        if spill_dir:
-            raise NotImplementedError(
-                "NativeEmbeddingHolder(spill_dir=...): the disk spill tier "
-                "(persia_tpu/ps/spill.py) is not ported yet; it waits for "
-                "ROADMAP.md queue A item 2c")
-        if hotness:
-            raise NotImplementedError(
-                "NativeEmbeddingHolder(hotness=True): the hotness sketches "
-                "(persia_tpu/hotness.py) are not ported yet; they wait for "
-                "ROADMAP.md queue A item 2c")
         if num_internal_shards <= 0:
             raise ValueError("num_internal_shards must be positive")
         row_dtype = row_dtype or "fp32"
@@ -282,6 +307,19 @@ class NativeEmbeddingHolder:
         # the registered config; None until register_optimizer, as the
         # Python holders' optimizer
         self.optimizer: Optional[dict] = None
+        # the tracker owns its own leaf locks: observing before the
+        # foreign call races nothing
+        self.hotness = make_tracker(num_internal_shards, enabled=hotness)
+        self.spill: Optional[SpillStore] = None
+        self._mu: Optional[threading.RLock] = None
+        if spill_dir:
+            self.spill = SpillStore(spill_dir, max_bytes=spill_bytes or None)
+            lib.ptps_set_retain_evicted(self._h, 1)
+            self._mu = threading.RLock()
+
+    def _guard(self):
+        return self._mu if self._mu is not None else (
+            contextlib.nullcontext())
 
     def __del__(self):
         h = getattr(self, "_h", None)
@@ -318,13 +356,97 @@ class NativeEmbeddingHolder:
             raise ValueError(f"native optimizer rejected config {config}")
         self.optimizer = dict(config)
 
+    # --- spill plumbing ---------------------------------------------------
+
+    def _drain_evictions(self):
+        """Demote the store's retained evictions to the disk tier, in
+        their logical bytes, grouped per (dim, nbytes) for the batched
+        spill path. A sign evicted and re-admitted within the same call
+        is resident again and is left out."""
+        lib = self._lib
+        while True:
+            need = int(lib.ptps_evicted_bytes(self._h))
+            if not need:
+                return
+            buf = np.empty(need, np.uint8)
+            got = int(lib.ptps_drain_evicted(self._h, _ptr(buf, _u8), need))
+            if not got:
+                return
+            groups: Dict[Tuple[int, int], Tuple[list, list]] = {}
+            off = 0
+            while off + _DRAIN_REC.size <= got:
+                sign, dim, nbytes = _DRAIN_REC.unpack_from(buf, off)
+                off += _DRAIN_REC.size
+                g = groups.setdefault((dim, nbytes), ([], []))
+                g[0].append(sign)
+                g[1].append(off)
+                off += nbytes
+            for (dim, nbytes), (signs, offs) in groups.items():
+                signs = np.array(signs, np.uint64)
+                starts = np.asarray(offs, np.int64)
+                mat = buf[starts[:, None]
+                          + np.arange(nbytes, dtype=np.int64)[None, :]]
+                resident = np.zeros(len(signs), np.uint8)
+                lib.ptps_contains(self._h, _ptr(signs, ctypes.c_uint64),
+                                  len(signs), _ptr(resident, _u8))
+                keep = resident == 0
+                if keep.any():
+                    self.spill.put_batch(signs[keep], dim, mat[keep])
+
+    def _fault_in(self, signs: np.ndarray, training: bool) -> np.ndarray:
+        """Promote the batch's spilled signs back into the store
+        (training) or only report them (read paths). Returns the
+        spilled-sign mask. Rows these promotions evict stay in the
+        store's drain buffer, where the following data call's misses find
+        them; the caller drains after that call."""
+        mask = self.spill.contains_batch(signs)
+        if training and mask.any():
+            for s in signs[mask].tolist():
+                got = self.spill.take(s)
+                if got is None:
+                    continue
+                dim0, raw = got
+                vec = self._rp.unpack_raw(raw, dim0)
+                self._lib.ptps_set_entry(self._h, s, dim0,
+                                         _ptr(vec, ctypes.c_float), len(vec))
+        return mask
+
     # --- data plane -------------------------------------------------------
 
     def lookup(self, signs: np.ndarray, dim: int,
                training: bool) -> np.ndarray:
+        with self._guard():
+            return self._lookup_locked(signs, dim, training)
+
+    def _lookup_locked(self, signs: np.ndarray, dim: int,
+                       training: bool) -> np.ndarray:
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         out = np.empty((len(signs), dim), dtype=np.float32)
         if len(signs) == 0:
+            return out
+        if self.hotness is not None:
+            self.hotness.observe(dim, signs)
+        spilled = None
+        if self.spill is not None and len(self.spill):
+            spilled = self._fault_in(signs, training)
+        if not training and spilled is not None and spilled.any():
+            # a read-only lookup peeks the disk tier (residency must not
+            # change); the store sees only the resident signs
+            sub = np.ascontiguousarray(signs[~spilled])
+            sub_out = np.empty((len(sub), dim), np.float32)
+            if len(sub):
+                rc = self._lib.ptps_lookup(
+                    self._h, _ptr(sub, ctypes.c_uint64), len(sub), dim, 0,
+                    _ptr(sub_out, ctypes.c_float))
+                if rc != 0:
+                    raise RuntimeError("native lookup failed")
+            out[~spilled] = sub_out
+            for j in np.nonzero(spilled)[0]:
+                got = self.spill.peek(int(signs[j]))
+                if got is not None and got[0] == dim:
+                    out[j] = self._rp.unpack_raw(got[1], dim)[:dim]
+                else:
+                    out[j] = 0.0
             return out
         rc = self._lib.ptps_lookup(self._h, _ptr(signs, ctypes.c_uint64),
                                    len(signs), dim, 1 if training else 0,
@@ -332,6 +454,8 @@ class NativeEmbeddingHolder:
         if rc != 0:
             raise RuntimeError("native lookup failed (optimizer not "
                                "registered or store not configured)")
+        if training and self.spill is not None:
+            self._drain_evictions()
         return out
 
     def update_gradients(self, signs: np.ndarray, grads: np.ndarray,
@@ -343,47 +467,76 @@ class NativeEmbeddingHolder:
                              f"{len(signs)} signs of dim {dim}")
         if len(signs) == 0:
             return
-        rc = self._lib.ptps_update(self._h, _ptr(signs, ctypes.c_uint64),
-                                   len(signs), dim,
-                                   _ptr(grads, ctypes.c_float))
-        if rc != 0:
-            raise RuntimeError("native update failed (optimizer not "
-                               "registered)")
+        with self._guard():
+            if self.spill is not None and len(self.spill):
+                # a gradient for a spilled row faults it in first
+                self._fault_in(signs, True)
+            rc = self._lib.ptps_update(self._h, _ptr(signs, ctypes.c_uint64),
+                                       len(signs), dim,
+                                       _ptr(grads, ctypes.c_float))
+            if rc != 0:
+                raise RuntimeError("native update failed (optimizer not "
+                                   "registered)")
+            if self.spill is not None:
+                self._drain_evictions()
 
     def get_entry(self, sign: int) -> Optional[Tuple[int, np.ndarray]]:
-        dim_out = ctypes.c_uint32(0)
-        length = self._lib.ptps_get_entry(self._h, sign, None, 0,
-                                          ctypes.byref(dim_out))
-        if length < 0:
-            return None
-        buf = np.empty(length, dtype=np.float32)
-        self._lib.ptps_get_entry(self._h, sign, _ptr(buf, ctypes.c_float),
-                                 length, ctypes.byref(dim_out))
-        return int(dim_out.value), buf
+        """(dim, f32 [emb|state]) or None; a spilled row reads through
+        (peek)."""
+        with self._guard():
+            dim_out = ctypes.c_uint32(0)
+            length = self._lib.ptps_get_entry(self._h, sign, None, 0,
+                                              ctypes.byref(dim_out))
+            if length < 0:
+                if self.spill is not None:
+                    got = self.spill.peek(int(sign))
+                    if got is not None:
+                        return got[0], self._rp.unpack_raw(got[1], got[0])
+                return None
+            buf = np.empty(length, dtype=np.float32)
+            self._lib.ptps_get_entry(self._h, sign,
+                                     _ptr(buf, ctypes.c_float), length,
+                                     ctypes.byref(dim_out))
+            return int(dim_out.value), buf
 
     def set_entry(self, sign: int, dim: int, vec: np.ndarray):
         vec = np.ascontiguousarray(vec, dtype=np.float32)
         if vec.ndim != 1 or len(vec) < dim:
             raise ValueError(f"vec of shape {vec.shape} for dim {dim}")
-        self._lib.ptps_set_entry(self._h, sign, dim,
-                                 _ptr(vec, ctypes.c_float), len(vec))
+        with self._guard():
+            if self.spill is not None:
+                self.spill.discard(int(sign))
+            self._lib.ptps_set_entry(self._h, sign, dim,
+                                     _ptr(vec, ctypes.c_float), len(vec))
+            if self.spill is not None:
+                self._drain_evictions()
 
     def get_entries(self, signs: np.ndarray, width: int):
         """Rows of width ``width`` (embedding and optimizer state) by
         sign: (found, vecs); an absent row, or one of another width, is
-        not found and reads zeros."""
+        not found and reads zeros. Spilled rows read through (peek)."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         n = len(signs)
         vecs = np.zeros((n, width), dtype=np.float32)
         if n == 0:
             return np.zeros(0, dtype=bool), vecs
         lens = np.empty(n, dtype=np.int64)
-        self._lib.ptps_get_entries(self._h, _ptr(signs, ctypes.c_uint64), n,
-                                   width, _ptr(vecs, ctypes.c_float),
-                                   _ptr(lens, ctypes.c_int64))
-        found = lens == width
-        # the call wrote the prefix of a row of another width
-        vecs[(lens >= 0) & ~found] = 0.0
+        with self._guard():
+            self._lib.ptps_get_entries(
+                self._h, _ptr(signs, ctypes.c_uint64), n, width,
+                _ptr(vecs, ctypes.c_float), _ptr(lens, ctypes.c_int64))
+            found = lens == width
+            # the call wrote the prefix of a row of another width
+            vecs[(lens >= 0) & ~found] = 0.0
+            if self.spill is not None and len(self.spill):
+                for i in np.nonzero(lens < 0)[0]:
+                    got = self.spill.peek(int(signs[i]))
+                    if got is None:
+                        continue
+                    vec = self._rp.unpack_raw(got[1], got[0])
+                    if len(vec) == width:
+                        found[i] = True
+                        vecs[i] = vec
         return found, vecs
 
     def set_entries(self, signs: np.ndarray, dim: int, vecs: np.ndarray):
@@ -394,17 +547,31 @@ class NativeEmbeddingHolder:
                              f"signs of dim {dim}")
         if len(signs) == 0:
             return
-        rc = self._lib.ptps_set_entries(
-            self._h, _ptr(signs, ctypes.c_uint64), len(signs), dim,
-            _ptr(vecs, ctypes.c_float), vecs.shape[1])
-        if rc != 0:
-            raise RuntimeError("native set_entries failed (len < dim)")
+        with self._guard():
+            if self.spill is not None:
+                for s in signs.tolist():
+                    self.spill.discard(s)
+            rc = self._lib.ptps_set_entries(
+                self._h, _ptr(signs, ctypes.c_uint64), len(signs), dim,
+                _ptr(vecs, ctypes.c_float), vecs.shape[1])
+            if rc != 0:
+                raise RuntimeError("native set_entries failed (len < dim)")
+            if self.spill is not None:
+                self._drain_evictions()
 
     def clear(self):
-        self._lib.ptps_clear(self._h)
+        with self._guard():
+            self._lib.ptps_clear(self._h)
+            if self.spill is not None:
+                self.spill.clear()
 
     def __len__(self) -> int:
-        return int(self._lib.ptps_len(self._h))
+        """Rows of the logical table: resident plus spilled."""
+        with self._guard():
+            n = int(self._lib.ptps_len(self._h))
+            if self.spill is not None:
+                n += len(self.spill)
+            return n
 
     # --- observables ------------------------------------------------------
 
@@ -451,19 +618,102 @@ class NativeEmbeddingHolder:
                 dict(self.optimizer)).require_space(dim)
         return self._rp.entry_nbytes(dim, space)
 
+    def spill_stats(self) -> dict:
+        """The disk tier's counters (empty when unarmed)."""
+        return self.spill.stats() if self.spill is not None else {}
+
+    def hotness_snapshot(self) -> dict:
+        """The hotness sketches' snapshot, each table stamped with its
+        stored bytes a row; the disabled marker when unarmed."""
+        if self.hotness is None:
+            return disabled_snapshot()
+        snap = self.hotness.snapshot()
+        for table, t in snap.get("tables", {}).items():
+            t["row_bytes"] = int(table) * self._rp.itemsize
+        return snap
+
     # --- serialization ----------------------------------------------------
 
     def dump_file(self, path: str):
         """PSD v1 (fp32 rows) or v2, byte-identical to the Python
-        holders' dumps."""
-        if self._lib.ptps_dump(self._h, str(path).encode()) != 0:
-            raise IOError(f"native dump to {path} failed")
+        holders' dumps. A spill-armed store dumps the logical table: the
+        store's resident rows, behind them the spilled rows, and in front
+        the rows that left the spill tier while the dump ran (lowest load
+        priority: any newer record of the same sign wins)."""
+        path = str(path)
+        with self._guard():
+            if self.spill is None:
+                if self._lib.ptps_dump(self._h, path.encode()) != 0:
+                    raise IOError(f"native dump to {path} failed")
+                return
+            self._dump_spilled(path)
+
+    def _dump_spilled(self, path: str):
+        rp = self._rp
+        code = _ROW_DTYPE_CODES[self.row_dtype]
+
+        def rec(version, sign, dim, raw):
+            state_len = (len(raw) - dim * rp.itemsize) // 4
+            if version == 1:
+                head = struct.pack("<QII", sign, dim, dim + state_len)
+            else:
+                head = struct.pack("<QIBI", sign, dim, code, state_len)
+            return head + raw.tobytes()
+
+        tmp, spill_tmp = path + ".native_part", path + ".spill_part"
+        self.spill.start_dump_capture()
+        try:
+            if self._lib.ptps_dump(self._h, tmp.encode()) != 0:
+                raise IOError(f"native dump to {tmp} failed")
+            head_len = 4 + struct.calcsize("<IQ")
+            with open(tmp, "rb") as src, open(path, "wb") as dst:
+                head = src.read(head_len)
+                version, count = struct.unpack_from("<IQ", head, 4)
+                dst.write(head)
+                # the spilled records go to a side file first, with the
+                # capture armed; the captured ones are written in front,
+                # then the store's body, then the side file; the count is
+                # patched into the header last
+                with open(spill_tmp, "wb") as sp:
+                    for sign, dim, raw in self.spill.items():
+                        sp.write(rec(version, sign, dim, raw))
+                        count += 1
+                for sign, (dim, raw) in \
+                        self.spill.stop_dump_capture().items():
+                    dst.write(rec(version, sign, dim, raw))
+                    count += 1
+                shutil.copyfileobj(src, dst, 4 << 20)
+                with open(spill_tmp, "rb") as sp:
+                    shutil.copyfileobj(sp, dst, 4 << 20)
+                dst.seek(8)
+                dst.write(struct.pack("<Q", count))
+        finally:
+            self.spill.stop_dump_capture()
+            for t in (tmp, spill_tmp):
+                if os.path.exists(t):
+                    os.remove(t)
 
     def load_file(self, path: str, clear: bool = True):
-        """Load a PSD v1 or v2 file, of any row precision."""
-        if self._lib.ptps_load(self._h, str(path).encode(),
-                               1 if clear else 0) != 0:
-            raise IOError(f"native load from {path} failed")
+        """Load a PSD v1 or v2 file, of any row precision. With the spill
+        tier armed, rows the load evicts are demoted to it; a merge load
+        (``clear=False``) goes record by record so each loaded sign drops
+        its stale spilled copy."""
+        path = str(path)
+        with self._guard():
+            if self.spill is not None:
+                if not clear:
+                    with open(path, "rb") as f:
+                        version, count = read_psd_header(f, path)
+                        for sign, dim, vec in iter_psd_records(
+                                f.read, version, count):
+                            self.set_entry(sign, dim, vec)
+                    return
+                self.spill.clear()
+            if self._lib.ptps_load(self._h, path.encode(),
+                                   1 if clear else 0) != 0:
+                raise IOError(f"native load from {path} failed")
+            if self.spill is not None:
+                self._drain_evictions()
 
 
 BACKENDS = ("auto", "native", "arena", "python-legacy")
@@ -481,6 +731,9 @@ def make_holder(capacity: int, num_internal_shards: int,
     - ``arena``: the Python arena holder (:mod:`persia_tpu_torch.ps.arena`);
     - ``python-legacy``: the per-entry ``EmbeddingHolder``, fp32 rows with
       a row budget only (the A/B baseline).
+
+    ``spill_dir`` (at most ``spill_bytes`` on disk) and ``hotness`` arm
+    the disk spill tier and the hotness sketches on every backend.
     """
     backend = backend or "auto"
     if backend not in BACKENDS:
@@ -489,13 +742,14 @@ def make_holder(capacity: int, num_internal_shards: int,
     if backend == "auto":
         backend = "native" if prefer_native else "arena"
     if backend == "python-legacy":
-        if ((row_dtype or "fp32") != "fp32" or capacity_bytes or hotness
-                or spill_dir):
+        if (row_dtype or "fp32") != "fp32" or capacity_bytes:
             raise NotImplementedError(
                 "make_holder(backend='python-legacy') keeps fp32 rows under "
-                "a row budget only; use backend='arena' for row_dtype, "
-                "capacity_bytes, hotness or spill_dir")
-        return EmbeddingHolder(capacity, num_internal_shards)
+                "a row budget only; use backend='arena' for row_dtype or "
+                "capacity_bytes")
+        return EmbeddingHolder(capacity, num_internal_shards,
+                               hotness=hotness, spill_dir=spill_dir,
+                               spill_bytes=spill_bytes)
     cls = NativeEmbeddingHolder if backend == "native" else \
         ArenaEmbeddingHolder
     return cls(capacity, num_internal_shards, row_dtype=row_dtype or "fp32",

@@ -163,6 +163,13 @@ class RowPrecision:
         self.unpack_into(vec, dim, out)
         return out
 
+    def unpack_raw(self, raw: np.ndarray, dim: int) -> np.ndarray:
+        """A logical record's uint8 bytes ``[emb | state f32]`` (the form
+        the spill tier and PSD v2 keep) -> a fresh f32 ``[emb | state]``."""
+        if self.is_fp32:
+            return raw.view(np.float32).copy()
+        return self.unpack(raw, dim)
+
     def unpack_into(self, vec: np.ndarray, dim: int, out: np.ndarray):
         if self.is_fp32:
             out[:] = vec

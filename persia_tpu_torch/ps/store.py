@@ -18,14 +18,21 @@ A copy of the semantics of ``persia_tpu/ps/store.py``'s
 - ``update_gradients`` applies the optimizer per sign (duplicate signs
   one after another, otherwise one batched call) and then the weight
   bound; signs absent or of another layout are skipped and counted;
-- ``set_entries`` / ``get_entries`` write and read whole rows.
+- ``set_entries`` / ``get_entries`` write and read whole rows;
+- ``spill_dir`` demotes the rows eviction would drop to the disk spill
+  tier (:mod:`persia_tpu_torch.ps.spill`), and any later access faults
+  them back in (a training access takes the row and re-inserts it, a
+  read-only access peeks); ``hotness`` arms the workload sketches
+  (:mod:`persia_tpu_torch.hotness`);
+- ``dump_bytes`` / ``load_bytes`` (and their file forms) write and read
+  the PSD v1 format, the spilled rows included.
 
-Half-precision rows, the disk spill tier and hotness sketches belong to
-the arena holder (``ps/arena.py``) or to later slices of the port. The
-PSD dump format's header and record reader live here, as in the JAX
-package, and the arena holder writes and reads it.
+Half-precision rows and byte budgets belong to the arena holder
+(``ps/arena.py``). The PSD dump format's header and record reader live
+here, as in the JAX package, and every holder writes and reads it.
 """
 
+import io
 import struct
 import threading
 from collections import OrderedDict
@@ -33,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from persia_tpu_torch.hotness import disabled_snapshot, make_tracker
 from persia_tpu_torch.ps.optim import (
     RowPrecision,
     SparseOptimizer,
@@ -43,6 +51,7 @@ from persia_tpu_torch.ps.rng import (
     initialize_entries,
     internal_shard_of,
 )
+from persia_tpu_torch.ps.spill import SpillStore
 
 DUMP_MAGIC = b"PSD1"
 # PSD v2 per-record embedding dtype tags
@@ -52,10 +61,16 @@ _DTYPE_NAMES = {v: k for k, v in _DTYPE_CODES.items()}
 
 class EmbeddingHolder:
     """One process-level PS replica: ``num_internal_shards``
-    independently-locked LRU maps of ``sign -> (dim, f32 row)``."""
+    independently-locked LRU maps of ``sign -> (dim, f32 row)``.
+    ``spill_dir`` arms the disk tier (at most ``spill_bytes`` on disk),
+    ``hotness`` the workload sketches (None: the ``PERSIA_HOTNESS``
+    knob)."""
 
     def __init__(self, capacity: int = 1_000_000_000,
-                 num_internal_shards: int = 8):
+                 num_internal_shards: int = 8,
+                 hotness: Optional[bool] = None,
+                 spill_dir: Optional[str] = None,
+                 spill_bytes: Optional[int] = None):
         if num_internal_shards <= 0:
             raise ValueError("num_internal_shards must be positive")
         self.capacity = capacity
@@ -74,6 +89,13 @@ class EmbeddingHolder:
         # per-shard cells, each written only under its shard's lock
         self._index_miss = [0] * num_internal_shards
         self._gradient_id_miss = [0] * num_internal_shards
+        # the tracker's and the spill store's locks are leaves: the
+        # holder calls into them under its shard locks (spill) or
+        # outside them (hotness), never the other way round
+        self.hotness = make_tracker(num_internal_shards, enabled=hotness)
+        self.spill: Optional[SpillStore] = (
+            SpillStore(spill_dir, max_bytes=spill_bytes or None)
+            if spill_dir else None)
 
     @property
     def index_miss_count(self) -> int:
@@ -98,10 +120,44 @@ class EmbeddingHolder:
         self.optimizer = SparseOptimizer.from_config(
             config, feature_index_prefix_bit=feature_index_prefix_bit)
 
+    def hotness_snapshot(self) -> dict:
+        """The hotness sketches' snapshot, each table stamped with its
+        stored bytes a row; the disabled marker when unarmed."""
+        if self.hotness is None:
+            return disabled_snapshot()
+        snap = self.hotness.snapshot()
+        for table, t in snap.get("tables", {}).items():
+            t["row_bytes"] = int(table) * 4
+        return snap
+
+    def spill_stats(self) -> dict:
+        """The disk tier's counters (empty when unarmed)."""
+        return self.spill.stats() if self.spill is not None else {}
+
     def _groups(self, signs: np.ndarray):
         shard_ids = internal_shard_of(signs, self.num_internal_shards)
         for shard_idx in np.unique(shard_ids):
             yield int(shard_idx), np.nonzero(shard_ids == shard_idx)[0]
+
+    def _shard_idx(self, sign: int) -> int:
+        return int(internal_shard_of(np.array([sign], dtype=np.uint64),
+                                     self.num_internal_shards)[0])
+
+    def _fault_in_locked(self, shard_idx: int, sign: int, training: bool):
+        """A spilled row on a shard miss: training takes it and re-inserts
+        it resident (which may demote others), a read-only access peeks.
+        Returns the ``(dim, f32 vec)`` entry or None. A missing or
+        truncated packet raises ``SpillReadError`` with the holder
+        untouched."""
+        got = (self.spill.take(sign) if training
+               else self.spill.peek(sign))
+        if got is None:
+            return None
+        dim0, raw = got
+        vec = raw.view(np.float32)
+        if training:
+            self._evict_locked(shard_idx, sign, dim0, vec)
+        return dim0, vec
 
     def lookup(self, signs: np.ndarray, dim: int,
                training: bool) -> np.ndarray:
@@ -129,6 +185,9 @@ class EmbeddingHolder:
                 signs, dim, self.init_method, self.init_params)
             if space:
                 self.optimizer.state_initialization(init_vecs, dim)
+        if self.hotness is not None:
+            # outside the shard locks: the tracker's locks are leaves
+            self.hotness.observe(dim, signs)
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
             with self._locks[shard_idx]:
@@ -137,6 +196,9 @@ class EmbeddingHolder:
                     entry = shard.get(sign)
                     if entry is not None and training:
                         shard.move_to_end(sign)
+                    if entry is None and self.spill is not None:
+                        entry = self._fault_in_locked(shard_idx, sign,
+                                                      training)
                     if entry is not None and entry[0] == dim:
                         out[pos] = entry[1][:dim]
                     elif not training or (entry is None
@@ -173,6 +235,10 @@ class EmbeddingHolder:
                 found_entries: List[np.ndarray] = []
                 for pos in sel:
                     entry = shard.get(int(signs[pos]))
+                    if entry is None and self.spill is not None:
+                        # a gradient for a spilled row faults it in
+                        entry = self._fault_in_locked(
+                            shard_idx, int(signs[pos]), True)
                     if entry is None or entry[0] != dim or \
                             len(entry[1]) != width:
                         self._gradient_id_miss[shard_idx] += 1
@@ -202,11 +268,22 @@ class EmbeddingHolder:
 
     def _insert_locked(self, shard_idx: int, sign: int, dim: int,
                        vec: np.ndarray):
+        """Insert, keeping a resident sign free of a stale spilled copy."""
+        if self.spill is not None:
+            self.spill.discard(sign)
+        self._evict_locked(shard_idx, sign, dim, vec)
+
+    def _evict_locked(self, shard_idx: int, sign: int, dim: int,
+                      vec: np.ndarray):
+        """Insert, then evict the least recently used rows past the
+        shard's capacity, demoting them to the spill tier when armed."""
         shard = self._shards[shard_idx]
         shard.pop(sign, None)
         shard[sign] = (dim, vec)
         while len(shard) > self._per_shard:
-            shard.popitem(last=False)
+            old_sign, (old_dim, old_vec) = shard.popitem(last=False)
+            if self.spill is not None:
+                self.spill.put(old_sign, old_dim, old_vec)
 
     def set_entries(self, signs: np.ndarray, dim: int, vecs: np.ndarray):
         """Insert or replace the rows ``vecs`` (n, width >= dim) f32."""
@@ -233,13 +310,98 @@ class EmbeddingHolder:
             with self._locks[shard_idx]:
                 for pos in sel:
                     entry = shard.get(int(signs[pos]))
+                    if entry is None and self.spill is not None:
+                        entry = self._fault_in_locked(
+                            shard_idx, int(signs[pos]), False)
                     if entry is not None and len(entry[1]) == width:
                         found[pos] = True
                         vecs[pos] = entry[1]
         return found, vecs
 
+    def get_entry(self, sign: int) -> Optional[Tuple[int, np.ndarray]]:
+        """(dim, f32 [emb|state]) or None: the live stored row; a spilled
+        row reads through (peek)."""
+        shard_idx = self._shard_idx(sign)
+        with self._locks[shard_idx]:
+            entry = self._shards[shard_idx].get(int(sign))
+            if entry is None and self.spill is not None:
+                entry = self._fault_in_locked(shard_idx, int(sign), False)
+            return entry
+
+    def set_entry(self, sign: int, dim: int, vec: np.ndarray):
+        shard_idx = self._shard_idx(sign)
+        vec = np.array(vec, dtype=np.float32)
+        with self._locks[shard_idx]:
+            self._insert_locked(shard_idx, int(sign), dim, vec)
+
+    def clear(self):
+        for lock, shard in zip(self._locks, self._shards):
+            with lock:
+                shard.clear()
+        if self.spill is not None:
+            self.spill.clear()
+
     def __len__(self) -> int:
-        return sum(len(s) for s in self._shards)
+        """Rows of the logical table: resident plus spilled."""
+        n = sum(len(s) for s in self._shards)
+        if self.spill is not None:
+            n += len(self.spill)
+        return n
+
+    # --- serialization (PSD v1) -----------------------------------------
+
+    def dump_bytes(self) -> bytes:
+        """Every entry as PSD v1 (``sign u64 | dim u32 | len u32 | f32
+        [emb|state]``), per shard in LRU order. A spill-armed holder
+        dumps the logical table: the shards, then the spilled rows, and
+        in front of both the rows that left the spill tier while the dump
+        ran (so any newer record of the same sign wins on load). The
+        header count is the records serialized."""
+        chunks = []
+        front = []
+        if self.spill is not None:
+            self.spill.start_dump_capture()
+        try:
+            for lock, shard in zip(self._locks, self._shards):
+                with lock:
+                    for sign, (dim, vec) in shard.items():
+                        chunks.append(struct.pack("<QII", sign, dim,
+                                                  len(vec)))
+                        chunks.append(np.ascontiguousarray(
+                            vec, dtype=np.float32).tobytes())
+            if self.spill is not None:
+                for sign, dim, raw in self.spill.items():
+                    chunks.append(struct.pack("<QII", sign, dim,
+                                              len(raw) // 4))
+                    chunks.append(raw.tobytes())
+                for sign, (dim, raw) in \
+                        self.spill.stop_dump_capture().items():
+                    front.append(struct.pack("<QII", sign, dim,
+                                             len(raw) // 4))
+                    front.append(raw.tobytes())
+        finally:
+            if self.spill is not None:
+                self.spill.stop_dump_capture()
+        count = (len(chunks) + len(front)) // 2
+        return b"".join([DUMP_MAGIC, struct.pack("<IQ", 1, count)]
+                        + front + chunks)
+
+    def load_bytes(self, buf: bytes, clear: bool = True):
+        """Install a PSD v1 or v2 dump (half rows widen to f32)."""
+        reader = io.BytesIO(buf)
+        version, count = read_psd_header(reader, "<load_bytes>")
+        if clear:
+            self.clear()
+        for sign, dim, vec in iter_psd_records(reader.read, version, count):
+            self.set_entry(sign, dim, vec)
+
+    def dump_file(self, path: str):
+        with open(path, "wb") as f:
+            f.write(self.dump_bytes())
+
+    def load_file(self, path: str, clear: bool = True):
+        with open(path, "rb") as f:
+            self.load_bytes(f.read(), clear=clear)
 
 
 def read_psd_header(f, name: str = "<psd>"):

@@ -32,8 +32,13 @@ interpreter lock for each call, so the shards work at once. Two planes:
 - **serialized** (``streaming=False``): every lookup result is gathered,
   then scattered; every gradient aggregated, then every group shipped.
 
-Routing tables, resharding, retries across replicas, tracing spans and
-registry gauges belong to later slices of the port.
+Checkpoints: ``dump`` drains this worker's backward engines and dumps
+every PS shard through :func:`persia_tpu_torch.checkpoint.dump_sharded`;
+``load`` loads (and reshards) a dump onto the shards. Both route by the
+uniform table, ``farmhash64(sign) % replica_size``.
+
+Live routing tables, resharding, retries across replicas, tracing spans
+and registry gauges belong to later slices of the port.
 """
 
 import os
@@ -46,9 +51,12 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from persia_tpu_torch.checkpoint import dump_sharded, load_sharded
 from persia_tpu_torch.config import EmbeddingSchema
 from persia_tpu_torch.data.batch import IDTypeFeature
 from persia_tpu_torch.hashing import sign_to_shard
+from persia_tpu_torch.pipeline import flush_backward_engines
+from persia_tpu_torch.routing import RoutingTable
 from persia_tpu_torch.worker import middleware as mw
 
 
@@ -349,3 +357,18 @@ class EmbeddingWorker:
         vecs = np.ascontiguousarray(vecs, dtype=np.float32)
         self._per_shard(signs, lambda r, sel: self.ps_clients[r].set_entries(
             signs[sel], dim, vecs[sel]))
+
+    # --- checkpoints -------------------------------------------------------
+
+    def dump(self, dirpath: str):
+        """Dump every PS shard into ``dirpath`` once the in-flight
+        gradient updates of this worker's backward engines have landed."""
+        flush_backward_engines(self)
+        dump_sharded(self.ps_clients, dirpath,
+                     routing=RoutingTable.uniform(self.replica_size))
+
+    def load(self, dirpath: str):
+        """Load the dump in ``dirpath`` onto the PS shards, resharding
+        when it was taken over another shard count."""
+        load_sharded(self.ps_clients, dirpath,
+                     routing=RoutingTable.uniform(self.replica_size))

@@ -1,12 +1,15 @@
 """Host-side parity of the PyTorch port against the JAX package: the
 port keeps its own copies of the numpy-only modules (hashing, PTB2 wire,
-PS rng and store, worker middleware, seqrec traffic), and every result
-here must be bit-identical to the JAX package's.
+PS rng and store, worker middleware, seqrec traffic, the knobs, the
+storage layer, the HyperLogLog, the routing table and the hotness
+sketches), and every result here must be bit-identical to the JAX
+package's.
 
 Also: the port and ``chip_smoke.py`` import nothing of JAX or of the JAX
 package.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -254,7 +257,11 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.models.deepfm', "
         "'persia_tpu_torch.models.wide_deep', "
         "'persia_tpu_torch.workloads.models', "
-        "'persia_tpu_torch.workloads.registry') "
+        "'persia_tpu_torch.workloads.registry', "
+        "'persia_tpu_torch.knobs', 'persia_tpu_torch.storage', "
+        "'persia_tpu_torch.hotness', 'persia_tpu_torch.routing', "
+        "'persia_tpu_torch.checkpoint', 'persia_tpu_torch.snapshot', "
+        "'persia_tpu_torch.ps.spill', 'persia_tpu_torch.worker.monitor') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([n for n in sys.modules "
@@ -264,3 +271,114 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+# --- knobs, storage, HyperLogLog, routing table, hotness sketches -----------
+
+
+@pytest.mark.parametrize("raw", [None, "", "0", "1", "true", "YES", "no",
+                                 "7"])
+def test_knobs_parse_as_the_jax_registry(raw, monkeypatch):
+    from persia_tpu import knobs as jknobs
+    from persia_tpu_torch import knobs as tknobs
+
+    for name, knob in tknobs.REGISTRY.items():
+        jk = jknobs.REGISTRY[name]
+        assert (knob.type, knob.default) == (jk.type, jk.default), name
+        if raw is None:
+            monkeypatch.delenv(name, raising=False)
+        elif knob.type == "int" and raw not in ("", "7"):
+            continue  # int() of a word raises in both
+        else:
+            monkeypatch.setenv(name, raw)
+        assert tknobs.get(name) == jknobs.get(name), (name, raw)
+    with pytest.raises(KeyError, match="unregistered"):
+        tknobs.get("PERSIA_NO_SUCH_KNOB")
+
+
+def test_storage_copy_reads_and_writes_as_the_jax_one(tmp_path):
+    from persia_tpu.storage import PersiaPath as JPath
+    from persia_tpu_torch.storage import PersiaPath as TPath
+
+    blob = bytes(range(256)) * 3
+    for cls, d in ((JPath, tmp_path / "j"), (TPath, tmp_path / "t")):
+        cls(str(d / "sub" / "a")).write_bytes(blob)
+        cls(str(d / "b")).write_bytes_atomic(blob[::-1])
+        cls(str(d / "c")).makedirs()
+    for rel in ("sub/a", "b"):
+        assert (tmp_path / "t" / rel).read_bytes() == \
+            (tmp_path / "j" / rel).read_bytes()
+    t, j = TPath(str(tmp_path / "t" / "sub" / "a")), JPath(
+        str(tmp_path / "j" / "sub" / "a"))
+    assert t.read_range(100, 300) == j.read_range(100, 300)
+    assert sorted(os.path.basename(p) for p in TPath(
+        str(tmp_path / "t")).listdir()) == sorted(
+        os.path.basename(p) for p in JPath(str(tmp_path / "j")).listdir())
+    assert not t.is_hdfs and TPath("hdfs://nn/x").is_hdfs
+    TPath(str(tmp_path / "t" / "sub")).remove()
+    assert not TPath(str(tmp_path / "t" / "sub")).exists()
+
+
+@pytest.mark.parametrize("p", [4, 10, 14])
+def test_hyperloglog_is_bit_exact(p):
+    from persia_tpu.worker.monitor import HyperLogLog as JHLL
+    from persia_tpu_torch.worker.monitor import HyperLogLog as THLL
+
+    rng = np.random.default_rng(p)
+    j, t = JHLL(p), THLL(p)
+    for n in (0, 10, 5000, 200_000):
+        signs = rng.integers(0, 1 << 62, n, dtype=np.uint64)
+        j.add_signs(signs)
+        t.add_signs(signs)
+        np.testing.assert_array_equal(t.registers, j.registers)
+        assert t.estimate() == j.estimate()
+    with pytest.raises(ValueError):
+        THLL(3)
+
+
+def test_routing_table_is_bit_exact():
+    from persia_tpu.routing import RoutingTable as JTable
+    from persia_tpu_torch.routing import RoutingTable as TTable
+
+    signs = np.random.default_rng(1).integers(0, 1 << 63, 5000,
+                                              dtype=np.uint64)
+    for n in (1, 3, 4):
+        j, t = JTable.uniform(n), TTable.uniform(n)
+        assert t.to_doc() == j.to_doc()
+        assert t.is_uniform_modulo and j.is_uniform_modulo
+        np.testing.assert_array_equal(t.slot_of(signs), j.slot_of(signs))
+        np.testing.assert_array_equal(t.replica_of(signs),
+                                      j.replica_of(signs))
+        np.testing.assert_array_equal(t.replica_of(signs),
+                                      thash.sign_to_shard(signs, n))
+        jd = j.derive((j.replica_of_slot + 1) % n, n)
+        td = TTable.from_doc(jd.to_doc())
+        assert td.to_doc() == jd.to_doc() and td != t
+        assert td == TTable.from_doc(td.to_doc())
+        assert td.is_uniform_modulo == jd.is_uniform_modulo
+        np.testing.assert_array_equal(td.replica_of(signs),
+                                      jd.replica_of(signs))
+    assert TTable.uniform(2).num_slots == JTable.uniform(2).num_slots == 128
+    with pytest.raises(ValueError, match="outside"):
+        TTable(1, np.array([0, 2]), 2)
+
+
+def test_hotness_sketches_are_bit_exact():
+    from persia_tpu import hotness as jhot
+    from persia_tpu_torch import hotness as thot
+
+    rng = np.random.default_rng(2)
+    js, ts = jhot.SpaceSaving(32), thot.SpaceSaving(32)
+    jc, tc = jhot.CountMinSketch(128, 3), thot.CountMinSketch(128, 3)
+    for _ in range(20):
+        signs = (rng.zipf(1.2, 200) % 5000).astype(np.uint64)
+        uniq, counts = np.unique(signs, return_counts=True)
+        hashes = thash.farmhash64_np(uniq)
+        est_j = jc.add_and_estimate(hashes, counts)
+        est_t = tc.add_and_estimate(hashes, counts)
+        np.testing.assert_array_equal(est_t, est_j)
+        js.offer_many(uniq, counts, est_j)
+        ts.offer_many(uniq, counts, est_t)
+        assert ts.snapshot() == js.snapshot()
+    np.testing.assert_array_equal(tc.rows, jc.rows)
+    assert len(ts) == len(js) == 32

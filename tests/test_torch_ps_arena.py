@@ -343,10 +343,6 @@ def test_make_holder_backends_and_refusals(caplog):
         make_holder(1000, 4, backend="python-legacy", row_dtype="fp16")
     with pytest.raises(ValueError, match="unknown PS backend"):
         make_holder(1000, 4, backend="rocksdb")
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        make_holder(1000, 4, spill_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        make_holder(1000, 4, hotness=True)
     with pytest.raises(ValueError, match="positive"):
         tarena.ArenaEmbeddingHolder(10, 0)
     t = tarena.ArenaEmbeddingHolder(10, 2)

@@ -320,9 +320,11 @@ def test_library_is_built_by_the_port_from_native_src(tmp_path, monkeypatch):
 
     jlib = jnative.load_native_lib()
     assert tnative.native_capabilities() == \
-        jnative.native_capabilities(jlib) - {"spill"}
+        jnative.native_capabilities(jlib)
+    assert "spill" in tnative.native_capabilities()
     for policy in ({}, {"row_dtype": "bf16"}, {"capacity_bytes": 4096},
-                   {"row_dtype": "fp16", "capacity_bytes": 1}):
+                   {"row_dtype": "fp16", "capacity_bytes": 1},
+                   {"spill_dir": "/spill"}):
         assert tnative.required_capabilities(**policy) == \
             jnative.required_capabilities(**policy)
     for cfg in OPTIMIZERS.values():
@@ -363,11 +365,6 @@ def test_make_holder_policies_and_refusals():
     assert (h.row_dtype, h.capacity_bytes) == ("bf16", 4096)
     assert isinstance(tnative.make_holder(1000, 2, prefer_native=False),
                       tarena.ArenaEmbeddingHolder)
-    for backend in ("auto", "native"):
-        with pytest.raises(NotImplementedError, match="item 2c"):
-            tnative.make_holder(1000, 2, backend=backend, spill_dir="/x")
-        with pytest.raises(NotImplementedError, match="item 2c"):
-            tnative.make_holder(1000, 2, backend=backend, hotness=True)
     with pytest.raises(ValueError, match="positive"):
         tnative.NativeEmbeddingHolder(10, 0)
     with pytest.raises(ValueError, match="row_dtype"):

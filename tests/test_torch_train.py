@@ -546,7 +546,7 @@ def test_train_ctx_refusals():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainCtx(model, opt, None, schema, worker)
     for kw in (dict(mesh=object()), dict(device_cache_capacity=8),
-               dict(resume_from="snap"), dict(profiler=object())):
+               dict(profiler=object())):
         with pytest.raises(NotImplementedError, match="queue A"):
             TrainCtx(model, opt, None, schema, worker, device="cpu", **kw)
     # stored, as the JAX TrainCtx stores it
