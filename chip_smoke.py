@@ -52,7 +52,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    the 300 steps and read just after: K2, K3 and K4 must each have
    launched. Before that, a flash tower and a reference tower train 3
    steps from the same weights and fresh PS rows in f32 and must agree.
-   After it, the A/B of the PS holder: the first 60 steps again on the
+   After it, the A/B of the PS holder: the first 45 steps again on the
    Python arena holder (``backend="arena"``) and the first 30 on the
    per-entry holder (``backend="python-legacy"``); each run prints
    samples/s, step p50/p99, host CPU by thread and the split synchronized
@@ -69,7 +69,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    the loop the pipeline at rest: worker staleness 0, every permit back,
    no lost update. Before that, 10 pipelined steps (reproducible,
    staleness 1) must agree with 10 synchronous steps from the same
-   weights in f32, losses and PS rows. After it, the A/B: the first 100
+   weights in f32, losses and PS rows. After it, the A/B: the first 50
    batches pipelined on the arena holder, with the same numbers and the
    pipeline at rest; a summary line gives every training run's samples/s
    and the pipelined / synchronous ratio of each holder.
@@ -143,8 +143,50 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    before; every case (the TPU probe's four) must match. Each case's
    plain version, its library yardstick (``index_select``), K5's device
    time per launch and its host time a call are then timed beside its
-   bound. Last, one line gives every wrapper's host time a call at its
-   main-path shape beside the launch floor.
+   bound.
+10. ``multi_rank`` (run right after the kernel phase, while the main
+   process holds little of the card and the cores), data and context
+   parallelism
+   (``persia_tpu_torch.distributed``, ``parallel/mesh.py``,
+   ``parallel/collectives.py``, the DDP step, ``parallel/ulysses.py``,
+   ``parallel/ring_attention.py``): this script is started again as two
+   ranks of a gloo world sharing the one card and as a world of one NCCL
+   rank, all three once, before the kernel build, so that their start-up
+   and warm-up (imports, the card, cuBLAS, the first optimizer, the
+   collectives) overlap it; each then waits for its go file
+   (``tests/test_torch_ranks.py``, under a deadline; a rank that fails
+   fails the phase). gloo on one shared card is not the transport
+   of a multi-card job: the phase shows that the paths run and agree,
+   and claims no multi-card rate. On the two gloo ranks:
+   - (a) ``dlrm_hybrid``'s configuration on ``TrainCtx(mesh=make_mesh((2,
+     1)))``, the leader (rank 0) on the PS, global batch 4096, 16 steps
+     of fresh signs in f32, bf16 and int8_ef reduction, against rank 0
+     alone on the same batches: f32 within 2e-3, bf16 within 0.05 of
+     f32, int8_ef's last 4 within 0.08 (the JAX test's gates), every
+     loss finite, the two ranks' dense parameters bit-equal after each
+     run; each run's dense-parameter change within 8 ulps + 5% of one
+     rank's largest change (which must exceed twice that); the last
+     reduced gradient made of bf16 values after bf16 and of at most 255
+     values a 1024-bucket after int8_ef, and neither after f32;
+     samples/s of each;
+   - (b) device mode at ``bench_device``'s width (26 x 2^20 x 16) over
+     the data axis with an f32 tower, 5 steps against rank 0 alone under
+     device mode's agreement rule; K1 once a step on each rank; the two
+     ranks' tables equal (a digest of their bits); step ms and peak
+     memory;
+   - (c) the seq_rec tower over ``make_mesh((1, 2))``: Ulysses with the
+     flash kernels and the ring, 3 f32 ``TrainCtx`` steps against the
+     single-rank flash tower from the same weights (the training phase's
+     1e-4 / 1e-3), then 10 bf16 Ulysses steps in which K2, K3 and K4 each
+     launch once a step on every rank; one Ulysses forward and backward
+     at the attention bench's shape against K2-K4 on one rank (2e-2),
+     each rank's ms.
+   On the NCCL rank, once the gloo ranks are done: (d) f32 and int8_ef
+   DDP steps of (a)'s model, which must take NCCL's all_reduce,
+   all_to_all, all_gather and broadcast.
+   Last, one line gives every wrapper's host time a call at its
+   main-path shape beside the launch floor. A ``[time]`` line follows
+   each phase.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -237,9 +279,13 @@ SEED = 0
 TRAIN_SEED = 42  # the example's --seed
 TRAIN_STEPS = 300
 TRAIN_BATCH = 256
-AB_STEPS = 60  # synchronous steps on the arena PS holder (the A/B)
+# the A/B runs carry no gate; their depth was cut (from 60 and 100) to pay
+# for the multi_rank phase (PERF.md section 4)
+AB_STEPS = 45  # synchronous steps on the arena PS holder (the A/B)
 LEGACY_STEPS = 30  # synchronous steps on the per-entry PS holder
-PIPE_AB_STEPS = 100  # pipelined steps on the arena PS holder
+PIPE_AB_STEPS = 50  # pipelined steps on the arena PS holder
+AB_KEY = f"synchronous arena, steps 10-{AB_STEPS * 2 // 3 - 1}"
+PIPE_AB_KEY = f"pipelined arena, steps 10-{PIPE_AB_STEPS * 7 // 10 - 1}"
 # the pipelined phase: bench.py's bench_hybrid and the criteo example
 PIPE_WORKERS = 4
 PIPE_STALENESS = 8
@@ -1272,9 +1318,9 @@ def build_world():
 
 
 def build_tower(num_dense: int, attn_impl: str, state_dict=None,
-                compute_dtype=None):
+                compute_dtype=None, mesh=None, context_parallel="ring"):
     """The SequenceTower on the card, with seeded weights or a copy of
-    ``state_dict``."""
+    ``state_dict``; context-parallel over ``mesh``'s model axis."""
     import torch
 
     from persia_tpu_torch.models import SequenceTower
@@ -1285,7 +1331,8 @@ def build_tower(num_dense: int, attn_impl: str, state_dict=None,
              (DIM, False)]
     model = SequenceTower(num_dense, slots, mlp=MLP, num_heads=HEADS,
                           attn_impl=attn_impl, device="cuda",
-                          compute_dtype=compute_dtype or torch.bfloat16)
+                          compute_dtype=compute_dtype or torch.bfloat16,
+                          mesh=mesh, context_parallel=context_parallel)
     if state_dict is None:
         return init_params(model, SEED)
     model.load_state_dict(state_dict)
@@ -1512,51 +1559,100 @@ def report_window(phase: str, what: str, window, card: str):
 RATES = {}
 
 
-def train_ctx(torch, schema, model, global_config=None, backend=None):
+def train_ctx(torch, schema, model, global_config=None, backend=None,
+              mesh=None):
     """The seq_rec example's stack (Adam(1e-3), Adagrad(1e-2), rows from
     U(-0.05, 0.05), 2 fresh shards of make_holder(2_000_000, 8) of
     ``backend``), the tower's weights as they are."""
     return hybrid_ctx(torch, model, schema, [(2_000_000, 8)] * N_PS,
                       lambda p: torch.optim.Adam(p, lr=1e-3), 1e-2,
                       (-0.05, 0.05), global_config, seed=None,
-                      backend=backend)
+                      backend=backend, mesh=mesh)
 
 
 def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
                emb_init, global_config=None, loss_fn=None, seed=SEED,
                backend=None, spill_root=None, hotness=None,
-               resume_from=None):
+               resume_from=None, mesh=None, grad_reduce_dtype=None):
     """A TrainCtx on the model's device over a fresh worker whose PS
     shards are ``make_holder(capacity, shards, backend=backend)`` for each
     ``(capacity, shards)`` of ``holders``; the tower seeded unless
     ``seed`` is None. ``spill_root`` arms each shard's spill tier in
     ``<spill_root>/spill_<i>``, ``hotness`` its sketches; ``resume_from``
-    goes to the TrainCtx."""
+    goes to the TrainCtx. Over a ``mesh`` only its leader builds the
+    worker."""
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.parallel.mesh import is_leader
     from persia_tpu_torch.ps.native import make_holder
     from persia_tpu_torch.worker.worker import EmbeddingWorker
 
-    worker = EmbeddingWorker(schema, [
-        make_holder(c, n, backend=backend, hotness=hotness,
-                    spill_dir=(os.path.join(spill_root, f"spill_{i}")
-                               if spill_root else None))
-        for i, (c, n) in enumerate(holders)])
+    worker = None
+    if mesh is None or is_leader(mesh):
+        worker = EmbeddingWorker(schema, [
+            make_holder(c, n, backend=backend, hotness=hotness,
+                        spill_dir=(os.path.join(spill_root, f"spill_{i}")
+                                   if spill_root else None))
+            for i, (c, n) in enumerate(holders)])
     return TrainCtx(model, dense_optimizer(model.parameters()),
                     Adagrad(lr=sparse_lr), schema, worker,
                     embedding_config=EmbeddingConfig(emb_init),
                     global_config=global_config, loss_fn=loss_fn, seed=seed,
                     device=next(model.parameters()).device,
-                    resume_from=resume_from)
+                    resume_from=resume_from, mesh=mesh,
+                    grad_reduce_dtype=grad_reduce_dtype)
+
+
+def run_errors(run, ref):
+    """The worst (loss, prediction, embedding-gradient) disagreement of a
+    training run against a reference run over the same batches: absolute
+    for the first two, relative to each gradient's largest for the third
+    (as ``training_agreement`` holds the flash tower)."""
+    import numpy as np
+
+    worst = [0.0, 0.0, 0.0]
+    for (loss, pred), (rloss, rpred), g, rg in zip(run[0], ref[0], run[1],
+                                                   ref[1]):
+        if not (np.isfinite(loss) and np.isfinite(pred).all()):
+            raise AssertionError("a training step is not finite")
+        worst[0] = max(worst[0], abs(loss - rloss))
+        worst[1] = max(worst[1], float(np.abs(pred - rpred).max()))
+        for name in rg:
+            scale = float(np.abs(rg[name]).max())
+            err = float(np.abs(g[name] - rg[name]).max())
+            worst[2] = max(worst[2], err / max(scale, 1e-30))
+    return worst
+
+
+def seq_run(ctx, batches):
+    """Train ``batches``: [(loss, pred)] and, on the leader, the shipped
+    embedding gradients of each step."""
+    import numpy as np
+
+    grads = []
+    if ctx.worker is not None:
+        inner = ctx.worker.update_gradients
+
+        def record(ref_id, g, inner=inner):
+            grads.append({k: np.array(v) for k, v in g.items()})
+            return inner(ref_id, g)
+
+        ctx.worker.update_gradients = record
+    out = []
+    with ctx:
+        for b in batches:
+            loss, pred = ctx.train_step(b)
+            out.append((float(loss), pred.float().cpu().numpy()))
+    if ctx.worker is not None:
+        ctx.worker.close()
+    return out, grads
 
 
 def training_agreement(torch, card: str, spec):
     """A flash tower and a reference tower, from the same weights and
     fresh PS rows, train 3 steps in f32 (f32 wire, no TF32) and must
     agree on loss, predictions and each slot's embedding gradients."""
-    import numpy as np
-
     from persia_tpu_torch.config import CommonConfig, GlobalConfig
     from persia_tpu_torch.workloads.generator import seqrec_batches
 
@@ -1568,36 +1664,12 @@ def training_agreement(torch, card: str, spec):
     ref = build_tower(spec.num_dense, "reference",
                       state_dict=flash.state_dict(),
                       compute_dtype=torch.float32)
-    runs = []
-    for model in (flash, ref):
-        ctx = train_ctx(torch, schema, model,
-                        GlobalConfig(CommonConfig("f32")))
-        grads = []
-        inner = ctx.worker.update_gradients
-
-        def record(ref_id, g, inner=inner, grads=grads):
-            grads.append({k: np.array(v) for k, v in g.items()})
-            return inner(ref_id, g)
-
-        ctx.worker.update_gradients = record
-        out = []
-        with ctx:
-            for b in seqrec_batches(3 * TRAIN_BATCH, TRAIN_BATCH,
-                                    seed=TRAIN_SEED, spec=spec):
-                loss, pred = ctx.train_step(b)
-                out.append((float(loss), pred.cpu().numpy()))
-        runs.append((out, grads))
-    worst = [0.0, 0.0, 0.0]
-    for step, ((fl, fp), (rl, rp), fg, rg) in enumerate(zip(
-            runs[0][0], runs[1][0], runs[0][1], runs[1][1])):
-        if not (np.isfinite(fl) and np.isfinite(fp).all()):
-            raise AssertionError(f"flash tower step {step}: non-finite")
-        worst[0] = max(worst[0], abs(fl - rl))
-        worst[1] = max(worst[1], float(np.abs(fp - rp).max()))
-        for name in rg:
-            scale = float(np.abs(rg[name]).max())
-            err = float(np.abs(fg[name] - rg[name]).max())
-            worst[2] = max(worst[2], err / max(scale, 1e-30))
+    batches = list(seqrec_batches(3 * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED, spec=spec))
+    runs = [seq_run(train_ctx(torch, schema, model,
+                              GlobalConfig(CommonConfig("f32"))), batches)
+            for model in (flash, ref)]
+    worst = run_errors(*runs)
     _log(f"[training] flash vs reference tower, 3 steps f32: loss "
          f"max_abs_err={worst[0]:.3e} pred max_abs_err={worst[1]:.3e} "
          f"(atol {TRAIN_ATOL}); embedding grads max err / max |grad| = "
@@ -1692,11 +1764,12 @@ def training_phase(torch, card: str):
             TRAIN_BATCH / (steps_ms.mean() / 1e3)
     report_split("training", "native PS", split, split_s, STAGES, card)
     ctx.worker.close()
-    arena, RATES["synchronous arena, steps 10-39"] = holder_ab(
+    arena, RATES[AB_KEY] = holder_ab(
         torch, card, spec, batches[:AB_STEPS], "arena", "arena PS")
     _log(f"[training] arena PS shard calls by path over {AB_STEPS} steps: "
          f"{ps_paths(arena)} | card: {card}")
-    _, RATES["synchronous per-entry, steps 10-19"] = holder_ab(
+    _, RATES[f"synchronous per-entry, steps 10-{LEGACY_STEPS * 2 // 3 - 1}"
+             ] = holder_ab(
         torch, card, spec, batches[:LEGACY_STEPS], "python-legacy",
         "per-entry PS")
     _log("[training] loss " + " ".join(
@@ -1968,7 +2041,7 @@ def pipelined_phase(torch, card: str) -> dict:
     if not auc > AUC_BAR:
         raise AssertionError(f"test AUC {auc:.4f} is not above {AUC_BAR}")
 
-    # the A/B on the arena PS: [10, 70) timed, [70, 100) synchronized
+    # the A/B on the arena PS: [10, 35) timed, [35, 50) synchronized
     ab_timed = range(10, PIPE_AB_STEPS * 7 // 10)
     ab_split = range(ab_timed.stop, PIPE_AB_STEPS)
     ctx = train_ctx(torch, schema, build_tower(spec.num_dense, "flash"),
@@ -1978,7 +2051,7 @@ def pipelined_phase(torch, card: str) -> dict:
                               pipelined_loader(batches[:PIPE_AB_STEPS]),
                               PIPE_AB_STEPS, ab_timed, ab_split)
     ctx.worker.close()
-    RATES["pipelined arena, steps 10-69"] = report_pipelined(
+    RATES[PIPE_AB_KEY] = report_pipelined(
         "arena PS", run, ab_split, card)
     _log(f"[pipelined] arena PS shard calls by path: {ps_paths(ctx.worker)}"
          f" | card: {card}")
@@ -2025,11 +2098,12 @@ def rss_gb() -> float:
 
 
 def dh_ctx(torch, device: str, compute_dtype=None, global_config=None,
-           state_dict=None):
+           state_dict=None, mesh=None, grad_reduce_dtype=None):
     """bench_hybrid's stack: DLRM(embedding_dim=16) over 26 slots and 13
     dense features, OptaxAdagrad(0.02) dense, Adagrad(0.02) sparse at the
     default row init, 2 shards of make_holder(50_000_000, 16); seeded
-    weights, or a copy of ``state_dict``."""
+    weights, or a copy of ``state_dict``; over ``mesh`` the leader holds
+    the PS."""
     from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.parallel.optim import OptaxAdagrad
@@ -2045,7 +2119,8 @@ def dh_ctx(torch, device: str, compute_dtype=None, global_config=None,
         torch, model, schema, [(DH_PS_CAPACITY, DH_PS_SHARDS)] * N_PS,
         lambda p: OptaxAdagrad(p, DH_LR), DH_LR, (-0.01, 0.01),
         global_config=global_config,
-        seed=SEED if state_dict is None else None)
+        seed=SEED if state_dict is None else None, mesh=mesh,
+        grad_reduce_dtype=grad_reduce_dtype)
 
 
 def touched_rows(worker, signs):
@@ -3028,6 +3103,667 @@ def device_mode_phase(torch, card: str) -> int:
     return launches
 
 
+# --- multi_rank: data and context parallelism over ranks --------------------
+
+MR_WORLD = 2  # two ranks share the one card, over gloo
+MR_DDP_STEPS = 16
+MR_DDP_TIMED_FROM = 4
+# the gates of tests/test_models_parallel.py:235-255: the f32 reduction
+# against one rank, bf16 against the f32 reduction, int8_ef's last 4
+MR_F32_TOL = 2e-3
+MR_BF16_TOL = 0.05
+MR_EF_TOL = 0.08
+# (a)'s dense parameters: each run's change over its steps against one
+# rank's, within 8 f32 ulps of the largest parameter plus MR_PARAM_RTOL
+# of one rank's largest change. The bf16 tower's rounding of each rank's
+# gradient GEMM over its half batch puts every reduction ~1% off one rank
+# (a CPU rehearsal at batch 512: 0.9% f32, 1.2% int8_ef); a skipped dense
+# update, or gradients averaged at the wrong scale, miss by 50-100%
+# (OptaxAdagrad's accumulator starts at 0.1 and these gradients are
+# ~3e-3, so the update is near linear in the gradient's scale).
+MR_PARAM_RTOL = 5e-2
+MR_PARAM_ULPS = 8 * 2.0 ** -23
+MR_DM_STEPS = 5
+MR_CP_AGREE_STEPS = 3
+MR_CP_STEPS = 10
+MR_NCCL_STEPS = 3
+MR_BENCH_SHAPE = (4, 8, 8192, 128)  # the attention bench's B, H, T, Dh
+MR_BENCH_ITERS = 3
+MR_TIMEOUT_S = 300  # a collective that waits on a dead peer fails then
+MR_DEADLINE_S = 480  # a rank group that outlives this is killed
+MR_WAIT_S = 900  # a rank started before the build waits this for its go
+
+
+def _ranks_setup(inputs, backend: str):
+    """A rank's start, while the parent builds the kernels: no TF32 (as
+    the single-rank runs it is held against), the process group, and the
+    card, cuBLAS, the first optimizer (~6 s: torch.optim's first use
+    imports its compiler hooks) and the data axis's collectives warmed by
+    a bf16 DLRM step of its own; then it waits for its go file. Returns
+    (torch, the mesh, the group's rendezvous s, the start-up s before the
+    wait)."""
+    t0 = time.perf_counter()
+    parent = os.getppid()
+    import torch
+
+    import persia_tpu_torch.ctx  # noqa: F401  (the parts' imports, now)
+    import persia_tpu_torch.worker.worker  # noqa: F401
+    from persia_tpu_torch.distributed import DistributedOption
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel import collectives as coll
+    from persia_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
+    from persia_tpu_torch.parallel.optim import OptaxAdagrad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    mesh = DistributedOption(backend=backend, device="cuda",
+                             timeout=MR_TIMEOUT_S).initialize()
+    init_s = time.perf_counter() - t
+    model = DLRM(DH_DENSE, DH_SLOTS, embedding_dim=DH_DIM, device="cuda")
+    emb = [torch.randn(64, DH_DIM, device="cuda", requires_grad=True)
+           for _ in range(DH_SLOTS)]
+    model([torch.randn(64, DH_DENSE, device="cuda")], emb).sum().backward()
+    OptaxAdagrad(model.parameters(), DH_LR).step()
+    x = torch.ones(8 * MR_WORLD, device="cuda")
+    data = axis_group(mesh, DATA_AXIS)  # NCCL makes its communicator here
+    coll.pmean_([x], data)
+    coll.broadcast_([x], 0, data)
+    coll.all_gather(x[None], data)
+    coll.all_to_all(x, data, 0, 0)
+    torch.cuda.synchronize()
+    del model, emb, x
+    torch.cuda.empty_cache()
+    coll.calls.clear()
+    warm_s = time.perf_counter() - t0
+    end = time.monotonic() + MR_WAIT_S
+    while not os.path.exists(inputs["go"]):
+        if os.getppid() != parent:
+            raise SystemExit("the process that started this rank is gone")
+        if time.monotonic() > end:
+            raise TimeoutError("chip_smoke never reached multi_rank")
+        time.sleep(0.05)
+    return torch, mesh, init_s, warm_s
+
+
+def _ranks_module():
+    """``tests/test_torch_ranks.py``, which starts the rank groups."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import test_torch_ranks
+
+    return test_torch_ranks
+
+
+def mr_hybrid_run(torch, ctx, batches, timed_from=None):
+    """Train ``batches``: the losses and, from step ``timed_from`` on,
+    samples/s of the global batch by the host clock, synchronized at both
+    ends."""
+    losses, t = [], None
+    with ctx:
+        for i, b in enumerate(batches):
+            if i == timed_from:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            losses.append(ctx.train_step(b)[0])
+        torch.cuda.synchronize()
+    out = {"losses": [float(x) for x in losses], "ddp": ctx._ddp}
+    if t is not None:
+        out["samples_per_s"] = (DH_BATCH * (len(batches) - timed_from)
+                                / (time.perf_counter() - t))
+    if ctx.worker is not None:
+        ctx.worker.close()
+    return out
+
+
+def _dense_flat(torch, ctx):
+    return torch.cat([p.detach().reshape(-1).float()
+                      for p in ctx.model.parameters()])
+
+
+def _grad_signature(torch, ctx) -> dict:
+    """What the last step's reduced dense gradient shows of the reduction
+    that made it: how many elements are not bf16 values (0 after the bf16
+    reduction) and the most distinct values in one 1024-element bucket
+    of the flat gradient (at most 255 after int8_ef's stage-2 codes, one
+    scale a bucket)."""
+    from persia_tpu_torch.parallel.train import _EF_BUCKET
+
+    g = torch.cat([p.grad.reshape(-1).float()
+                   for p in ctx.model.parameters()])
+    rows = torch.nn.functional.pad(g, (0, -g.numel() % _EF_BUCKET))
+    rows = rows.view(-1, _EF_BUCKET).sort(dim=1).values
+    levels = 1 + (rows[:, 1:] != rows[:, :-1]).sum(dim=1)
+    return {"not_bf16": int((g != g.bfloat16().float()).sum()),
+            "max_levels": int(levels.max())}
+
+
+def mr_ddp(torch, mesh):
+    """(a) bench_hybrid's DLRM on TrainCtx over the (2, 1) mesh in f32,
+    bf16 and int8_ef reduction, against one rank on the same batches: on
+    rank 0, each run's change of the dense parameters beside one rank's
+    (and bf16's and int8_ef's beside f32's); the dense parameters of the
+    two ranks compared bit for bit after each run."""
+    import torch.distributed as dist
+
+    from persia_tpu_torch.parallel import collectives as coll
+    from persia_tpu_torch.workloads.generator import hybrid_bench_batches
+
+    batches = list(hybrid_bench_batches(MR_DDP_STEPS, DH_BATCH,
+                                        seed=SEED + 11))
+    out, moved = {}, {}
+    if dist.get_rank() == 0:
+        ctx = dh_ctx(torch, "cuda")
+        start = _dense_flat(torch, ctx)
+        out["single"] = mr_hybrid_run(torch, ctx, batches, MR_DDP_TIMED_FROM)
+        moved["single"] = _dense_flat(torch, ctx) - start
+    dist.barrier()
+    for mode in (None, "bf16", "int8_ef"):
+        ctx = dh_ctx(torch, "cuda", mesh=mesh, grad_reduce_dtype=mode)
+        start = _dense_flat(torch, ctx)
+        run = mr_hybrid_run(torch, ctx, batches, MR_DDP_TIMED_FROM)
+        end = _dense_flat(torch, ctx)
+        both = coll.all_gather(end[None], None, 0)
+        run["params_equal"] = bool(torch.equal(both[0], both[1]))
+        run["grad"] = _grad_signature(torch, ctx)
+        moved[str(mode)] = end - start
+        out[str(mode)] = run
+    if dist.get_rank() == 0:
+        ref = moved["single"]
+        out["dense"] = {
+            "move": float(ref.abs().max()),
+            "scale": float(start.abs().max()),
+            **{m: float((moved[m] - ref).abs().max())
+               for m in ("None", "bf16", "int8_ef")},
+            **{f"{m}_vs_f32": float((moved[m] - moved["None"]).abs().max())
+               for m in ("bf16", "int8_ef")}}
+    return out
+
+
+def _digest(torch, t):
+    """Two int64 sums over a tensor's bits: equal tables give equal
+    digests; tables that differ in any bit almost surely do not."""
+    bits = t.detach().reshape(-1).view(torch.int32).long()
+    w = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+    return torch.stack([bits.sum(), (bits * w).sum()])
+
+
+def mr_device_mode(torch, mesh):
+    """(b) bench_device's width over the (2, 1) mesh with an f32 tower:
+    each rank pools its half of the batch through K1, the table and tower
+    gradients are averaged through gloo; against one rank on the same
+    batch under device mode's agreement rule, the tables of the two
+    ranks compared by digest."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.parallel import collectives as coll
+    from persia_tpu_torch.parallel.device_mode import (
+        make_device_mode_trainer,
+        synthetic_device_batch,
+    )
+
+    rank = dist.get_rank()
+    specs, model = device_mode_model(torch, "kernel", torch.float32)
+    non_id, ids, label = synthetic_device_batch(
+        DM_BATCH, DM_DENSE, specs, DM_AGREE_SFS, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for v in ids.values():
+        v[torch.rand(v.shape, generator=gen, device="cuda") < 0.25] = 0
+
+    def steps(step):
+        losses, ms = [], []
+        for _ in range(MR_DM_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(step(non_id, ids, label)))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return losses, ms
+
+    out = {}
+    if rank == 0:
+        _, smodel = device_mode_model(torch, "kernel", torch.float32)
+        smodel, _, sstep = make_device_mode_trainer(
+            smodel, dm_adagrad, non_id, ids, seed=SEED, device="cuda")
+        start = {n: p.detach().clone() for n, p in smodel.named_parameters()
+                 if n.endswith(".table")}
+        out["single_losses"], out["single_ms"] = steps(sstep)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, _, step = make_device_mode_trainer(model, dm_adagrad, non_id, ids,
+                                              seed=SEED, device="cuda",
+                                              mesh=mesh)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t
+    eb.reset_launch_count()
+    out["losses"], out["ms"] = steps(step)
+    out["launches"] = eb.launch_count()
+    out["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    digest = torch.stack([_digest(torch, p) for n, p in
+                          model.named_parameters() if n.endswith(".table")])
+    both = coll.all_gather(digest[None], None, 0)
+    out["tables_equal"] = bool(torch.equal(both[0], both[1]))
+    if rank == 0:
+        with torch.inference_mode():
+            preds = [m.eval()(non_id, ids) for m in (model, smodel)]
+        plain = dict(smodel.named_parameters())
+        table_err = table_move = 0.0
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in start:
+                    moved = plain[n] - start[n]
+                    table_err = max(table_err, float(
+                        ((p - start[n]) - moved).abs().max()))
+                    table_move = max(table_move, float(moved.abs().max()))
+        losses, single = np.array(out["losses"]), np.array(
+            out["single_losses"])
+        out["agree"] = {
+            "loss_err": float(np.abs(losses - single).max()),
+            "loss_move": float(np.abs(single - single[0]).max()),
+            "pred_err": float((preds[0] - preds[1]).abs().max()),
+            "table_err": table_err, "table_move": table_move}
+        del smodel, sstep, start, plain, preds
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def mr_bench_shape(torch, mesh):
+    """One Ulysses forward and backward at the attention bench's shape
+    (causal, bf16) over the sequence axis, against K2-K4 on this rank
+    alone; host ms of each, synchronized at both ends."""
+    from persia_tpu_torch.ops.flash_attention import flash_attention_masked
+    from persia_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, k, v, do = (torch.randn(MR_BENCH_SHAPE, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def run(fn):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*x)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in x]
+
+    def ulysses(*x):
+        return ulysses_self_attention(*x, mesh, causal=True, impl="flash")
+
+    def single(*x):
+        return flash_attention_masked(*x, causal=True)
+
+    def timed(fn):
+        ms = []
+        for _ in range(MR_BENCH_ITERS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = run(fn)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return got, ms
+
+    run(ulysses)  # warm-up
+    got, ms = timed(ulysses)
+    want, single_ms = timed(single)
+    errs, bad = [], False
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        errs.append(float(err.max()))
+        bad |= bool((err > KERNEL_ATOL + KERNEL_RTOL * w.float().abs()).any()
+                    ) or not bool(torch.isfinite(g.float()).all())
+    return {"ms": ms, "single_ms": single_ms, "max_abs_err": errs,
+            "ok": not bad}
+
+
+def mr_context_parallel(torch, mesh):
+    """(c) the seq_rec tower over the (1, 2) mesh: Ulysses with the flash
+    kernels and the ring, 3 f32 steps against the single-rank flash tower
+    from the same weights and fresh PS rows; then bf16 Ulysses steps, K2,
+    K3 and K4's main path over the mesh; then the bench shape."""
+    import torch.distributed as dist
+
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.workloads.generator import (
+        SeqRecSpec,
+        seqrec_batches,
+    )
+
+    schema = build_schema()
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    f32 = GlobalConfig(CommonConfig("f32"))
+    batches = list(seqrec_batches(MR_CP_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED, spec=spec))
+    agree = batches[:MR_CP_AGREE_STEPS]
+    single = build_tower(spec.num_dense, "flash", compute_dtype=torch.float32)
+    state = {k: v.clone() for k, v in single.state_dict().items()}
+    out, runs = {}, {}
+    if dist.get_rank() == 0:
+        runs["single"] = seq_run(train_ctx(torch, schema, single, f32),
+                                    agree)
+    dist.barrier()
+    for strategy, impl in (("ulysses", "flash"), ("ring", "reference")):
+        tower = build_tower(spec.num_dense, impl, state_dict=state,
+                            compute_dtype=torch.float32, mesh=mesh,
+                            context_parallel=strategy)
+        runs[strategy] = seq_run(
+            train_ctx(torch, schema, tower, f32, mesh=mesh), agree)
+    if dist.get_rank() == 0:
+        out["agree"] = {s: run_errors(runs[s], runs["single"])
+                        for s in ("ulysses", "ring")}
+    tower = build_tower(spec.num_dense, "flash", state_dict=state, mesh=mesh,
+                        context_parallel="ulysses")
+    ctx = train_ctx(torch, schema, tower, mesh=mesh)
+    fa.reset_launch_count()
+    with ctx:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = [ctx.train_step(b)[0] for b in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    out["launches"] = {n: fa.launch_count(n) for n in FLASH_KERNELS}
+    if ctx.worker is not None:
+        ctx.worker.close()
+    out["bf16_losses"] = [float(x) for x in losses]
+    out["bf16_samples_per_s"] = TRAIN_BATCH * len(batches) / wall
+    out["bench"] = mr_bench_shape(torch, mesh)
+    return out
+
+
+def mr_gloo_body(inputs):
+    """The rank body of the two gloo ranks: (a), (b), (c)."""
+    import torch.distributed as dist
+
+    from persia_tpu_torch.parallel import collectives as coll
+    from persia_tpu_torch.parallel.mesh import make_mesh
+
+    torch, mesh, init_s, warm_s = _ranks_setup(inputs, "gloo")
+    out = {"rank": dist.get_rank(), "init_s": init_s, "warm_s": warm_s}
+    for part, fn in (("a", mr_ddp), ("b", mr_device_mode)):
+        t = time.perf_counter()
+        out[part] = fn(torch, mesh)
+        out[part]["wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["c"] = mr_context_parallel(torch,
+                                   make_mesh((1, MR_WORLD), device="cuda"))
+    out["c"]["wall_s"] = time.perf_counter() - t
+    out["calls"] = dict(coll.calls)
+    dist.destroy_process_group()
+    return out
+
+
+def mr_nccl_body(inputs):
+    """(d) a world of one rank over NCCL: once the gloo ranks are done
+    (its go file), f32 and int8_ef DDP steps of (a)'s model; which
+    collectives ran on which backend."""
+    import torch.distributed as dist
+
+    from persia_tpu_torch.parallel import collectives as coll
+    from persia_tpu_torch.workloads.generator import hybrid_bench_batches
+
+    torch, mesh, _, _ = _ranks_setup(inputs, "nccl")
+    batches = list(hybrid_bench_batches(MR_NCCL_STEPS, DH_BATCH,
+                                        seed=SEED + 12))
+    out = {"backend": str(dist.get_backend()),
+           "world": dist.get_world_size()}
+    for mode in (None, "int8_ef"):
+        out[str(mode)] = mr_hybrid_run(
+            torch, dh_ctx(torch, "cuda", mesh=mesh,
+                          grad_reduce_dtype=mode), batches)
+    out["calls"] = dict(coll.calls)
+    dist.destroy_process_group()
+    return out
+
+
+RANK_BODIES = {"mr_gloo": mr_gloo_body, "mr_nccl": mr_nccl_body}
+
+
+def _close(name, got, want, tol, last=None):
+    import numpy as np
+
+    got, want = np.asarray(got[-last:] if last else got), np.asarray(
+        want[-last:] if last else want)
+    err = float(np.abs(got - want).max())
+    if not (np.isfinite(got).all()
+            and np.allclose(got, want, rtol=tol, atol=tol)):
+        raise AssertionError(f"multi_rank: {name} off by {err:.3e} "
+                             f"(rtol = atol = {tol})")
+    return err
+
+
+def check_ddp(a, card: str):
+    """(a)'s gates and line, over each gloo rank's results: the ranks
+    agree, the loss gates of tests/test_models_parallel.py:235-255, each
+    run's dense-parameter change against one rank's, and the gradient of
+    each reduction carrying its mark."""
+    single = a[0]["single"]
+    runs = {m: a[0][m] for m in ("None", "bf16", "int8_ef")}
+    for r in a[1:]:
+        for m in runs:
+            if r[m]["losses"] != runs[m]["losses"]:
+                raise AssertionError(f"multi_rank (a) {m}: the ranks' "
+                                     f"averaged losses differ")
+    if not all(r[m]["params_equal"] and r[m]["ddp"] for r in a
+               for m in runs):
+        raise AssertionError("multi_rank (a): a run left the DDP path or "
+                             "the ranks' dense parameters differ")
+    errs = [_close("(a) f32 against one rank", runs["None"]["losses"],
+                   single["losses"], MR_F32_TOL),
+            _close("(a) bf16 against f32", runs["bf16"]["losses"],
+                   runs["None"]["losses"], MR_BF16_TOL),
+            _close("(a) int8_ef against f32, last 4",
+                   runs["int8_ef"]["losses"], runs["None"]["losses"],
+                   MR_EF_TOL, last=4)]
+    dense = a[0]["dense"]
+    param_lim = (MR_PARAM_ULPS * dense["scale"]
+                 + MR_PARAM_RTOL * dense["move"])
+    sig = {m: runs[m]["grad"] for m in runs}
+    _log(f"[multi_rank] (a) DLRM(embedding_dim={DH_DIM}) {DH_SLOTS} slots, "
+         f"{N_PS} x make_holder({DH_PS_CAPACITY}, {DH_PS_SHARDS}) on the "
+         f"leader, global batch {DH_BATCH} ({DH_BATCH // MR_WORLD} a rank), "
+         f"{MR_DDP_STEPS} steps of fresh signs: samples/s over steps "
+         f"{MR_DDP_TIMED_FROM}-{MR_DDP_STEPS - 1}: one rank "
+         f"{single['samples_per_s']:.1f}, DDP f32 "
+         f"{runs['None']['samples_per_s']:.1f} ("
+         f"{runs['None']['samples_per_s'] / single['samples_per_s']:.3f}x), "
+         f"bf16 {runs['bf16']['samples_per_s']:.1f}, int8_ef "
+         f"{runs['int8_ef']['samples_per_s']:.1f}; loss max_abs_err f32 vs "
+         f"one rank {errs[0]:.3e} (tol {MR_F32_TOL}), bf16 vs f32 "
+         f"{errs[1]:.3e} (tol {MR_BF16_TOL}), int8_ef vs f32 last 4 "
+         f"{errs[2]:.3e} (tol {MR_EF_TOL}); dense parameters bit-equal on "
+         f"both ranks after every run; dense change max_abs_err against "
+         f"one rank's (largest change {dense['move']:.3e}, limit "
+         f"{param_lim:.3e}): f32 {dense['None']:.3e}, bf16 "
+         f"{dense['bf16']:.3e}, int8_ef {dense['int8_ef']:.3e}; against "
+         f"f32's: bf16 {dense['bf16_vs_f32']:.3e}, int8_ef "
+         f"{dense['int8_ef_vs_f32']:.3e}; last reduced gradient, elements "
+         f"not bf16 / most values in a 1024 bucket: "
+         f"{', '.join(f'{m} {g['not_bf16']} / {g['max_levels']}' for m, g in sig.items())}"
+         f"; losses f32 "
+         f"{' '.join(f'{x:.5f}' for x in runs['None']['losses'][-3:])} "
+         f"(last 3) | card: {card}")
+    if not (dense["move"] > 2 * param_lim
+            and all(dense[m] <= param_lim for m in runs)):
+        raise AssertionError("multi_rank (a): a DDP run's dense-parameter "
+                             "change disagrees with one rank's, or the "
+                             "parameters did not move")
+    if not (dense["bf16_vs_f32"] > 0 and dense["int8_ef_vs_f32"] > 0
+            and sig["None"]["not_bf16"] > 0 and sig["bf16"]["not_bf16"] == 0
+            and sig["None"]["max_levels"] > 255
+            and sig["int8_ef"]["max_levels"] <= 255):
+        raise AssertionError("multi_rank (a): the bf16 or int8_ef run did "
+                             "not reduce as asked (its gradients read as "
+                             "f32's)")
+
+
+class MultiRankProcs:
+    """The multi_rank phase's processes, two gloo ranks and a world of one
+    NCCL rank, started once before the kernel build so that their
+    start-up overlaps it; each waits for its go file. :meth:`stop` kills
+    whatever still runs."""
+
+    def __init__(self):
+        import tempfile
+        from pathlib import Path
+
+        self.launch = _ranks_module()
+        self._tmp = tempfile.TemporaryDirectory()
+        self.gdir, self.ndir = Path(self._tmp.name, "gloo"), Path(
+            self._tmp.name, "nccl")
+        self.gdir.mkdir()
+        self.ndir.mkdir()
+        script = os.path.abspath(__file__)
+        self.gloo = self.launch.start_ranks(
+            script, "mr_gloo", MR_WORLD, {"go": str(self.gdir / "go")},
+            self.gdir)
+        self.nccl = self.launch.start_ranks(
+            script, "mr_nccl", 1, {"go": str(self.ndir / "go")}, self.ndir)
+
+    def run(self):
+        """The gloo ranks' results, then the NCCL rank's, and the NCCL
+        rank's seconds after the gloo ranks ended."""
+        (self.gdir / "go").touch()
+        ranks = self.launch.collect(self.gloo, self.gdir, MR_DEADLINE_S)
+        (self.ndir / "go").touch()
+        t = time.perf_counter()
+        (solo,) = self.launch.collect(self.nccl, self.ndir, MR_DEADLINE_S)
+        return ranks, solo, time.perf_counter() - t
+
+    def stop(self):
+        self.gloo.kill()
+        self.nccl.kill()
+        self._tmp.cleanup()
+
+
+def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
+    """Lets the ranks of ``procs`` run (a)-(d), holds them to their gates
+    and prints them. Returns each kernel's launches on each rank's main
+    path."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ranks, solo, solo_s = procs.run()
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    staged = sum(r["calls"].get("ppermute/gloo-host", 0) for r in ranks)
+    _log(f"[multi_rank] {MR_WORLD} ranks over gloo on one card (not the "
+         f"transport of a multi-card job) and one NCCL rank, started once "
+         f"before the build (start-up, warmed by a DLRM step, "
+         f"{r0['warm_s']:.1f}s on rank 0): phase {wall:.1f}s, rank init "
+         f"{r0['init_s']:.1f}s, parts a/b/c "
+         f"{r0['a']['wall_s']:.1f}/{r0['b']['wall_s']:.1f}/"
+         f"{r0['c']['wall_s']:.1f}s, (d) after them {solo_s:.1f}s; gloo's point-to-point ring shifts of "
+         f"device tensors staged through host memory "
+         f"(collectives._p2p_exchange): {staged}; collectives by backend, "
+         f"rank 0: {r0['calls']} | card: {card}")
+
+    check_ddp([r["a"] for r in ranks], card)
+
+    # (b)
+    b = [r["b"] for r in ranks]
+    ag = b[0]["agree"]
+    loss_lim = DM_LOSS_MOVE_RTOL * ag["loss_move"]
+    table_lim = DM_TABLE_ULPS_ATOL + DM_TABLE_MOVE_RTOL * ag["table_move"]
+    _log(f"[multi_rank] (b) device mode {DM_SLOTS} x {DM_VOCAB} x {DM_DIM} "
+         f"tables replicated on {MR_WORLD} ranks, f32 tower, batch "
+         f"{DM_BATCH} ({DM_BATCH // MR_WORLD} a rank, {DM_AGREE_SFS} ids a "
+         f"slot), {MR_DM_STEPS} steps: step ms rank 0 "
+         f"{' '.join(f'{x:.1f}' for x in b[0]['ms'])}, rank 1 "
+         f"{' '.join(f'{x:.1f}' for x in b[1]['ms'])} (the gradients' "
+         f"all-reduce through gloo inside), one rank "
+         f"{' '.join(f'{x:.2f}' for x in b[0]['single_ms'])}; setup "
+         f"{b[0]['setup_s']:.2f}s; max_memory_allocated "
+         f"{' / '.join(f'{r['max_memory_gb']:.3f}' for r in b)} GB; "
+         f"against one rank: loss max_abs_err {ag['loss_err']:.3e} (limit "
+         f"{loss_lim:.3e}) pred {ag['pred_err']:.3e} (atol {DM_PRED_ATOL}) "
+         f"table change {ag['table_err']:.3e} (limit {table_lim:.3e}); K1 "
+         f"launches {[r['launches'] for r in b]} in {MR_DM_STEPS} steps; "
+         f"tables bit-equal on both ranks: "
+         f"{all(r['tables_equal'] for r in b)} | card: {card}")
+    if not (np.isfinite([x for r in b for x in r["losses"]]).all()
+            and ag["loss_move"] > 2 * loss_lim
+            and ag["table_move"] > 2 * table_lim
+            and ag["loss_err"] <= loss_lim and ag["pred_err"] <= DM_PRED_ATOL
+            and ag["table_err"] <= table_lim):
+        raise AssertionError("multi_rank (b): device mode over the data "
+                             "axis disagrees with one rank")
+    if not all(r["tables_equal"] for r in b):
+        raise AssertionError("multi_rank (b): the ranks' tables differ")
+    if any(r["launches"] != MR_DM_STEPS for r in b):
+        raise AssertionError("multi_rank (b): K1 did not launch once a "
+                             "step on every rank")
+
+    # (c)
+    c = [r["c"] for r in ranks]
+    agree = c[0]["agree"]
+    bench = [r["bench"] for r in c]
+    _log(f"[multi_rank] (c) SequenceTower(num_heads={HEADS}) dim {DIM}, "
+         f"t_hist {T_HIST}, MLP {MLP} over make_mesh((1, {MR_WORLD})), batch "
+         f"{TRAIN_BATCH}: {MR_CP_AGREE_STEPS} f32 steps against the "
+         f"single-rank flash tower, loss / pred max_abs_err and grad "
+         f"max err / max |grad|: ulysses+flash "
+         f"{' '.join(f'{x:.3e}' for x in agree['ulysses'])}, ring "
+         f"{' '.join(f'{x:.3e}' for x in agree['ring'])} (atol "
+         f"{TRAIN_ATOL}, rtol {TRAIN_GRAD_RTOL}); {MR_CP_STEPS} bf16 "
+         f"ulysses+flash steps {c[0]['bf16_samples_per_s']:.1f} samples/s, "
+         f"K2/K3/K4 launches by rank "
+         f"{[[r['launches'][n] for n in FLASH_KERNELS] for r in c]} | card: "
+         f"{card}")
+    _log(f"[multi_rank] (c) bench shape B,H,T,Dh={MR_BENCH_SHAPE} causal "
+         f"bf16: ulysses fwd+bwd over {MR_WORLD} ranks, host ms (synchronized"
+         f") rank 0 {' '.join(f'{x:.2f}' for x in bench[0]['ms'])}, rank 1 "
+         f"{' '.join(f'{x:.2f}' for x in bench[1]['ms'])}; K2-K4 on one rank "
+         f"{' '.join(f'{x:.2f}' for x in bench[0]['single_ms'])}; max_abs_err "
+         f"(out, dq, dk, dv) {[[round(e, 5) for e in r['max_abs_err']] for r in bench]}"
+         f" (atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}) | card: {card}")
+    for s, (le, pe, ge) in agree.items():
+        if not (le <= TRAIN_ATOL and pe <= TRAIN_ATOL
+                and ge <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"multi_rank (c): the {s} tower disagrees "
+                                 f"with the single-rank flash tower")
+    if not np.isfinite([x for r in c for x in r["bf16_losses"]]).all():
+        raise AssertionError("multi_rank (c): a bf16 loss is not finite")
+    if not all(r["ok"] for r in bench):
+        raise AssertionError("multi_rank (c): Ulysses at the bench shape "
+                             "disagrees with K2-K4 on one rank")
+    if any(r["launches"][n] != MR_CP_STEPS for r in c for n in FLASH_KERNELS):
+        raise AssertionError("multi_rank (c): K2, K3 and K4 did not each "
+                             "launch once a step on every rank")
+
+    # (d)
+    need = {"all_reduce", "all_to_all", "all_gather", "broadcast"}
+    taken = {k.split("/")[0] for k in solo["calls"] if k.endswith("/nccl")}
+    _log(f"[multi_rank] (d) a world of {solo['world']} over "
+         f"{solo['backend']}: (a)'s model, {MR_NCCL_STEPS} steps f32 "
+         f"losses {' '.join(f'{x:.5f}' for x in solo['None']['losses'])}, "
+         f"int8_ef {' '.join(f'{x:.5f}' for x in solo['int8_ef']['losses'])}"
+         f"; collectives {solo['calls']} (no rate is claimed for NCCL here)"
+         f" | card: {card}")
+    if not (solo["backend"] == "nccl" and solo["world"] == 1
+            and need <= taken and solo["None"]["ddp"]
+            and solo["int8_ef"]["ddp"]
+            and np.isfinite(solo["None"]["losses"]
+                            + solo["int8_ef"]["losses"]).all()):
+        raise AssertionError("multi_rank (d): the NCCL world did not take "
+                             "its collectives or its losses are not finite")
+    return {"embedding_bag": [r["launches"] for r in b],
+            **{n: [r["launches"][n] for r in c] for n in FLASH_KERNELS}}
+
+
+class _PhaseClock:
+    """Logs each phase's wall time and the run's, for the time budget."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def __call__(self, phase: str):
+        now = time.perf_counter()
+        _log(f"[time] {phase} {now - self.t:.1f}s (run {now - self.t0:.1f}s)")
+        self.t = now
+
+
 def main() -> int:
     import torch
 
@@ -3041,11 +3777,14 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run it "
               f"from the root of a checkout", file=sys.stderr)
         return 2
+    procs = None
     try:
+        clock = _PhaseClock()
         card = card_line()
         _log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
              f"python {sys.version.split()[0]}")
         _log(f"[setup] card: {card}")
+        procs = MultiRankProcs()
         sources = sorted({s.split("/")[-1][:-3] for s, _ in
                           KERNEL_INFO.values()})
         t0 = time.perf_counter()
@@ -3058,30 +3797,48 @@ def main() -> int:
              f"{time.perf_counter() - t0:.1f}s; its SIMD path "
              f"{native.native_simd_path()}, os.cpu_count()={os.cpu_count()}")
         report_build(paths, sources)
+        clock("setup")
         floor = launch_path_phase(torch, card)
+        clock("launch_path")
         records = kernel_phase(torch, card)
         records.update(sparse_kernel_phase(torch, card))
+        clock("kernel")
+        # early, while this process holds little: the ranks share its
+        # card and cores
+        torch.cuda.empty_cache()
+        for name, n in multi_rank_phase(torch, card, procs).items():
+            records[name]["launches_multi_rank"] = n
+        clock("multi_rank")
         serving_phase(torch, card)
+        clock("serving")
         for name, n in training_phase(torch, card).items():
             records[name]["launches"] = n
+        clock("training")
         for name, n in pipelined_phase(torch, card).items():
             records[name]["launches_pipelined"] = n
+        clock("pipelined")
         dlrm_hybrid_phase(torch, card)
+        clock("dlrm_hybrid")
         zoo_phase(torch, card)
+        clock("zoo")
         adult_income_phase(torch, card)
+        clock("adult_income")
         criteo_towers_phase(torch, card)
+        clock("criteo_towers")
         for name, n in snapshot_resume_phase(torch, card).items():
             records[name]["launches_snapshot_resume"] = n
+        clock("snapshot_resume")
         native_ratio = (RATES["pipelined native"]
                         / RATES["synchronous native"])
-        arena_ratio = (RATES["pipelined arena, steps 10-69"]
-                       / RATES["synchronous arena, steps 10-39"])
+        arena_ratio = RATES[PIPE_AB_KEY] / RATES[AB_KEY]
         _log("[summary] training samples/s in this call: " + ", ".join(
             f"{k} {v:.1f}" for k, v in RATES.items())
             + f"; pipelined / synchronous: native {native_ratio:.3f}, "
             f"arena {arena_ratio:.3f} | card: {card}")
         records["embedding_bag"]["launches"] = device_mode_phase(torch, card)
+        clock("device_mode")
         records["probe_copy"] = probe_phase(torch, card)
+        clock("probe")
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "
@@ -3098,6 +3855,9 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        if procs is not None:
+            procs.stop()
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3107,4 +3867,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) > 1:  # a rank of the multi_rank phase
+        _ranks_module().rank_main(RANK_BODIES)
+    else:
+        sys.exit(main())

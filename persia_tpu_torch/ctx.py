@@ -9,7 +9,8 @@
   dense step on the device -> sparse update), synchronous on a raw
   batch or pipelined on a ``DataLoader``'s looked-up batch, job
   snapshots and ``resume_from`` (:mod:`persia_tpu_torch.snapshot`), and
-  :func:`eval_ctx` over it.
+  :func:`eval_ctx` over it. Over a mesh of ranks (``mesh=``) the dense
+  step is data-parallel and the mesh's rank 0 is the sparse leader.
 - :class:`InferCtx`: eval-mode lookups and forward for serving.
 
 The embedding tier is reached through an
@@ -168,6 +169,11 @@ class EmbeddingCtx(BaseCtx):
 
 STAGES = ("lookup", "h2d", "dense", "d2h", "update")
 
+# what a TrainCtx over a mesh does not do yet, and the ROADMAP.md item
+# each waits for
+_MESH_WAITS = "ROADMAP.md queue A item 3c (the pipeline, snapshots and " \
+    "checkpoints on a mesh)"
+
 
 class TrainCtx(EmbeddingCtx):
     """Training context: lookup, dense step, sparse update.
@@ -207,6 +213,27 @@ class TrainCtx(EmbeddingCtx):
     ``dense_optimizer`` take its dense state and the step counter its
     step. ``resume_cursor`` is its data cursor, from which the caller
     resumes the batch stream. :meth:`snapshot` takes one.
+
+    ``mesh`` (:func:`persia_tpu_torch.parallel.mesh.make_mesh`) makes the
+    step data-parallel over the mesh's ranks, as the JAX package's one
+    controller over many devices is. Every rank builds its context and
+    calls ``train_step`` on the same global batch (checked each step).
+    The mesh's rank 0 is the sparse leader: only it holds a ``worker``
+    (the others pass ``worker=None``), looks the batch up, broadcasts the
+    packed wire (and raw slots' index tensors) to the others, and ships
+    one gradient update per global batch to the PS. The dense weights
+    start as the leader's. When every slot is summed and the batch
+    divides the data axis, each rank trains its own rows
+    (:func:`~persia_tpu_torch.parallel.train.make_packed_train_step_ddp`,
+    dense gradients averaged in f32, or ``grad_reduce_dtype="bf16"`` /
+    ``"int8_ef"``) and the leader gathers the batch-major embedding
+    gradients, which are the world size times the single-device step's,
+    as in JAX; otherwise every rank runs the single-device step on the
+    whole batch (the gradients averaged in f32, which keeps the ranks
+    equal) and the leader ships its own. ``_ddp`` says which path ran.
+    ``eval_ctx`` evaluates on the leader. A ``DataLoader``, snapshots,
+    ``resume_from`` and checkpoints on a mesh raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, model, dense_optimizer: torch.optim.Optimizer,
@@ -217,9 +244,9 @@ class TrainCtx(EmbeddingCtx):
                  sync_stages: bool = False, mesh=None, loss_fn=None,
                  grad_update_interval: int = 1,
                  device_cache_capacity: int = 0, profiler=None,
-                 resume_from: Optional[str] = None):
+                 resume_from: Optional[str] = None,
+                 grad_reduce_dtype: Optional[str] = None):
         waits = {
-            "mesh": (mesh is not None, "ROADMAP.md queue A item 3 (DDP)"),
             "device_cache_capacity": (
                 bool(device_cache_capacity),
                 "ROADMAP.md queue A item 5 (on-device sparse)"),
@@ -231,6 +258,13 @@ class TrainCtx(EmbeddingCtx):
                 raise NotImplementedError(
                     f"TrainCtx({name}=...) is not ported yet; it waits for "
                     f"{item}")
+        if mesh is not None and resume_from:
+            raise NotImplementedError(
+                f"TrainCtx(mesh=..., resume_from=...) is not ported yet; it "
+                f"waits for {_MESH_WAITS}")
+        from persia_tpu_torch.parallel.train import grad_reduce_mode
+
+        grad_reduce_mode(grad_reduce_dtype)  # raises on a bad name early
         super().__init__(model=model, schema=schema, worker=worker,
                          embedding_config=embedding_config,
                          global_config=global_config, device=device)
@@ -253,6 +287,12 @@ class TrainCtx(EmbeddingCtx):
         self._emb_shapes = None
         self._eval_step = None
         self._step_count = 0
+        self.mesh = mesh
+        self.grad_reduce_dtype = grad_reduce_dtype
+        self._ddp = False
+        self._ef_state = None  # this rank's int8_ef residual
+        if mesh is not None:
+            self._join_mesh()
         # resolved and verified here, so a torn or absent snapshot fails
         # at construction; the rollback runs on __enter__
         self.resume_manifest: Optional[dict] = None
@@ -265,9 +305,38 @@ class TrainCtx(EmbeddingCtx):
                 _snapshot.resolve_snapshot(resume_from))
             self.resume_cursor = _snapshot.load_cursor(self._resume_snap)
 
+    def _join_mesh(self):
+        """The leader holds the worker, and every rank takes the leader's
+        dense weights (as DDP broadcasts its module at construction)."""
+        import torch.distributed as dist
+
+        from persia_tpu_torch.parallel import collectives as coll
+        from persia_tpu_torch.parallel.mesh import is_leader, leader_rank
+
+        if self.mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh's ranks compute on "
+                             f"{self.mesh.device_type}, the context on "
+                             f"{self.device}")
+        self._leader = is_leader(self.mesh)
+        # every rank learns whether any was misconfigured, and all raise
+        bad = torch.tensor(
+            [float(self._leader != (self.worker is not None))],
+            device=self.device)
+        coll.pmax_([bad])
+        if bad.item():
+            raise ValueError(
+                f"on a mesh only the sparse leader (global rank "
+                f"{leader_rank(self.mesh)}) holds the embedding worker; "
+                f"rank {dist.get_rank()} was given "
+                f"{'one' if self.worker is not None else 'none'} (a rank "
+                f"of the mesh was given the wrong one)")
+        with torch.no_grad():
+            coll.broadcast_([*self.model.parameters(), *self.model.buffers()],
+                            leader_rank(self.mesh))
+
     def __enter__(self):
         super().__enter__()
-        if self.embedding_optimizer is not None:
+        if self.embedding_optimizer is not None and self.worker is not None:
             self.embedding_optimizer.apply()
         if self._resume_snap is not None:
             self._restore_from_snapshot()
@@ -298,10 +367,25 @@ class TrainCtx(EmbeddingCtx):
         path."""
         from persia_tpu_torch import snapshot as _snapshot
 
+        self._refuse_on_mesh("TrainCtx.snapshot")
         return _snapshot.snapshot_job(
             snapshot_dir, self.worker,
             state=(self.model, self.dense_optimizer), cursor=cursor,
             inc_dir=inc_dir, step=self._step_count, keep=keep)
+
+    def _refuse_on_mesh(self, what: str):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh is not ported yet; it waits for "
+                f"{_MESH_WAITS}")
+
+    def dump_checkpoint(self, dst_dir: str, with_dense: bool = True):
+        self._refuse_on_mesh("TrainCtx.dump_checkpoint")
+        super().dump_checkpoint(dst_dir, with_dense)
+
+    def load_checkpoint(self, src_dir: str, with_dense: bool = True):
+        self._refuse_on_mesh("TrainCtx.load_checkpoint")
+        super().load_checkpoint(src_dir, with_dense)
 
     @contextmanager
     def _stage(self, name: str):
@@ -343,6 +427,7 @@ class TrainCtx(EmbeddingCtx):
         worker thread's current stream, the default stream, which orders
         them before any kernel the training thread issues after the batch
         reaches it."""
+        self._refuse_on_mesh("a DataLoader")
         return self._prep_train_inputs(batch, lookup)
 
     def train_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -364,6 +449,10 @@ class TrainCtx(EmbeddingCtx):
         from persia_tpu_torch.pipeline import LookedUpBatch
 
         self._step_count += 1
+        if self.mesh is not None:
+            if isinstance(batch, LookedUpBatch):
+                self._refuse_on_mesh("a DataLoader's looked-up batch")
+            return self._mesh_train_step(batch)
         engine = staged = None
         if isinstance(batch, LookedUpBatch):
             ref_id, lookup, engine = batch.ref_id, batch.lookup, batch.engine
@@ -401,6 +490,175 @@ class TrainCtx(EmbeddingCtx):
             self.worker.update_gradients(ref_id, dict(zip(names, per_slot)))
         return loss, pred
 
+    # --- over a mesh ---------------------------------------------------------
+
+    def _check_same_batch(self, batch: PersiaBatch):
+        """Every rank of the mesh must train on the same global batch: its
+        id and row count, compared by one max-reduction, so that every
+        rank raises together."""
+        from persia_tpu_torch.parallel import collectives as coll
+
+        bid = -1 if batch.batch_id is None else int(batch.batch_id)
+        rows = int(batch.labels[0].data.shape[0])
+        seen = torch.tensor([bid, -bid, rows, -rows], dtype=torch.int64,
+                            device=self.device)
+        coll.pmax_([seen])
+        b_max, b_min, r_max, r_min = seen.tolist()
+        if b_max != -b_min or r_max != -r_min:
+            raise RuntimeError(
+                f"the ranks of the mesh were given different batches "
+                f"(batch ids {-b_min}..{b_max}, rows {-r_min}..{r_max}); "
+                f"every rank calls train_step on the same global batch")
+
+    def _share_lookup(self, batch: PersiaBatch, lookup, batch_major: bool):
+        """The leader's lookup on every rank: the leader packs the wire
+        (batch-major (bs, sum dims) when ``batch_major``, else flat) and
+        the raw slots' index tensors on the device, broadcasts a header
+        of their shapes and then the tensors. Returns (emb_shapes,
+        flat_emb, emb_indices)."""
+        from persia_tpu_torch.parallel import collectives as coll
+        from persia_tpu_torch.parallel.mesh import leader_rank
+        from persia_tpu_torch.parallel.train import (
+            pack_embedding_values,
+            pack_embedding_values_batch_major,
+        )
+
+        feats = batch.id_type_features
+        header = torch.zeros(4 * len(feats), dtype=torch.int64,
+                             device=self.device)
+        if self._leader:
+            emb_np, idx_np = [], []
+            for f in feats:
+                r = lookup[f.name]
+                if isinstance(r, SumEmbedding):
+                    idx_np.append(None)
+                elif isinstance(r, RawEmbedding):
+                    idx_np.append(np.asarray(r.index, np.int32))
+                else:
+                    raise TypeError(f"unexpected lookup result {type(r)}")
+                emb_np.append(r.embeddings)
+            pack = (pack_embedding_values_batch_major if batch_major
+                    else pack_embedding_values)
+            flat_emb = self.to_device(pack(emb_np, self.wire_dtype))
+            indices = [None if i is None else self.to_device(i)
+                       for i in idx_np]
+            header.copy_(torch.tensor(
+                [x for v, i in zip(emb_np, idx_np)
+                 for x in (*v.shape, *(i.shape if i is not None else (0, 0)))],
+                dtype=torch.int64))
+        src = leader_rank(self.mesh)
+        coll.broadcast_([header], src)
+        dims = header.view(-1, 4).tolist()
+        emb_shapes = tuple((r, d) for r, d, _, _ in dims)
+        if not self._leader:
+            n = (emb_shapes[0][0], sum(d for _, d in emb_shapes)) \
+                if batch_major else (sum(r * d for r, d in emb_shapes),)
+            flat_emb = torch.empty(n, dtype=self.wire_dtype,
+                                   device=self.device)
+            indices = [torch.empty((a, b), dtype=torch.int32,
+                                   device=self.device) if a else None
+                       for _, _, a, b in dims]
+        coll.broadcast_([flat_emb, *(i for i in indices if i is not None)],
+                        src)
+        return emb_shapes, flat_emb, indices
+
+    def _mesh_train_step(self, batch: PersiaBatch):
+        """One global batch over the mesh (see the class docstring)."""
+        from persia_tpu_torch.parallel import collectives as coll
+        from persia_tpu_torch.parallel.mesh import (
+            DATA_AXIS,
+            axis_group,
+            axis_size,
+            shard_rows,
+        )
+        from persia_tpu_torch.parallel.train import (
+            unpack_embedding_grads,
+            unpack_embedding_grads_batch_major,
+        )
+
+        if not isinstance(batch, PersiaBatch):
+            raise TypeError(
+                f"TrainCtx.train_step on a mesh takes a PersiaBatch, not "
+                f"{type(batch).__name__}")
+        self._check_same_batch(batch)
+        lookup = None
+        if self._leader:
+            with self._stage("lookup"):
+                ref_id, lookup = self.worker.lookup_direct_training(
+                    batch.id_type_features)
+        data = axis_group(self.mesh, DATA_AXIS)
+        world = axis_size(self.mesh, DATA_AXIS)
+        summed = all(self.schema.get_slot(f.name)
+                     .embedding_summation for f in batch.id_type_features)
+        rows = int(batch.labels[0].data.shape[0])
+        ddp = summed and rows % world == 0
+        with self._stage("h2d"):
+            non_id = [self.to_device(f.data)
+                      for f in batch.non_id_type_features]
+            label = self.to_device(batch.labels[0].data)
+            emb_shapes, flat_emb, emb_indices = self._share_lookup(
+                batch, lookup, ddp)
+        with self._stage("dense"):
+            self._ensure_mesh_step(ddp, emb_shapes, data, world)
+            if ddp:
+                local = ([shard_rows(x, self.mesh) for x in non_id],
+                         shard_rows(flat_emb, self.mesh),
+                         shard_rows(label, self.mesh))
+                if self.grad_reduce_dtype == "int8_ef":
+                    loss, grads, pred, self._ef_state = self._train_step(
+                        *local, self._ef_state)
+                else:
+                    loss, grads, pred = self._train_step(*local)
+                # the leader ships the whole batch's gradients
+                grads = coll.all_gather(grads, data, 0)
+                pred = coll.all_gather(pred, data, 0)
+            else:
+                loss, grads, pred = self._train_step(
+                    non_id, flat_emb, emb_indices, label)
+        if not self._leader:
+            return loss, pred
+        names = [f.name for f in batch.id_type_features]
+        with self._stage("d2h"):
+            per_slot = (unpack_embedding_grads_batch_major(
+                grads.cpu(), [d for _, d in emb_shapes]) if ddp
+                else unpack_embedding_grads(grads.cpu(), emb_shapes))
+        with self._stage("update"):
+            self.worker.update_gradients(ref_id, dict(zip(names, per_slot)))
+        return loss, pred
+
+    def _ensure_mesh_step(self, ddp: bool, emb_shapes, data, world: int):
+        from persia_tpu_torch.parallel.train import (
+            _dense_params,
+            init_ef_state,
+            make_packed_train_step_ddp,
+            make_train_step,
+            reduce_dense_grads,
+        )
+
+        if (self._train_step is not None and ddp == self._ddp
+                and emb_shapes == self._emb_shapes):
+            return
+        self._ddp, self._emb_shapes = ddp, emb_shapes
+        if ddp:
+            self._train_step = make_packed_train_step_ddp(
+                self.model, self.dense_optimizer,
+                [d for _, d in emb_shapes], self.mesh, loss_fn=self.loss_fn,
+                wire_dtype=self.wire_dtype,
+                grad_reduce_dtype=self.grad_reduce_dtype)
+            if (self.grad_reduce_dtype == "int8_ef"
+                    and self._ef_state is None):
+                self._ef_state = init_ef_state(self.model, self.mesh)
+            return
+        params = _dense_params(self.model)
+
+        def reduce_grads():
+            reduce_dense_grads(params, data, world)
+
+        self._train_step = make_train_step(
+            self.model, self.dense_optimizer, emb_shapes,
+            loss_fn=self.loss_fn, wire_dtype=self.wire_dtype,
+            reduce_grads=reduce_grads if world > 1 else None)
+
     def _apply_model(self, non_id, emb_inputs):
         from persia_tpu_torch.parallel.train import (
             make_eval_step,
@@ -415,6 +673,19 @@ class TrainCtx(EmbeddingCtx):
 
 class _EvalCtx(EmbeddingCtx):
     def __init__(self, parent: TrainCtx):
+        if parent.mesh is not None:
+            import torch.distributed as dist
+
+            if not parent._leader:
+                raise RuntimeError(
+                    f"eval_ctx over a mesh evaluates on the sparse leader; "
+                    f"rank {dist.get_rank()} holds no embedding worker")
+            if any(getattr(m, "context_parallel_active", False)
+                   for m in parent.model.modules()):
+                raise NotImplementedError(
+                    f"eval_ctx of a context-parallel tower is not ported "
+                    f"yet: its attention needs every rank of the mesh; it "
+                    f"waits for {_MESH_WAITS}")
         super().__init__(model=parent.model, schema=parent.schema,
                          worker=parent.worker,
                          embedding_config=parent.embedding_config,

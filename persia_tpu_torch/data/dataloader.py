@@ -192,6 +192,8 @@ class DataLoader:
             if ctx is None:
                 raise RuntimeError(
                     "DataLoader requires an active EmbeddingCtx/TrainCtx")
+            if getattr(ctx, "mesh", None) is not None:
+                ctx._refuse_on_mesh("a DataLoader")
             self._engine = ForwardEngine(
                 ctx=ctx, num_workers=self.num_workers,
                 buffer_size=self.forward_buffer_size,

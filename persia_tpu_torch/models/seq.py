@@ -3,8 +3,15 @@
 
 Raw slots become sequences: gather -> multi-head self-attention -> masked
 mean pool; summed slots and dense features concatenate as usual; MLP head.
-Single device only in this slice: context parallelism over a mesh (ring,
-Ulysses) waits for a later slice of the port.
+
+With a ``mesh`` whose ``seq_axis`` has more than one rank, the attention
+is context-parallel over that axis (``context_parallel``): ``"ring"``
+(:func:`~persia_tpu_torch.parallel.ring_attention.ring_self_attention`,
+any head count, always in f32) or ``"ulysses"``
+(:func:`~persia_tpu_torch.parallel.ulysses.ulysses_self_attention`, heads
+divisible by the axis; on the ``"flash"`` path in the compute dtype, else
+in f32), as the JAX package's rules are. Every rank of the axis runs the
+tower on the same inputs; the mesh adds no parameter.
 
 ``attn_impl`` keeps the JAX field: ``"flash"`` runs
 :func:`persia_tpu_torch.ops.flash_attention.flash_attention_masked` in the
@@ -24,6 +31,7 @@ from persia_tpu_torch.device import resolve_device
 from persia_tpu_torch.models.common import MLP, dense, gather_raw_embedding
 
 ATTN_IMPLS = ("reference", "flash")
+CONTEXT_PARALLEL = ("ring", "ulysses")
 
 
 def _check_attn_impl(attn_impl: str):
@@ -35,6 +43,13 @@ def _check_attn_impl(attn_impl: str):
             f"{attn_impl!r}")
 
 
+def _check_context_parallel(context_parallel: str):
+    if context_parallel not in CONTEXT_PARALLEL:
+        raise ValueError(
+            f"context_parallel must be 'ring' or 'ulysses', got "
+            f"{context_parallel!r}")
+
+
 class SequenceSelfAttention(nn.Module):
     """Multi-head self-attention over (bs, t, d) with a (bs, t) key mask.
     Submodules: q, k, v and output projections ``Dense_0..3``."""
@@ -42,10 +57,15 @@ class SequenceSelfAttention(nn.Module):
     def __init__(self, d: int, num_heads: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "reference", causal: bool = False,
-                 device=None):
+                 mesh: Optional[Any] = None, context_parallel: str = "ring",
+                 seq_axis: str = "model", device=None):
         super().__init__()
         _check_attn_impl(attn_impl)
+        _check_context_parallel(context_parallel)
         self.num_heads = num_heads
+        self.mesh = mesh
+        self.context_parallel = context_parallel
+        self.seq_axis = seq_axis
         self.dh = max(1, d // num_heads)
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
@@ -54,6 +74,15 @@ class SequenceSelfAttention(nn.Module):
         for i in range(3):
             self.add_module(f"Dense_{i}", nn.Linear(d, inner, device=device))
         self.Dense_3 = nn.Linear(inner, d, device=device)
+
+    @property
+    def context_parallel_active(self) -> bool:
+        """Whether the attention runs over more than one rank."""
+        if self.mesh is None:
+            return False
+        from persia_tpu_torch.parallel.mesh import axis_size
+
+        return axis_size(self.mesh, self.seq_axis) > 1
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         from persia_tpu_torch.ops.flash_attention import flash_attention_masked
@@ -72,7 +101,9 @@ class SequenceSelfAttention(nn.Module):
         k = heads(dense(self.Dense_1, x, dt))
         v = heads(dense(self.Dense_2, x, dt))
         # padded positions are masked at SCORE level (kv_mask)
-        if self.attn_impl == "flash":
+        if self.context_parallel_active:
+            out = self._context_parallel(q, k, v, mask)
+        elif self.attn_impl == "flash":
             # the compute dtype goes in; the kernel accumulates in f32
             out = flash_attention_masked(q, k, v, kv_mask=mask,
                                          causal=self.causal)
@@ -81,6 +112,25 @@ class SequenceSelfAttention(nn.Module):
                                       causal=self.causal, kv_mask=mask)
         out = out.permute(0, 2, 1, 3).reshape(bs, t, self.num_heads * self.dh)
         return dense(self.Dense_3, out, dt)
+
+    def _context_parallel(self, q, k, v, mask):
+        from persia_tpu_torch.parallel.ring_attention import (
+            ring_self_attention,
+        )
+        from persia_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+        if self.context_parallel == "ulysses":
+            # the flash path keeps the compute dtype (the kernels
+            # accumulate in f32); the chunked one runs in f32
+            flash = self.attn_impl == "flash"
+            x = [t if flash else t.float() for t in (q, k, v)]
+            return ulysses_self_attention(
+                *x, self.mesh, seq_axis=self.seq_axis, causal=self.causal,
+                kv_mask=mask, impl="flash" if flash else "local")
+        # the ring carries o/m/l around the ring itself: f32, no kernel
+        return ring_self_attention(q.float(), k.float(), v.float(), self.mesh,
+                                   seq_axis=self.seq_axis, causal=self.causal,
+                                   kv_mask=mask)
 
 
 class SequenceTower(nn.Module):
@@ -97,13 +147,11 @@ class SequenceTower(nn.Module):
                  mlp: Sequence[int] = (256, 128), num_heads: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "reference", mesh: Optional[Any] = None,
+                 context_parallel: str = "ring", seq_axis: str = "model",
                  device=None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "context parallelism over a mesh (ring / Ulysses) is not "
-                "ported yet; see ROADMAP.md queue A")
         _check_attn_impl(attn_impl)
+        _check_context_parallel(context_parallel)
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.slots = [(int(d), bool(raw)) for d, raw in slots]
@@ -112,8 +160,10 @@ class SequenceTower(nn.Module):
             if raw:
                 self.add_module(
                     f"SequenceSelfAttention_{n_raw}",
-                    SequenceSelfAttention(dim, num_heads, compute_dtype,
-                                          attn_impl, device=device))
+                    SequenceSelfAttention(
+                        dim, num_heads, compute_dtype, attn_impl, mesh=mesh,
+                        context_parallel=context_parallel,
+                        seq_axis=seq_axis, device=device))
                 n_raw += 1
         self.n_raw = n_raw
         in_features = num_dense + sum(d for d, _ in self.slots)

@@ -8,6 +8,13 @@ lookups through kernel K1), ``loss.backward()`` (dense table gradients,
 as the JAX package's scatter-add is dense), and the optimizer over tables
 and tower alike. PyTorch runs eagerly, so the step updates in place where
 the JAX one returns new arrays.
+
+Over a mesh's data axis (``mesh=``) the tables and the tower are
+replicated on every rank, as ``P()`` on a model axis of size 1 places
+them in JAX: each rank pools its own rows of the batch (K1 on its rows),
+the gradients of tables and tower are averaged over the axis before the
+optimizer, and the loss is the global mean. Row-sharded tables over a
+model axis larger than 1 raise.
 """
 
 import time
@@ -56,11 +63,17 @@ class DeviceModeStep:
     :data:`STAGES`; the device runs asynchronously, so its work lands in
     whichever stage waits for it. With ``sync_stages`` the step
     synchronizes the device after each stage, which makes the split
-    honest and the step slower."""
+    honest and the step slower.
+
+    With a ``mesh`` every rank of its data axis calls the step on the
+    same global batch and trains its own rows of it (a batch that does not
+    divide the axis stays whole on every rank); the gradient average over
+    the axis is booked in ``backward``, where DDP does it."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 loss_fn: Callable, device: torch.device):
+                 loss_fn: Callable, device: torch.device, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.device = device
@@ -79,19 +92,44 @@ class DeviceModeStep:
         self.stage_seconds[name] += t1 - t0
         return t1
 
+    def _rows(self, x) -> torch.Tensor:
+        x = self._tensor(x)
+        if self.mesh is None:
+            return x
+        from persia_tpu_torch.parallel.mesh import shard_rows
+
+        return shard_rows(x, self.mesh)
+
     def __call__(self, non_id_tensors, id_tensors, label) -> torch.Tensor:
         t = time.perf_counter()
-        non_id = [self._tensor(x) for x in non_id_tensors]
-        ids = {k: self._tensor(v) for k, v in id_tensors.items()}
+        non_id = [self._rows(x) for x in non_id_tensors]
+        ids = {k: self._rows(v) for k, v in id_tensors.items()}
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.model(non_id, ids), self._tensor(label))
+        loss = self.loss_fn(self.model(non_id, ids), self._rows(label))
         t = self._mark("forward", t)
         loss.backward()
+        if self.mesh is not None:
+            loss = self._reduce(loss)
         t = self._mark("backward", t)
         self.optimizer.step()
         self._mark("optimizer", t)
         return loss.detach()
+
+    def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """Every gradient and the loss averaged over the data axis."""
+        from persia_tpu_torch.parallel import collectives as coll
+        from persia_tpu_torch.parallel.mesh import (
+            DATA_AXIS,
+            axis_group,
+            axis_size,
+        )
+        from persia_tpu_torch.parallel.train import reduce_dense_grads
+
+        group = axis_group(self.mesh, DATA_AXIS)
+        reduce_dense_grads(list(self.model.parameters()), group,
+                           axis_size(self.mesh, DATA_AXIS), per_tensor=True)
+        return coll.pmean(loss, group)
 
 
 def make_device_mode_trainer(
@@ -107,20 +145,41 @@ def make_device_mode_trainer(
     ``optax.adagrad(0.02)``: ``lambda p: OptaxAdagrad(p, 0.02)``). The
     sample inputs run one eval forward, which checks the slots and widths
     as the JAX trainer's ``model.init`` does. Returns ``(model,
-    optimizer, step)`` with ``step`` a :class:`DeviceModeStep`."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_device_mode_trainer(mesh=...) is not ported yet: sharded "
-            "tables and data parallelism wait for ROADMAP.md queue A item 3 "
-            "(DDP)")
+    optimizer, step)`` with ``step`` a :class:`DeviceModeStep`.
+
+    With ``mesh`` (its model axis of size 1) every rank of the data axis
+    calls this alike; the weights then are the data axis' first rank's
+    (broadcast, as DDP does at construction), on this rank's device."""
     from persia_tpu_torch.weights import init_device_mode
 
     dev = resolve_device(device)
+    if mesh is not None:
+        from persia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
+
+        if axis_size(mesh, MODEL_AXIS) > 1:
+            raise NotImplementedError(
+                "make_device_mode_trainer over a model axis larger than 1 "
+                "(tables row-sharded over it) is not ported yet: K1 would "
+                "have to leave out the rows outside its shard; it waits for "
+                "ROADMAP.md queue A item 3d")
+        if mesh.device_type != dev.type:
+            raise ValueError(f"the mesh's ranks compute on "
+                             f"{mesh.device_type}, the trainer on {dev}")
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
     model = model.to(dev)
     if seed is not None:
         init_device_mode(model, seed)
+    if mesh is not None:
+        from persia_tpu_torch.parallel import collectives as coll
+        from persia_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
+
+        group = axis_group(mesh, DATA_AXIS)
+        with torch.no_grad():
+            coll.broadcast_([*model.parameters(), *model.buffers()],
+                            coll.global_rank(group, 0), group)
     opt = optimizer(model.parameters())
-    step = DeviceModeStep(model, opt, loss_fn, dev)
+    step = DeviceModeStep(model, opt, loss_fn, dev, mesh=mesh)
     model.eval()
     with torch.inference_mode():
         model([step._tensor(x) for x in sample_non_id],

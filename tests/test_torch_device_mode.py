@@ -457,10 +457,17 @@ def test_refusals():
                                             device="cpu"), device="cpu")
     non_id, ids, _ = tdm.synthetic_device_batch(BS, NUM_DENSE, specs,
                                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    # tables row-sharded over a model axis of 2 (a mesh with no process
+    # group behind it: the refusal comes before any collective)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sharded = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                         mesh_dim_names=("data", "model"),
+                         _init_backend=False, _rank=0)
+    with pytest.raises(NotImplementedError, match="queue A item 3d"):
         tdm.make_device_mode_trainer(model, lambda p: OptaxAdagrad(p, 0.1),
                                      non_id, ids, device="cpu",
-                                     mesh=object())
+                                     mesh=sharded)
     with pytest.raises(KeyError):
         tdm.make_device_mode_trainer(model, lambda p: OptaxAdagrad(p, 0.1),
                                      non_id, {"slot_0": ids["slot_0"]},

@@ -261,7 +261,11 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.knobs', 'persia_tpu_torch.storage', "
         "'persia_tpu_torch.hotness', 'persia_tpu_torch.routing', "
         "'persia_tpu_torch.checkpoint', 'persia_tpu_torch.snapshot', "
-        "'persia_tpu_torch.ps.spill', 'persia_tpu_torch.worker.monitor') "
+        "'persia_tpu_torch.ps.spill', 'persia_tpu_torch.worker.monitor', "
+        "'persia_tpu_torch.distributed', 'persia_tpu_torch.parallel.mesh', "
+        "'persia_tpu_torch.parallel.collectives', "
+        "'persia_tpu_torch.parallel.ring_attention', "
+        "'persia_tpu_torch.parallel.ulysses') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([n for n in sys.modules "

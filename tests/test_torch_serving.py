@@ -127,8 +127,9 @@ def test_weight_loader_rejects_unknown_and_missing_keys():
         load_flax_params(port, params)
     with pytest.raises(ValueError, match="attn_impl"):
         SequenceTower(NUM_DENSE, SLOTS, attn_impl="pallas", device="cpu")
-    with pytest.raises(NotImplementedError):
-        SequenceTower(NUM_DENSE, SLOTS, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="context_parallel"):
+        SequenceTower(NUM_DENSE, SLOTS, context_parallel="ulyses",
+                      device="cpu")
 
 
 def test_seeded_init_is_reproducible():

@@ -545,8 +545,13 @@ def test_train_ctx_refusals():
         # the default device is CUDA: without a card it raises
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainCtx(model, opt, None, schema, worker)
-    for kw in (dict(mesh=object()), dict(device_cache_capacity=8),
-               dict(profiler=object())):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(2, 1),
+                      mesh_dim_names=("data", "model"), _init_backend=False,
+                      _rank=0)
+    for kw in (dict(mesh=mesh, resume_from="snap"),
+               dict(device_cache_capacity=8), dict(profiler=object())):
         with pytest.raises(NotImplementedError, match="queue A"):
             TrainCtx(model, opt, None, schema, worker, device="cpu", **kw)
     # stored, as the JAX TrainCtx stores it
