@@ -87,6 +87,25 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      run (4 workers, staleness 8, buffer 8) report samples/s, step
      p50/p99, host CPU by thread, the synchronized split, the busy share,
      the resident PS rows and the process RSS;
+   - ``dlrm_cached``: ``bench.py``'s ``bench_cached`` configuration, the
+     same stack with ``TrainCtx(device_cache_capacity=...)`` on batches
+     of 4096 of ``make_zipf_batches`` (``zipf_bench_batches``: Zipf
+     a=1.2 over 2^20 ids a slot): (a) the cached path against the
+     uncached one on the card from the same weights and batches, f32
+     tower and wire, 8 single-id steps through 65,536 rows and 3 bag
+     steps (1-4 ids a bag, the last slot sqrt-scaled) through a cache a
+     quarter above one batch's distinct signs: losses within 1e-4, every
+     touched PS row after ``flush_device_cache`` within 1e-4 of the
+     largest element, evictions and write-backs both > 0; (b) 75 steps
+     through the 2,000,000-row cache with the bf16 tower (steps 10-59
+     timed between two synchronizations, 60-69 split into prepare, h2d,
+     the device step and finish, 70-74 profiled) beside the uncached
+     synchronous path on the same batches: samples/s and their ratio,
+     host ms a step p50/p99, the cache's counters, ``wire_bytes_saved``,
+     the busy share, ``torch.cuda.max_memory_allocated``, host CPU by
+     thread (the flush thread included); (c) ``lru`` against
+     ``hotness`` admission at 131,072 rows over the first 30 batches:
+     hit rate, promotions, samples/s;
    - ``zoo``: the registry's ``dlrm``, ``seqrec`` and ``multitask``
      scenarios at full size on ``bench.py``'s e2e stack, 200 steps at
      each bench batch: samples/s, the loss falling, the held-out AUC of
@@ -328,6 +347,31 @@ DH_AGREE_STEPS = 3
 # touched PS rows relative to their largest element.
 DH_LOSS_ATOL = 1e-4
 DH_REL_TOL = 1e-4
+# training / dlrm_cached: bench.py's bench_cached configuration, not cut
+# in width (dlrm_hybrid's stack with a 2,000,000-row device cache, batch
+# 4096 of make_zipf_batches: Zipf a=1.2 over 2^20 ids a slot)
+DC_VOCAB = 1 << 20
+DC_ZIPF_A = 1.2
+DC_CAPACITY = 2_000_000
+DC_STEPS = 75  # (b): [10, 60) timed, [60, 70) split, [70, 75) profiled
+# (a) 8 single-id steps through 65,536 rows, ~1.9x the ~35,000 distinct
+# signs of one batch, so rows evict and come back from step 2 on; 3 bag
+# steps (1-4 ids a bag, the last slot sqrt-scaled) through a cache a
+# quarter above one batch's distinct signs
+DC_AGREE_STEPS = 8
+DC_AGREE_CAPACITY = 65_536
+DC_BAG_STEPS = 3
+DC_BAG_IDS = (1, 4)
+# cached against uncached on the card, f32 tower and wire, no TF32: the
+# same Adagrad in another order (the cache dedup-sums a sign's gradients
+# on the device with index_add_'s atomics, the worker on the host), ~1e-7
+# relative an operation over 8 steps; DLRM's rule, the loss absolute and
+# the touched PS rows relative to their largest element
+DC_LOSS_ATOL = 1e-4
+DC_REL_TOL = 1e-4
+# (c) the two admission policies over the first 30 batches
+DC_ADMIT_STEPS = 30
+DC_ADMIT_CAPACITY = 131_072
 # training / zoo: the registry's scenarios at full size on bench.py's e2e
 # stack, at least 200 steps each (bench.py --mode e2e)
 ZOO_STEPS = 200
@@ -1573,14 +1617,15 @@ def train_ctx(torch, schema, model, global_config=None, backend=None,
 def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
                emb_init, global_config=None, loss_fn=None, seed=SEED,
                backend=None, spill_root=None, hotness=None,
-               resume_from=None, mesh=None, grad_reduce_dtype=None):
+               resume_from=None, mesh=None, grad_reduce_dtype=None,
+               device_cache_capacity=0, device_cache_admission=None):
     """A TrainCtx on the model's device over a fresh worker whose PS
     shards are ``make_holder(capacity, shards, backend=backend)`` for each
     ``(capacity, shards)`` of ``holders``; the tower seeded unless
     ``seed`` is None. ``spill_root`` arms each shard's spill tier in
     ``<spill_root>/spill_<i>``, ``hotness`` its sketches; ``resume_from``
-    goes to the TrainCtx. Over a ``mesh`` only its leader builds the
-    worker."""
+    and the device cache's arguments go to the TrainCtx. Over a ``mesh``
+    only its leader builds the worker."""
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
@@ -1601,7 +1646,9 @@ def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
                     global_config=global_config, loss_fn=loss_fn, seed=seed,
                     device=next(model.parameters()).device,
                     resume_from=resume_from, mesh=mesh,
-                    grad_reduce_dtype=grad_reduce_dtype)
+                    grad_reduce_dtype=grad_reduce_dtype,
+                    device_cache_capacity=device_cache_capacity,
+                    device_cache_admission=device_cache_admission)
 
 
 def run_errors(run, ref):
@@ -2087,6 +2134,7 @@ def assert_no_kernel_launched(phase: str, card: str):
     if any(counts.values()):
         raise AssertionError(f"{phase}: a kernel launched on a path that "
                              f"runs none: {counts}")
+    return counts
 
 
 def rss_gb() -> float:
@@ -2097,19 +2145,29 @@ def rss_gb() -> float:
     return float("nan")
 
 
+def dh_schema(sqrt_scaled=()):
+    """bench_hybrid's 26 summed slots of dim 16; the slots numbered in
+    ``sqrt_scaled`` take sqrt scaling."""
+    from persia_tpu_torch.config import EmbeddingSchema, SlotConfig
+
+    return EmbeddingSchema(slots_config={
+        f"slot_{s}": SlotConfig(name=f"slot_{s}", dim=DH_DIM,
+                                sqrt_scaling=s in sqrt_scaled)
+        for s in range(DH_SLOTS)})
+
+
 def dh_ctx(torch, device: str, compute_dtype=None, global_config=None,
-           state_dict=None, mesh=None, grad_reduce_dtype=None):
+           state_dict=None, mesh=None, grad_reduce_dtype=None, schema=None,
+           device_cache_capacity=0, device_cache_admission=None):
     """bench_hybrid's stack: DLRM(embedding_dim=16) over 26 slots and 13
     dense features, OptaxAdagrad(0.02) dense, Adagrad(0.02) sparse at the
     default row init, 2 shards of make_holder(50_000_000, 16); seeded
     weights, or a copy of ``state_dict``; over ``mesh`` the leader holds
-    the PS."""
-    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    the PS; bench_cached's with ``device_cache_capacity``."""
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.parallel.optim import OptaxAdagrad
 
-    schema = EmbeddingSchema(slots_config=uniform_slots(
-        [f"slot_{s}" for s in range(DH_SLOTS)], dim=DH_DIM))
+    schema = schema or dh_schema()
     model = DLRM(DH_DENSE, DH_SLOTS, embedding_dim=DH_DIM,
                  compute_dtype=compute_dtype or torch.bfloat16,
                  device=device)
@@ -2120,7 +2178,9 @@ def dh_ctx(torch, device: str, compute_dtype=None, global_config=None,
         lambda p: OptaxAdagrad(p, DH_LR), DH_LR, (-0.01, 0.01),
         global_config=global_config,
         seed=SEED if state_dict is None else None, mesh=mesh,
-        grad_reduce_dtype=grad_reduce_dtype)
+        grad_reduce_dtype=grad_reduce_dtype,
+        device_cache_capacity=device_cache_capacity,
+        device_cache_admission=device_cache_admission)
 
 
 def touched_rows(worker, signs):
@@ -2302,6 +2362,250 @@ def dlrm_hybrid_phase(torch, card: str):
          f"{RATES['dlrm_hybrid pipelined'] / RATES[sync_key]:.3f} | card: "
          f"{card}")
     assert_no_kernel_launched("dlrm_hybrid", card)
+
+
+def dc_bag_batches(num: int, batch: int, seed: int):
+    """bench_cached's traffic as bags: every (sample, slot) a bag of 1-4
+    Zipf ids (a=1.2 over 2^20, one sign range a slot), 13 normal dense
+    floats, random labels."""
+    import numpy as np
+
+    from persia_tpu_torch.data.batch import (
+        IDTypeFeature,
+        Label,
+        NonIDTypeFeature,
+        PersiaBatch,
+    )
+
+    rng = np.random.default_rng(seed)
+    lo, hi = DC_BAG_IDS
+    for i in range(num):
+        feats = []
+        for s in range(DH_SLOTS):
+            counts = rng.integers(lo, hi + 1, size=batch)
+            ids = rng.zipf(DC_ZIPF_A, size=int(counts.sum())) % DC_VOCAB
+            offsets = np.zeros(batch + 1, np.uint32)
+            np.cumsum(counts, out=offsets[1:])
+            feats.append(IDTypeFeature.from_csr(
+                f"slot_{s}", offsets,
+                (ids + s * DC_VOCAB + 1).astype(np.uint64)))
+        yield PersiaBatch(
+            feats, non_id_type_features=[NonIDTypeFeature(
+                rng.normal(size=(batch, DH_DENSE)).astype(np.float32))],
+            labels=[Label(rng.integers(0, 2, size=(batch, 1))
+                          .astype(np.float32))], batch_id=i)
+
+
+def dc_signs(batches):
+    import numpy as np
+
+    return np.unique(np.concatenate([f.signs for b in batches
+                                     for f in b.id_type_features]))
+
+
+def dc_f32_run(torch, batches, capacity: int, schema=None) -> dict:
+    """One f32 run (tower and wire) of ``batches`` on the card, cached at
+    ``capacity`` rows or uncached (0), from the seeded weights: losses, the
+    touched PS rows after the cache's flush, the cache's counters."""
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+
+    ctx = dh_ctx(torch, "cuda", torch.float32,
+                 GlobalConfig(CommonConfig("f32")), schema=schema,
+                 device_cache_capacity=capacity)
+    out = {}
+    with ctx:
+        out["losses"] = [float(ctx.train_step(b)[0]) for b in batches]
+        if capacity:
+            out["flushed"] = ctx.flush_device_cache()
+            eng = ctx._cache_engine
+            out["stats"], out["hit_rate"] = eng.stats(), eng.hit_rate
+    out["rows"] = touched_rows(ctx.worker, dc_signs(batches))
+    ctx.worker.close()
+    return out
+
+
+def dc_agree(torch, card: str, what: str, batches, capacity: int,
+             schema=None):
+    """The cached path against the uncached path on the card, same
+    weights and batches, f32: losses within ``DC_LOSS_ATOL``, every
+    touched PS row (after the flush) within ``DC_REL_TOL`` of the largest
+    element, and the cache must have evicted and written back."""
+    import numpy as np
+
+    ref = dc_f32_run(torch, batches, 0, schema)
+    got = dc_f32_run(torch, batches, capacity, schema)
+    (rf, rr), (cf, cr) = ref["rows"], got["rows"]
+    loss_err = max(abs(a - b) for a, b in zip(ref["losses"], got["losses"]))
+    row_err = float(np.abs(cr - rr).max()) / float(np.abs(rr).max())
+    st = got["stats"]
+    _log(f"[dlrm_cached] (a) {what}, {len(batches)} steps of batch "
+         f"{DH_BATCH} f32 through {capacity} cache rows against the "
+         f"uncached path: loss max_abs_err={loss_err:.3e} (atol "
+         f"{DC_LOSS_ATOL}); {len(rf)} touched PS rows max_abs_err / "
+         f"max|row|={row_err:.3e} (rtol {DC_REL_TOL}); hit_rate="
+         f"{got['hit_rate']:.4f} misses={st['misses']} evictions="
+         f"{st['evictions']} writeback_rows={st['writeback_rows']} (flush "
+         f"{got['flushed']}) | card: {card}")
+    if not ((rf == 1).all() and (cf == 1).all()):
+        raise AssertionError(f"{what}: a touched PS row is missing")
+    if not (np.isfinite(got["losses"]).all() and loss_err <= DC_LOSS_ATOL
+            and row_err <= DC_REL_TOL):
+        raise AssertionError(f"{what}: the cached and uncached paths "
+                             f"disagree")
+    if not (st["evictions"] > 0 and st["writeback_rows"] > 0):
+        raise AssertionError(f"{what}: the cache neither evicted nor wrote "
+                             f"back: {st}")
+
+
+def dc_run(torch, batches, capacity: int, timed, split=None, prof=None,
+           admission=None) -> dict:
+    """bench_cached's stack (the bf16 tower), cached at ``capacity`` rows
+    or uncached (0), over ``batches``: the steps of ``timed`` between two
+    synchronizations (host time a step too, and host CPU by thread), those
+    of ``split`` synchronized after each stage, those of ``prof`` under the
+    profiler. Returns what it measured."""
+    import numpy as np
+
+    from persia_tpu_torch.ctx import STAGES
+
+    ctx = dh_ctx(torch, "cuda", device_cache_capacity=capacity,
+                 device_cache_admission=admission)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, step_s, losses = {}, [], []
+
+    def timed_end():
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - out.pop("t0")
+        out["cpu"] = cpu_by_thread(out.pop("cpu0"), thread_cpu_s(),
+                                   len(timed))
+
+    with ctx:
+        for step, batch in enumerate(batches):
+            if step == timed.start:
+                torch.cuda.synchronize()
+                out["cpu0"], out["t0"] = thread_cpu_s(), time.perf_counter()
+            if step == timed.stop:
+                timed_end()
+            if split is not None and step == split.start:
+                ctx.sync_stages = True
+                ctx.stage_seconds = dict.fromkeys(STAGES, 0.0)
+            if prof is not None and step == prof.start:
+                out["split"] = dict(ctx.stage_seconds)
+                ctx.sync_stages = False
+                out["window"] = profile_window(torch, lambda: [
+                    losses.append(ctx.train_step(batches[s])[0])
+                    for s in prof])
+            if prof is not None and step in prof:
+                continue
+            t = time.perf_counter()
+            loss, _ = ctx.train_step(batch)
+            step_s.append(time.perf_counter() - t)
+            losses.append(loss)
+        if timed.stop == len(batches):
+            timed_end()
+        torch.cuda.synchronize()
+        out["max_mem"] = torch.cuda.max_memory_allocated()
+        if capacity:
+            eng = ctx._cache_engine
+            out["stats"], out["hit_rate"] = eng.stats(), eng.hit_rate
+            out["wire_saved"] = eng.wire_bytes_saved
+    out["rows"] = sum(len(h) for h in ctx.worker.ps_clients)
+    ctx.worker.close()
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("a dlrm_cached loss is not finite")
+    out["losses"] = losses
+    out["steps_ms"] = np.asarray(step_s[timed.start:timed.stop]) * 1e3
+    out["rate"] = DH_BATCH * len(timed) / out["wall"]
+    return out
+
+
+def dc_report(what: str, run: dict, card: str):
+    import numpy as np
+
+    ms = run["steps_ms"]
+    _log(f"[dlrm_cached] {what}: {len(ms)} steady steps of batch "
+         f"{DH_BATCH}, synchronized at both ends: samples_per_s="
+         f"{run['rate']:.1f}; host ms a step p50={np.percentile(ms, 50):.3f}"
+         f" p99={np.percentile(ms, 99):.3f}; host CPU ms a step by thread: "
+         f"{run['cpu']}; max_memory_allocated="
+         f"{run['max_mem'] / 2**30:.3f} GiB; {run['rows']} PS rows | card: "
+         f"{card}")
+    if "stats" in run:
+        st = run["stats"]
+        _log(f"[dlrm_cached] {what}: hit_rate={run['hit_rate']:.4f} "
+             f"hits={st['hits']} misses={st['misses']} evictions="
+             f"{st['evictions']} promotions={st['promotions']} "
+             f"writeback_rows={st['writeback_rows']} resident_rows="
+             f"{st['resident_rows']} wire_bytes_saved={run['wire_saved']} "
+             f"({run['wire_saved'] / len(run['losses']) / 1e6:.3f} MB a "
+             f"step) | card: {card}")
+
+
+def dlrm_cached_phase(torch, card: str) -> dict:
+    """bench_cached's configuration on the card: (a) the cached path
+    against the uncached one in f32 (single-id, then bags); (b) 75 steps
+    through the 2,000,000-row cache beside the uncached synchronous path
+    on the same batches; (c) lru against hotness admission. No kernel may
+    launch. Returns the kernels' launch counts over the phase."""
+    import numpy as np
+
+    from persia_tpu_torch.workloads.generator import zipf_bench_batches
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    batches = list(zipf_bench_batches(DC_STEPS, DH_BATCH, vocab=DC_VOCAB,
+                                      a=DC_ZIPF_A, seed=SEED))
+    distinct = [len(dc_signs([b])) for b in batches[:DC_AGREE_STEPS]]
+    bags = list(dc_bag_batches(DC_BAG_STEPS, DH_BATCH, seed=SEED + 1))
+    bag_distinct = max(len(dc_signs([b])) for b in bags)
+    _log(f"[dlrm_cached] setup {time.perf_counter() - t0:.2f}s: "
+         f"{DC_STEPS} batches of {DH_BATCH} x {DH_SLOTS} Zipf(a={DC_ZIPF_A}) "
+         f"ids over {DC_VOCAB} a slot; distinct signs a batch "
+         f"{min(distinct)}-{max(distinct)} (first {DC_AGREE_STEPS}); "
+         f"{DC_BAG_STEPS} bag batches of {DC_BAG_IDS[0]}-{DC_BAG_IDS[1]} ids, "
+         f"up to {bag_distinct} distinct signs a batch")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dc_agree(torch, card, "single-id", batches[:DC_AGREE_STEPS],
+             DC_AGREE_CAPACITY)
+    dc_agree(torch, card, "bags, the last slot sqrt-scaled",
+             bags, bag_distinct + bag_distinct // 4,
+             schema=dh_schema(sqrt_scaled=(DH_SLOTS - 1,)))
+
+    what = (f"DLRM(embedding_dim={DH_DIM}) {DH_SLOTS} slots, {N_PS} x "
+            f"make_holder({DH_PS_CAPACITY}, {DH_PS_SHARDS})")
+    timed, split, prof = range(10, 60), range(60, 70), range(70, DC_STEPS)
+    ref = dc_run(torch, batches, 0, timed)
+    dc_report(f"(b) uncached synchronous, {what}", ref, card)
+    run = dc_run(torch, batches, DC_CAPACITY, timed, split, prof)
+    dc_report(f"(b) cached, {DC_CAPACITY} rows, {what}", run, card)
+    sp = {k: run["split"][k] / len(split) * 1e3 for k in run["split"]}
+    _log(f"[dlrm_cached] (b) cached: step split over steps {split.start}-"
+         f"{split.stop - 1}, device synchronized after each stage (ms a "
+         f"step): prepare (mapper + miss import)={sp['lookup']:.3f} "
+         f"h2d={sp['h2d']:.3f} device step={sp['dense']:.3f} "
+         f"finish={sp['update']:.3f} | card: {card}")
+    report_window("dlrm_cached", f"{len(prof)} cached steps", run["window"],
+                  card)
+    RATES["dlrm_cached uncached"] = ref["rate"]
+    RATES["dlrm_cached cached"] = run["rate"]
+    _log(f"[dlrm_cached] (b) cached / uncached samples/s "
+         f"{run['rate'] / ref['rate']:.3f}; loss step0={run['losses'][0]:.4f}"
+         f" last={run['losses'][-1]:.4f} | card: {card}")
+
+    admit = batches[:DC_ADMIT_STEPS]
+    for admission in ("lru", "hotness"):
+        r = dc_run(torch, admit, DC_ADMIT_CAPACITY, range(10, len(admit)),
+                   admission=admission)
+        st = r["stats"]
+        _log(f"[dlrm_cached] (c) {admission} admission, "
+             f"{DC_ADMIT_CAPACITY} rows, {len(admit)} steps: hit_rate="
+             f"{r['hit_rate']:.4f} promotions={st['promotions']} "
+             f"evictions={st['evictions']} samples_per_s={r['rate']:.1f} "
+             f"(steps 10-{len(admit) - 1}) | card: {card}")
+    return assert_no_kernel_launched("dlrm_cached", card)
 
 
 def train_run(torch, ctx, batches, pipelined: bool, steady_from: int):
@@ -3819,6 +4123,8 @@ def main() -> int:
         clock("pipelined")
         dlrm_hybrid_phase(torch, card)
         clock("dlrm_hybrid")
+        cached_launches = dlrm_cached_phase(torch, card)
+        clock("dlrm_cached")
         zoo_phase(torch, card)
         clock("zoo")
         adult_income_phase(torch, card)
@@ -3839,6 +4145,8 @@ def main() -> int:
         clock("device_mode")
         records["probe_copy"] = probe_phase(torch, card)
         clock("probe")
+        for name, n in cached_launches.items():
+            records[name]["launches_dlrm_cached"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "

@@ -10,7 +10,9 @@
   batch or pipelined on a ``DataLoader``'s looked-up batch, job
   snapshots and ``resume_from`` (:mod:`persia_tpu_torch.snapshot`), and
   :func:`eval_ctx` over it. Over a mesh of ranks (``mesh=``) the dense
-  step is data-parallel and the mesh's rank 0 is the sparse leader.
+  step is data-parallel and the mesh's rank 0 is the sparse leader. With
+  ``device_cache_capacity`` hot rows live and train on the device
+  (:mod:`persia_tpu_torch.parallel.cached_engine`).
 - :class:`InferCtx`: eval-mode lookups and forward for serving.
 
 The embedding tier is reached through an
@@ -19,6 +21,7 @@ to the device through pinned buffers with asynchronous copies on the
 current stream.
 """
 
+import logging
 import threading
 import time
 from contextlib import contextmanager
@@ -35,6 +38,8 @@ from persia_tpu_torch.embedding import (
     get_default_embedding_config,
 )
 from persia_tpu_torch.worker.middleware import RawEmbedding, SumEmbedding
+
+_logger = logging.getLogger(__name__)
 
 _ctx_lock = threading.Lock()
 _ctx_stack: List["BaseCtx"] = []
@@ -234,6 +239,31 @@ class TrainCtx(EmbeddingCtx):
     ``eval_ctx`` evaluates on the leader. A ``DataLoader``, snapshots,
     ``resume_from`` and checkpoints on a mesh raise
     ``NotImplementedError``.
+
+    ``device_cache_capacity`` keeps that many hot rows, and their Adagrad
+    state, on the device: each step maps its signs to cache slots, imports
+    only the misses (from the victim buffer or the PS), trains the dense
+    tower and the cached rows on the device, and writes evicted rows back
+    to the PS on a flush thread
+    (:class:`~persia_tpu_torch.parallel.cached_engine.DeviceCacheEngine`,
+    built at the first batch). ``device_cache_admission`` is the mapper's
+    policy, ``"lru"`` or ``"hotness"`` (default the ``PERSIA_TIER_ADMIT``
+    knob). Its envelope, as the JAX package's: the client ``Adagrad``, not
+    vectorwise shared; summed slots with ``pooling="sum"``; one dim for
+    every slot; a batch whose features are all
+    ``IDTypeFeatureWithSingleID`` takes the single-id step, any other the
+    bag step; anything else raises ``NotImplementedError``. The cached
+    step takes raw batches only (a ``DataLoader`` yields them over a cached
+    context). The PS is made current by :meth:`flush_device_cache`, which
+    :meth:`snapshot`, :meth:`dump_checkpoint`, ``eval_ctx`` and a clean
+    ``__exit__`` call; a restore (``load_checkpoint``, ``resume_from``)
+    drops the cache instead. In ``stage_seconds`` a cached step books the
+    mapper and the miss import as ``lookup``, their upload as ``h2d``, the
+    device step as ``dense`` and the evicted rows' hand-over as
+    ``update``. Over a mesh of more than one rank the cache is
+    single-controller state: with ``PERSIA_MULTIHOST_CACHE=off`` (the
+    default) the context logs a warning and trains uncached, with
+    ``refuse`` it raises ``NotImplementedError``.
     """
 
     def __init__(self, model, dense_optimizer: torch.optim.Optimizer,
@@ -243,21 +273,18 @@ class TrainCtx(EmbeddingCtx):
                  seed: Optional[int] = None, device: DeviceLike = None,
                  sync_stages: bool = False, mesh=None, loss_fn=None,
                  grad_update_interval: int = 1,
-                 device_cache_capacity: int = 0, profiler=None,
-                 resume_from: Optional[str] = None,
+                 device_cache_capacity: int = 0,
+                 device_cache_admission: Optional[str] = None,
+                 profiler=None, resume_from: Optional[str] = None,
                  grad_reduce_dtype: Optional[str] = None):
-        waits = {
-            "device_cache_capacity": (
-                bool(device_cache_capacity),
-                "ROADMAP.md queue A item 5 (on-device sparse)"),
-            "profiler": (profiler is not None,
-                         "ROADMAP.md queue A item 8 (tooling)"),
-        }
-        for name, (asked, item) in waits.items():
-            if asked:
-                raise NotImplementedError(
-                    f"TrainCtx({name}=...) is not ported yet; it waits for "
-                    f"{item}")
+        if profiler is not None:
+            raise NotImplementedError(
+                "TrainCtx(profiler=...) is not ported yet; it waits for "
+                "ROADMAP.md queue A item 8 (tooling)")
+        device_cache_capacity = int(device_cache_capacity)
+        if device_cache_capacity and mesh is not None and mesh.size() > 1:
+            device_cache_capacity = _negotiate_multirank_cache(
+                device_cache_capacity, mesh.size())
         if mesh is not None and resume_from:
             raise NotImplementedError(
                 f"TrainCtx(mesh=..., resume_from=...) is not ported yet; it "
@@ -291,6 +318,11 @@ class TrainCtx(EmbeddingCtx):
         self.grad_reduce_dtype = grad_reduce_dtype
         self._ddp = False
         self._ef_state = None  # this rank's int8_ef residual
+        self.device_cache_capacity = device_cache_capacity
+        self.device_cache_admission = device_cache_admission
+        self._cache_engine = None
+        self._cached_step = None
+        self._cache_multi_id = False
         if mesh is not None:
             self._join_mesh()
         # resolved and verified here, so a torn or absent snapshot fails
@@ -338,9 +370,26 @@ class TrainCtx(EmbeddingCtx):
         super().__enter__()
         if self.embedding_optimizer is not None and self.worker is not None:
             self.embedding_optimizer.apply()
+        if self._cache_engine is not None:
+            self._cache_engine.ensure_open()  # entered again after __exit__
         if self._resume_snap is not None:
             self._restore_from_snapshot()
         return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        # leaving leaves the PS current (an eval, a dump or another
+        # context reads it) and stops the flush thread; the context leaves
+        # the stack even when the flush raises
+        try:
+            if self._cache_engine is not None:
+                try:
+                    if exc_type is None:
+                        self.flush_device_cache()
+                finally:
+                    self._cache_engine.close()
+        finally:
+            result = super().__exit__(exc_type, exc_val, exc_tb)
+        return result
 
     def _restore_from_snapshot(self):
         """Roll the job back to the resolved snapshot, once: the PS
@@ -352,6 +401,8 @@ class TrainCtx(EmbeddingCtx):
         from persia_tpu_torch import snapshot as _snapshot
 
         snap, self._resume_snap = self._resume_snap, None
+        if self._cache_engine is not None:
+            self._cache_engine.invalidate()  # the cached rows predate it
         self.worker.load(snap)
         dense = _snapshot.dense_bytes(snap)
         if dense is not None:
@@ -368,6 +419,7 @@ class TrainCtx(EmbeddingCtx):
         from persia_tpu_torch import snapshot as _snapshot
 
         self._refuse_on_mesh("TrainCtx.snapshot")
+        self.flush_device_cache()
         return _snapshot.snapshot_job(
             snapshot_dir, self.worker,
             state=(self.model, self.dense_optimizer), cursor=cursor,
@@ -381,11 +433,24 @@ class TrainCtx(EmbeddingCtx):
 
     def dump_checkpoint(self, dst_dir: str, with_dense: bool = True):
         self._refuse_on_mesh("TrainCtx.dump_checkpoint")
+        self.flush_device_cache()
         super().dump_checkpoint(dst_dir, with_dense)
 
     def load_checkpoint(self, src_dir: str, with_dense: bool = True):
         self._refuse_on_mesh("TrainCtx.load_checkpoint")
+        # drop (not flush) the cache first: its rows predate the restore,
+        # and serving or flushing them would overwrite the loaded ones
+        if self._cache_engine is not None:
+            self._cache_engine.invalidate()
         super().load_checkpoint(src_dir, with_dense)
+
+    def flush_device_cache(self) -> int:
+        """Write every cached row back to the PS (the cache stays valid
+        for more training). Returns the rows written; 0 without a
+        cache."""
+        if self._cache_engine is None:
+            return 0
+        return self._cache_engine.flush_all()
 
     @contextmanager
     def _stage(self, name: str):
@@ -449,6 +514,20 @@ class TrainCtx(EmbeddingCtx):
         from persia_tpu_torch.pipeline import LookedUpBatch
 
         self._step_count += 1
+        if self.device_cache_capacity:
+            if isinstance(batch, LookedUpBatch):
+                # a DataLoader yields raw batches over a cached context,
+                # so an engine was driven against this context by hand
+                raise RuntimeError(
+                    "device-cache context received a looked-up batch; the "
+                    "cached step imports its own misses: feed raw "
+                    "PersiaBatch objects (a DataLoader does so over a "
+                    "cached context)")
+            if not isinstance(batch, PersiaBatch):
+                raise TypeError(
+                    f"TrainCtx.train_step takes a PersiaBatch or a "
+                    f"LookedUpBatch, not {type(batch).__name__}")
+            return self._cached_train_step(batch)
         if self.mesh is not None:
             if isinstance(batch, LookedUpBatch):
                 self._refuse_on_mesh("a DataLoader's looked-up batch")
@@ -488,6 +567,97 @@ class TrainCtx(EmbeddingCtx):
             per_slot = unpack_embedding_grads(flat_grads.cpu(), emb_shapes)
         with self._stage("update"):
             self.worker.update_gradients(ref_id, dict(zip(names, per_slot)))
+        return loss, pred
+
+    # --- the device cache ----------------------------------------------------
+
+    def _ensure_cache(self, batch: PersiaBatch):
+        """At the first batch: check the cache's envelope and build the
+        engine and the cached step. Anything outside the envelope raises
+        with its reason."""
+        if self._cache_engine is not None:
+            return
+        from persia_tpu_torch.data.batch import IDTypeFeatureWithSingleID
+        from persia_tpu_torch.embedding.optim import Adagrad
+        from persia_tpu_torch.parallel.cached_engine import DeviceCacheEngine
+        from persia_tpu_torch.parallel.cached_train import (
+            make_cached_bag_train_step,
+            make_cached_train_step,
+        )
+
+        opt = self.embedding_optimizer
+        if not isinstance(opt, Adagrad) or opt.vectorwise_shared:
+            raise NotImplementedError(
+                "device cache mirrors non-shared Adagrad on the device; "
+                f"got {type(opt).__name__}")
+        # the step is chosen by the features' TYPE: a single-id feature
+        # has one id a sample in every batch, so the gather path never
+        # meets a later bag; a base IDTypeFeature stream takes the bag
+        # step even if its first batch looks single-id
+        multi_id = not all(isinstance(f, IDTypeFeatureWithSingleID)
+                           for f in batch.id_type_features)
+        dims = set()
+        for f in batch.id_type_features:
+            slot = self.schema.get_slot(f.name)
+            # both steps feed the model pooled (B, D) values a slot; a raw
+            # slot would be silently sum-pooled
+            if not slot.embedding_summation:
+                raise NotImplementedError(
+                    "device cache needs summed (pooled) slots; "
+                    f"{f.name} is a raw slot")
+            if slot.pooling != "sum":
+                raise NotImplementedError(
+                    "device cache supports pooling='sum' slots only; "
+                    f"{f.name} uses pooling={slot.pooling!r} (worker-tier "
+                    "pooling): use the uncached hybrid path")
+            dims.add(slot.dim)
+        if len(dims) != 1:
+            raise NotImplementedError(
+                f"device cache needs one uniform slot dim, got {dims}")
+        dim = dims.pop()
+        num_slots = len(batch.id_type_features)
+        self._cache_engine = DeviceCacheEngine(
+            self.worker, self.device_cache_capacity, num_slots, dim,
+            acc_init=opt.initial_accumulator_value,
+            sqrt_scaling=[self.schema.get_slot(f.name).sqrt_scaling
+                          for f in batch.id_type_features],
+            admission=self.device_cache_admission, device=self.device)
+        self._cache_multi_id = multi_id
+        maker = (make_cached_bag_train_step if multi_id
+                 else make_cached_train_step)
+        self._cached_step = maker(
+            self.model, self.dense_optimizer, num_slots, dim, lr=opt.lr,
+            eps=opt.eps, g_square_momentum=opt.g_square_momentum,
+            loss_fn=self.loss_fn,
+            weight_bound=self.embedding_config.weight_bound,
+            capacity=self.device_cache_capacity)
+
+    def _cached_train_step(self, batch: PersiaBatch):
+        self._ensure_cache(batch)
+        eng = self._cache_engine
+        with self._stage("lookup"):
+            prep = (eng.prepare_bags if self._cache_multi_id
+                    else eng.prepare)(batch.id_type_features)
+        if self._cache_multi_id:
+            (*idx, cold_idx, cold_vals, cold_acc, evicted, evicted_mask,
+             inverse, unique_slots) = prep
+        else:
+            (slot_idx, cold_idx, cold_vals, cold_acc, evicted, evicted_mask,
+             inverse, unique_slots) = prep
+            idx = [slot_idx]
+        with self._stage("h2d"):
+            non_id = [self.to_device(f.data)
+                      for f in batch.non_id_type_features]
+            label = self.to_device(batch.labels[0].data)
+            idx = [self.to_device(a) for a in idx]
+            cold = [self.to_device(a) for a in (cold_idx, cold_vals,
+                                                cold_acc, inverse,
+                                                unique_slots)]
+        with self._stage("dense"):
+            loss, pred, ev_vals, ev_acc = self._cached_step(
+                eng.cache_vals, eng.cache_acc, non_id, *idx, *cold, label)
+        with self._stage("update"):
+            eng.finish(evicted, evicted_mask, ev_vals, ev_acc)
         return loss, pred
 
     # --- over a mesh ---------------------------------------------------------
@@ -671,6 +841,37 @@ class TrainCtx(EmbeddingCtx):
         return self._eval_step(non_id, emb_values, emb_indices)
 
 
+def _negotiate_multirank_cache(capacity: int, world: int) -> int:
+    """The cache over a mesh of ``world`` > 1 ranks, JAX's
+    ``jax.process_count() > 1`` case: each rank is a process, and the
+    cache's mapper, miss imports and write-backs are one process's state.
+    ``PERSIA_MULTIHOST_CACHE=off`` (the default) logs a warning and
+    returns 0 (train uncached), ``refuse`` raises. Returns the capacity
+    to use."""
+    from persia_tpu_torch import knobs
+
+    mode = str(knobs.get("PERSIA_MULTIHOST_CACHE")).lower()
+    if mode == "refuse":
+        raise NotImplementedError(
+            f"device cache is single-controller only: a mesh of {world} "
+            f"ranks, each a process; the sign->slot mapper and the "
+            f"miss/evict host transfers live in one process. Use the "
+            f"uncached hybrid path (or device mode) on a mesh, or leave "
+            f"PERSIA_MULTIHOST_CACHE=off to train uncached instead of "
+            f"raising")
+    if mode != "off":
+        raise ValueError(f"PERSIA_MULTIHOST_CACHE={mode!r}: expected 'off' "
+                         f"or 'refuse'")
+    _logger.warning(
+        "device cache requested (capacity=%d) on a mesh of %d ranks: the "
+        "cache's sign->slot mapper and miss/evict host transfers are "
+        "single-controller state; NEGOTIATING DOWN: device cache "
+        "DISABLED, continuing on the PS-only hybrid path. Set "
+        "PERSIA_MULTIHOST_CACHE=refuse to make this a hard error instead.",
+        capacity, world)
+    return 0
+
+
 class _EvalCtx(EmbeddingCtx):
     def __init__(self, parent: TrainCtx):
         if parent.mesh is not None:
@@ -693,6 +894,9 @@ class _EvalCtx(EmbeddingCtx):
                          device=parent.device)
         self._parent = parent
         self._configured_servers = True  # configured by the parent
+        # cached rows train on the device: the PS must be current before
+        # the eval lookups read it
+        parent.flush_device_cache()
 
     def _apply_model(self, non_id, emb_inputs):
         return self._parent._apply_model(non_id, emb_inputs)

@@ -4,7 +4,8 @@
 over a dataset: the engine prefetches embedding lookups and stages each
 batch's inputs on the device, bounded by the embedding-staleness
 semaphore, and yields :class:`TrainingBatch` objects that
-``TrainCtx.train_step`` takes.
+``TrainCtx.train_step`` takes. Over a context with a device cache it
+starts no engine and yields the dataset's raw batches in order.
 """
 
 import itertools
@@ -202,6 +203,13 @@ class DataLoader:
         return self._engine
 
     def __iter__(self) -> Iterator[TrainingBatch]:
+        ctx = current_ctx()
+        if getattr(ctx, "device_cache_capacity", 0):
+            # a cached context imports its own misses: no prefetch
+            # lookups, the dataset's raw batches in order (batch order is
+            # the cache's LRU order)
+            yield from iter(self.dataset)
+            return
         engine = self._ensure_engine()
         try:
             yield from engine.run(iter(self.dataset),

@@ -71,6 +71,28 @@ class SpaceSaving:
     def __len__(self) -> int:
         return len(self._signs)
 
+    def counts_of(self, signs: np.ndarray) -> np.ndarray:
+        """Tracked count of each sign (0 for untracked signs), int64: the
+        hotness-admitted device-cache mapper queries its whole victim
+        queue once a batch."""
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        out = np.zeros(len(signs), dtype=np.int64)
+        if len(signs) == 0:
+            return out
+        mask, pos = self.member_mask(signs)
+        if mask.any():
+            out[mask] = self._counts[pos[mask]].astype(np.int64)
+        return out
+
+    def decay(self, factor: float = 0.5):
+        """Age every tracked count and its error bound by ``factor``
+        (floored), W-TinyLFU's periodic halving: a formerly hot row's
+        lifetime count cannot block newly hot rows forever. The device
+        cache's admission only; the telemetry trackers never decay (their
+        merge needs raw additive counts)."""
+        np.floor(self._counts * factor, out=self._counts)
+        np.floor(self._errs * factor, out=self._errs)
+
     def member_mask(self, signs: np.ndarray) -> np.ndarray:
         """Vectorized membership test against the sorted sign array.
         Returns (mask, positions-into-the-summary)."""

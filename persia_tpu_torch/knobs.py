@@ -2,14 +2,18 @@
 (``persia_tpu/knobs.py``).
 
 Only the knobs of the spill tier, the hotness sketches, the snapshot
-retention and the storage layer's fsync, with the JAX package's names,
-types, defaults and parse conventions:
+retention, the storage layer's fsync and the device cache (its admission
+policy, the hotness mapper's window and sketch, the multi-process
+negotiation), with the JAX package's names, types, defaults and parse
+conventions:
 
 - ``bool`` knobs whose default is False are enabled by ``1`` / ``true`` /
   ``yes`` (case-insensitive);
 - ``bool`` knobs whose default is True are disabled only by the literal
   ``0``;
-- ``int`` knobs parse with ``int()``; unset or empty -> the default.
+- ``int`` and ``float`` knobs parse with ``int()`` / ``float()``; unset or
+  empty -> the default;
+- ``str`` knobs are returned as they are set.
 
 :func:`get` reads ``os.environ`` at call time; an unknown name raises.
 """
@@ -24,7 +28,7 @@ _TRUTHY = ("1", "true", "yes")
 @dataclass(frozen=True)
 class Knob:
     name: str
-    type: str  # "bool" | "int"
+    type: str  # "bool" | "int" | "float" | "str"
     default: object
 
 
@@ -34,7 +38,11 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_HOTNESS_CM_DEPTH", "int", 4),
     Knob("PERSIA_HOTNESS_CM_WIDTH", "int", 8192),
     Knob("PERSIA_HOTNESS_TOPK", "int", 512),
+    Knob("PERSIA_MULTIHOST_CACHE", "str", "off"),
     Knob("PERSIA_SNAPSHOT_KEEP", "int", 3),
+    Knob("PERSIA_TIER_ADMIT", "str", "lru"),
+    Knob("PERSIA_TIER_SKETCH_TOPK", "int", 0),
+    Knob("PERSIA_TIER_WINDOW_FRAC", "float", 0.125),
 ]}
 
 
@@ -43,11 +51,13 @@ def _parse(knob: Knob, raw: str):
         if knob.default:
             return raw != "0"
         return raw.lower() in _TRUTHY
-    # an empty numeric knob means unset (shells interpolate unset
-    # variables as "")
-    if raw == "":
-        return knob.default
-    return int(raw)
+    if knob.type in ("int", "float"):
+        # an empty numeric knob means unset (shells interpolate unset
+        # variables as "")
+        if raw == "":
+            return knob.default
+        return int(raw) if knob.type == "int" else float(raw)
+    return raw
 
 
 def get(name: str):

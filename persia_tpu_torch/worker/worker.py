@@ -351,6 +351,32 @@ class EmbeddingWorker:
         return sels, self._fan_out([partial(call, int(shards[sel[0]]), sel)
                                     for sel in sels])
 
+    def lookup_rows_with_state(self, signs: np.ndarray, dim: int,
+                               default_state: float = 0.0
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Rows with their optimizer state, for the device cache's miss
+        import: on each owning shard a training ``lookup`` creates and
+        initializes the missing rows as a training lookup does, then
+        ``get_entries`` reads [value | state] of width ``2 * dim`` (the
+        non-shared Adagrad's accumulator, the one optimizer the cache
+        takes), so a sign that comes back keeps its accumulator. A sign
+        the PS did not admit stays absent: value 0, state
+        ``default_state``. Returns (vals, state), each (n, dim) f32."""
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        vals = np.zeros((len(signs), dim), np.float32)
+        state = np.full((len(signs), dim), default_state, np.float32)
+
+        def fetch(r, sel):
+            client = self.ps_clients[r]
+            client.lookup(signs[sel], dim, True)
+            return client.get_entries(signs[sel], 2 * dim)
+
+        for sel, (found, vecs) in zip(*self._per_shard(signs, fetch)):
+            hit = np.nonzero(found)[0]
+            vals[sel[hit]] = vecs[hit, :dim]
+            state[sel[hit]] = vecs[hit, dim:]
+        return vals, state
+
     def set_rows(self, signs: np.ndarray, vecs: np.ndarray, dim: int):
         """Write whole rows to their owning PS shards."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)

@@ -15,7 +15,10 @@ and the bench make.
 - :func:`adult_income_batches`: ``examples/adult_income/data_generator.py``'s
   8 categorical slots and 5 dense features;
 - :func:`hybrid_bench_batches`: ``bench.py``'s ``make_batches``, 26 slots
-  of fresh uniform signs in [0, 2^40) and random labels.
+  of fresh uniform signs in [0, 2^40) and random labels;
+- :func:`zipf_bench_batches`: ``bench.py``'s ``make_zipf_batches`` (the
+  traffic of ``bench_cached``), 26 slots of Zipf-skewed ids, one sign
+  range a slot.
 
 Every stream is a pure function of its arguments: the same ``seed``
 yields a batch stream byte-identical (``to_bytes``) to the JAX
@@ -467,6 +470,31 @@ def hybrid_bench_batches(num_batches: int, batch_size: int,
         ]
         yield PersiaBatch(
             id_feats,
+            non_id_type_features=[NonIDTypeFeature(
+                rng.normal(size=(batch_size, NUM_DENSE)).astype(np.float32))],
+            labels=[Label(
+                rng.integers(0, 2, size=(batch_size, 1)).astype(np.float32))],
+            batch_id=i,
+        )
+
+
+def zipf_bench_batches(num_batches: int, batch_size: int,
+                       vocab: int = 1 << 20, a: float = 1.2,
+                       seed: int = 0) -> Iterator[PersiaBatch]:
+    """``bench.py``'s ``make_zipf_batches``: ``num_batches`` batches of 26
+    slots ``slot_0..25`` of one sign a sample, ``zipf(a) % vocab`` shifted
+    into slot ``s``'s range ``s * vocab + 1 ..`` (sign 0 never drawn), 13
+    normal dense floats and random 0/1 labels; the skewed traffic the
+    device cache is for."""
+    rng = np.random.default_rng(seed)
+    for i in range(num_batches):
+        ids = rng.zipf(a, size=(batch_size, NUM_TABLES)) % vocab
+        signs = (ids + np.arange(NUM_TABLES, dtype=np.uint64) * vocab
+                 + 1).astype(np.uint64)
+        yield PersiaBatch(
+            [IDTypeFeatureWithSingleID(
+                f"slot_{s}", np.ascontiguousarray(signs[:, s]))
+             for s in range(NUM_TABLES)],
             non_id_type_features=[NonIDTypeFeature(
                 rng.normal(size=(batch_size, NUM_DENSE)).astype(np.float32))],
             labels=[Label(

@@ -265,7 +265,10 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.distributed', 'persia_tpu_torch.parallel.mesh', "
         "'persia_tpu_torch.parallel.collectives', "
         "'persia_tpu_torch.parallel.ring_attention', "
-        "'persia_tpu_torch.parallel.ulysses') "
+        "'persia_tpu_torch.parallel.ulysses', "
+        "'persia_tpu_torch.worker.device_cache', "
+        "'persia_tpu_torch.parallel.cached_train', "
+        "'persia_tpu_torch.parallel.cached_engine') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([n for n in sys.modules "
@@ -291,8 +294,8 @@ def test_knobs_parse_as_the_jax_registry(raw, monkeypatch):
         assert (knob.type, knob.default) == (jk.type, jk.default), name
         if raw is None:
             monkeypatch.delenv(name, raising=False)
-        elif knob.type == "int" and raw not in ("", "7"):
-            continue  # int() of a word raises in both
+        elif knob.type in ("int", "float") and raw not in ("", "7"):
+            continue  # int() / float() of a word raises in both
         else:
             monkeypatch.setenv(name, raw)
         assert tknobs.get(name) == jknobs.get(name), (name, raw)
@@ -386,3 +389,58 @@ def test_hotness_sketches_are_bit_exact():
         assert ts.snapshot() == js.snapshot()
     np.testing.assert_array_equal(tc.rows, jc.rows)
     assert len(ts) == len(js) == 32
+    # the device cache's admission queries: counts of tracked and
+    # untracked signs, then the periodic halving
+    probe = np.concatenate([js._signs[::3], np.arange(5000, 5040,
+                                                      dtype=np.uint64)])
+    for _ in range(3):
+        got, want = ts.counts_of(probe), js.counts_of(probe)
+        assert got.dtype == want.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+        assert want.any() and not want[-40:].any()
+        js.decay()
+        ts.decay()
+        assert ts.snapshot() == js.snapshot()
+    js.decay(0.3)
+    ts.decay(0.3)
+    assert ts.snapshot() == js.snapshot()
+    assert len(ts.counts_of(np.empty(0, np.uint64))) == 0
+
+
+def test_knob_types_reach_str_and_float(monkeypatch):
+    """The device cache's knobs: a str is returned as it is set, a float
+    parses, an empty float is unset, as in the JAX registry."""
+    from persia_tpu import knobs as jknobs
+    from persia_tpu_torch import knobs as tknobs
+
+    for name in ("PERSIA_TIER_ADMIT", "PERSIA_TIER_WINDOW_FRAC",
+                 "PERSIA_TIER_SKETCH_TOPK", "PERSIA_MULTIHOST_CACHE"):
+        assert name in tknobs.REGISTRY
+    for name, raw in (("PERSIA_TIER_ADMIT", "Hotness"),
+                      ("PERSIA_MULTIHOST_CACHE", " refuse"),
+                      ("PERSIA_TIER_WINDOW_FRAC", "0.25"),
+                      ("PERSIA_TIER_WINDOW_FRAC", "1e-1"),
+                      ("PERSIA_TIER_WINDOW_FRAC", ""),
+                      ("PERSIA_TIER_SKETCH_TOPK", "64")):
+        monkeypatch.setenv(name, raw)
+        assert tknobs.get(name) == jknobs.get(name), (name, raw)
+        assert type(tknobs.get(name)) is type(jknobs.get(name))
+
+
+def test_zipf_bench_batches_equal_make_zipf_batches():
+    """``bench.py``'s ``make_zipf_batches`` (bench_cached's traffic),
+    byte for byte, at the default vocabulary and at a small one."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench_for_zipf",
+                                                  REPO / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    for kw in ({}, dict(vocab=500, a=1.5)):
+        want = bench.make_zipf_batches(3, 64, seed=4, **kw)
+        got = list(tgen.zipf_bench_batches(3, 64, seed=4, **kw))
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.to_bytes() == w.to_bytes()
+        signs = np.stack([f.signs for f in got[0].id_type_features])
+        assert signs.min() >= 1

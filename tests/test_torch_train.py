@@ -533,7 +533,7 @@ def test_train_ctx_eval_ctx_and_auc():
     assert roc_auc(labels, tied) == jauc(labels, tied)
 
 
-def test_train_ctx_refusals():
+def test_train_ctx_refusals(monkeypatch):
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.models import SequenceTower
 
@@ -551,9 +551,15 @@ def test_train_ctx_refusals():
                       mesh_dim_names=("data", "model"), _init_backend=False,
                       _rank=0)
     for kw in (dict(mesh=mesh, resume_from="snap"),
-               dict(device_cache_capacity=8), dict(profiler=object())):
+               dict(profiler=object())):
         with pytest.raises(NotImplementedError, match="queue A"):
             TrainCtx(model, opt, None, schema, worker, device="cpu", **kw)
+    # the device cache over a mesh of two ranks (two processes), refused
+    # on request before the context joins the mesh
+    monkeypatch.setenv("PERSIA_MULTIHOST_CACHE", "refuse")
+    with pytest.raises(NotImplementedError, match="single-controller"):
+        TrainCtx(model, opt, None, schema, worker, device="cpu", mesh=mesh,
+                 device_cache_capacity=8)
     # stored, as the JAX TrainCtx stores it
     assert TrainCtx(model, opt, None, schema, worker, device="cpu",
                     grad_update_interval=2).grad_update_interval == 2
