@@ -42,6 +42,30 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    ``examples/seq_rec/train.py``. Every prediction must be finite and in
    (0, 1) and agree with a second server whose tower uses the dense
    reference attention; K2 must have launched.
+   Then ``serving_rpc``, the serving wire: the ``InferenceServer`` as an
+   RPC server on the card, reached over loopback sockets by
+   ``InferenceClient``s. (a) The same tower, world and 400 requests from
+   8 closed-loop clients, one connection each, into a micro-batched
+   server (``max_batch_rows=256``, ``cache_rows=100_000``): predictions
+   within ``SERVING_ATOL`` of the reference tower, K2 launched and no
+   other kernel (counters zeroed just before the clients, read just
+   after); then a serialized server's 64 wire replies must equal, bit
+   for bit, its in-process ``predict_bytes`` of the same payloads;
+   rows/s and p50 / p99 beside the in-process rate of the same run.
+   (b) ``bench.py``'s ``bench_infer`` at full width (``DLRM(
+   embedding_dim=16)``, 26 single-id slots, 13 dense features, 2 x
+   ``make_holder(5_000_000, 8)``, 64 Zipf(1.2) requests of 128 rows
+   admitted by training lookups): serialized against micro-batched
+   (``max_batch_rows=1024``, ``cache_rows=2_000_000``), every bucket
+   warmed, at 1 and 8 clients of 100 requests each (the bench's 300 cut):
+   req/s, p50 / p99, the ratio at 8 clients, coalescing, fill and hit
+   rate; no kernel may launch. (c) A second variant added over
+   ``variant_admin`` from a ``dense.pt`` the phase writes must serve the
+   route keys as ``route_bucket`` splits them and equal a solo server of
+   its model; a worker whose lookups raise ``ConnectionError`` while
+   armed makes the server serve zero rows (counted), and the next clean
+   request serves real rows. (d) The sidecar's ``/metrics`` must count
+   the requests sent, and ``/healthz?ready=1`` answer 200.
 4. Training phase, the sequence tower's synchronous path: ``TrainCtx``
    on the card trains ``SequenceTower(attn_impl="flash")`` at the
    example's widths over two fresh PS shards, each
@@ -409,6 +433,27 @@ DRILL_STEPS = 120
 DRILL_EVAL = 2048
 DRILL_ATOL = 1e-5  # suffix losses and dense parameters
 DRILL_AUC_ATOL = 1e-6
+
+# serving_rpc: (a) the serialized server's wire replies held bit for bit
+# to in-process predicts, and (c) the route keys sent to two variants
+RPC_EQUAL_REQUESTS = 64
+RPC_VARIANT_KEYS = 64
+# serving_rpc (b): bench.py's bench_infer configuration (bench.py:5236-5332)
+# at its full width, rows = min(4096, 128): 26 single-id slots of dim 16,
+# 13 dense features, DLRM(embedding_dim=16), 2 x make_holder(5_000_000, 8),
+# 64 Zipf(1.2) requests, 8 clients; each client's warm-up is the bench's
+# max(2 x warmup, 4) at its default warmup of 5. Cut: 100 requests a
+# client, the bench's default is 300 (PERF.md section 4).
+SI_ROWS = 128
+SI_SLOTS = 26
+SI_DIM = 16
+SI_DENSE = 13
+SI_BLOBS = 64
+SI_CLIENTS = 8
+SI_PER_CLIENT = 100
+SI_WARM_PER_CLIENT = 10
+SI_PS_CAPACITY = 5_000_000
+SI_PS_SHARDS = 8
 
 KERNEL_INFO = {
     # name -> (source, the TPU kernel it replaces)
@@ -1416,7 +1461,7 @@ def run_clients(server, payloads):
     return preds, lat, wall
 
 
-def serving_phase(torch, card: str):
+def serving_phase(torch, card: str) -> float:
     import numpy as np
 
     from persia_tpu_torch.ops import flash_attention as fa
@@ -1488,6 +1533,425 @@ def serving_phase(torch, card: str):
             f"{SERVING_ATOL}")
     _log(f"[serving] flash vs reference attention: max_abs_err={err:.3e} "
          f"(atol {SERVING_ATOL}) | card: {card}")
+    return rows / wall
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count (K1-K5) now."""
+    from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.ops import probe_copy as pc
+
+    counts = {n: fa.launch_count(n) for n in FLASH_KERNELS}
+    counts.update(embedding_bag=eb.launch_count(),
+                  probe_copy=pc.launch_count())
+    return counts
+
+
+def drive_clients(addr: str, payloads, n_clients: int, per_client: int):
+    """``bench.py``'s ``_drive_clients``: ``n_clients`` closed-loop
+    ``InferenceClient``s, one thread and one connection each, dial and
+    warm one request, then all start together and each sends
+    ``per_client`` requests (client ``ci`` sends ``payloads[(ci *
+    per_client + k) % len]``). Returns (wall s, per-request latencies in
+    s, predictions by payload index)."""
+    from persia_tpu_torch.serving import InferenceClient
+
+    lat = [[] for _ in range(n_clients)]
+    preds = {}
+    errors = []
+    start = threading.Barrier(n_clients + 1, timeout=600)
+
+    def run(ci):
+        cl = InferenceClient(addr, timeout=600)
+        try:
+            cl.predict_bytes(payloads[ci % len(payloads)])
+            start.wait()
+            for k in range(per_client):
+                i = (ci * per_client + k) % len(payloads)
+                t0 = time.perf_counter()
+                preds[i] = cl.predict_bytes(payloads[i])
+                lat[ci].append(time.perf_counter() - t0)
+        except threading.BrokenBarrierError:
+            pass  # another client failed; its error is re-raised below
+        except Exception as e:  # re-raised below, fails the run
+            errors.append(e)
+            start.abort()
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=run, args=(ci,))
+               for ci in range(n_clients)]
+    for t in threads:
+        t.start()
+    try:
+        start.wait()
+    except threading.BrokenBarrierError:
+        pass
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serving_rpc clients did not finish")
+    if errors:
+        raise errors[0]
+    return wall, [x for per in lat for x in per], preds
+
+
+def lat_line(n: int, wall: float, lat) -> str:
+    import numpy as np
+
+    ms = np.asarray(lat) * 1e3
+    return (f"req/s={n / wall:.1f} p50_ms={np.percentile(ms, 50):.3f} "
+            f"p99_ms={np.percentile(ms, 99):.3f}")
+
+
+class _FailingLookupWorker:
+    """A worker whose lookups raise ``ConnectionError`` while armed (the
+    JAX package's ``tests/test_faults.py`` wrapper): the serving tier's
+    degraded path."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.schema = inner.schema
+        self.failing = False
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def lookup_signs(self, signs, dim):
+        if self.failing:
+            raise ConnectionError("armed: embedding tier unreachable")
+        return self.inner.lookup_signs(signs, dim)
+
+    def lookup_direct(self, feats, training=False):
+        if self.failing:
+            raise ConnectionError("armed: embedding tier unreachable")
+        return self.inner.lookup_direct(feats, training=training)
+
+
+def si_world(torch):
+    """bench_infer's stack: 26 single-id slots of dim 16 over 2 x
+    make_holder(5_000_000, 8) with its Adagrad, DLRM(embedding_dim=16)
+    with seeded weights on the card, and its 64 requests of 128 rows,
+    admitted once by training lookups."""
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.data.batch import PersiaBatch
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.ps.native import make_holder
+    from persia_tpu_torch.weights import init_params
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+    from persia_tpu_torch.workloads.generator import make_infer_requests
+
+    schema = EmbeddingSchema(slots_config=uniform_slots(
+        [f"slot_{s}" for s in range(SI_SLOTS)], dim=SI_DIM))
+    worker = EmbeddingWorker(schema, [
+        make_holder(SI_PS_CAPACITY, SI_PS_SHARDS) for _ in range(N_PS)])
+    worker.configure_parameter_servers(
+        "bounded_uniform", {"lower": -0.01, "upper": 0.01}, 1.0, 10.0)
+    worker.register_optimizer({
+        "type": "adagrad", "lr": 0.02, "initial_accumulator_value": 0.1,
+        "g_square_momentum": 1.0, "vectorwise_shared": False})
+    model = init_params(DLRM(SI_DENSE, SI_SLOTS, embedding_dim=SI_DIM,
+                             device="cuda"), SEED).eval()
+    blobs = make_infer_requests(SI_BLOBS, SI_ROWS, SI_SLOTS, SI_DENSE)
+    for blob in blobs:
+        worker.lookup_direct(PersiaBatch.from_bytes(blob).id_type_features,
+                             training=True)
+    return schema, worker, model, blobs
+
+
+def serving_rpc_phase(torch, card: str, in_process_rows_per_s: float
+                      ) -> dict:
+    """The serving wire: ``InferenceServer`` as an RPC server on the card,
+    reached by ``InferenceClient``s over loopback sockets. (a) the seq_rec
+    tower through K2, (b) bench_infer's DLRM configuration, serialized
+    against micro-batched, (c) variants and degradation, (d) the
+    sidecar. Returns each kernel's launches in (a)."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from persia_tpu_torch import checkpoint as ckpt
+    from persia_tpu_torch.data.batch import PersiaBatch
+    from persia_tpu_torch.metrics import parse_exposition
+    from persia_tpu_torch.rpc import pack_arrays
+    from persia_tpu_torch.serving import InferenceClient, InferenceServer
+    from persia_tpu_torch.variants import VariantRegistry
+    from persia_tpu_torch.workloads.generator import (make_infer_requests,
+                                                      seqrec_batches)
+
+    # (a) seq_rec over the wire: serving_phase's world, tower and requests
+    t0 = time.perf_counter()
+    schema, worker, spec = build_world()
+    model = build_tower(spec.num_dense, "flash")
+    n_req = N_THREADS * REQUESTS_PER_THREAD
+    payloads = [b.to_bytes() for b in seqrec_batches(
+        n_req * REQUEST_ROWS, REQUEST_ROWS, seed=SEED + 1, spec=spec,
+        requires_grad=False)]
+    warm = [b.to_bytes() for b in seqrec_batches(
+        16 * REQUEST_ROWS, REQUEST_ROWS, seed=SEED + 2, spec=spec,
+        requires_grad=False)]
+    server = InferenceServer(model, schema, worker, device="cuda",
+                             max_batch_rows=256, cache_rows=100_000)
+    server.serve_background()
+    try:
+        warm_client = InferenceClient(server.addr)
+        warm_client.predict_many(warm)
+        warm_client.close()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        wall, lat, preds = drive_clients(server.addr, payloads, N_THREADS,
+                                         REQUESTS_PER_THREAD)
+        launches = kernel_launches()
+        stats = server.stats()
+    finally:
+        server.stop()
+    preds = [preds[i] for i in range(n_req)]
+    for p in preds:
+        if p.shape != (REQUEST_ROWS, 1) or not np.isfinite(p).all() \
+                or not ((p > 0) & (p < 1)).all():
+            raise AssertionError(f"serving_rpc (a): bad predictions: shape "
+                                 f"{p.shape}, range [{p.min()}, {p.max()}]")
+    flash = [launches[n] for n in FLASH_KERNELS]
+    if flash[0] <= 0 or any(flash[1:]) or launches["embedding_bag"] \
+            or launches["probe_copy"]:
+        raise AssertionError(f"serving_rpc (a): the path must launch K2 and "
+                             f"no other kernel: {launches}")
+    ref_model = build_tower(spec.num_dense, "reference",
+                            state_dict=model.state_dict())
+    ref_server = InferenceServer(ref_model, schema, worker, device="cuda")
+    try:
+        ref = ref_server.predict_many(payloads)
+    finally:
+        ref_server.stop()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(preds, ref))
+    if not err <= SERVING_ATOL:
+        raise AssertionError(f"serving_rpc (a): flash over the wire and the "
+                             f"reference tower disagree: max abs err "
+                             f"{err:.3e} > {SERVING_ATOL}")
+    rows = n_req * REQUEST_ROWS
+    _log(f"[serving_rpc] (a) seq_rec over the wire, {N_THREADS} "
+         f"InferenceClients x {REQUESTS_PER_THREAD} requests of "
+         f"{REQUEST_ROWS} rows, max_batch_rows=256 cache_rows=100000: "
+         f"rows_per_s={rows / wall:.1f} (in-process serving phase "
+         f"{in_process_rows_per_s:.1f}, ratio "
+         f"{rows / wall / in_process_rows_per_s:.3f}) "
+         f"{lat_line(n_req, wall, lat)} avg_coalesce="
+         f"{stats['avg_coalesce']:.2f} batch_fill_ratio="
+         f"{stats['batch_fill_ratio']:.3f} cache_hit_rate="
+         f"{stats['cache_hit_rate']:.3f} lookup_p50_ms="
+         f"{stats['lookup_p50_ms']:.3f} forward_p50_ms="
+         f"{stats['forward_p50_ms']:.3f}; launches {launches} "
+         f"({flash[0] / n_req:.3f} K2 a request); against the reference "
+         f"tower max_abs_err={err:.3e} (atol {SERVING_ATOL}) | card: {card}")
+    # the serialized server: wire replies against in-process predicts
+    serial = InferenceServer(model, schema, worker, device="cuda")
+    serial.serve_background()
+    client = InferenceClient(serial.addr)
+    try:
+        wire = [bytes(client.client.call("predict", p))
+                for p in payloads[:RPC_EQUAL_REQUESTS]]
+        local = [pack_arrays({}, [serial.predict_bytes(p)])
+                 for p in payloads[:RPC_EQUAL_REQUESTS]]
+    finally:
+        client.close()
+        serial.stop()
+    unequal = sum(w != loc for w, loc in zip(wire, local))
+    _log(f"[serving_rpc] (a) serialized server: {RPC_EQUAL_REQUESTS} "
+         f"replies over the wire against in-process predict_bytes of the "
+         f"same payloads: {unequal} differ | card: {card}")
+    if unequal:
+        raise AssertionError("serving_rpc (a): a wire reply differs from "
+                             "the in-process prediction")
+    t_a = time.perf_counter() - t0
+    _log(f"[time] serving_rpc (a) {t_a:.1f}s")
+
+    # (b) bench_infer's configuration, serialized against micro-batched
+    t0 = time.perf_counter()
+    schema, worker, model, blobs = si_world(torch)
+    reset_launch_counts()
+    qps = {}
+    configs = [
+        ("serialized", dict(max_batch_rows=0, cache_rows=0)),
+        ("microbatched", dict(max_batch_rows=SI_ROWS * SI_CLIENTS,
+                              max_wait_us=2000, cache_rows=2_000_000,
+                              cache_ttl_sec=60.0)),
+    ]
+    try:
+        for name, kw in configs:
+            server = InferenceServer(model, schema, worker, device="cuda",
+                                     **kw)
+            server.serve_background()
+            try:
+                # every bucket shape first (a b-row request is bucket b),
+                # then the coalescing path under concurrency
+                warm = InferenceClient(server.addr)
+                for b in (server.buckets or (SI_ROWS,)):
+                    warm.predict_bytes(make_infer_requests(
+                        1, b, SI_SLOTS, SI_DENSE, seed=1000 + b)[0])
+                warm.close()
+                drive_clients(server.addr, blobs, SI_CLIENTS,
+                              SI_WARM_PER_CLIENT)
+                for nc in (1, SI_CLIENTS):
+                    wall, lat, got = drive_clients(server.addr, blobs, nc,
+                                                   SI_PER_CLIENT)
+                    qps[(name, nc)] = len(lat) / wall
+                    bad = [i for i, p in got.items()
+                           if p.shape != (SI_ROWS, 1)
+                           or not np.isfinite(p).all()]
+                    if bad:
+                        raise AssertionError(f"serving_rpc (b): bad "
+                                             f"predictions for {bad[:4]}")
+                    _log(f"[serving_rpc] (b) {name} clients={nc}: "
+                         f"{lat_line(len(lat), wall, lat)} (n={len(lat)}) "
+                         f"| card: {card}")
+                stats = server.stats()
+                _log(f"[serving_rpc] (b) {name}: avg_coalesce="
+                     f"{stats['avg_coalesce']:.2f} batch_fill_ratio="
+                     f"{stats['batch_fill_ratio']:.3f} cache_hit_rate="
+                     f"{stats.get('cache_hit_rate', 0.0):.3f} "
+                     f"compiled_buckets={stats['compiled_buckets']} "
+                     f"lookup_p50_ms={stats['lookup_p50_ms']:.3f} "
+                     f"forward_p50_ms={stats['forward_p50_ms']:.3f} "
+                     f"| card: {card}")
+            finally:
+                server.stop()
+        ratio = qps[("microbatched", SI_CLIENTS)] / qps[("serialized",
+                                                         SI_CLIENTS)]
+        _log(f"[serving_rpc] (b) bench_infer DLRM(embedding_dim={SI_DIM}) "
+             f"{SI_SLOTS} slots, {SI_ROWS} rows a request, {SI_PER_CLIENT} "
+             f"requests a client: infer_microbatched_qps="
+             f"{qps[('microbatched', SI_CLIENTS)]:.1f} vs_baseline "
+             f"(micro-batched / serialized at {SI_CLIENTS} clients)="
+             f"{ratio:.3f} | card: {card}")
+        assert_no_kernel_launched("serving_rpc (b)", card)
+        t_b = time.perf_counter() - t0
+        _log(f"[time] serving_rpc (b) {t_b:.1f}s")
+
+        # (c) variants and degradation, (d) the sidecar, on (b)'s stack
+        t0 = time.perf_counter()
+        failing = _FailingLookupWorker(worker)
+        server = InferenceServer(model, schema, failing, device="cuda",
+                                 cache_rows=100_000, http_port=0,
+                                 variant_name="base")
+        server.serve_background()
+        client = InferenceClient(server.addr)
+        sent = 0
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                from persia_tpu_torch.models import DLRM
+                from persia_tpu_torch.weights import init_params
+
+                donor = init_params(DLRM(SI_DENSE, SI_SLOTS,
+                                         embedding_dim=SI_DIM,
+                                         device="cuda"), SEED + 1).eval()
+                with open(os.path.join(tmp, ckpt.DENSE_FILE), "wb") as f:
+                    f.write(ckpt.dense_state_bytes((donor, None)))
+                client.variant_admin("add", name="v2", model="dlrm",
+                                     dense_checkpoint=tmp,
+                                     num_dense=SI_DENSE, weight=1.0)
+            keys = [f"user-{i}".encode() for i in range(RPC_VARIANT_KEYS)]
+            want = VariantRegistry()
+            want.add("base", weight=1.0, default=True)
+            want.add("v2", weight=1.0)
+            served = []
+            for i, k in enumerate(keys):
+                pred, v = client.predict_variant(blobs[i % len(blobs)],
+                                                 key=k)
+                served.append(v)
+                if not (np.isfinite(pred).all() and pred.shape == (SI_ROWS,
+                                                                   1)):
+                    raise AssertionError("serving_rpc (c): bad variant "
+                                         "prediction")
+            sent += len(keys)
+            solo = InferenceServer(donor, schema, worker, device="cuda")
+            try:
+                v2_ref = solo.predict_bytes(blobs[0])
+            finally:
+                solo.stop()
+            v2_pred, _ = client.predict_variant(blobs[0], variant="v2")
+            sent += 1
+            split = {n: served.count(n) for n in ("base", "v2")}
+            stats = client.stats()
+            with urllib.request.urlopen(
+                    f"http://{server.http.addr}/variants", timeout=30) as r:
+                http_names = sorted(v["name"] for v in json.loads(
+                    r.read())["variants"])
+            stats_names = sorted(v["name"] for v in stats["variants"])
+            _log(f"[serving_rpc] (c) variant v2 added over variant_admin "
+                 f"from dense.pt; {len(keys)} route keys split {split} "
+                 f"(route_bucket expects {want.expected_split(keys)}); "
+                 f"stats and /variants name {stats_names} / {http_names}; "
+                 f"v2 against a solo server of its model max_abs_err="
+                 f"{float(np.abs(v2_pred - v2_ref).max()):.3e} | card: {card}")
+            if served != [want.route(key=k) for k in keys] \
+                    or stats_names != ["base", "v2"] \
+                    or http_names != ["base", "v2"] \
+                    or not np.array_equal(v2_pred, v2_ref):
+                raise AssertionError("serving_rpc (c): the variants did not "
+                                     "route or serve as route_bucket says")
+            client.variant_admin("remove", name="v2")
+            # degradation: cached signs, then misses while armed
+            prime = blobs[1]
+            healthy = client.predict_bytes(prime)
+            failing.failing = True
+            same = client.predict_bytes(prime)
+            fresh = make_infer_requests(1, SI_ROWS, SI_SLOTS, SI_DENSE,
+                                        seed=4242, vocab=1 << 30)[0]
+            degraded = client.predict_bytes(fresh)
+            failing.failing = False
+            st_deg = client.stats()
+            worker.lookup_direct(PersiaBatch.from_bytes(
+                fresh).id_type_features, training=True)
+            recovered = client.predict_bytes(fresh)
+            sent += 4
+            st_rec = client.stats()
+            _log(f"[serving_rpc] (c) degraded: armed lookups raise "
+                 f"ConnectionError; cached request bit-equal "
+                 f"{np.array_equal(healthy, same)}; fresh signs "
+                 f"degraded_lookups={st_deg['degraded_lookups']} "
+                 f"zero_fallback_rows={st_deg['zero_fallback_rows']}; after "
+                 f"disarming, the next request degraded_lookups="
+                 f"{st_rec['degraded_lookups']} and differs from the "
+                 f"zero-row answer: {not np.array_equal(degraded, recovered)}"
+                 f" | card: {card}")
+            if not (np.array_equal(healthy, same)
+                    and st_deg["degraded_lookups"] >= 1
+                    and st_deg["zero_fallback_rows"] >= 1
+                    and st_rec["degraded_lookups"]
+                    == st_deg["degraded_lookups"]
+                    and not np.array_equal(degraded, recovered)
+                    and np.isfinite(degraded).all()):
+                raise AssertionError("serving_rpc (c): the degraded path "
+                                     "did not serve zero rows and recover")
+            t_c = time.perf_counter() - t0
+            _log(f"[time] serving_rpc (c) {t_c:.1f}s")
+            # (d) the sidecar
+            with urllib.request.urlopen(f"http://{server.http.addr}/metrics",
+                                        timeout=30) as r:
+                samples, _ = parse_exposition(r.read().decode())
+            scraped = [v for n, lab, v in samples
+                       if n == "inference_requests_total"
+                       and lab == server._metric_labels]
+            with urllib.request.urlopen(
+                    f"http://{server.http.addr}/healthz?ready=1",
+                    timeout=30) as r:
+                health_status = r.status
+            _log(f"[serving_rpc] (d) sidecar /metrics "
+                 f"inference_requests_total={scraped} ({sent} requests "
+                 f"sent), /healthz?ready=1 -> {health_status} | card: {card}")
+            if scraped != [float(sent)] or health_status != 200:
+                raise AssertionError("serving_rpc (d): the sidecar's count "
+                                     "or health is wrong")
+        finally:
+            client.close()
+            server.stop()
+    finally:
+        worker.close()
+    return {n: launches[n] for n in launches}
 
 
 def thread_cpu_s() -> dict:
@@ -4113,8 +4577,10 @@ def main() -> int:
         for name, n in multi_rank_phase(torch, card, procs).items():
             records[name]["launches_multi_rank"] = n
         clock("multi_rank")
-        serving_phase(torch, card)
+        in_process_rate = serving_phase(torch, card)
         clock("serving")
+        rpc_launches = serving_rpc_phase(torch, card, in_process_rate)
+        clock("serving_rpc")
         for name, n in training_phase(torch, card).items():
             records[name]["launches"] = n
         clock("training")
@@ -4147,6 +4613,8 @@ def main() -> int:
         clock("probe")
         for name, n in cached_launches.items():
             records[name]["launches_dlrm_cached"] = n
+        for name, n in rpc_launches.items():
+            records[name]["launches_serving_rpc"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "

@@ -38,4 +38,8 @@ when no CUDA device is present, unless the caller asks for ``"cpu"``.
 
 from persia_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+# the distribution's version (pyproject.toml); the sidecar's /healthz
+# reports it so a fleet view can spot replica skew
+__version__ = "0.4.0"
+
+__all__ = ["resolve_device", "__version__"]

@@ -2,9 +2,11 @@
 (``persia_tpu/knobs.py``).
 
 Only the knobs of the spill tier, the hotness sketches, the snapshot
-retention, the storage layer's fsync and the device cache (its admission
+retention, the storage layer's fsync, the device cache (its admission
 policy, the hotness mapper's window and sketch, the multi-process
-negotiation), with the JAX package's names, types, defaults and parse
+negotiation) and the serving wire (the RPC block codec, fault injection,
+tracing, the variant split, the observability sidecar and the metrics
+push gateway), with the JAX package's names, types, defaults and parse
 conventions:
 
 - ``bool`` knobs whose default is False are enabled by ``1`` / ``true`` /
@@ -33,16 +35,25 @@ class Knob:
 
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in [
+    Knob("PERSIA_FAULTS", "str", None),
+    Knob("PERSIA_FAULTS_RPC", "bool", False),
+    Knob("PERSIA_FAULTS_SEED", "int", None),
     Knob("PERSIA_FSYNC", "bool", True),
     Knob("PERSIA_HOTNESS", "bool", False),
     Knob("PERSIA_HOTNESS_CM_DEPTH", "int", 4),
     Knob("PERSIA_HOTNESS_CM_WIDTH", "int", 8192),
     Knob("PERSIA_HOTNESS_TOPK", "int", 512),
+    Knob("PERSIA_HTTP_PORT", "int", 0),
+    Knob("PERSIA_METRICS_GATEWAY_ADDR", "str", None),
     Knob("PERSIA_MULTIHOST_CACHE", "str", "off"),
+    Knob("PERSIA_RPC_FORCE_BLOCK", "bool", False),
     Knob("PERSIA_SNAPSHOT_KEEP", "int", 3),
     Knob("PERSIA_TIER_ADMIT", "str", "lru"),
     Knob("PERSIA_TIER_SKETCH_TOPK", "int", 0),
     Knob("PERSIA_TIER_WINDOW_FRAC", "float", 0.125),
+    Knob("PERSIA_TRACING", "bool", False),
+    Knob("PERSIA_VARIANT_ROUTE_FEATURE", "str", None),
+    Knob("PERSIA_VARIANT_SPLIT_BUCKETS", "int", 10000),
 ]}
 
 

@@ -26,9 +26,9 @@ a later step overwrites. :meth:`flush_all` reads the cache after the
 flush queue drained, by a copy on the training thread's stream, which
 orders it after every step.
 
-The JAX engine's registry counters wait for the metrics registry
-(ROADMAP.md queue A item 6); the port keeps them as plain ints, read by
-:meth:`stats`.
+The JAX engine's registry counters are not wired to the port's metrics
+registry yet (ROADMAP.md queue A item 6b); the port keeps them as plain
+ints, read by :meth:`stats`.
 """
 
 import itertools

@@ -1,9 +1,12 @@
-"""Online inference serving: the predict path of ``persia_tpu/serving.py``,
-in process.
+"""Online inference serving (``persia_tpu/serving.py``): the predict path
+over the RPC wire and in process.
 
-:class:`InferenceServer` takes PersiaBatch objects or PTB2 bytes and
-returns the model's predictions. Its throughput path has the JAX
-package's three pieces:
+:class:`InferenceServer` is an RPC server (:mod:`persia_tpu_torch.rpc`)
+whose ``predict`` takes PTB2 bytes and answers ``pack_arrays({}, [pred])``
+with the JAX server's bytes, so an :class:`InferenceClient` of either
+package reaches a model of either package. In process, ``predict`` /
+``predict_bytes`` / ``predict_many`` take the same route. Its throughput
+path has the JAX package's three pieces:
 
 - **Adaptive micro-batching** (``max_batch_rows > 0``): concurrent
   requests are coalesced by a dispatcher thread into one merged batch ->
@@ -19,11 +22,27 @@ package's three pieces:
   misses go to the worker through one deduplicated ``lookup_signs`` call
   per dim.
 
-The RPC socket layer, model variants, the metrics registry, the online
-delta subscriber and the degraded zero-vector fallback belong to later
-slices of the port.
+Around it:
+
+- **Multi-model variants** (:mod:`persia_tpu_torch.variants`): N dense
+  models over one worker and cache, routed per request (an explicit pin,
+  a route key, or ``PERSIA_VARIANT_ROUTE_FEATURE``) through the
+  deterministic weighted split, with per-variant metrics and live
+  add / remove / promote over the ``variant_admin`` RPC.
+- **Degraded fallback** (``degraded_fallback=True``): a lookup that fails
+  with a transport error (:data:`DEGRADABLE_ERRORS`) serves zero vectors
+  for the signs it could not fetch instead of failing the request.
+- **Observability**: counters and histograms in the metrics registry
+  under the JAX server's names and labels, a ``stats`` RPC, and with
+  ``http_port`` the sidecar (:mod:`persia_tpu_torch.obs_http`).
+
+Remote embedding workers and the online delta subscriber are not ported
+yet (``ROADMAP.md`` queue A items 9 and 6b).
 """
 
+import itertools
+import logging
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -31,6 +50,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from persia_tpu_torch import _msgpack
+from persia_tpu_torch import checkpoint as ckpt
+from persia_tpu_torch import knobs, obs_http, tracing
 from persia_tpu_torch.config import EmbeddingSchema
 from persia_tpu_torch.ctx import InferCtx
 from persia_tpu_torch.data.batch import (
@@ -40,7 +62,24 @@ from persia_tpu_torch.data.batch import (
     PersiaBatch,
 )
 from persia_tpu_torch.device import DeviceLike
+from persia_tpu_torch.metrics import default_registry
+from persia_tpu_torch.rpc import (
+    RpcClient,
+    RpcDeadlineExceeded,
+    RpcError,
+    RpcServer,
+    pack_arrays,
+    unpack_arrays,
+)
+from persia_tpu_torch.variants import VariantRegistry
 from persia_tpu_torch.worker import middleware as mw
+
+# failures that degrade to zero-vector embeddings instead of failing the
+# request: a shed deadline, transport loss and timeouts. Application
+# errors (schema mismatch, bad payload) still fail it.
+DEGRADABLE_ERRORS = (RpcDeadlineExceeded, ConnectionError, OSError)
+
+_logger = logging.getLogger(__name__)
 
 
 # --- batch merging / padding (the micro-batcher's data plane) ------------
@@ -201,24 +240,32 @@ class HotRowCache:
 
 
 class _PendingRequest:
-    __slots__ = ("batch", "done", "pred", "error", "t_enqueue")
+    __slots__ = ("batch", "done", "pred", "error", "t_enqueue", "tctx",
+                 "variant")
 
-    def __init__(self, batch: PersiaBatch):
+    def __init__(self, batch: PersiaBatch, variant: str):
         self.batch = batch
+        # merged forwards are single-variant (the dense models differ), so
+        # the variant name joins the coalescing group key
+        self.variant = variant
         self.done = threading.Event()
         self.pred: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
         self.t_enqueue = time.perf_counter()
+        # the submitting thread's span context: the dispatcher thread has
+        # none of its own, so the merged forward's span parents to the
+        # first traced request it serves
+        self.tctx = tracing.current_context()
 
 
 class _MicroBatcher:
     """Coalesce concurrent predict requests into merged forwards.
 
     Callers park in :meth:`wait`; one dispatcher thread drains the queue,
-    merges schema-compatible requests up to ``max_rows`` and runs the
-    server's merged forward. When the recent coalescing EWMA is ~1
-    (serial traffic) the dispatcher never lingers, so an unloaded server
-    serves at serialized-path latency.
+    merges requests of one schema signature and one variant up to
+    ``max_rows`` and runs the server's merged forward. When the recent
+    coalescing EWMA is ~1 (serial traffic) the dispatcher never lingers,
+    so an unloaded server serves at serialized-path latency.
     """
 
     def __init__(self, run_merged, max_rows: int, max_wait_s: float):
@@ -233,11 +280,11 @@ class _MicroBatcher:
             target=self._loop, daemon=True, name="infer-microbatcher")
         self._thread.start()
 
-    def enqueue(self, batch: PersiaBatch) -> _PendingRequest:
-        req = _PendingRequest(batch)
+    def enqueue(self, batch: PersiaBatch, variant: str) -> _PendingRequest:
+        req = _PendingRequest(batch, variant)
         with self._cond:
             if not self._running:
-                raise RuntimeError("inference server is shutting down")
+                raise RpcError("inference server is shutting down")
             self._queue.append(req)
             self._cond.notify_all()
         return req
@@ -252,7 +299,7 @@ class _MicroBatcher:
                     self._queue.remove(req)
                 except ValueError:
                     pass  # already dispatched (in flight)
-            raise TimeoutError("micro-batch dispatch timed out")
+            raise RpcError("micro-batch dispatch timed out")
         if req.error is not None:
             raise req.error
         return req.pred
@@ -275,14 +322,18 @@ class _MicroBatcher:
                     self._cond.wait(remaining)
             if not self._queue:
                 return []
-            sig0 = _batch_signature(self._queue[0].batch)
+            # group key = (schema signature, variant): different dense
+            # models never share one merged forward
+            sig0 = (_batch_signature(self._queue[0].batch),
+                    self._queue[0].variant)
             reqs: List[_PendingRequest] = []
             rows = 0
             while self._queue:
                 r = self._queue[0]
                 rb = r.batch.batch_size
                 if reqs and (rows + rb > min(self.max_rows, MAX_BATCH_SIZE)
-                             or _batch_signature(r.batch) != sig0):
+                             or (_batch_signature(r.batch),
+                                 r.variant) != sig0):
                     break  # stays queued for the next dispatch
                 reqs.append(self._queue.popleft())
                 rows += rb
@@ -314,50 +365,132 @@ class _MicroBatcher:
         with self._cond:
             while self._queue:
                 r = self._queue.popleft()
-                r.error = RuntimeError("inference server closed")
+                r.error = RpcError("inference server closed")
                 r.done.set()
-
-
-class _Timings:
-    """Bounded window of durations (seconds) with percentiles."""
-
-    def __init__(self, window: int = 100_000):
-        self._d: "deque[float]" = deque(maxlen=window)
-        self._lock = threading.Lock()
-
-    def observe(self, seconds: float):
-        with self._lock:
-            self._d.append(seconds)
-
-    def percentile(self, q: float) -> float:
-        with self._lock:
-            if not self._d:
-                return 0.0
-            return float(np.percentile(np.fromiter(self._d, float), q))
 
 
 # --- the server ----------------------------------------------------------
 
+# the metric series' ``run`` label: a server restarted on the same port in
+# one process must not blend into the dead server's counters
+_SERVER_SEQ = itertools.count(1)
+
+# what the port's serving tier cannot do yet, and the ROADMAP.md item each
+# waits for
+_REMOTE_WORKER_WAITS = "ROADMAP.md queue A item 9 (the PS and worker " \
+    "services over rpc.py, RemoteEmbeddingWorker)"
+_DELTA_WAITS = "ROADMAP.md queue A item 6b (inc_update.py, online.py and " \
+    "the versioned hot-row cache)"
+
+
+def _model_zoo() -> dict:
+    """Name -> factory ``(num_dense, schema, compute_dtype, device)`` of
+    the dense towers ``variant_admin``'s ``add`` builds (the JAX package's
+    zoo names). The widths come from the schema, in its feature order."""
+    from persia_tpu_torch.models import DCNv2, DLRM, DNN, DeepFM, \
+        WideAndDeep
+
+    def dims(schema):
+        return [schema.get_slot(n).dim for n in schema.feature_names]
+
+    def fields(cls):
+        return lambda nd, schema, **kw: cls(
+            nd, len(schema.feature_names), dims(schema)[0], **kw)
+
+    def slots(cls):
+        return lambda nd, schema, **kw: cls(nd, dims(schema), **kw)
+
+    return {"dnn": slots(DNN), "dlrm": fields(DLRM), "dcnv2": slots(DCNv2),
+            "deepfm": fields(DeepFM), "wide_deep": slots(WideAndDeep)}
+
+
+class _ServedVariant:
+    """Data-plane state of one registered variant: its InferCtx (its own
+    model and forward) and its metric series. The registry
+    (:mod:`persia_tpu_torch.variants`) holds the routing truth."""
+
+    __slots__ = ("name", "ctx", "m_requests", "m_rows", "t_e2e",
+                 "m_degraded", "m_zero_rows")
+
+    def __init__(self, name: str, ctx, reg, base_labels: dict):
+        self.name = name
+        self.ctx = ctx
+        labels = dict(base_labels, variant=name)
+        self.m_requests = reg.counter(
+            "inference_variant_requests_total", labels,
+            help_text="predict requests served per model variant")
+        self.m_rows = reg.counter(
+            "inference_variant_rows_total", labels,
+            help_text="prediction rows served per model variant")
+        self.t_e2e = reg.histogram(
+            "inference_variant_request_time_cost_sec", labels,
+            help_text="end-to-end predict latency per model variant")
+        self.m_degraded = reg.counter(
+            "inference_variant_degraded_total", labels,
+            help_text="predicts of this variant that served zero-vector "
+                      "embedding fallback for some signs")
+        self.m_zero_rows = reg.counter(
+            "inference_variant_zero_rows_total", labels,
+            help_text="embedding rows zero-filled for this variant's "
+                      "predicts while the embedding tier was degraded")
+
 
 class InferenceServer:
-    """In-process predict server over an :class:`InferCtx` on ``device``
-    (default CUDA).
+    """Predict server over an :class:`InferCtx` on ``device`` (default
+    CUDA), reachable in process and over the RPC wire.
 
     ``max_batch_rows=0`` keeps the serialized one-request-one-forward
     path; ``cache_rows=0`` sends every lookup to the worker. Either can be
-    enabled independently.
+    enabled independently. ``worker`` is an in-process embedding worker;
+    dialing remote workers (``worker_addrs``) is not ported yet.
+
+    The RPC server binds ``host:port`` at construction and serves after
+    :meth:`serve_background` / :meth:`serve_forever`; it registers
+    ``predict``, ``health``, ``stats``, ``predict_variant`` and
+    ``variant_admin``, with the JAX server's request and reply bytes.
+    ``http_port`` starts the observability sidecar (0 = ephemeral).
+
+    The forward runs on the thread that serves the request (a connection
+    thread, a stream-pool thread or the micro-batcher's dispatcher), on
+    that thread's current stream of the model's card; the serialized
+    path holds one lock around it, since every connection shares the
+    model and the stream.
     """
 
-    def __init__(self, model, schema: EmbeddingSchema, worker, *,
-                 device: DeviceLike = None, max_batch_rows: int = 0,
-                 max_wait_us: int = 2000,
+    def __init__(self, model, schema: EmbeddingSchema, worker=None, *,
+                 device: DeviceLike = None,
+                 worker_addrs: Optional[Sequence[str]] = None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 max_batch_rows: int = 0, max_wait_us: int = 2000,
                  buckets: Optional[Sequence[int]] = None,
-                 cache_rows: int = 0, cache_ttl_sec: float = 30.0):
+                 cache_rows: int = 0, cache_ttl_sec: float = 30.0,
+                 concurrent_streams: Optional[int] = None,
+                 http_port: Optional[int] = None,
+                 degraded_fallback: bool = True,
+                 variant_name: str = "default"):
+        if worker is None or worker_addrs is not None:
+            raise NotImplementedError(
+                f"serving from remote embedding workers (worker_addrs=, "
+                f"worker=None) is not ported yet; it waits for "
+                f"{_REMOTE_WORKER_WAITS}. Pass an in-process worker.")
+        # read-ahead streams only make sense when the micro-batcher exists
+        # to coalesce them; a serialized server keeps one thread per
+        # connection
+        if concurrent_streams is None:
+            concurrent_streams = 32 if max_batch_rows > 0 else 1
         self.worker = worker
         self.schema = schema
         self.model = model
         self.ctx = InferCtx(model, schema, worker, device=device)
         self.device = self.ctx.device
+        self.server = RpcServer(host, port,
+                                concurrent_streams=concurrent_streams)
+        self.server.register("predict", self._predict)
+        self.server.register("health", lambda p: b"ok")
+        self.server.register("stats", self._stats)
+        self.server.register("predict_variant", self._predict_variant)
+        self.server.register("variant_admin", self._variant_admin)
+
         self.max_batch_rows = min(int(max_batch_rows), MAX_BATCH_SIZE)
         if self.max_batch_rows > 0:
             self.buckets = tuple(sorted(
@@ -369,23 +502,178 @@ class InferenceServer:
             self._batcher = None
         self.cache = (HotRowCache(cache_rows, cache_ttl_sec)
                       if cache_rows > 0 else None)
-        self._count_lock = threading.Lock()
-        self._requests = 0
-        self._batches = 0
-        self._rows = 0
-        self._padded = 0
-        self._t_e2e = _Timings()
-        self._t_queue = _Timings()
-        self._t_lookup = _Timings()
-        self._t_forward = _Timings()
-        # one forward at a time on the serialized path: the model and the
-        # device stream are shared by every calling thread
+        # when the embedding tier is unreachable for a lookup, predict
+        # serves zero vectors for the affected signs instead of failing;
+        # zero rows are never cached, so recovery is immediate
+        self.degraded_fallback = bool(degraded_fallback)
         self._forward_lock = threading.Lock()
+
+        labels = {"server": self.addr.rsplit(":", 1)[1],
+                  "run": str(next(_SERVER_SEQ))}
+        reg = default_registry()
+        self._m_requests = reg.counter("inference_requests_total", labels)
+        self._m_batches = reg.counter("inference_batches_total", labels)
+        self._m_rows = reg.counter("inference_rows_total", labels)
+        self._m_padded = reg.counter("inference_padded_rows_total", labels)
+        self._t_e2e = reg.histogram("inference_request_time_cost_sec",
+                                    labels)
+        self._t_queue = reg.histogram(
+            "inference_queue_wait_time_cost_sec", labels)
+        self._t_lookup = reg.histogram("inference_lookup_time_cost_sec",
+                                       labels)
+        self._t_forward = reg.histogram(
+            "inference_forward_time_cost_sec", labels)
+        self._m_degraded = reg.counter("inference_degraded_lookups_total",
+                                       labels)
+        self._m_zero_rows = reg.counter(
+            "inference_zero_fallback_rows_total", labels)
+        # the boot model is the first, default variant: a server nobody
+        # registers a second variant on serves exactly as a single-model
+        # server
+        self._reg = reg
+        self._metric_labels = labels
+        self.variants = VariantRegistry()
+        self.variants.add(variant_name, weight=1.0, default=True,
+                          meta={"source": "boot"})
+        # name -> _ServedVariant; mutated under _variants_lock, read
+        # lock-free on the predict path
+        self._variants_lock = threading.Lock()
+        self._served_variants: Dict[str, _ServedVariant] = {
+            variant_name: _ServedVariant(variant_name, self.ctx, reg,
+                                         labels)}
+        # request-field routing: a plain predict's route key is this id
+        # feature's first sign (frozen at construction)
+        self._route_feature = knobs.get("PERSIA_VARIANT_ROUTE_FEATURE")
+        self.http = obs_http.maybe_start(host, http_port, self._healthz,
+                                         variants_fn=self._variants_doc)
+
+    @property
+    def addr(self) -> str:
+        return self.server.addr
+
+    def _healthz(self) -> dict:
+        doc = self.server.health()
+        if self._batcher is not None:
+            with self._batcher._cond:
+                doc["microbatch_queue_depth"] = len(self._batcher._queue)
+        if self.cache is not None:
+            doc["cache_rows_resident"] = len(self.cache)
+            doc["cache_hit_rate"] = round(self.cache.hit_rate, 4)
+            # the freshness bound: a cached row lags the PS by at most this
+            doc["cache_ttl_sec"] = self.cache.ttl_sec
+        doc["requests_total"] = self._m_requests.value
+        doc["degraded_lookups_total"] = self._m_degraded.value
+        doc["variants"] = self._variants_doc()
+        epoch = getattr(self.worker, "routing_epoch", None)
+        if epoch is not None:
+            doc["routing_epoch"] = epoch
+        # degrading still answers requests: the counter is the alert, not
+        # a routing decision
+        doc["ready"] = True
+        return doc
+
+    # --- variant control plane -------------------------------------------
+
+    def add_variant(self, name: str, model, weight: float = 0.0,
+                    default: bool = False, meta: Optional[dict] = None):
+        """Register a live variant: its own dense model (weights loaded,
+        on the server's device) over the same worker and cache."""
+        ctx = InferCtx(model, self.schema, self.worker, device=self.device)
+        with self._variants_lock:
+            self.variants.add(name, weight=weight, default=default,
+                              meta=meta)
+            self._served_variants[name] = _ServedVariant(
+                name, ctx, self._reg, self._metric_labels)
+        _logger.info("variant %r registered (weight=%s default=%s)",
+                     name, weight, default)
+
+    def add_variant_from_checkpoint(self, name: str, model_name: str,
+                                    dense_checkpoint: str,
+                                    num_dense: int = 5,
+                                    weight: float = 0.0,
+                                    default: bool = False):
+        """The operator-facing add: a zoo name and a dense checkpoint (a
+        checkpoint directory, read through :func:`checkpoint.dense_file`,
+        or a ``dense.pt`` file). The tower computes in the boot model's
+        dtype."""
+        path = dense_checkpoint
+        if os.path.isdir(path):
+            path = ckpt.dense_file(path)
+            if path is None:
+                raise FileNotFoundError(
+                    f"{dense_checkpoint} holds no {ckpt.DENSE_FILE}")
+        kw = {"device": self.device}
+        if hasattr(self.model, "compute_dtype"):
+            kw["compute_dtype"] = self.model.compute_dtype
+        model = _model_zoo()[model_name](int(num_dense), self.schema, **kw)
+        with open(path, "rb") as f:
+            ckpt.apply_dense_bytes((model, None), f.read())
+        self.add_variant(name, model.eval(), weight=weight, default=default,
+                         meta={"model": model_name,
+                               "dense_checkpoint": dense_checkpoint})
+
+    def remove_variant(self, name: str):
+        with self._variants_lock:
+            self.variants.remove(name)  # validates (default protected)
+            self._served_variants.pop(name, None)
+        _logger.info("variant %r removed", name)
+
+    def promote_variant(self, name: str):
+        """Make ``name`` the default (what plain ``predict`` serves)."""
+        if name not in self._served_variants:
+            raise KeyError(f"variant {name!r} has no serving context")
+        self.variants.promote(name)
+        _logger.info("variant %r promoted to default", name)
+
+    def _variants_doc(self) -> list:
+        docs = self.variants.describe()
+        for d in docs:
+            sv = self._served_variants.get(d["name"])
+            if sv is not None:
+                d["requests"] = sv.m_requests.value
+                d["rows"] = sv.m_rows.value
+                d["degraded"] = sv.m_degraded.value
+                d["compiled_buckets"] = sorted(sv.ctx.eval_batch_rows_seen)
+        return docs
+
+    def _variant_admin(self, payload: bytes) -> bytes:
+        """Live variant add / remove / promote / weight / drain / resume /
+        list, msgpack in and out."""
+        req = _msgpack.unpackb(payload)
+        op = req.get("op")
+        if op == "list":
+            return _msgpack.packb({"variants": self._variants_doc()})
+        name = req["name"]
+        if op == "add":
+            self.add_variant_from_checkpoint(
+                name, req.get("model", "dnn"), req["dense_checkpoint"],
+                num_dense=int(req.get("num_dense", 5)),
+                weight=float(req.get("weight", 0.0)),
+                default=bool(req.get("default", False)))
+        elif op == "remove":
+            self.remove_variant(name)
+        elif op == "promote":
+            self.promote_variant(name)
+        elif op == "weight":
+            self.variants.set_weight(name, float(req["weight"]))
+        elif op == "drain":
+            self.variants.set_status(name, "draining")
+        elif op == "resume":
+            self.variants.set_status(name, "live")
+        else:
+            raise RpcError(f"unknown variant_admin op {op!r}")
+        return _msgpack.packb({"ok": True,
+                               "variants": self._variants_doc()})
+
+    def attach_delta_subscriber(self, inc_dir: str, **kw):
+        raise NotImplementedError(
+            f"the online delta subscriber is not ported yet; it waits for "
+            f"{_DELTA_WAITS}")
 
     # --- predict paths ---------------------------------------------------
 
     def predict(self, batch: PersiaBatch) -> np.ndarray:
-        """(rows, 1) float32 predictions for one request."""
+        """(rows, 1) float32 predictions for one request, in process."""
         return self.predict_many([batch])[0]
 
     def predict_bytes(self, payload: bytes) -> np.ndarray:
@@ -393,31 +681,95 @@ class InferenceServer:
         return self.predict(PersiaBatch.from_bytes(payload))
 
     def predict_many(self, batches: Sequence) -> List[np.ndarray]:
-        """Several requests (PersiaBatch or PTB2 bytes) at once: with the
-        micro-batcher they are all queued before the first is awaited, so
-        one caller can fill a merged forward."""
-        batches = [PersiaBatch.from_bytes(bytes(b))
+        """Several requests (PersiaBatch or PTB2 bytes) at once, in
+        process, each routed as a plain ``predict``: with the
+        micro-batcher they are all queued before the first is awaited,
+        so one caller can fill a merged forward."""
+        batches = [PersiaBatch.from_bytes(b)
                    if isinstance(b, (bytes, bytearray, memoryview)) else b
                    for b in batches]
-        with self._count_lock:
-            self._requests += len(batches)
-        if self._batcher is not None:
-            reqs = [self._batcher.enqueue(b) for b in batches]
-            preds = []
-            for r in reqs:
-                preds.append(self._batcher.wait(r))
-                self._t_e2e.observe(time.perf_counter() - r.t_enqueue)
-            return preds
+        routed = [(b, self._route(b, None, None)) for b in batches]
         preds = []
-        for b in batches:
+        if self._batcher is not None:
+            reqs = [(self._batcher.enqueue(b, sv.name), sv)
+                    for b, sv in routed]
+            for r, sv in reqs:
+                preds.append(self._batcher.wait(r))
+                self._observe_e2e(sv, time.perf_counter() - r.t_enqueue)
+            return preds
+        for b, sv in routed:
             t0 = time.perf_counter()
-            with self._forward_lock:
-                preds.append(self._forward(b))
-            with self._count_lock:
-                self._batches += 1
-                self._rows += b.batch_size
-            self._t_e2e.observe(time.perf_counter() - t0)
+            preds.append(self._forward_one(b, sv))
+            self._observe_e2e(sv, time.perf_counter() - t0)
         return preds
+
+    def _route_key_from_batch(self, batch: PersiaBatch) -> Optional[bytes]:
+        """Field-based A/B routing (``PERSIA_VARIANT_ROUTE_FEATURE``): the
+        named id feature's first sign is the request's route key."""
+        if self._route_feature is None or len(self.variants) <= 1:
+            return None
+        for f in batch.id_type_features:
+            if f.name == self._route_feature and len(f.signs):
+                return int(f.signs[0]).to_bytes(8, "little")
+        return None
+
+    def _route(self, batch: PersiaBatch, explicit: Optional[str],
+               key: Optional[bytes]) -> _ServedVariant:
+        """Resolve a request to its variant and count it."""
+        if explicit is None and key is None:
+            key = self._route_key_from_batch(batch)
+        try:
+            vname = self.variants.route(key=key, explicit=explicit)
+        except KeyError as e:
+            raise RpcError(str(e))
+        sv = self._served_variants.get(vname)
+        if sv is None:
+            raise RpcError(f"variant {vname!r} has no serving context")
+        self._m_requests.inc()
+        sv.m_requests.inc()
+        return sv
+
+    def _observe_e2e(self, sv: _ServedVariant, seconds: float):
+        self._t_e2e.observe(seconds)
+        sv.t_e2e.observe(seconds)
+
+    def _predict(self, payload) -> bytes:
+        # request = PTB2 bytes, reply = pack_arrays({}, [pred]): the JAX
+        # server's bytes
+        return self._serve(payload, None, None, reply_variant=False)
+
+    def _predict_variant(self, payload) -> bytes:
+        """Variant-addressed predict: msgpack ``{v: explicit variant |
+        None, k: route key bytes | None, b: PTB2 bytes}``; the reply's
+        meta names the variant that served."""
+        req = _msgpack.unpackb(payload)
+        return self._serve(req["b"], req.get("v"), req.get("k"),
+                           reply_variant=True)
+
+    def _serve(self, payload, explicit: Optional[str],
+               key: Optional[bytes], reply_variant: bool) -> bytes:
+        t0 = time.perf_counter()
+        with tracing.span("serving/predict"):
+            batch = PersiaBatch.from_bytes(payload)
+            sv = self._route(batch, explicit, key)
+            if self._batcher is not None:
+                pred = self._batcher.wait(
+                    self._batcher.enqueue(batch, sv.name))
+            else:
+                pred = self._forward_one(batch, sv)
+        self._observe_e2e(sv, time.perf_counter() - t0)
+        meta = {"variant": sv.name} if reply_variant else {}
+        return pack_arrays(meta, [np.ascontiguousarray(pred)])
+
+    def _forward_one(self, batch: PersiaBatch,
+                     sv: _ServedVariant) -> np.ndarray:
+        """The serialized path: one request, one forward."""
+        with self._forward_lock:
+            pred = self._forward(batch, sv)
+        self._m_batches.inc()
+        self._m_rows.inc(batch.batch_size)
+        sv.m_rows.inc(batch.batch_size)
+        return pred
 
     def _bucket_for(self, rows: int) -> int:
         for b in self.buckets:
@@ -427,44 +779,86 @@ class InferenceServer:
 
     def _run_merged(self, reqs: List[_PendingRequest]):
         """Dispatcher entry: merge -> pad to bucket -> one lookup + one
-        forward -> scatter per-request row slices."""
+        forward -> scatter per-request row slices. The collect loop
+        groups by (signature, variant), so a merged batch is
+        single-variant."""
         now = time.perf_counter()
         for r in reqs:
             self._t_queue.observe(now - r.t_enqueue)
-        merged, sizes = merge_batches([r.batch for r in reqs])
-        rows = merged.batch_size
-        bucket = self._bucket_for(rows)
-        pred = self._forward(pad_batch(merged, bucket))
-        with self._count_lock:
-            self._batches += 1
-            self._rows += rows
-            self._padded += bucket - rows
+        sv = self._served_variants.get(reqs[0].variant)
+        if sv is None:
+            raise RpcError(f"variant {reqs[0].variant!r} removed mid-flight")
+        tctx = next((r.tctx for r in reqs if r.tctx is not None), None)
+        kw = {"ctx": tctx} if tctx is not None else {}
+        with tracing.span("serving/merged_forward", n_reqs=len(reqs), **kw):
+            merged, sizes = merge_batches([r.batch for r in reqs])
+            rows = merged.batch_size
+            bucket = self._bucket_for(rows)
+            pred = self._forward(pad_batch(merged, bucket), sv)
+        self._m_batches.inc()
+        self._m_rows.inc(rows)
+        self._m_padded.inc(bucket - rows)
+        sv.m_rows.inc(rows)
         off = 0
         for r, s in zip(reqs, sizes):
             r.pred = pred[off:off + s]
             off += s
             r.done.set()
 
-    def _forward(self, batch: PersiaBatch) -> np.ndarray:
-        t0 = time.perf_counter()
+    def _forward(self, batch: PersiaBatch,
+                 sv: _ServedVariant) -> np.ndarray:
+        with self._t_lookup.timer(), tracing.span("serving/lookup"):
+            lookup = self._lookup(batch.id_type_features, sv)
+        with self._t_forward.timer(), tracing.span("serving/forward"):
+            pred, _labels = sv.ctx.forward_prepared(batch, lookup)
+            return pred.float().cpu().numpy()  # waits for the device
+
+    # --- lookups and the degraded fallback -------------------------------
+
+    def _lookup(self, id_type_features: List[IDTypeFeature],
+                sv: _ServedVariant):
         if self.cache is None:
-            lookup = self.worker.lookup_direct(batch.id_type_features,
-                                               training=False)
-        else:
-            lookup = self._lookup_cached(batch.id_type_features)
-        t1 = time.perf_counter()
-        pred, _labels = self.ctx.forward_prepared(batch, lookup)
-        out = pred.float().cpu().numpy()  # waits for the device
-        self._t_lookup.observe(t1 - t0)
-        self._t_forward.observe(time.perf_counter() - t1)
+            try:
+                return self.worker.lookup_direct(id_type_features,
+                                                 training=False)
+            except DEGRADABLE_ERRORS as e:
+                if not self.degraded_fallback:
+                    raise
+                return self._zero_lookup(id_type_features, e, sv)
+        return self._lookup_cached(id_type_features, sv)
+
+    def _count_degraded(self, sv: _ServedVariant, rows: int):
+        self._m_degraded.inc()
+        self._m_zero_rows.inc(rows)
+        sv.m_degraded.inc()
+        sv.m_zero_rows.inc(rows)
+
+    def _zero_lookup(self, id_type_features: List[IDTypeFeature], cause,
+                     sv: _ServedVariant):
+        """Whole-lookup degradation (no cache to salvage hits from):
+        preprocess locally, as the worker would, and zero-fill every
+        embedding row."""
+        feats = mw.preprocess_batch(id_type_features, self.schema)
+        out = {}
+        rows = 0
+        for f in feats:
+            slot = self.schema.get_slot(f.name)
+            rows += f.num_distinct
+            out[f.name] = mw.postprocess_feature(
+                f, slot, np.zeros((f.num_distinct, slot.dim), np.float32))
+        self._count_degraded(sv, rows)
+        _logger.warning("degraded predict: embedding tier unreachable "
+                        "(%s); %d rows served as zero vectors", cause, rows)
         return out
 
-    def _lookup_cached(self, id_type_features: List[IDTypeFeature]):
+    def _lookup_cached(self, id_type_features: List[IDTypeFeature],
+                       sv: _ServedVariant):
         """Preprocess locally (the worker's own transforms, so cache keys
         are post-transform signs), serve distinct signs from the LRU and
         fetch only the misses through one deduplicated ``lookup_signs``
         call per dim. Requests were merged before this runs, so the dedup
-        is cross-request."""
+        is cross-request. A dim whose fetch fails degrades to zero rows,
+        which are not cached."""
         feats = mw.preprocess_batch(id_type_features, self.schema)
         mats: List[np.ndarray] = []
         misses: Dict[int, list] = {}
@@ -479,7 +873,16 @@ class InferenceServer:
         for dim, parts in misses.items():
             all_signs = np.concatenate([p[2] for p in parts])
             uniq, inverse = np.unique(all_signs, return_inverse=True)
-            rows = self.worker.lookup_signs(uniq, dim)
+            try:
+                rows = self.worker.lookup_signs(uniq, dim)
+            except DEGRADABLE_ERRORS as e:
+                if not self.degraded_fallback:
+                    raise
+                self._count_degraded(sv, len(all_signs))
+                _logger.warning(
+                    "degraded lookup (dim=%d): %d miss rows served as zero "
+                    "vectors (%s)", dim, len(all_signs), e)
+                continue
             self.cache.put(uniq, dim, rows)
             pos = 0
             for mat, miss_pos, s in parts:
@@ -492,9 +895,13 @@ class InferenceServer:
     # --- observability ---------------------------------------------------
 
     def stats(self) -> dict:
-        with self._count_lock:
-            req, bat = self._requests, self._batches
-            rows, padded = self._rows, self._padded
+        """The ``stats`` reply: the JAX server's keys, and the port's
+        lookup / forward medians (per forward, a merged batch with the
+        micro-batcher: the host-side lookup, then H2D + model + D2H)."""
+        req = self._m_requests.value
+        bat = self._m_batches.value
+        rows = self._m_rows.value
+        padded = self._m_padded.value
         d = {
             "requests": req,
             "batches": bat,
@@ -506,20 +913,96 @@ class InferenceServer:
             "queue_wait_p99_ms": self._t_queue.percentile(99) * 1e3,
             "request_p50_ms": self._t_e2e.percentile(50) * 1e3,
             "request_p99_ms": self._t_e2e.percentile(99) * 1e3,
-            # per forward (a merged batch with the micro-batcher): the
-            # host-side lookup, then H2D + model + D2H
             "lookup_p50_ms": self._t_lookup.percentile(50) * 1e3,
             "forward_p50_ms": self._t_forward.percentile(50) * 1e3,
-            "forward_batch_rows": sorted(self.ctx.eval_batch_rows_seen),
+            "compiled_buckets": sorted(self.ctx.eval_batch_rows_seen),
             "buckets": list(self.buckets),
+            "degraded_lookups": self._m_degraded.value,
+            "zero_fallback_rows": self._m_zero_rows.value,
         }
         if self.cache is not None:
             d.update(cache_hit_rate=self.cache.hit_rate,
                      cache_hits=self.cache.hits,
                      cache_misses=self.cache.misses,
-                     cache_rows_resident=len(self.cache))
+                     cache_rows_resident=len(self.cache),
+                     # no delta subscriber yet: nothing upserts the cache
+                     cache_delta_rows_applied=0)
+        if len(self.variants) > 1:
+            d["variants"] = self._variants_doc()
         return d
 
+    def _stats(self, payload) -> bytes:
+        return _msgpack.packb(self.stats())
+
+    # --- lifecycle -------------------------------------------------------
+
+    def serve_background(self):
+        self.server.serve_background()
+
+    def serve_forever(self):
+        _logger.info(
+            "inference server listening on %s (max_batch_rows=%d buckets=%s "
+            "cache_rows=%s)", self.addr, self.max_batch_rows,
+            list(self.buckets),
+            self.cache.capacity if self.cache is not None else 0)
+        self.server.serve_forever()
+
     def stop(self):
+        self.server.stop()
         if self._batcher is not None:
             self._batcher.close()
+        if self.http is not None:
+            self.http.stop()
+
+
+class InferenceClient:
+    """Client of an :class:`InferenceServer` of either package."""
+
+    def __init__(self, addr: str, timeout: float = 60.0):
+        self.client = RpcClient(addr, timeout=timeout)
+
+    def predict(self, batch: PersiaBatch) -> np.ndarray:
+        return self.predict_bytes(batch.to_bytes())
+
+    def predict_bytes(self, payload: bytes) -> np.ndarray:
+        _, (pred,) = unpack_arrays(self.client.call("predict", payload))
+        return pred
+
+    def predict_variant(self, batch, variant: Optional[str] = None,
+                        key: Optional[bytes] = None):
+        """Pin a variant explicitly, or hand a route key to the server's
+        deterministic weighted split. Returns ``(pred, served variant)``."""
+        payload = batch if isinstance(batch, (bytes, bytearray)) \
+            else batch.to_bytes()
+        req = _msgpack.packb(
+            {"v": variant, "k": bytes(key) if key is not None else None,
+             "b": bytes(payload)})
+        meta, (pred,) = unpack_arrays(
+            self.client.call("predict_variant", req))
+        return pred, meta.get("variant")
+
+    def variant_admin(self, op: str, **kw) -> dict:
+        """Live variant control: ``op`` in add | remove | promote |
+        weight | drain | resume | list."""
+        return self.client.call_msg("variant_admin", op=op, **kw)
+
+    def predict_many(self, batches: Sequence) -> List[np.ndarray]:
+        """Pipelined predicts on one connection (``RpcClient.call_many``):
+        with the server's read-ahead streams one client can keep the
+        micro-batcher full without threads."""
+        payloads = [b if isinstance(b, (bytes, bytearray)) else b.to_bytes()
+                    for b in batches]
+        return [unpack_arrays(r)[1][0]
+                for r in self.client.call_many("predict", payloads)]
+
+    def stats(self) -> dict:
+        return _msgpack.unpackb(self.client.call("stats"))
+
+    def healthy(self) -> bool:
+        try:
+            return self.client.call("health") == b"ok"
+        except (RpcError, ConnectionError, OSError):
+            return False
+
+    def close(self):
+        self.client.close()

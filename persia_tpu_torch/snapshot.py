@@ -153,7 +153,7 @@ def _complete_inc_packets(inc_dir: Optional[str]) -> Optional[List[str]]:
     raise NotImplementedError(
         "snapshot_job(inc_dir=...): the incremental-update tier "
         "(persia_tpu/inc_update.py ready_packets) is not ported yet; it "
-        "waits for ROADMAP.md queue A item 6 (the online tier)")
+        "waits for ROADMAP.md queue A item 6b (the online tier)")
 
 
 def _ps_watermarks(worker) -> Optional[list]:

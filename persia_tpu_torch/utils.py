@@ -1,6 +1,17 @@
 """Small helpers (``persia_tpu/utils.py``)."""
 
+import os
+
 import numpy as np
+
+
+def write_addr_file(addr: str, path: str) -> None:
+    """Atomically publish a bound server address for a waiting parent
+    (the race-free alternative to probing a free port before spawn)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(addr)
+    os.replace(tmp, path)
 
 
 def roc_auc(labels, preds) -> float:

@@ -18,7 +18,10 @@ and the bench make.
   of fresh uniform signs in [0, 2^40) and random labels;
 - :func:`zipf_bench_batches`: ``bench.py``'s ``make_zipf_batches`` (the
   traffic of ``bench_cached``), 26 slots of Zipf-skewed ids, one sign
-  range a slot.
+  range a slot;
+- :func:`make_infer_requests`: ``bench.py``'s serving traffic (the
+  requests of ``bench_infer``), label-less PTB2 blobs of Zipf-skewed
+  signs.
 
 Every stream is a pure function of its arguments: the same ``seed``
 yields a batch stream byte-identical (``to_bytes``) to the JAX
@@ -501,3 +504,28 @@ def zipf_bench_batches(num_batches: int, batch_size: int,
                 rng.integers(0, 2, size=(batch_size, 1)).astype(np.float32))],
             batch_id=i,
         )
+
+
+def make_infer_requests(num: int, rows: int, n_slots: int, num_dense: int,
+                        vocab: int = 1 << 18, a: float = 1.2,
+                        seed: int = 0) -> list:
+    """``bench.py``'s ``make_infer_requests``: ``num`` pre-serialized,
+    label-less PersiaBatch blobs of ``rows`` rows, ``n_slots`` single-id
+    slots ``slot_0..`` of Zipf(``a``) ids (serving traffic is hot-row
+    heavy), one sign range of ``vocab`` a slot, and ``num_dense`` normal
+    floats."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num):
+        ids = rng.zipf(a, size=(rows, n_slots)) % vocab
+        signs = (ids + np.arange(n_slots, dtype=np.uint64) * vocab
+                 + 1).astype(np.uint64)
+        out.append(PersiaBatch(
+            [IDTypeFeatureWithSingleID(
+                f"slot_{s}", np.ascontiguousarray(signs[:, s]))
+             for s in range(n_slots)],
+            non_id_type_features=[NonIDTypeFeature(
+                rng.normal(size=(rows, num_dense)).astype(np.float32))],
+            requires_grad=False,
+        ).to_bytes())
+    return out

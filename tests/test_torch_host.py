@@ -204,7 +204,9 @@ def test_port_imports_no_jax():
     native library and runs one worker lookup on the native store through
     the middleware's C++ kernels: no jax, flax, optax or persia_tpu
     module may load, and no file under ``native/build/`` or
-    ``persia_tpu/native_bin/`` may be mapped or open."""
+    ``persia_tpu/native_bin/`` may be mapped or open. The serving wire
+    speaks MessagePack through the port's own codec: ``msgpack`` must not
+    load either."""
     code = (
         "import importlib, os, pkgutil, sys\n"
         "import persia_tpu_torch\n"
@@ -268,9 +270,14 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.parallel.ulysses', "
         "'persia_tpu_torch.worker.device_cache', "
         "'persia_tpu_torch.parallel.cached_train', "
-        "'persia_tpu_torch.parallel.cached_engine') "
+        "'persia_tpu_torch.parallel.cached_engine', "
+        "'persia_tpu_torch._msgpack', 'persia_tpu_torch.rpc', "
+        "'persia_tpu_torch.faults', 'persia_tpu_torch.tracing', "
+        "'persia_tpu_torch.metrics', 'persia_tpu_torch.variants', "
+        "'persia_tpu_torch.obs_http', 'persia_tpu_torch.serving') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
+        "assert 'msgpack' not in sys.modules\n"
         "print(len([n for n in sys.modules "
         "if n.startswith('persia_tpu_torch.')]))\n"
         "assert not bad, bad\n")
@@ -289,6 +296,12 @@ def test_knobs_parse_as_the_jax_registry(raw, monkeypatch):
     from persia_tpu import knobs as jknobs
     from persia_tpu_torch import knobs as tknobs
 
+    # the serving wire's knobs are among them
+    assert {"PERSIA_RPC_FORCE_BLOCK", "PERSIA_FAULTS", "PERSIA_FAULTS_SEED",
+            "PERSIA_FAULTS_RPC", "PERSIA_TRACING",
+            "PERSIA_VARIANT_SPLIT_BUCKETS", "PERSIA_VARIANT_ROUTE_FEATURE",
+            "PERSIA_HTTP_PORT", "PERSIA_METRICS_GATEWAY_ADDR"} <= set(
+                tknobs.REGISTRY)
     for name, knob in tknobs.REGISTRY.items():
         jk = jknobs.REGISTRY[name]
         assert (knob.type, knob.default) == (jk.type, jk.default), name

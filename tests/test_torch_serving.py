@@ -194,7 +194,7 @@ def test_inference_server_matches_jax():
         assert stats["cache_hits"] >= stats["cache_misses"]
         assert stats["padded_rows"] > 0 and stats["batches"] < len(
             payloads) * 2
-        assert set(stats["forward_batch_rows"]) <= set(tserver.buckets)
+        assert set(stats["compiled_buckets"]) <= set(tserver.buckets)
         # the serialized path, one request at a time, agrees too
         plain = TServer(port_model, tschema, tworker, device="cpu")
         np.testing.assert_allclose(plain.predict_bytes(payloads[0]),

@@ -72,15 +72,20 @@ def _streams(kind):
                         / "data_generator.py")
         return [example.batches(n, bs, seed=3),
                 tgen.adult_income_batches(n, bs, seed=3)]
-    assert kind == "hybrid_bench"
     bench = _load("bench_for_parity", ROOT / "bench.py")
+    if kind == "infer_requests":
+        from persia_tpu_torch.data.batch import PersiaBatch
+
+        return [[PersiaBatch.from_bytes(b) for b in m.make_infer_requests(
+            4, bs, 26, 13, seed=3)] for m in (bench, tgen)]
+    assert kind == "hybrid_bench"
     return [bench.make_batches(3, bs, seed=3),
             tgen.hybrid_bench_batches(3, bs, seed=3)]
 
 
 @pytest.mark.parametrize("kind", [
     "dlrm", "criteo_uniform", "criteo_learnable", "seqrec", "multitask",
-    "adult_income", "hybrid_bench"])
+    "adult_income", "hybrid_bench", "infer_requests"])
 def test_generators_are_byte_identical(kind):
     jstream, tstream = (list(s) for s in _streams(kind))
     assert len(jstream) == len(tstream) >= 3
