@@ -8,8 +8,10 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 
 1. Setup: versions, the card's name and power limit, and the build of
    every kernel of the port from the sources in this checkout, one nvcc
-   per source, all started together with the g++ build of the native PS
-   library from ``native/src/`` (its SIMD path and the host's cores);
+   per source, all started together on a thread while this one builds
+   the native PS library from ``native/src/`` with g++ (its SIMD path
+   and the host's cores) and then starts the services phase's two
+   clusters (their processes load that library);
    ptxas's registers and spills of every kernel entry, K2's, K3's and
    K4's shared memory per body, and
    the count of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
@@ -76,8 +78,8 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    the 300 steps and read just after: K2, K3 and K4 must each have
    launched. Before that, a flash tower and a reference tower train 3
    steps from the same weights and fresh PS rows in f32 and must agree.
-   After it, the A/B of the PS holder: the first 45 steps again on the
-   Python arena holder (``backend="arena"``) and the first 30 on the
+   After it, the A/B of the PS holder: the first 30 steps again on the
+   Python arena holder (``backend="arena"``) and the first 24 on the
    per-entry holder (``backend="python-legacy"``); each run prints
    samples/s, step p50/p99, host CPU by thread and the split synchronized
    after each stage, the arena its shard calls by path (batched, rounds,
@@ -93,7 +95,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    the loop the pipeline at rest: worker staleness 0, every permit back,
    no lost update. Before that, 10 pipelined steps (reproducible,
    staleness 1) must agree with 10 synchronous steps from the same
-   weights in f32, losses and PS rows. After it, the A/B: the first 50
+   weights in f32, losses and PS rows. After it, the A/B: the first 30
    batches pipelined on the arena holder, with the same numbers and the
    pipeline at rest; a summary line gives every training run's samples/s
    and the pipelined / synchronous ratio of each holder.
@@ -120,10 +122,10 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      steps (1-4 ids a bag, the last slot sqrt-scaled) through a cache a
      quarter above one batch's distinct signs: losses within 1e-4, every
      touched PS row after ``flush_device_cache`` within 1e-4 of the
-     largest element, evictions and write-backs both > 0; (b) 75 steps
-     through the 2,000,000-row cache with the bf16 tower (steps 10-59
-     timed between two synchronizations, 60-69 split into prepare, h2d,
-     the device step and finish, 70-74 profiled) beside the uncached
+     largest element, evictions and write-backs both > 0; (b) 60 steps
+     through the 2,000,000-row cache with the bf16 tower (steps 10-44
+     timed between two synchronizations, 45-54 split into prepare, h2d,
+     the device step and finish, 55-59 profiled) beside the uncached
      synchronous path on the same batches: samples/s and their ratio,
      host ms a step p50/p99, the cache's counters, ``wire_bytes_saved``,
      the busy share, ``torch.cuda.max_memory_allocated``, host CPU by
@@ -227,6 +229,27 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    On the NCCL rank, once the gloo ranks are done: (d) f32 and int8_ef
    DDP steps of (a)'s model, which must take NCCL's all_reduce,
    all_to_all, all_gather and broadcast.
+11. ``services`` (after ``dlrm_hybrid``), the service tier as
+   processes: two ``ServiceCtx(n_workers=1, n_ps=2)`` clusters, started
+   in setup, with global configs written by the port's YAML writer: (a)
+   seq_rec at the training phase's widths over ``make_holder(2_000_000,
+   8)``-sized PS processes, the first 10 synchronous steps bit-equal to
+   an in-process native-PS run from the same weights and batches
+   (losses, dense parameters and Adam's state, every touched PS row read
+   back through ``PsClient.get_entries``), K2, K3 and K4 once a step and
+   K1, K5 never, then 60 synchronous and 60 pipelined steps (4 lookup
+   workers, staleness 8) timed over steps 10-59 beside the in-process
+   rates of this call, with each process's CPU ms a step; (b)
+   ``dlrm_hybrid``'s DLRM over PS processes of ``make_holder(50_000_000,
+   16)``'s size: 3 f32 steps bit-equal to the in-process path on the
+   card, 40 synchronous and 40 pipelined steps of fresh signs timed over
+   steps 10-39, the busy share of 5 profiled steps, no kernel; (c)
+   ``InferenceServer(worker_addrs=)`` on (a)'s cluster: 64 serialized
+   replies bit-equal to an in-process server whose worker reads the same
+   PS processes through ``PsClient`` s, K2 and no other kernel, the
+   rows/s and p50 / p99 of 200 requests from 8 clients; (d) no child of
+   either cluster among the card's compute apps or with a
+   ``/dev/nvidia*`` file open.
    Last, one line gives every wrapper's host time a call at its
    main-path shape beside the launch floor. A ``[time]`` line follows
    each phase.
@@ -324,9 +347,9 @@ TRAIN_STEPS = 300
 TRAIN_BATCH = 256
 # the A/B runs carry no gate; their depth was cut (from 60 and 100) to pay
 # for the multi_rank phase (PERF.md section 4)
-AB_STEPS = 45  # synchronous steps on the arena PS holder (the A/B)
-LEGACY_STEPS = 30  # synchronous steps on the per-entry PS holder
-PIPE_AB_STEPS = 50  # pipelined steps on the arena PS holder
+AB_STEPS = 30  # synchronous steps on the arena PS holder (the A/B)
+LEGACY_STEPS = 24  # synchronous steps on the per-entry PS holder
+PIPE_AB_STEPS = 30  # pipelined steps on the arena PS holder
 AB_KEY = f"synchronous arena, steps 10-{AB_STEPS * 2 // 3 - 1}"
 PIPE_AB_KEY = f"pipelined arena, steps 10-{PIPE_AB_STEPS * 7 // 10 - 1}"
 # the pipelined phase: bench.py's bench_hybrid and the criteo example
@@ -361,7 +384,7 @@ DH_BATCH = 4096
 DH_LR = 0.02
 DH_PS_CAPACITY = 50_000_000
 DH_PS_SHARDS = 16
-DH_STEPS = 75  # each run: [10, 60) timed, [60, 70) split, [70, 75) profiled
+DH_STEPS = 50  # each run: [10, 35) timed, [35, 45) split, [45, 50) profiled
 DH_AGREE_STEPS = 3
 # DLRM on the card against the port on the CPU, f32 tower and wire, no
 # TF32, 3 steps: the same math in another summation order (cuBLAS against
@@ -377,7 +400,7 @@ DH_REL_TOL = 1e-4
 DC_VOCAB = 1 << 20
 DC_ZIPF_A = 1.2
 DC_CAPACITY = 2_000_000
-DC_STEPS = 75  # (b): [10, 60) timed, [60, 70) split, [70, 75) profiled
+DC_STEPS = 60  # (b): [10, 45) timed, [45, 55) split, [55, 60) profiled
 # (a) 8 single-id steps through 65,536 rows, ~1.9x the ~35,000 distinct
 # signs of one batch, so rows evict and come back from step 2 on; 3 bag
 # steps (1-4 ids a bag, the last slot sqrt-scaled) through a cache a
@@ -2068,28 +2091,29 @@ RATES = {}
 
 
 def train_ctx(torch, schema, model, global_config=None, backend=None,
-              mesh=None):
+              mesh=None, worker=None):
     """The seq_rec example's stack (Adam(1e-3), Adagrad(1e-2), rows from
     U(-0.05, 0.05), 2 fresh shards of make_holder(2_000_000, 8) of
-    ``backend``), the tower's weights as they are."""
+    ``backend``, or ``worker``), the tower's weights as they are."""
     return hybrid_ctx(torch, model, schema, [(2_000_000, 8)] * N_PS,
                       lambda p: torch.optim.Adam(p, lr=1e-3), 1e-2,
                       (-0.05, 0.05), global_config, seed=None,
-                      backend=backend, mesh=mesh)
+                      backend=backend, mesh=mesh, worker=worker)
 
 
 def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
                emb_init, global_config=None, loss_fn=None, seed=SEED,
                backend=None, spill_root=None, hotness=None,
                resume_from=None, mesh=None, grad_reduce_dtype=None,
-               device_cache_capacity=0, device_cache_admission=None):
+               device_cache_capacity=0, device_cache_admission=None,
+               worker=None):
     """A TrainCtx on the model's device over a fresh worker whose PS
     shards are ``make_holder(capacity, shards, backend=backend)`` for each
-    ``(capacity, shards)`` of ``holders``; the tower seeded unless
-    ``seed`` is None. ``spill_root`` arms each shard's spill tier in
-    ``<spill_root>/spill_<i>``, ``hotness`` its sketches; ``resume_from``
-    and the device cache's arguments go to the TrainCtx. Over a ``mesh``
-    only its leader builds the worker."""
+    ``(capacity, shards)`` of ``holders`` (or over ``worker``, a remote
+    one); the tower seeded unless ``seed`` is None. ``spill_root`` arms
+    each shard's spill tier in ``<spill_root>/spill_<i>``, ``hotness`` its
+    sketches; ``resume_from`` and the device cache's arguments go to the
+    TrainCtx. Over a ``mesh`` only its leader builds the worker."""
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
@@ -2097,8 +2121,7 @@ def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
     from persia_tpu_torch.ps.native import make_holder
     from persia_tpu_torch.worker.worker import EmbeddingWorker
 
-    worker = None
-    if mesh is None or is_leader(mesh):
+    if worker is None and (mesh is None or is_leader(mesh)):
         worker = EmbeddingWorker(schema, [
             make_holder(c, n, backend=backend, hotness=hotness,
                         spill_dir=(os.path.join(spill_root, f"spill_{i}")
@@ -2622,12 +2645,14 @@ def dh_schema(sqrt_scaled=()):
 
 def dh_ctx(torch, device: str, compute_dtype=None, global_config=None,
            state_dict=None, mesh=None, grad_reduce_dtype=None, schema=None,
-           device_cache_capacity=0, device_cache_admission=None):
+           device_cache_capacity=0, device_cache_admission=None,
+           worker=None):
     """bench_hybrid's stack: DLRM(embedding_dim=16) over 26 slots and 13
     dense features, OptaxAdagrad(0.02) dense, Adagrad(0.02) sparse at the
-    default row init, 2 shards of make_holder(50_000_000, 16); seeded
-    weights, or a copy of ``state_dict``; over ``mesh`` the leader holds
-    the PS; bench_cached's with ``device_cache_capacity``."""
+    default row init, 2 shards of make_holder(50_000_000, 16) (or
+    ``worker``, a remote one); seeded weights, or a copy of
+    ``state_dict``; over ``mesh`` the leader holds the PS; bench_cached's
+    with ``device_cache_capacity``."""
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.parallel.optim import OptaxAdagrad
 
@@ -2644,7 +2669,7 @@ def dh_ctx(torch, device: str, compute_dtype=None, global_config=None,
         seed=SEED if state_dict is None else None, mesh=mesh,
         grad_reduce_dtype=grad_reduce_dtype,
         device_cache_capacity=device_cache_capacity,
-        device_cache_admission=device_cache_admission)
+        device_cache_admission=device_cache_admission, worker=worker)
 
 
 def touched_rows(worker, signs):
@@ -2742,8 +2767,8 @@ def dlrm_hybrid_agreement(torch, card: str, batches):
 def dlrm_hybrid_phase(torch, card: str):
     """bench_hybrid's configuration on the card: the agreements, then a
     synchronous and a pipelined run (4 workers, staleness 8, buffer 8) of
-    ``DH_STEPS`` steps of fresh signs each: steps [10, 60) timed, [60,
-    70) synchronized after each stage, [70, 75) profiled."""
+    ``DH_STEPS`` steps of fresh signs each: steps [10, 35) timed, [35,
+    45) synchronized after each stage, [45, 50) profiled."""
     import numpy as np
 
     from persia_tpu_torch.ctx import STAGES
@@ -2759,7 +2784,9 @@ def dlrm_hybrid_phase(torch, card: str):
 
     what = (f"DLRM(embedding_dim={DH_DIM}) {DH_SLOTS} slots, {N_PS} x "
             f"make_holder({DH_PS_CAPACITY}, {DH_PS_SHARDS})")
-    timed, split, prof = range(10, 60), range(60, 70), range(70, DH_STEPS)
+    timed, split, prof = (range(10, DH_STEPS - 15),
+                          range(DH_STEPS - 15, DH_STEPS - 5),
+                          range(DH_STEPS - 5, DH_STEPS))
     ctx = dh_ctx(torch, "cuda")
     step_s, losses = [], []
     with ctx:
@@ -3009,7 +3036,7 @@ def dc_report(what: str, run: dict, card: str):
 
 def dlrm_cached_phase(torch, card: str) -> dict:
     """bench_cached's configuration on the card: (a) the cached path
-    against the uncached one in f32 (single-id, then bags); (b) 75 steps
+    against the uncached one in f32 (single-id, then bags); (b) 60 steps
     through the 2,000,000-row cache beside the uncached synchronous path
     on the same batches; (c) lru against hotness admission. No kernel may
     launch. Returns the kernels' launch counts over the phase."""
@@ -3040,7 +3067,9 @@ def dlrm_cached_phase(torch, card: str) -> dict:
 
     what = (f"DLRM(embedding_dim={DH_DIM}) {DH_SLOTS} slots, {N_PS} x "
             f"make_holder({DH_PS_CAPACITY}, {DH_PS_SHARDS})")
-    timed, split, prof = range(10, 60), range(60, 70), range(70, DC_STEPS)
+    timed, split, prof = (range(10, DC_STEPS - 15),
+                          range(DC_STEPS - 15, DC_STEPS - 5),
+                          range(DC_STEPS - 5, DC_STEPS))
     ref = dc_run(torch, batches, 0, timed)
     dc_report(f"(b) uncached synchronous, {what}", ref, card)
     run = dc_run(torch, batches, DC_CAPACITY, timed, split, prof)
@@ -4520,6 +4549,494 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
             **{n: [r["launches"][n] for r in c] for n in FLASH_KERNELS}}
 
 
+# --- services (the service tier as processes) --------------------------------
+
+SV_STEPS = 60  # (a): each run's steps [10, 60) timed
+SV_AGREE_STEPS = 10  # (a): bit-equal to the in-process run
+SV_TIMED_FROM = 10
+SV_DH_STEPS = 40  # (b): each run's steps [10, 40) timed
+SV_DH_PROF = 5  # (b): synchronous steps profiled after the timed ones
+SV_DH_AGREE_STEPS = 3
+SV_SERVE_EQUAL = 64  # (c): serialized requests held bit-equal
+SV_SERVE_CLIENTS = 8
+SV_SERVE_PER_CLIENT = 25  # (c): 200 requests
+SV_START_S = 300  # a cluster's start-up deadline
+
+
+class ServiceClusters:
+    """The services phase's two clusters, (a)'s seq_rec and (b)'s
+    bench_hybrid, each a ``ServiceCtx(n_workers=1, n_ps=2)`` whose global
+    config is written by the port's YAML writer. Each is entered on a
+    thread of its own, so that their processes start while the kernels
+    build; :meth:`stop` takes both down."""
+
+    def __init__(self):
+        import tempfile
+
+        from persia_tpu_torch.service.helper import ServiceCtx
+        from persia_tpu_torch.utils import dump_yaml
+
+        self._tmp = tempfile.TemporaryDirectory()
+        self.t0 = time.perf_counter()
+        self.ctxs = []
+        for name, schema, cap, shards in (
+                ("seq_rec", build_schema(), 2_000_000, 8),
+                ("dlrm_hybrid", dh_schema(), DH_PS_CAPACITY, DH_PS_SHARDS)):
+            path = os.path.join(self._tmp.name, f"{name}.yml")
+            dump_yaml({"embedding_parameter_server_config": {
+                "capacity": cap, "num_hashmap_internal_shards": shards}},
+                path)
+            self.ctxs.append(ServiceCtx(
+                schema, n_workers=1, n_ps=N_PS, global_config_path=path,
+                startup_timeout=SV_START_S, env={"LOG_LEVEL": "WARNING"}))
+        self.seq, self.dh = self.ctxs
+        self._errors = []
+        self._up = []  # seconds from the start to each cluster up
+        self._threads = [threading.Thread(target=self._enter, args=(c,),
+                                          daemon=True) for c in self.ctxs]
+        for t in self._threads:
+            t.start()
+
+    def _enter(self, ctx):
+        try:
+            ctx.__enter__()
+            self._up.append(time.perf_counter() - self.t0)
+        except BaseException as e:  # raised by wait()
+            self._errors.append(e)
+
+    def wait(self) -> float:
+        """Seconds from the start to both clusters up; raises a start-up
+        error."""
+        for t in self._threads:
+            t.join(timeout=SV_START_S)
+        if self._errors:
+            raise self._errors[0]
+        if any(t.is_alive() for t in self._threads):
+            raise TimeoutError("the service clusters did not come up")
+        return max(self._up)
+
+    def pids(self):
+        return [p.pid for c in self.ctxs for p in c.procs]
+
+    def stop(self):
+        for t in self._threads:
+            t.join(timeout=SV_START_S)
+        for c in self.ctxs:
+            c.__exit__(None, None, None)
+        self._tmp.cleanup()
+
+
+def proc_cpu_s(pid: int) -> float:
+    """CPU seconds (user + system) of process ``pid`` so far."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+class ProcCpu:
+    """CPU ms a step of the trainer (this process) and of each process of
+    a cluster, between :meth:`start` and :meth:`line`."""
+
+    def __init__(self, svc):
+        self.procs = {"trainer": os.getpid()}
+        self.procs.update({p._persia_name: p.pid for p in svc.procs
+                           if p._persia_name != "coordinator"})
+
+    def start(self):
+        self.t = {n: proc_cpu_s(pid) for n, pid in self.procs.items()}
+
+    def line(self, steps: int) -> str:
+        return " ".join(
+            f"{n}={(proc_cpu_s(pid) - self.t[n]) / steps * 1e3:.1f}"
+            for n, pid in self.procs.items())
+
+
+def sv_sync_run(torch, ctx, batches, timed_from: int, cpu: ProcCpu,
+                after=None):
+    """Synchronous steps over ``batches`` (inside ``with ctx``): the host
+    ms of each step from ``timed_from``, the CPU line over the timed
+    steps, and every step's loss. ``after(step)`` runs after each
+    step."""
+    import numpy as np
+
+    step_ms, losses = [], []
+    for step, b in enumerate(batches):
+        if step == timed_from:
+            torch.cuda.synchronize()
+            cpu.start()
+        t = time.perf_counter()
+        loss, _ = ctx.train_step(b)
+        if step >= timed_from:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+        if after is not None:
+            after(step)
+    torch.cuda.synchronize()
+    line = cpu.line(len(batches) - timed_from)
+    losses = torch.stack(losses).float().cpu().tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError("services: a synchronous loss is not finite")
+    return np.asarray(step_ms), line, losses
+
+
+def sv_pipelined_run(torch, ctx, batches, timed_from: int, cpu: ProcCpu):
+    """The same steps through ``DataLoader`` (4 lookup workers, staleness
+    8): (samples/s over the timed steps synchronized at both ends, the
+    step ms, the CPU line); the pipeline must end at rest."""
+    import numpy as np
+
+    loader = pipelined_loader(batches)
+    step_ms, losses = [], []
+    it = iter(loader)
+    for step in range(len(batches)):
+        if step == timed_from:
+            torch.cuda.synchronize()
+            cpu.start()
+            t_steady = time.perf_counter()
+        t = time.perf_counter()
+        loss, _ = ctx.train_step(next(it))
+        if step >= timed_from:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+    for _ in it:  # ends the iteration: the loader flushes the updates
+        raise AssertionError("the loader yielded more batches than steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_steady
+    line = cpu.line(len(batches) - timed_from)
+    engine = loader._engine
+    at_rest = (ctx.worker.staleness, engine.staleness_sem._value,
+               engine.backward.lost_updates)
+    engine.shutdown()
+    if at_rest != (0, PIPE_STALENESS, 0) or not bool(
+            torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError(f"services: the pipelined run is not at rest "
+                             f"or not finite: {at_rest}")
+    batch = len(batches[0].labels[0].data)
+    return batch * len(step_ms) / wall, np.asarray(step_ms), line
+
+
+def sv_rate(what: str, batch: int, step_ms, cpu: str, card: str,
+            rate=None, beside: str = "") -> float:
+    import numpy as np
+
+    rate = rate if rate is not None else batch / (step_ms.mean() / 1e3)
+    _log(f"[services] {what}: {len(step_ms)} steady steps of batch {batch}: "
+         f"samples_per_s={rate:.1f} step_p50_ms="
+         f"{np.percentile(step_ms, 50):.3f} step_p99_ms="
+         f"{np.percentile(step_ms, 99):.3f}{beside}; host CPU ms a step by "
+         f"process: {cpu} | card: {card}")
+    return rate
+
+
+def ps_clients_of(svc):
+    from types import SimpleNamespace
+
+    from persia_tpu_torch.service.ps_service import PsClient
+
+    return SimpleNamespace(ps_clients=[PsClient(a) for a in svc.ps_addrs])
+
+
+def services_seq_rec(torch, card: str, svc) -> dict:
+    """(a) seq_rec at the example's widths over the cluster: 10 steps
+    bit-equal to the in-process native-PS run from the same weights and
+    batches (losses, dense parameters with Adam's state, every touched PS
+    row), K2-K4 once a step, then the rates. Returns the launches of the
+    synchronous and the pipelined run."""
+    import numpy as np
+
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = build_schema()
+    batches = list(seqrec_batches(SV_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED + 14, spec=spec))
+    agree = batches[:SV_AGREE_STEPS]
+    # the schema has no prefix or hash stack: the PS keys are the signs
+    signs = np.unique(np.concatenate([f.signs for b in agree
+                                      for f in b.id_type_features]))
+    start = build_tower(spec.num_dense, "flash").state_dict()
+
+    ref = train_ctx(torch, schema, build_tower(spec.num_dense, "flash",
+                                               state_dict=start))
+    with ref:
+        ref_losses = [float(ref.train_step(b)[0]) for b in agree]
+    torch.cuda.synchronize()
+    ref_dense, ref_rows = dense_state(ref), touched_rows(ref.worker, signs)
+    ref.worker.close()
+    del ref
+
+    ctx = train_ctx(torch, schema, build_tower(spec.num_dense, "flash",
+                                               state_dict=start),
+                    worker=svc.remote_worker())
+    cpu = ProcCpu(svc)
+    got = {}
+
+    def snap(step):
+        if step == SV_AGREE_STEPS - 1:
+            got["dense"] = dense_state(ctx)
+            got["rows"] = touched_rows(ps_clients_of(svc), signs)
+
+    launches = {}
+    with ctx:
+        reset_launch_counts()
+        sync_ms, sync_cpu, losses = sv_sync_run(
+            torch, ctx, batches, SV_TIMED_FROM, cpu, after=snap)
+        launches["synchronous"] = kernel_launches()
+        reset_launch_counts()
+        pipe_rate, pipe_ms, pipe_cpu = sv_pipelined_run(
+            torch, ctx, batches, SV_TIMED_FROM, cpu)
+        launches["pipelined"] = kernel_launches()
+    loss_diff = sum(a != b for a, b in zip(losses, ref_losses))
+    (rf, rr), (sf, sr) = ref_rows, got["rows"]
+    dense_diff = first_difference(ref_dense, got["dense"])
+    row_diff = int((rr.view(np.uint32) != sr.view(np.uint32))
+                   .any(axis=-1).sum())
+    n_rows = len(signs)
+    sync_rate = sv_rate(
+        "(a) seq_rec synchronous over the services", TRAIN_BATCH, sync_ms,
+        sync_cpu, card, beside=(
+            f" (in process, this call: synchronous native "
+            f"{RATES.get('synchronous native', float('nan')):.1f})"))
+    sv_rate("(a) seq_rec pipelined over the services (DataLoader, "
+            f"{PIPE_WORKERS} lookup workers, staleness {PIPE_STALENESS})",
+            TRAIN_BATCH, pipe_ms, pipe_cpu, card, rate=pipe_rate, beside=(
+                f" (in process, this call: pipelined native "
+                f"{RATES.get('pipelined native', float('nan')):.1f}); "
+                f"pipelined / synchronous over the services "
+                f"{pipe_rate / sync_rate:.3f}"))
+    RATES["services synchronous"] = sync_rate
+    RATES["services pipelined"] = pipe_rate
+    _log(f"[services] (a) the first {SV_AGREE_STEPS} synchronous steps "
+         f"against the in-process native PS from the same weights: "
+         f"losses that differ {loss_diff}, dense state "
+         f"{dense_diff or 'bit-equal'}; {n_rows} touched PS rows "
+         f"through PsClient.get_entries, rows that differ in any bit: "
+         f"{row_diff} | card: {card}")
+    for run, counts in launches.items():
+        _log(f"[services] (a) {run} launches in {SV_STEPS} steps: "
+             + " ".join(f"{n}={c}" for n, c in counts.items())
+             + f" | card: {card}")
+        flash = [counts[n] for n in FLASH_KERNELS]
+        if flash != [SV_STEPS] * 3 or counts["embedding_bag"] \
+                or counts["probe_copy"]:
+            raise AssertionError(f"services (a) {run}: K2-K4 must launch "
+                                 f"once a step and K1, K5 never: {counts}")
+    if loss_diff or dense_diff or row_diff or not (
+            (rf == 1).all() and (sf == 1).all()):
+        raise AssertionError(f"services (a): the run over the services "
+                             f"differs from the in-process run: "
+                             f"{loss_diff} losses, dense {dense_diff!r}, "
+                             f"{row_diff} rows")
+    ctx.worker.close()
+    return {n: launches["synchronous"][n] + launches["pipelined"][n]
+            for n in launches["synchronous"]}
+
+
+def services_dlrm(torch, card: str, svc):
+    """(b) bench_hybrid's DLRM over the cluster: 3 f32 steps bit-equal to
+    the in-process path on the card, then synchronous and pipelined rates
+    beside the dlrm_hybrid phase's; K1-K5 never launch."""
+    import numpy as np
+
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+    from persia_tpu_torch.workloads.generator import hybrid_bench_batches
+
+    reset_launch_counts()
+    # fresh signs for every run: the agreement, the synchronous run, its
+    # profiled steps, the pipelined run
+    batches = list(hybrid_bench_batches(
+        SV_DH_AGREE_STEPS + 2 * SV_DH_STEPS + SV_DH_PROF, DH_BATCH,
+        seed=SEED + 14))
+    agree = batches[:SV_DH_AGREE_STEPS]
+    sync_runs = batches[SV_DH_AGREE_STEPS:SV_DH_AGREE_STEPS + SV_DH_STEPS]
+    prof = batches[len(agree) + SV_DH_STEPS:][:SV_DH_PROF]
+    pipe_runs = batches[-SV_DH_STEPS:]
+    signs = batch_signs(agree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wire = GlobalConfig(CommonConfig("f32"))
+    ref = dh_ctx(torch, "cuda", torch.float32, wire)
+    start = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    with ref:
+        ref_losses = [float(ref.train_step(b)[0]) for b in agree]
+    ref_dense, ref_rows = dense_state(ref), touched_rows(ref.worker, signs)
+    ref.worker.close()
+    del ref
+    ctx = dh_ctx(torch, "cuda", torch.float32, wire, state_dict=start,
+                 worker=svc.remote_worker())
+    with ctx:
+        losses = [float(ctx.train_step(b)[0]) for b in agree]
+    dense_diff = first_difference(ref_dense, dense_state(ctx))
+    (rf, rr), (sf, sr) = ref_rows, touched_rows(ps_clients_of(svc), signs)
+    row_diff = int((rr.view(np.uint32) != sr.view(np.uint32))
+                   .any(axis=-1).sum())
+    _log(f"[services] (b) dlrm_hybrid, {SV_DH_AGREE_STEPS} f32 steps of "
+         f"batch {DH_BATCH} over the services against the in-process "
+         f"path from the same weights: losses "
+         f"{'bit-equal' if losses == ref_losses else 'differ'}, dense "
+         f"state {dense_diff or 'bit-equal'}; {len(signs)} touched PS rows, "
+         f"rows that differ in any bit: {row_diff} | card: {card}")
+    if losses != ref_losses or dense_diff or row_diff or not (
+            (rf == 1).all() and (sf == 1).all()):
+        raise AssertionError("services (b): the run over the services "
+                             "differs from the in-process path")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+    cpu = ProcCpu(svc)
+    ctx = dh_ctx(torch, "cuda", worker=svc.remote_worker())
+    with ctx:
+        sync_ms, sync_cpu, _ = sv_sync_run(torch, ctx, sync_runs,
+                                           SV_TIMED_FROM, cpu)
+        window = profile_window(torch, lambda: [
+            ctx.train_step(b) for b in prof])
+    ctx = dh_ctx(torch, "cuda", worker=svc.remote_worker())
+    with ctx:
+        pipe_rate, pipe_ms, pipe_cpu = sv_pipelined_run(
+            torch, ctx, pipe_runs, SV_TIMED_FROM, cpu)
+    sync_rate = sv_rate(
+        "(b) dlrm_hybrid synchronous over the services", DH_BATCH, sync_ms,
+        sync_cpu, card, beside=(
+            f" (in process, this call: "
+            f"{RATES.get('dlrm_hybrid synchronous', float('nan')):.1f})"))
+    sv_rate("(b) dlrm_hybrid pipelined over the services", DH_BATCH,
+            pipe_ms, pipe_cpu, card, rate=pipe_rate, beside=(
+                f" (in process, this call: "
+                f"{RATES.get('dlrm_hybrid pipelined', float('nan')):.1f});"
+                f" pipelined / synchronous over the services "
+                f"{pipe_rate / sync_rate:.3f}"))
+    RATES["services dlrm_hybrid synchronous"] = sync_rate
+    RATES["services dlrm_hybrid pipelined"] = pipe_rate
+    report_window("services", f"{SV_DH_PROF} synchronous dlrm_hybrid steps "
+                  f"over the services", window, card)
+    assert_no_kernel_launched("services", card)
+
+
+def services_serving(torch, card: str, svc,
+                     in_process_rows_per_s: float) -> dict:
+    """(c) ``InferenceServer(worker_addrs=)`` on (a)'s cluster: 64
+    serialized replies bit-equal to an in-process server whose worker
+    reads the same PS processes through PsClients; K2 and no other
+    kernel; the rate of 200 requests from 8 clients. Returns the
+    launches."""
+    import numpy as np
+
+    from persia_tpu_torch.serving import InferenceClient, InferenceServer
+    from persia_tpu_torch.service.ps_service import PsClient
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = build_schema()
+    model = build_tower(spec.num_dense, "flash")
+    n_req = SV_SERVE_CLIENTS * SV_SERVE_PER_CLIENT
+    payloads = [b.to_bytes() for b in seqrec_batches(
+        n_req * REQUEST_ROWS, REQUEST_ROWS, seed=SEED + 14, spec=spec,
+        requires_grad=False)]
+    local_worker = EmbeddingWorker(schema, [PsClient(a)
+                                            for a in svc.ps_addrs])
+    remote = InferenceServer(model, schema, worker_addrs=svc.worker_addrs,
+                             device="cuda", max_batch_rows=256)
+    local = InferenceServer(model, schema, local_worker, device="cuda",
+                            max_batch_rows=256)
+    remote.serve_background()
+    client = InferenceClient(remote.addr)
+    try:
+        equal = payloads[:SV_SERVE_EQUAL]
+        wire = [client.predict_bytes(p) for p in equal]
+        mine = [local.predict_bytes(p) for p in equal]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        wall, lat, preds = drive_clients(remote.addr, payloads,
+                                         SV_SERVE_CLIENTS,
+                                         SV_SERVE_PER_CLIENT)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        stats = remote.stats()
+    finally:
+        client.close()
+        remote.stop()
+        local.stop()
+        local_worker.close()
+    differ = sum(a.tobytes() != b.tobytes() for a, b in zip(wire, mine))
+    bad = [p for p in preds.values() if p.shape != (REQUEST_ROWS, 1)
+           or not np.isfinite(p).all()]
+    rows = n_req * REQUEST_ROWS
+    _log(f"[services] (c) serving through the remote worker tier, "
+         f"{SV_SERVE_CLIENTS} InferenceClients x {SV_SERVE_PER_CLIENT} "
+         f"requests of {REQUEST_ROWS} rows, max_batch_rows=256: "
+         f"rows_per_s={rows / wall:.1f} (in-process serving phase "
+         f"{in_process_rows_per_s:.1f}, ratio "
+         f"{rows / wall / in_process_rows_per_s:.3f}) "
+         f"{lat_line(n_req, wall, lat)} "
+         f"avg_coalesce={stats['avg_coalesce']:.2f} lookup_p50_ms="
+         f"{stats['lookup_p50_ms']:.3f} forward_p50_ms="
+         f"{stats['forward_p50_ms']:.3f}; {SV_SERVE_EQUAL} serialized "
+         f"replies against the in-process server over the same PS: "
+         f"{differ} differ; launches {launches} | card: {card}")
+    flash = [launches[n] for n in FLASH_KERNELS]
+    if differ or bad or flash[0] <= 0 or any(flash[1:]) \
+            or launches["embedding_bag"] or launches["probe_copy"]:
+        raise AssertionError(f"services (c): {differ} replies differ, "
+                             f"{len(bad)} bad; launches {launches}")
+    return launches
+
+
+def services_no_cuda_context(card: str, clusters: ServiceClusters):
+    """(d) no child of either cluster holds a CUDA context: none is among
+    the card's compute apps, and none has a ``/dev/nvidia*`` file open."""
+    pids = clusters.pids()
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    apps = {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+    opened = []
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except FileNotFoundError:
+            raise AssertionError(f"services (d): child {pid} is gone")
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                opened.append((pid, target))
+    _log(f"[services] (d) {len(pids)} children {pids}: among the card's "
+         f"{len(apps)} compute apps {sorted(apps)} (this process "
+         f"{os.getpid()} {'listed' if os.getpid() in apps else 'not listed'}"
+         f"): {sorted(apps & set(pids))}; /dev/nvidia* files open in a "
+         f"child: {opened} | card: {card}")
+    if apps & set(pids) or opened:
+        raise AssertionError("services (d): a child holds a CUDA context")
+
+
+def services_phase(torch, card: str, clusters: ServiceClusters,
+                   in_process_rows_per_s: float) -> dict:
+    """The service tier as processes: (a) seq_rec, (b) dlrm_hybrid, (c)
+    serving through the remote worker tier, (d) no CUDA context in a
+    child. Returns each kernel's launches over (a) and (c)."""
+    up = clusters.wait()
+    _log(f"[services] two clusters of 1 coordinator, {N_PS} PS and 1 "
+         f"worker process each, up {up:.1f}s after their start (beside the "
+         f"kernel build): seq_rec PS {clusters.seq.ps_addrs} worker "
+         f"{clusters.seq.worker_addrs}; dlrm_hybrid PS "
+         f"{clusters.dh.ps_addrs} worker {clusters.dh.worker_addrs}")
+    launches = services_seq_rec(torch, card, clusters.seq)
+    services_dlrm(torch, card, clusters.dh)
+    served = services_serving(torch, card, clusters.seq,
+                              in_process_rows_per_s)
+    services_no_cuda_context(card, clusters)
+    for c in clusters.ctxs:
+        if c.crashed:
+            raise AssertionError(f"services: a child crashed: {c.crashed}")
+    return {n: launches[n] + served[n] for n in launches}
+
+
 class _PhaseClock:
     """Logs each phase's wall time and the run's, for the time budget."""
 
@@ -4545,7 +5062,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run it "
               f"from the root of a checkout", file=sys.stderr)
         return 2
-    procs = None
+    procs = clusters = None
     try:
         clock = _PhaseClock()
         card = card_line()
@@ -4556,13 +5073,27 @@ def main() -> int:
         sources = sorted({s.split("/")[-1][:-3] for s, _ in
                           KERNEL_INFO.values()})
         t0 = time.perf_counter()
-        # the native PS library (g++) builds beside the kernels (nvcc)
+        # the kernels (nvcc) build on a thread while this one builds the
+        # native PS library (g++) and then starts the service clusters,
+        # whose processes load that library
+        built = {}
+        kernel_build = threading.Thread(target=lambda: built.update(
+            paths=_build.build(sources)))
+        kernel_build.start()
         from persia_tpu_torch.ps import native
-        paths = _build.build(sources, extra_jobs=native.native_jobs())
-        native.load_native_lib()
-        _log(f"[setup] built {sources} and the native PS library "
-             f"{native.native_lib_path().name} in "
-             f"{time.perf_counter() - t0:.1f}s; its SIMD path "
+        try:
+            native.load_native_lib()
+            native_s = time.perf_counter() - t0
+            clusters = ServiceClusters()
+        finally:
+            kernel_build.join()
+        if "paths" not in built:
+            raise RuntimeError("the kernel build failed (its error is "
+                               "above)")
+        paths = built["paths"]
+        _log(f"[setup] built {sources} in {time.perf_counter() - t0:.1f}s "
+             f"and the native PS library {native.native_lib_path().name} "
+             f"beside them in {native_s:.1f}s; its SIMD path "
              f"{native.native_simd_path()}, os.cpu_count()={os.cpu_count()}")
         report_build(paths, sources)
         clock("setup")
@@ -4589,6 +5120,9 @@ def main() -> int:
         clock("pipelined")
         dlrm_hybrid_phase(torch, card)
         clock("dlrm_hybrid")
+        services_launches = services_phase(torch, card, clusters,
+                                           in_process_rate)
+        clock("services")
         cached_launches = dlrm_cached_phase(torch, card)
         clock("dlrm_cached")
         zoo_phase(torch, card)
@@ -4615,6 +5149,8 @@ def main() -> int:
             records[name]["launches_dlrm_cached"] = n
         for name, n in rpc_launches.items():
             records[name]["launches_serving_rpc"] = n
+        for name, n in services_launches.items():
+            records[name]["launches_services"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "
@@ -4634,6 +5170,8 @@ def main() -> int:
     finally:
         if procs is not None:
             procs.stop()
+        if clusters is not None:
+            clusters.stop()
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,12 @@ sequence-tower model, and device-mode training of DLRM:
     the card -> pooled lookups (CUDA kernel K1) -> DLRM -> backward
     (dense table gradients) -> OptaxAdagrad over tables and tower
 
+The sparse tier also runs as processes of its own
+(:mod:`persia_tpu_torch.service`): a coordinator, PS and worker services
+over the RPC wire, and ``ServiceCtx`` to start them; a ``TrainCtx`` or an
+``InferenceServer`` takes their ``RemoteEmbeddingWorker`` as it takes an
+in-process worker.
+
 A job survives a trainer restart: ``TrainCtx.snapshot`` writes the PS
 shards (resident and spilled rows), the dense state and the data cursor
 as one manifest-stamped unit, and ``TrainCtx(resume_from=)`` rolls a

@@ -577,6 +577,12 @@ class TrainCtx(EmbeddingCtx):
         with its reason."""
         if self._cache_engine is not None:
             return
+        if not hasattr(self.worker, "lookup_rows_with_state"):
+            # the JAX remote worker has no row reads either
+            raise NotImplementedError(
+                "device cache needs an in-process embedding worker (its "
+                "miss import and write-back read and write whole PS rows); "
+                f"{type(self.worker).__name__} has no row access")
         from persia_tpu_torch.data.batch import IDTypeFeatureWithSingleID
         from persia_tpu_torch.embedding.optim import Adagrad
         from persia_tpu_torch.parallel.cached_engine import DeviceCacheEngine

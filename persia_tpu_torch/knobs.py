@@ -4,9 +4,12 @@
 Only the knobs of the spill tier, the hotness sketches, the snapshot
 retention, the storage layer's fsync, the device cache (its admission
 policy, the hotness mapper's window and sketch, the multi-process
-negotiation) and the serving wire (the RPC block codec, fault injection,
+negotiation), the serving wire (the RPC block codec, fault injection,
 tracing, the variant split, the observability sidecar and the metrics
-push gateway), with the JAX package's names, types, defaults and parse
+push gateway) and the service tier (the coordinator's address, the PS
+replica count, the PS service's dispatch, wire codec, circuit breaker,
+frames, GC tune, row dtype and spill tier, the worker's distinct-id
+monitor), with the JAX package's names, types, defaults and parse
 conventions:
 
 - ``bool`` knobs whose default is False are enabled by ``1`` / ``true`` /
@@ -18,11 +21,12 @@ conventions:
 - ``str`` knobs are returned as they are set.
 
 :func:`get` reads ``os.environ`` at call time; an unknown name raises.
+:func:`get_raw` returns the environment string or the caller's fallback.
 """
 
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 _TRUTHY = ("1", "true", "yes")
 
@@ -35,6 +39,8 @@ class Knob:
 
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in [
+    Knob("PERSIA_COORDINATOR_ADDR", "str", "127.0.0.1:23333"),
+    Knob("PERSIA_ENABLE_MONITOR", "bool", False),
     Knob("PERSIA_FAULTS", "str", None),
     Knob("PERSIA_FAULTS_RPC", "bool", False),
     Knob("PERSIA_FAULTS_SEED", "int", None),
@@ -46,10 +52,20 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_HTTP_PORT", "int", 0),
     Knob("PERSIA_METRICS_GATEWAY_ADDR", "str", None),
     Knob("PERSIA_MULTIHOST_CACHE", "str", "off"),
+    Knob("PERSIA_NUM_PS", "int", 1),
+    Knob("PERSIA_PS_CIRCUIT_BREAKER", "bool", True),
+    Knob("PERSIA_PS_CONCURRENT_STREAMS", "int", 8),
+    Knob("PERSIA_PS_GC_TUNE", "bool", True),
+    Knob("PERSIA_PS_LEGACY_FRAMES", "bool", False),
+    Knob("PERSIA_PS_ROW_DTYPE", "str", None),
+    Knob("PERSIA_PS_SHARD_PARALLEL", "bool", True),
+    Knob("PERSIA_PS_WIRE_CODEC", "str", ""),
     Knob("PERSIA_RPC_FORCE_BLOCK", "bool", False),
     Knob("PERSIA_SNAPSHOT_KEEP", "int", 3),
     Knob("PERSIA_TIER_ADMIT", "str", "lru"),
     Knob("PERSIA_TIER_SKETCH_TOPK", "int", 0),
+    Knob("PERSIA_TIER_SPILL_BYTES", "int", 0),
+    Knob("PERSIA_TIER_SPILL_DIR", "str", None),
     Knob("PERSIA_TIER_WINDOW_FRAC", "float", 0.125),
     Knob("PERSIA_TRACING", "bool", False),
     Knob("PERSIA_VARIANT_ROUTE_FEATURE", "str", None),
@@ -82,3 +98,11 @@ def get(name: str):
     if raw is None:
         return knob.default
     return _parse(knob, raw)
+
+
+def get_raw(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The environment string of knob ``name``, or ``default`` when it is
+    unset (for argparse defaults that must tell "unset" apart)."""
+    if name not in REGISTRY:
+        raise KeyError(f"unregistered PERSIA knob {name!r}")
+    return os.environ.get(name, default)

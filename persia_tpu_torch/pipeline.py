@@ -29,7 +29,8 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Hashable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 from persia_tpu_torch.data.batch import PersiaBatch
 
@@ -65,7 +66,9 @@ class LookedUpBatch:
 
     batch: PersiaBatch
     lookup: Dict[str, Any]
-    ref_id: Optional[int]
+    # the worker's opaque ref: an in-process worker's int, a remote
+    # worker's (address, id); None for a batch that takes no gradients
+    ref_id: Optional[Hashable]
     engine: Optional["ForwardEngine"] = None
     staged: Optional[tuple] = None
 

@@ -375,10 +375,8 @@ class _MicroBatcher:
 # one process must not blend into the dead server's counters
 _SERVER_SEQ = itertools.count(1)
 
-# what the port's serving tier cannot do yet, and the ROADMAP.md item each
+# what the port's serving tier cannot do yet, and the ROADMAP.md item it
 # waits for
-_REMOTE_WORKER_WAITS = "ROADMAP.md queue A item 9 (the PS and worker " \
-    "services over rpc.py, RemoteEmbeddingWorker)"
 _DELTA_WAITS = "ROADMAP.md queue A item 6b (inc_update.py, online.py and " \
     "the versioned hot-row cache)"
 
@@ -435,14 +433,31 @@ class _ServedVariant:
                       "predicts while the embedding tier was degraded")
 
 
+def _remote_worker(worker_addrs: Optional[Sequence[str]],
+                   schema: EmbeddingSchema):
+    """A remote worker over the replicas at ``worker_addrs``."""
+    from persia_tpu_torch.service.worker_service import (
+        RemoteEmbeddingWorker,
+    )
+
+    if not worker_addrs:
+        raise ValueError("InferenceServer needs worker= (an embedding "
+                         "worker) or worker_addrs= (its replicas)")
+    worker = RemoteEmbeddingWorker(list(worker_addrs))
+    worker.schema = schema
+    return worker
+
+
 class InferenceServer:
     """Predict server over an :class:`InferCtx` on ``device`` (default
     CUDA), reachable in process and over the RPC wire.
 
     ``max_batch_rows=0`` keeps the serialized one-request-one-forward
     path; ``cache_rows=0`` sends every lookup to the worker. Either can be
-    enabled independently. ``worker`` is an in-process embedding worker;
-    dialing remote workers (``worker_addrs``) is not ported yet.
+    enabled independently. ``worker`` is an embedding worker object; without
+    one the server dials a
+    :class:`~persia_tpu_torch.service.worker_service.RemoteEmbeddingWorker`
+    over the replicas at ``worker_addrs``.
 
     The RPC server binds ``host:port`` at construction and serves after
     :meth:`serve_background` / :meth:`serve_forever`; it registers
@@ -468,11 +483,8 @@ class InferenceServer:
                  http_port: Optional[int] = None,
                  degraded_fallback: bool = True,
                  variant_name: str = "default"):
-        if worker is None or worker_addrs is not None:
-            raise NotImplementedError(
-                f"serving from remote embedding workers (worker_addrs=, "
-                f"worker=None) is not ported yet; it waits for "
-                f"{_REMOTE_WORKER_WAITS}. Pass an in-process worker.")
+        if worker is None:
+            worker = _remote_worker(worker_addrs, schema)
         # read-ahead streams only make sense when the micro-batcher exists
         # to coalesce them; a serialized server keeps one thread per
         # connection

@@ -1,8 +1,29 @@
-"""Small helpers (``persia_tpu/utils.py``)."""
+"""Small helpers (``persia_tpu/utils.py``).
+
+``load_yaml`` / ``dump_yaml`` read and write through the port's own YAML
+subset (:mod:`persia_tpu_torch._yaml`), not PyYAML.
+"""
 
 import os
+import subprocess
+import time
+from typing import Any, Optional
 
 import numpy as np
+
+from persia_tpu_torch import _yaml
+
+
+def load_yaml(path: str) -> Any:
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"yaml file not found: {path}")
+    with open(path, "r") as f:
+        return _yaml.load(f.read())
+
+
+def dump_yaml(content: Any, path: str):
+    with open(path, "w") as f:
+        f.write(_yaml.dump(content))
 
 
 def write_addr_file(addr: str, path: str) -> None:
@@ -12,6 +33,23 @@ def write_addr_file(addr: str, path: str) -> None:
     with open(tmp, "w") as f:
         f.write(addr)
     os.replace(tmp, path)
+
+
+def wait_addr_file(path: str, timeout: float = 60.0,
+                   proc: Optional[subprocess.Popen] = None) -> str:
+    """Poll for an addr-file written by :func:`write_addr_file`; if
+    ``proc`` is given, fail fast when the child exits first."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if proc is not None and proc.poll() is not None:
+            raise TimeoutError(
+                f"server exited (rc={proc.returncode}) before "
+                f"publishing {path}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no addr-file at {path} after {timeout}s")
+        time.sleep(0.05)
+    with open(path) as f:
+        return f.read().strip()
 
 
 def roc_auc(labels, preds) -> float:

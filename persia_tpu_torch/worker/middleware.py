@@ -22,6 +22,9 @@ Backward (gradient) direction, the transpose of postprocess:
   zeroed and the loss scale divided out;
 - **gather** them per (shard, dim) group for the PS update calls.
 
+:class:`GradErrorFeedback` keeps the int8 gradient wire's residuals for
+the PS client.
+
 Every sum accumulates with ``np.add.at``, which adds strictly in element
 order: that order is what makes the results bit-identical to the JAX
 package (and to the C++ kernels), which the parity tests rely on.
@@ -33,7 +36,10 @@ them (last-k pooling has no kernel and stays on numpy); the numpy path
 beside each is their twin, reached by patching ``_mw_native``.
 """
 
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
+from itertools import repeat
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +50,93 @@ from persia_tpu_torch.hashing import farmhash64_np, sign_to_shard
 from persia_tpu_torch.worker import mw_native
 
 _U64 = np.uint64
+
+
+class GradErrorFeedback:
+    """Client-held fp32 residuals for the int8 gradient wire.
+
+    When the update wire ships int8-quantized gradients
+    (:mod:`persia_tpu_torch.wire_codec`), the per-shipment rounding
+    error must not be lost — error-feedback SGD re-injects each sign's residual
+    into that sign's NEXT shipped gradient, so the quantization bias
+    cancels across steps and convergence tracks the fp32 trajectory
+    (the same discipline as the dense allreduce's ``_ef_int8_mean``).
+    The store is one bounded insertion-ordered map per dim, keyed by
+    sign; overflowing it silently drops the oldest residuals, which
+    degrades those signs to plain deterministic rounding — safe, just
+    slightly noisier.
+
+    Duplicate signs inside one shipment (the same sign reached via two
+    features of one shard group): :meth:`apply` compensates only the
+    FIRST occurrence (adding the residual to both would double-inject
+    it) and :meth:`store` keeps the LAST occurrence's residual (the
+    final quantization the server saw). Thread-safe — the worker's
+    fan-out ships groups concurrently through one client.
+    """
+
+    def __init__(self, capacity_rows: int = 1 << 20):
+        # one LRU per dim, bounded at capacity_rows EACH (schemas have a
+        # handful of distinct dims): plain-int keys hash ~2x faster than
+        # (dim, sign) tuples, and this path runs per shipped sign
+        self.capacity_rows = int(capacity_rows)
+        self._by_dim: Dict[int, "OrderedDict[int, np.ndarray]"] = {}
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return sum(len(od) for od in self._by_dim.values())
+
+    def apply(self, signs: np.ndarray, grads: np.ndarray, dim: int):
+        """Add (and consume) stored residuals into ``grads`` in place.
+        ``pop`` consumes each key, so a duplicate sign's second
+        occurrence naturally gets nothing (first-occurrence-only)."""
+        od = self._by_dim.get(dim)
+        if od is None or not len(signs):
+            return
+        # bulk numpy->int conversion + a C-level map(pop, ...) sweep:
+        # per-element int()/loop bytecode is the hot-loop killer at
+        # 100k signs/cycle
+        keys = signs.tolist()
+        with self._lock:
+            before = len(od)
+            rows = list(map(od.pop, keys, repeat(None)))
+            popped = before - len(od)
+        # all-hit fast path (the converged steady state): detected via
+        # the pop count — `None in rows` would route through ndarray
+        # __eq__ and cannot be used
+        if popped == len(rows):
+            grads += np.stack(rows)
+            return
+        if not popped:
+            return
+        idx = [i for i, r in enumerate(rows) if r is not None]
+        # indices are unique — pop consumed each key once
+        grads[np.asarray(idx)] += np.stack([rows[i] for i in idx])
+
+    def store(self, signs: np.ndarray, residual: np.ndarray, dim: int):
+        """Save this shipment's quantization residuals for the signs'
+        next shipment (last occurrence of a duplicate wins)."""
+        keys = signs.tolist()
+        # per-row COPIES, not views of the shipment matrix: under
+        # skewed traffic a few tail rows linger in the LRU long after
+        # their shipment's hot rows were refreshed, and a single
+        # surviving view would pin the whole (n, dim) matrix — an
+        # unbounded amplification of the nominal store size. The copy
+        # loop costs ~0.5us/row, noise against the quantize pass.
+        rows = [r.copy()
+                for r in np.ascontiguousarray(residual, np.float32)]
+        with self._lock:
+            od = self._by_dim.get(dim)
+            if od is None:
+                od = self._by_dim[dim] = OrderedDict()
+            # C-level bulk upsert. Existing keys keep their position
+            # (values refresh in place): the LRU degrades to
+            # insertion-order aging, which only biases EVICTION choice
+            # once the per-dim store overflows — acceptable for a
+            # residual cache, where eviction just means plain rounding
+            # for that sign's next shipment.
+            od.update(zip(keys, rows))
+            while len(od) > self.capacity_rows:
+                od.popitem(last=False)
 
 
 def _mw_native():

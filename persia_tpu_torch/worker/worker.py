@@ -37,10 +37,29 @@ every PS shard through :func:`persia_tpu_torch.checkpoint.dump_sharded`;
 ``load`` loads (and reshards) a dump onto the shards. Both route by the
 uniform table, ``farmhash64(sign) % replica_size``.
 
-Live routing tables, resharding, retries across replicas, tracing spans
-and registry gauges belong to later slices of the port.
+Remote parameter servers (:class:`~persia_tpu_torch.service.ps_service.PsClient`,
+anything with an ``addr``): the fan-out pool exists whenever there is
+more than one shard, and on the streaming plane a shard's groups
+multiplex on one connection (``lookup_future``, at most
+:attr:`EmbeddingWorker.MUX_WINDOW` in flight) once it has
+:attr:`EmbeddingWorker.MUX_MIN_GROUPS` of them. A fan-out that fails on
+the connection runs once more after recovery (when something can
+recover: a resolver, or replicas that report readiness; an in-process
+holder's error reaches the caller, whose pipeline retries by
+``ref_id``): with a ``ps_resolver``
+the PS list is resolved anew (a replica restarted on another address),
+else the replicas that report not ready (restarted on the same address)
+are re-armed with the remembered configuration and optimizer; a
+healthy replica is never re-armed, which would reset its optimizer
+state. An application error from a replica that is not ready re-arms it
+the same way. The retried update still ships only the groups that had
+not landed, to whichever client now serves their shard.
+
+Live routing tables and resharding, tracing spans and registry gauges
+belong to later slices of the port.
 """
 
+import logging
 import os
 import threading
 import time
@@ -59,6 +78,8 @@ from persia_tpu_torch.pipeline import flush_backward_engines
 from persia_tpu_torch.routing import RoutingTable
 from persia_tpu_torch.worker import middleware as mw
 
+_logger = logging.getLogger(__name__)
+
 
 def _wait_all(futures):
     """Wait for every future, then raise the first one's error: no PS call
@@ -70,7 +91,7 @@ def _wait_all(futures):
 
 
 class ForwardBufferFull(RuntimeError):
-    """The forward buffer holds ``FORWARD_BUFFER_SIZE`` batches already."""
+    """The forward buffer holds ``forward_buffer_size`` batches already."""
 
 
 class EmbeddingWorker:
@@ -78,25 +99,46 @@ class EmbeddingWorker:
     (``configure``, ``register_optimizer``, ``lookup``,
     ``update_gradients``, ``set_entries``); shard r owns the signs with
     ``farmhash64(sign) % len(ps_clients) == r``. ``streaming`` picks the
-    data plane (module docstring). Call :meth:`close` when done."""
+    data plane (module docstring); ``ps_resolver`` returns a fresh client
+    list after a connection failure; ``forward_buffer_size`` bounds the
+    forward buffer. Call :meth:`close` when done."""
 
     FORWARD_BUFFER_SIZE = 1000
+    # multiplex a remote shard's group lookups on one connection only
+    # from this many groups; below it a fan-out task a group is cheaper
+    MUX_MIN_GROUPS = 3
+    # lookups in flight on a multiplexed connection
+    MUX_WINDOW = 2
 
     def __init__(self, schema: EmbeddingSchema, ps_clients: Sequence,
                  buffered_data_expired_sec: float = 1800,
-                 streaming: bool = True):
+                 streaming: bool = True, ps_resolver=None,
+                 forward_buffer_size: Optional[int] = None):
         self.schema = schema
         self.ps_clients = list(ps_clients)
         self.replica_size = len(self.ps_clients)
         if self.replica_size == 0:
             raise ValueError("EmbeddingWorker needs at least one PS client")
         self.buffered_data_expired_sec = buffered_data_expired_sec
+        self.forward_buffer_size = (forward_buffer_size
+                                    or self.FORWARD_BUFFER_SIZE)
         self.streaming = bool(streaming)
-        # in-process holders on one core gain nothing from threads
+        self._ps_resolver = ps_resolver
+        self._ps_lock = threading.Lock()
+        # one recovery pass at a time: two threads failing together must
+        # not both re-arm a restarted PS (the second registration would
+        # wipe the state the first retry built on)
+        self._rearm_lock = threading.Lock()
+        self._last_configure: Optional[tuple] = None
+        self._last_optimizer: Optional[dict] = None
+        # remote replicas always gain from concurrent calls; in-process
+        # holders on one core gain nothing from threads
+        remote = any(hasattr(c, "addr") for c in self.ps_clients)
         self._fanout: Optional[ThreadPoolExecutor] = (
             ThreadPoolExecutor(max_workers=min(2 * self.replica_size, 32),
                                thread_name_prefix="ps-fanout")
-            if self.replica_size > 1 and (os.cpu_count() or 1) > 1
+            if self.replica_size > 1
+            and (remote or (os.cpu_count() or 1) > 1)
             else None)
         self._lock = threading.Lock()
         self._next_ref_id = 0
@@ -128,11 +170,15 @@ class EmbeddingWorker:
                                     admit_probability: float,
                                     weight_bound: float,
                                     enable_weight_bound: bool = True):
+        # remembered, so a restarted PS can be re-armed
+        self._last_configure = (init_method, init_params, admit_probability,
+                                weight_bound, enable_weight_bound)
         for c in self.ps_clients:
             c.configure(init_method, init_params, admit_probability,
                         weight_bound, enable_weight_bound)
 
     def register_optimizer(self, config: dict):
+        self._last_optimizer = config
         for c in self.ps_clients:
             c.register_optimizer(
                 config,
@@ -144,9 +190,9 @@ class EmbeddingWorker:
         """Ingest a batch before its lookup; returns its ref_id."""
         self._expire_stale()
         with self._lock:
-            if len(self._forward_id_buffer) >= self.FORWARD_BUFFER_SIZE:
+            if len(self._forward_id_buffer) >= self.forward_buffer_size:
                 raise ForwardBufferFull(
-                    f"forward buffer full ({self.FORWARD_BUFFER_SIZE})")
+                    f"forward buffer full ({self.forward_buffer_size})")
             ref_id = self._next_ref_id
             self._next_ref_id += 1
         feats = mw.preprocess_batch(id_type_features, self.schema)
@@ -229,18 +275,57 @@ class EmbeddingWorker:
         def lookup_and_scatter(g):
             mw.scatter_group(mats, g, ps_lookup(g))
 
-        if self.streaming:
+        def lookup_shard_mux(gs):
+            # one remote shard's groups in flight together on this
+            # thread's connection, each scattered as it resolves
+            client = self.ps_clients[gs[0].shard]
+
+            # a future fails at once on a dead pooled connection, where
+            # the blocking call redials
+            def issue(g):
+                try:
+                    return client.lookup_future(g.signs, g.dim, training)
+                except (ConnectionError, OSError):
+                    return partial(client.lookup, g.signs, g.dim, training)
+
+            def settle(g, resolve):
+                try:
+                    return resolve()
+                except (ConnectionError, OSError):
+                    return client.lookup(g.signs, g.dim, training)
+
+            pending = []
+            for g in gs:
+                if len(pending) >= self.MUX_WINDOW:
+                    pg, resolve = pending.pop(0)
+                    mw.scatter_group(mats, pg, settle(pg, resolve))
+                pending.append((g, issue(g)))
+            for g, resolve in pending:
+                mw.scatter_group(mats, g, settle(g, resolve))
+
+        def do_lookup():
+            if not self.streaming:
+                results = self._fan_out([partial(ps_lookup, g)
+                                         for g in groups])
+                for g, res in zip(groups, results):
+                    mw.scatter_group(mats, g, res)
+                return
             # each result scatters as its call completes; groups
-            # partition the distinct signs, so the scatters are disjoint.
-            # (The JAX worker multiplexes a shard's groups on one
-            # connection through lookup_future, which only remote
-            # clients have: that waits for the service tier, ROADMAP.md
-            # queue A item 9.)
-            self._fan_out([partial(lookup_and_scatter, g) for g in groups])
-        else:
-            results = self._fan_out([partial(ps_lookup, g) for g in groups])
-            for g, res in zip(groups, results):
-                mw.scatter_group(mats, g, res)
+            # partition the distinct signs, so the scatters are disjoint
+            by_shard: Dict[int, List[mw.ShardGroup]] = {}
+            for g in groups:
+                by_shard.setdefault(g.shard, []).append(g)
+            calls = []
+            for gs in by_shard.values():
+                if (len(gs) >= self.MUX_MIN_GROUPS and hasattr(
+                        self.ps_clients[gs[0].shard], "lookup_future")):
+                    calls.append(partial(lookup_shard_mux, gs))
+                else:
+                    calls.extend(partial(lookup_and_scatter, g) for g in gs)
+            self._fan_out(calls)
+
+        # a retry scatters every group again into the same matrices
+        self._with_ps_retry(do_lookup)
         out = {feat.name: mw.postprocess_feature(
             feat, self.schema.get_slot(feat.name), mat)
             for feat, mat in zip(feats, mats)}
@@ -275,6 +360,12 @@ class EmbeddingWorker:
         missing = [f.name for f in feats if f.name not in grads]
         if missing:
             raise KeyError(f"missing gradients for features {missing}")
+        # a retry after recovery ships only the groups still not landed,
+        # through the clients serving their shards then
+        self._with_ps_retry(lambda: self._ship_pending(
+            feats, groups, landed, grads, loss_scale))
+
+    def _ship_pending(self, feats, groups, landed, grads, loss_scale):
         todo = [i for i in range(len(groups)) if i not in landed]
 
         def ship(i, group_grads):
@@ -344,12 +435,100 @@ class EmbeddingWorker:
 
     def _per_shard(self, signs: np.ndarray, call):
         """``call(shard, sel)`` for each shard owning some of ``signs``
-        (``sel`` their indices), fanned out. Returns (the selections, the
-        results)."""
+        (``sel`` their indices), fanned out, once more after a recovery.
+        Returns (the selections, the results)."""
         shards = sign_to_shard(signs, self.replica_size)
         sels = [np.nonzero(shards == r)[0] for r in np.unique(shards)]
-        return sels, self._fan_out([partial(call, int(shards[sel[0]]), sel)
-                                    for sel in sels])
+        return sels, self._with_ps_retry(lambda: self._fan_out(
+            [partial(call, int(shards[sel[0]]), sel) for sel in sels]))
+
+    # --- recovery from PS failures ----------------------------------------
+
+    def _with_ps_retry(self, fn):
+        """Run a PS fan-out; after a failure, recover and run it once
+        more:
+
+        - a connection failure (the client's retries spent): resolve the
+          PS list anew with the ``ps_resolver`` (a restart on another
+          address), else re-arm the replicas that report not ready (a
+          restart on the same address);
+        - an application error: a restarted PS answers but lost its
+          configuration; re-arm the replicas that report not ready, or
+          raise the error when none does.
+
+        Without a resolver and with no replica that reports readiness
+        (in-process holders) nothing can recover, and the error reaches
+        the caller at once: the pipeline retries by ``ref_id``.
+        """
+        from persia_tpu_torch.rpc import RpcError
+
+        if self._ps_resolver is None and not any(
+                hasattr(c, "ready_for_serving") for c in self.ps_clients):
+            return fn()
+        try:
+            return fn()
+        except (ConnectionError, OSError):
+            if self._ps_resolver is not None:
+                self._refresh_ps_clients()
+            else:
+                self._rearm_unready_clients()
+            return fn()
+        except RpcError:
+            if not self._rearm_unready_clients():
+                raise
+            return fn()
+
+    def _rearm_unready_clients(self) -> bool:
+        """Push the remembered configuration and optimizer to the
+        replicas that report not ready. A ready replica is left alone:
+        registering an optimizer again replaces its state. Returns
+        whether any replica was re-armed."""
+        with self._rearm_lock:
+            rearmed = False
+            for c in list(self.ps_clients):
+                ready_fn = getattr(c, "ready_for_serving", None)
+                if ready_fn is None:
+                    continue
+                try:
+                    if ready_fn():
+                        continue
+                except (ConnectionError, OSError):
+                    continue  # still down: the transport retry handles it
+                try:
+                    if self._last_configure is not None:
+                        c.configure(*self._last_configure)
+                    if self._last_optimizer is not None:
+                        c.register_optimizer(
+                            self._last_optimizer,
+                            feature_index_prefix_bit=(
+                                self.schema.feature_index_prefix_bit))
+                    rearmed = True
+                    _logger.warning("re-armed restarted PS %s",
+                                    getattr(c, "addr", c))
+                except Exception as e:  # noqa: BLE001 — the retry decides
+                    _logger.warning("re-arm of %s failed: %s",
+                                    getattr(c, "addr", c), e)
+            return rearmed
+
+    def _refresh_ps_clients(self):
+        """Take the resolver's client list (of the same length: the shard
+        split stays), close the replaced clients' connections, and re-arm
+        the replicas that report not ready."""
+        new_clients = list(self._ps_resolver())
+        if len(new_clients) != self.replica_size:
+            raise RuntimeError(
+                f"PS re-resolution returned {len(new_clients)} replicas, "
+                f"expected {self.replica_size} (shard routing would "
+                f"change)")
+        with self._ps_lock:
+            old_clients, self.ps_clients = self.ps_clients, new_clients
+        for c in old_clients:
+            close = getattr(getattr(c, "client", None), "close", None)
+            if close is not None and all(c is not n for n in new_clients):
+                close()
+        _logger.warning("refreshed the PS client list after a connection "
+                        "failure")
+        self._rearm_unready_clients()
 
     def lookup_rows_with_state(self, signs: np.ndarray, dim: int,
                                default_state: float = 0.0

@@ -206,7 +206,11 @@ def test_port_imports_no_jax():
     module may load, and no file under ``native/build/`` or
     ``persia_tpu/native_bin/`` may be mapped or open. The serving wire
     speaks MessagePack through the port's own codec: ``msgpack`` must not
-    load either."""
+    load either, nor ``yaml`` (the port reads its own YAML subset). The
+    children a ``ServiceCtx`` starts, ``python -m
+    persia_tpu_torch.service.ps_service`` and ``worker_service``, run up
+    to their registration (refused: no coordinator listens) and load
+    none of these either."""
     code = (
         "import importlib, os, pkgutil, sys\n"
         "import persia_tpu_torch\n"
@@ -274,10 +278,17 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch._msgpack', 'persia_tpu_torch.rpc', "
         "'persia_tpu_torch.faults', 'persia_tpu_torch.tracing', "
         "'persia_tpu_torch.metrics', 'persia_tpu_torch.variants', "
-        "'persia_tpu_torch.obs_http', 'persia_tpu_torch.serving') "
+        "'persia_tpu_torch.obs_http', 'persia_tpu_torch.serving', "
+        "'persia_tpu_torch._yaml', 'persia_tpu_torch.wire_codec', "
+        "'persia_tpu_torch.service.coordinator', "
+        "'persia_tpu_torch.service.serialization', "
+        "'persia_tpu_torch.service.ps_service', "
+        "'persia_tpu_torch.service.worker_service', "
+        "'persia_tpu_torch.service.helper') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'msgpack' not in sys.modules\n"
+        "assert 'yaml' not in sys.modules\n"
         "print(len([n for n in sys.modules "
         "if n.startswith('persia_tpu_torch.')]))\n"
         "assert not bad, bad\n")
@@ -285,6 +296,50 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+    _check_service_children()
+
+
+def _check_service_children():
+    import socket
+    import tempfile
+
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.service.helper import _schema_to_yaml_dict
+    from persia_tpu_torch.utils import dump_yaml
+
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as s:
+        schema_path = os.path.join(tmp, "schema.yml")
+        dump_yaml(_schema_to_yaml_dict(EmbeddingSchema(
+            slots_config=uniform_slots(["a", "b"], dim=8))), schema_path)
+        s.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{s.getsockname()[1]}"  # bound, never listening
+        runs = {
+            "ps_service": ["--http-port", "-1", "--coordinator", dead],
+            "worker_service": ["--http-port", "-1", "--coordinator", dead,
+                               "--ps-addrs", dead, "--embedding-config",
+                               schema_path],
+        }
+        for role, argv in runs.items():
+            code = (
+                "import runpy, sys\n"
+                f"sys.argv = ['x'] + {argv!r}\n"
+                "try:\n"
+                f"    runpy.run_module('persia_tpu_torch.service.{role}', "
+                "run_name='__main__')\n"
+                "except ConnectionError:\n"
+                "    print('registration refused')\n"
+                "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+                "('jax', 'jaxlib', 'flax', 'optax', 'persia_tpu', "
+                "'msgpack', 'yaml'))\n"
+                "assert not bad, bad\n"
+                "assert 'persia_tpu_torch.ps.native' in sys.modules\n"
+                "print('clean')\n")
+            out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                                 capture_output=True, text=True, timeout=120,
+                                 env={**os.environ, "PYTHONPATH": str(REPO)})
+            assert out.returncode == 0, (role, out.stderr[-2000:])
+            assert out.stdout.split() == ["registration", "refused",
+                                          "clean"], out.stdout
 
 
 # --- knobs, storage, HyperLogLog, routing table, hotness sketches -----------

@@ -784,10 +784,18 @@ def test_obs_http_variants_endpoint(world):
 
 
 def test_unported_paths_raise_naming_their_item(world, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        InferenceServer(world["model"], world["schema"],
-                        worker_addrs=["127.0.0.1:1"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    from persia_tpu_torch.service.worker_service import (
+        RemoteEmbeddingWorker,
+    )
+
+    # remote workers are served since the service tier came over; a
+    # server with no way to find them says so
+    remote = InferenceServer(world["model"], world["schema"],
+                             worker_addrs=["127.0.0.1:1"], device="cpu")
+    assert isinstance(remote.worker, RemoteEmbeddingWorker)
+    assert remote.worker.addrs == ["127.0.0.1:1"]
+    remote.stop()
+    with pytest.raises(ValueError, match="worker_addrs="):
         InferenceServer(world["model"], world["schema"], None, device="cpu")
     server = InferenceServer(world["model"], world["schema"],
                              world["worker"], device="cpu", cache_rows=10)
