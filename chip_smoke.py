@@ -250,6 +250,32 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    rows/s and p50 / p99 of 200 requests from 8 clients; (d) no child of
    either cluster among the card's compute apps or with a
    ``/dev/nvidia*`` file open.
+12. ``supervision`` (right after setup, so that its clusters are down
+   before anything is timed), the supervised job
+   (``service/trainer_service.py``, ``ServiceCtx``'s supervisors,
+   ``fleet.FlightRecorder``): eight ``ServiceCtx(n_workers=1, n_ps=2)``
+   clusters started in setup beside the kernel build, at ``bench.py``'s
+   chaos cells' sizes (dim 8, 2 slots, pool 2048, batch 64, 20 steps,
+   a snapshot every 4, 0.15 s between steps), the parts run concurrently:
+   (a) a supervised trainer on the card (``--device cuda``) SIGKILLed at
+   ``mid_step``, ``mid_snapshot`` and ``between_snapshots``: exit 0, one
+   recovery for the one kill, a postmortem bundle with a span chain, the
+   resume from ``snap_000000`` (behind the torn ``snap_000001`` for
+   ``mid_snapshot``), the counting identity exact for every sign, at most
+   ``PERSIA_SNAPSHOT_KEEP`` complete snapshots; (b) a torn manifest and
+   the fallback to ``snap_000000``, its exact cut restored; (c) a
+   supervised worker killed under a driving loop: no confirmed update
+   lost, the loss within the declared ambiguity, over-application within
+   the failed cycles, a bundle with the worker's health doc; (d) a
+   supervised PS killed after a checkpoint: ``Idle`` at a new address,
+   its rows the checkpoint's; (e) a group of two trainers (gloo ranks
+   sharing the card) and a group of one (NCCL) with the int8-EF dense
+   rider on the card every 2 local steps: the shards' union is the
+   stream (labeled shipments, the identity over the group), every rider
+   loss finite, the ranks' parameters bit-equal after every round, the
+   group of one's rounds within 0.08 of its CPU run. The detection,
+   respawn and resumed first-step times of each kill are printed; no
+   kernel may launch.
    Last, one line gives every wrapper's host time a call at its
    main-path shape beside the launch floor. A ``[time]`` line follows
    each phase.
@@ -5037,6 +5063,619 @@ def services_phase(torch, card: str, clusters: ServiceClusters,
     return {n: launches[n] + served[n] for n in launches}
 
 
+# --- supervision: the supervised job -----------------------------------------
+# bench.py's chaos cells' sizes (bench.py:1868-1971)
+SU_DIM = 8
+SU_FEATS = 2
+SU_SEED = 3
+SU_POOL = 2048
+SU_WORKER_POOL = 4096  # (c): _chaos_job_worker_cell's pool
+SU_BATCH = 64
+SU_STEPS = 20
+SU_INTERVAL = 4
+SU_STEP_DELAY = 0.15  # lets the flight polls (every 0.3 s) land first
+SU_KINDS = ("mid_step", "mid_snapshot", "between_snapshots")
+SU_SYNC_EVERY = 2  # (e): the rider every 2 local steps
+# (e): the group-of-one rider on the card against its CPU run, the tests'
+# rule (tests/test_torch_trainer_group.py): every round's loss within
+# rtol = atol = 0.08, the int8-EF gate of
+# tests/test_models_parallel.py:235-255; the tower computes in bf16, where
+# a GEMM's rounding moves a value by a bf16 ulp (2**-8 relative) and the
+# int8 codes and error feedback carry it on
+SU_RIDER_TOL = 0.08
+SU_DONE_S = 240  # a supervised run's deadline
+SU_WAIT_S = 60  # a recovery's deadline
+
+
+def su_schema():
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+
+    return EmbeddingSchema(slots_config=uniform_slots(
+        [f"slot_{i}" for i in range(SU_FEATS)], dim=SU_DIM))
+
+
+def su_trainer_args(result_file: str, *extra) -> list:
+    return ["--num-workers", "1", "--steps", str(SU_STEPS),
+            "--batch-size", str(SU_BATCH), "--n-feats", str(SU_FEATS),
+            "--seed", str(SU_SEED), "--pool-size", str(SU_POOL),
+            "--result-file", result_file, "--device", "cuda", *extra]
+
+
+class SupervisionClusters:
+    """The supervision phase's eight ``ServiceCtx(n_workers=1, n_ps=2)``
+    clusters, each entered on a thread of its own while the kernels
+    build: (a) one a die point, its trainer supervised on the card; (b)
+    an unsupervised one; (c) supervised workers; (d) a supervised PS;
+    (e) a group of two trainers and a group of one, with the rider on the
+    card. The trainers of (a) and (e) start once their tier is up and run
+    to their end on their own; :meth:`stop` takes every cluster down."""
+
+    def __init__(self):
+        import tempfile
+
+        from persia_tpu_torch.service.helper import ServiceCtx
+        from persia_tpu_torch.utils import dump_yaml
+
+        self._tmp = tempfile.TemporaryDirectory()
+        self.dir = self._tmp.name
+        gc = os.path.join(self.dir, "global.yml")
+        dump_yaml({"embedding_parameter_server_config": {
+            "capacity": 100_000, "num_hashmap_internal_shards": 4}}, gc)
+        quiet = {"LOG_LEVEL": "WARNING"}
+        traced = {"PERSIA_TRACING": "1", **quiet}
+        common = dict(n_workers=1, n_ps=N_PS, global_config_path=gc,
+                      startup_timeout=SV_START_S)
+        self.ctxs = {}
+        for kind in SU_KINDS:
+            die = 2 * SU_INTERVAL if kind == "mid_snapshot" \
+                else SU_INTERVAL + 2
+            self.ctxs[kind] = ServiceCtx(
+                su_schema(), supervise_trainer=True,
+                trainer_args=su_trainer_args(
+                    self.path(kind, "result.json"),
+                    "--snapshot-interval", str(SU_INTERVAL), "--die-at",
+                    kind, "--die-step", str(die), "--step-delay",
+                    str(SU_STEP_DELAY)),
+                snapshot_dir=self.path(kind, "snapshots"),
+                postmortem_dir=self.path(kind, "postmortems"),
+                flight_interval=0.3, env=traced, **common)
+        self.ctxs["torn"] = ServiceCtx(su_schema(), env=quiet, **common)
+        self.ctxs["worker"] = ServiceCtx(
+            su_schema(), supervise_workers=True,
+            postmortem_dir=self.path("worker", "postmortems"),
+            flight_interval=0.3, env=traced, **common)
+        self.ctxs["ps"] = ServiceCtx(
+            su_schema(), supervise_ps=True,
+            ps_restore_dir=self.path("ps", "ckpt"), ps_probe_interval=0.25,
+            postmortem_dir=self.path("ps", "postmortems"),
+            flight_interval=0.3, env=traced, **common)
+        for name, n in (("group2", 2), ("group1", 1)):
+            self.ctxs[name] = ServiceCtx(
+                su_schema(), supervise_trainer=True,
+                trainer_args=su_trainer_args(
+                    self.path(name, "result.json"), "--mesh",
+                    "--dense-sync-every", str(SU_SYNC_EVERY)),
+                n_trainers=n, trainer_max_restarts=0, http_all=True,
+                env=quiet, **common)
+        self.t0 = time.monotonic()
+        self.up = {}  # name -> time.monotonic() once entered
+        self._errors = []
+        self._threads = [threading.Thread(target=self._enter, args=(n, c),
+                                          daemon=True)
+                         for n, c in self.ctxs.items()]
+        for t in self._threads:
+            t.start()
+
+    def path(self, *parts) -> str:
+        return os.path.join(self.dir, *parts)
+
+    def _enter(self, name, ctx):
+        try:
+            ctx.__enter__()
+            self.up[name] = time.monotonic()
+        except BaseException as e:  # raised by wait()
+            self._errors.append(e)
+
+    def wait(self) -> float:
+        """Seconds from the start to every cluster up; raises a start-up
+        error."""
+        for t in self._threads:
+            t.join(timeout=SV_START_S)
+        if self._errors:
+            raise self._errors[0]
+        if any(t.is_alive() for t in self._threads):
+            raise TimeoutError("the supervision clusters did not come up")
+        return max(self.up.values()) - self.t0
+
+    def stop(self):
+        for t in self._threads:
+            t.join(timeout=SV_START_S)
+        for c in self.ctxs.values():
+            c.__exit__(None, None, None)
+        self._tmp.cleanup()
+
+
+def su_expected(pool, seed: int, steps: int):
+    import numpy as np
+
+    from persia_tpu_torch.service.trainer_service import batch_draws
+
+    expected = np.zeros(len(pool), np.int64)
+    for k in range(steps):
+        draws = batch_draws(pool, seed, k, SU_BATCH, SU_FEATS)
+        np.add.at(expected, np.searchsorted(pool, np.concatenate(draws)), 1)
+    return expected
+
+
+def su_identity(tag: str, worker, pool, expected):
+    """The counting identity, exact for every sign."""
+    import numpy as np
+
+    got = -worker.lookup_signs(pool, SU_DIM).sum(axis=1) / SU_DIM
+    bad = np.nonzero(got != expected)[0]
+    if len(bad):
+        raise AssertionError(
+            f"supervision {tag}: counting identity broken on {len(bad)} "
+            f"signs (expected {int(expected.sum())} updates, applied "
+            f"{got.sum():.1f})")
+    return int(expected.sum())
+
+
+def su_validate_postmortem(tag: str, bundle, health_key: str) -> int:
+    """``bench.py``'s ``_validate_postmortem``: a parent -> child span
+    chain with no orphan parent, the health doc with ``health_key``, a
+    parseable exposition. Returns the spans."""
+    from persia_tpu_torch.metrics import parse_exposition
+
+    if not bundle or not os.path.isdir(bundle):
+        raise AssertionError(f"supervision {tag}: no postmortem bundle")
+    with open(os.path.join(bundle, "trace.json")) as f:
+        xs = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    ids = {e["args"]["span_id"] for e in xs}
+    children = [e for e in xs if e["args"].get("parent_id")]
+    if not xs or not children or any(
+            e["args"]["parent_id"] not in ids for e in children):
+        raise AssertionError(f"supervision {tag}: the bundle's trace has "
+                             f"no intact parent -> child chain "
+                             f"({len(xs)} spans)")
+    with open(os.path.join(bundle, "health.json")) as f:
+        if health_key not in json.load(f):
+            raise AssertionError(f"supervision {tag}: health doc without "
+                                 f"{health_key!r}")
+    with open(os.path.join(bundle, "metrics.prom")) as f:
+        if not parse_exposition(f.read())[0]:
+            raise AssertionError(f"supervision {tag}: empty exposition")
+    return len(xs)
+
+
+def su_trainer_kill(kind: str, clusters: SupervisionClusters) -> str:
+    """(a) one die point: exit 0, one recovery, a bundle with spans, the
+    resume (``snap_000000`` behind the torn ``snap_000001`` for
+    ``mid_snapshot``), the identity, the retention."""
+    from persia_tpu_torch import knobs
+    from persia_tpu_torch import snapshot as snap_mod
+    from persia_tpu_torch.service.trainer_service import sign_pool
+
+    svc = clusters.ctxs[kind]
+    rc = svc.wait_trainer_done(timeout=SU_DONE_S)
+    events = list(svc.trainer_recoveries)
+    if rc != 0 or len(events) != 1:
+        raise AssertionError(f"supervision (a) {kind}: rc={rc}, "
+                             f"{len(events)} recoveries for one kill: "
+                             f"{events}")
+    ev = events[0]
+    spans = su_validate_postmortem(f"(a) {kind}", ev.get("postmortem"),
+                                   "model_manager_status")
+    with open(clusters.path(kind, "result.json")) as f:
+        result = json.load(f)
+    if result["steps"] != SU_STEPS or result["resumed_from"] != \
+            "snap_000000" or not result["device"].startswith("cuda"):
+        raise AssertionError(f"supervision (a) {kind}: {result}")
+    pool = sign_pool(SU_POOL)
+    acked = su_identity(f"(a) {kind}", svc.remote_worker(), pool,
+                        su_expected(pool, SU_SEED, SU_STEPS))
+    snap_dir = clusters.path(kind, "snapshots")
+    complete = []
+    for p in snap_mod.list_snapshots(snap_dir):
+        try:
+            snap_mod.load_manifest(p)
+            complete.append(p)
+        except snap_mod.SnapshotError:
+            pass
+    if not 1 <= len(complete) <= knobs.get("PERSIA_SNAPSHOT_KEEP"):
+        raise AssertionError(f"supervision (a) {kind}: retention broken, "
+                             f"{len(complete)} complete snapshots")
+    die = [n for n in os.listdir(snap_dir) if n.startswith(".die_")]
+    with open(os.path.join(snap_dir, die[0])) as f:
+        t_kill = float(f.read())
+    detect_ms = (ev["t_detected"] - t_kill) * 1e3
+    respawn_ms = (ev["t_respawned"] - ev["t_detected"]) * 1e3
+    first_s = result["t_first_step"] - ev["t_respawned"]
+    main_s = result["t_main"] - ev["t_respawned"]
+    context_s = result["t_device"] - result["t_main"]
+    return (f"(a) {kind}: exit 0 after 1 recovery, resumed from "
+            f"{result['resumed_from']}, {acked} updates exact, "
+            f"{len(complete)} complete snapshots, bundle {spans} spans; "
+            f"detected {detect_ms:.1f} ms after the kill, respawned "
+            f"{respawn_ms:.1f} ms later, the resumed trainer's first step "
+            f"{first_s:.3f} s after (its main() at {main_s:.3f} s, its CUDA "
+            f"context {context_s:.3f} s)")
+
+
+def su_torn(clusters: SupervisionClusters) -> str:
+    """(b) ``_chaos_job_torn_cell``: a torn payload and a newer
+    manifest-less directory; the fallback to ``snap_000000`` restores its
+    exact cut."""
+    import numpy as np
+
+    from persia_tpu_torch import snapshot as snap_mod
+    from persia_tpu_torch.data.batch import IDTypeFeature
+    from persia_tpu_torch.service import trainer_service as ts
+
+    seed = 11
+    pool = ts.sign_pool(SU_POOL)
+    snap_dir = clusters.path("torn", "snapshots")
+    w = clusters.ctxs["torn"].remote_worker()
+    w.configure_parameter_servers(*ts.ARM_INIT)
+    w.register_optimizer(ts.ARM_OPT)
+
+    def train(k0, k1):
+        for k in range(k0, k1):
+            feats = [IDTypeFeature(f"slot_{i}", [d]) for i, d in enumerate(
+                ts.batch_draws(pool, seed, k, SU_BATCH, SU_FEATS))]
+            ref, out = w.lookup_direct_training(feats)
+            w.update_gradients(ref, {k2: np.ones_like(v.embeddings)
+                                     for k2, v in out.items()})
+
+    train(0, 4)
+    snap1 = snap_mod.snapshot_job(snap_dir, w, cursor={
+        "seed": seed, "consumed": 4}, step=4)
+    train(4, 8)
+    snap2 = snap_mod.snapshot_job(snap_dir, w, cursor={
+        "seed": seed, "consumed": 8}, step=8)
+    victim = sorted(snap_mod.load_manifest(snap2)["files"])[0]
+    with open(os.path.join(snap2, victim), "wb") as f:
+        f.write(b"torn")
+    try:
+        snap_mod.load_manifest(snap2)
+        raise AssertionError("supervision (b): a torn snapshot verified")
+    except snap_mod.SnapshotError:
+        pass
+    os.makedirs(os.path.join(snap_dir, "snap_000099"))
+    found = snap_mod.latest_snapshot(snap_dir)
+    if found is None or found[0] != snap1:
+        raise AssertionError(f"supervision (b): fallback to "
+                             f"{found and found[0]}")
+    snap_mod.restore_job(found[0], w)
+    acked = su_identity("(b)", w, pool, su_expected(pool, seed, 4))
+    w.close()
+    return (f"(b) torn {victim} of snap_000001 refused, manifest-less "
+            f"snap_000099 skipped, fell back to "
+            f"{os.path.basename(found[0])}: {acked} updates exact")
+
+
+def su_worker_kill(clusters: SupervisionClusters) -> str:
+    """(c) ``_chaos_job_worker_cell``: a supervised worker killed under a
+    driving loop."""
+    import numpy as np
+
+    from persia_tpu_torch.data.batch import IDTypeFeature
+    from persia_tpu_torch.service import trainer_service as ts
+    from persia_tpu_torch.service.worker_service import (
+        RemoteEmbeddingWorker,
+    )
+
+    svc = clusters.ctxs["worker"]
+    pool = ts.sign_pool(SU_WORKER_POOL)
+    per = SU_FEATS * SU_BATCH
+
+    def mk_worker():
+        w = RemoteEmbeddingWorker(list(svc.worker_addrs))
+        w.configure_parameter_servers(*ts.ARM_INIT)
+        w.register_optimizer(ts.ARM_OPT)
+        return w
+
+    box = [mk_worker()]
+    lock = threading.Lock()
+    stop = threading.Event()
+    expected = np.zeros(len(pool), np.int64)
+    confirmed = np.zeros(len(pool), np.int64)
+    acked, settled = [0], [0]
+    pending, failures = [], []
+
+    def train():
+        rng = np.random.default_rng(5)
+        while not stop.is_set():
+            draws = [rng.choice(pool, size=SU_BATCH)
+                     for _ in range(SU_FEATS)]
+            feats = [IDTypeFeature(f"slot_{i}", [d])
+                     for i, d in enumerate(draws)]
+            idx = np.searchsorted(pool, np.concatenate(draws))
+            with lock:  # the cycle and its ledger; the kill takes it too
+                if stop.is_set():
+                    return
+                w = box[0]
+                try:
+                    ref, out = w.lookup_direct_training(feats)
+                    w.update_gradients(ref, {k: np.ones_like(v.embeddings)
+                                             for k, v in out.items()})
+                except Exception:  # noqa: BLE001 — a failed cycle
+                    failures.append(per)
+                    box[0] = None
+                else:
+                    acked[0] += per
+                    np.add.at(expected, idx, 1)
+                    pending.append(idx)
+                    try:
+                        if w.staleness == 0:
+                            for pidx in pending:
+                                settled[0] += per
+                                np.add.at(confirmed, pidx, 1)
+                            pending.clear()
+                    except Exception:  # noqa: BLE001 — stays pending
+                        pass
+            if box[0] is None:
+                time.sleep(0.25)
+                try:
+                    box[0] = mk_worker()
+                except Exception:  # noqa: BLE001 — retried
+                    pass
+            time.sleep(0.01)
+
+    t = threading.Thread(target=train, daemon=True)
+    t.start()
+    try:
+        time.sleep(1.2)
+        with lock:
+            acked_k, settled_k = acked[0], settled[0]
+            confirmed_k = confirmed.copy()
+            t_kill = time.monotonic()
+            svc.worker_proc(0).kill()
+        (ev,) = svc.wait_worker_recoveries(1, timeout=SU_WAIT_S)
+        if "failed" in ev:
+            raise AssertionError(f"supervision (c): {ev}")
+        acked_r = acked[0]
+        deadline = time.monotonic() + SU_WAIT_S
+        while acked[0] < acked_r + 3 * per:
+            if time.monotonic() > deadline:
+                raise AssertionError("supervision (c): no cycle landed on "
+                                     "the replacement")
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        t.join(timeout=SU_WAIT_S)
+    if t.is_alive():
+        raise AssertionError("supervision (c): the driving loop hangs")
+    w = box[0] or mk_worker()
+    deadline = time.monotonic() + SU_WAIT_S
+    while w.staleness != 0:
+        if time.monotonic() > deadline:
+            raise AssertionError("supervision (c): the replacement never "
+                                 "drained")
+        time.sleep(0.1)
+    got = -w.lookup_signs(pool, SU_DIM).sum(axis=1) / SU_DIM
+    fail = int(sum(failures))
+    declared = (acked_k - settled_k) + fail
+    lost = float(expected.sum()) - float(got.sum())
+    if np.any(confirmed_k - got > 1e-3):
+        raise AssertionError("supervision (c): an update confirmed before "
+                             "the kill was lost")
+    if lost > declared + 1e-3 or -lost > fail + 1e-3 or len(failures) > 60:
+        raise AssertionError(f"supervision (c): lost {lost:.1f} against "
+                             f"the declared {declared}, {len(failures)} "
+                             f"failed cycles ({fail} updates)")
+    spans = su_validate_postmortem("(c)", ev.get("postmortem"),
+                                   "forward_buffer_depth")
+    w.close()
+    detect_ms = (ev["t_detected"] - t_kill) * 1e3
+    respawn_ms = (ev["t_respawned"] - ev["t_detected"]) * 1e3
+    return (f"(c) worker killed under the loop: {int(expected.sum())} "
+            f"acked, {got.sum():.1f} applied, lost {lost:.1f} (declared "
+            f"ambiguity {declared}), {len(failures)} failed cycles, bundle "
+            f"{spans} spans; detected {detect_ms:.1f} ms after the kill, "
+            f"re-registered {ev['recovery_sec']:.3f} s after that (respawn "
+            f"{respawn_ms:.1f} ms)")
+
+
+def su_ps_kill(clusters: SupervisionClusters) -> str:
+    """(d) a supervised PS killed after a checkpoint: the replacement is
+    ``Idle`` at a new address with the checkpoint's rows."""
+    import numpy as np
+
+    from persia_tpu_torch.checkpoint import iter_psd_entries
+    from persia_tpu_torch.data.batch import IDTypeFeature
+    from persia_tpu_torch.service import trainer_service as ts
+    from persia_tpu_torch.service.ps_service import PsClient
+
+    svc = clusters.ctxs["ps"]
+    ckpt = clusters.path("ps", "ckpt")
+    pool = ts.sign_pool(SU_POOL)
+    w = svc.remote_worker()
+    w.configure_parameter_servers(
+        "bounded_uniform", {"lower": -0.1, "upper": 0.1}, 1.0, 10.0)
+    w.register_optimizer({"type": "sgd", "lr": 0.1, "wd": 0.0})
+    for k in range(8):
+        feats = [IDTypeFeature(f"slot_{i}", [d]) for i, d in enumerate(
+            ts.batch_draws(pool, SU_SEED, k, SU_BATCH, SU_FEATS))]
+        ref, out = w.lookup_direct_training(feats)
+        w.update_gradients(ref, {n: np.ones_like(v.embeddings)
+                                 for n, v in out.items()})
+    w.dump(ckpt)  # and no update after it (replaying them is item 6b)
+    deadline = time.monotonic() + SU_WAIT_S
+    while not (svc.flight_recorder.last("ps1") or {}).get("spans"):
+        if time.monotonic() > deadline:
+            raise AssertionError("supervision (d): no flight with spans")
+        time.sleep(0.05)
+    old = svc.ps_addrs[1]
+    t_kill = time.monotonic()
+    svc.ps_proc(1).kill()
+    (ev,) = svc.wait_ps_recoveries(1, timeout=SU_WAIT_S)
+    if "failed" in ev or ev["addr"] == old:
+        raise AssertionError(f"supervision (d): {ev}")
+    bundle = ev.get("postmortem")
+    with open(os.path.join(bundle, "health.json")) as f:
+        if json.load(f).get("model_manager_status") != "Idle":
+            raise AssertionError("supervision (d): the bundle's health doc")
+    want = {s: v for s, _d, v in iter_psd_entries(
+        os.path.join(ckpt, "replica_1.psd"))}
+    client = PsClient(ev["addr"])
+    if len(client) != len(want):
+        raise AssertionError(f"supervision (d): {len(client)} rows, the "
+                             f"checkpoint {len(want)}")
+    for sign, vec in want.items():
+        got = client.get_entry(sign)
+        if got is None or not np.array_equal(got[1][:len(vec)], vec):
+            raise AssertionError(f"supervision (d): row {sign} differs")
+    client.client.close()
+    w.close()
+    detect_ms = (ev["t_detected"] - t_kill) * 1e3
+    respawn_ms = (ev["t_respawned"] - ev["t_detected"]) * 1e3
+    return (f"(d) PS 1 killed after a checkpoint: Idle at {ev['addr']} "
+            f"(was {old}), {len(want)} rows equal the checkpoint's; "
+            f"detected {detect_ms:.1f} ms after the kill, Idle "
+            f"{ev['recovery_sec']:.3f} s after that (respawn "
+            f"{respawn_ms:.1f} ms)")
+
+
+def su_rider_cpu(rounds: int) -> list:
+    """The group-of-one rider's rounds on the CPU (a world of one, gloo),
+    from the same seed."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from persia_tpu_torch.distributed import DistributedOption
+    from persia_tpu_torch.service import trainer_service as ts
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=60))
+    mesh = DistributedOption(backend="gloo", device="cpu", store=store,
+                             world_size=1, rank=0, timeout=60).initialize()
+    try:
+        sync = ts._dense_rider(mesh, 1, SU_SEED)
+        return [sync(r, 0) for r in range(rounds)]
+    finally:
+        dist.destroy_process_group()
+
+
+def su_group(clusters: SupervisionClusters) -> str:
+    """(e) the group of two (gloo ranks sharing the card) and the group
+    of one (NCCL), the rider on the card."""
+    import math
+
+    import numpy as np
+
+    from persia_tpu_torch.service.trainer_service import sign_pool
+
+    pool = sign_pool(SU_POOL)
+    expected = su_expected(pool, SU_SEED, SU_STEPS)
+    out = []
+    for name, n, backend in (("group2", 2, "gloo"), ("group1", 1, "nccl")):
+        svc = clusters.ctxs[name]
+        rc = svc.wait_trainer_done(timeout=SU_DONE_S)
+        if rc != 0 or svc.trainer_recoveries:
+            raise AssertionError(f"supervision (e) {name}: rc={rc}")
+        base = clusters.path(name, "result.json")
+        results = []
+        for i in range(n):
+            with open(f"{base}.p{i}" if n > 1 else base) as f:
+                results.append(json.load(f))
+        acked = su_identity(f"(e) {name}", svc.remote_worker(), pool,
+                            expected)
+        if n > 1:
+            counts = None
+            for t in svc.fleet_targets():
+                if t["role"] == "embedding-worker":
+                    from persia_tpu_torch.fleet import _http_get
+
+                    counts = json.loads(_http_get(
+                        f"http://{t['http_addr']}/healthz", 5.0)).get(
+                            "ship_counts")
+            if counts != {f"p{i}": SU_STEPS // n for i in range(n)}:
+                raise AssertionError(f"supervision (e): the shards' "
+                                     f"shipments {counts}")
+        losses = [r["dense_losses"] for r in results]
+        syncs = SU_STEPS // n // SU_SYNC_EVERY
+        if any(r["backend"] != backend or not r["device"].startswith("cuda")
+               or r["dense_syncs"] != syncs for r in results):
+            raise AssertionError(f"supervision (e) {name}: {results}")
+        if not all(math.isfinite(x) for x in sum(losses, [])):
+            raise AssertionError(f"supervision (e) {name}: a rider loss "
+                                 f"is not finite: {losses}")
+        if any(r["dense_digests"] != results[0]["dense_digests"]
+               for r in results):
+            raise AssertionError(f"supervision (e) {name}: the ranks' "
+                                 f"dense parameters differ after a sync")
+        line = (f"{name} ({backend}, {n} trainer(s)): {acked} updates "
+                f"exact over the group, {syncs} rider rounds a rank, "
+                f"losses {[round(x, 6) for x in losses[0]]}")
+        if n == 1:
+            cpu = su_rider_cpu(syncs)
+            err = float(np.max(np.abs(np.array(losses[0]) - cpu)
+                               / np.maximum(np.abs(cpu), 1.0)))
+            if not np.allclose(losses[0], cpu, rtol=SU_RIDER_TOL,
+                               atol=SU_RIDER_TOL):
+                raise AssertionError(f"supervision (e): the card's rider "
+                                     f"{losses[0]} against its CPU run "
+                                     f"{cpu}")
+            line += (f", the CPU run's {[round(x, 6) for x in cpu]} "
+                     f"(largest difference {err:.3e}, round 0 "
+                     f"{abs(losses[0][0] - cpu[0]):.3e})")
+        else:
+            line += ", the ranks' parameters bit-equal after every round"
+        out.append(line)
+    return "(e) " + "; ".join(out)
+
+
+def supervision_phase(torch, card: str, clusters: SupervisionClusters
+                      ) -> dict:
+    """(a)-(e) over the clusters started in setup, the parts concurrently
+    (each its own cluster); returns each kernel's launches over the phase
+    (none)."""
+    up = clusters.wait()
+    _log(f"[supervision] 8 clusters of 1 coordinator, {N_PS} PS and 1 "
+         f"worker process each, up {up:.1f}s after their start (beside the "
+         f"kernel build) | card: {card}")
+    reset_launch_counts()
+    from functools import partial
+
+    jobs = {f"a_{k}": partial(su_trainer_kill, k, clusters)
+            for k in SU_KINDS}
+    jobs.update(b=partial(su_torn, clusters),
+                c=partial(su_worker_kill, clusters),
+                d=partial(su_ps_kill, clusters),
+                e=partial(su_group, clusters))
+    lines, errors = {}, {}
+
+    def run(name, fn):
+        try:
+            lines[name] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[name] = e
+
+    threads = [threading.Thread(target=run, args=item, daemon=True)
+               for item in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SU_DONE_S + 2 * SU_WAIT_S)
+    for name in jobs:
+        if name in lines:
+            _log(f"[supervision] {lines[name]} | card: {card}")
+    if errors or len(lines) != len(jobs):
+        name = next(iter(errors), "?")
+        raise AssertionError(f"supervision: parts failed: "
+                             f"{sorted(errors) or 'timed out'}") \
+            from errors.get(name)
+    for name, c in clusters.ctxs.items():
+        if c.crashed:
+            raise AssertionError(f"supervision: {name} crashed: "
+                                 f"{c.crashed}")
+    return assert_no_kernel_launched("supervision", card)
+
+
+
 class _PhaseClock:
     """Logs each phase's wall time and the run's, for the time budget."""
 
@@ -5062,7 +5701,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run it "
               f"from the root of a checkout", file=sys.stderr)
         return 2
-    procs = clusters = None
+    procs = clusters = su_clusters = None
     try:
         clock = _PhaseClock()
         card = card_line()
@@ -5085,6 +5724,7 @@ def main() -> int:
             native.load_native_lib()
             native_s = time.perf_counter() - t0
             clusters = ServiceClusters()
+            su_clusters = SupervisionClusters()
         finally:
             kernel_build.join()
         if "paths" not in built:
@@ -5097,6 +5737,11 @@ def main() -> int:
              f"{native.native_simd_path()}, os.cpu_count()={os.cpu_count()}")
         report_build(paths, sources)
         clock("setup")
+        # first, so that its clusters are down before anything is timed
+        su_launches = supervision_phase(torch, card, su_clusters)
+        su_clusters.stop()
+        su_clusters = None
+        clock("supervision")
         floor = launch_path_phase(torch, card)
         clock("launch_path")
         records = kernel_phase(torch, card)
@@ -5151,6 +5796,8 @@ def main() -> int:
             records[name]["launches_serving_rpc"] = n
         for name, n in services_launches.items():
             records[name]["launches_services"] = n
+        for name, n in su_launches.items():
+            records[name]["launches_supervision"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "
@@ -5172,6 +5819,8 @@ def main() -> int:
             procs.stop()
         if clusters is not None:
             clusters.stop()
+        if su_clusters is not None:
+            su_clusters.stop()
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

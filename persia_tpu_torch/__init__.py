@@ -42,10 +42,19 @@ Entry points take an explicit ``device`` that defaults to CUDA and raise
 when no CUDA device is present, unless the caller asks for ``"cpu"``.
 """
 
-from persia_tpu_torch.device import resolve_device
-
 # the distribution's version (pyproject.toml); the sidecar's /healthz
 # reports it so a fleet view can spot replica skew
 __version__ = "0.4.0"
 
 __all__ = ["resolve_device", "__version__"]
+
+
+def __getattr__(name):
+    # torch loads with the first entry point that needs it: the service
+    # processes that never touch a tensor (the coordinator, the PS and
+    # the worker) start without it
+    if name == "resolve_device":
+        from persia_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

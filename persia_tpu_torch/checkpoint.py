@@ -25,8 +25,6 @@ import time
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
-
 from persia_tpu_torch.hashing import farmhash64_np
 from persia_tpu_torch.ps.store import iter_psd_records, read_psd_header
 from persia_tpu_torch.routing import RoutingTable
@@ -207,6 +205,10 @@ def _install(ps_clients, signs, entries,
 def dense_state_bytes(state) -> bytes:
     """``state`` is a ``(model, optimizer)`` pair (the optimizer may be
     None): the ``torch.save`` bytes of their state dicts."""
+    # torch only here and below: the PS and worker services read and
+    # write the sparse files without it
+    import torch
+
     model, optimizer = state
     buf = io.BytesIO()
     torch.save({"model": model.state_dict(),
@@ -219,6 +221,8 @@ def apply_dense_bytes(state, data: bytes):
     """Install :func:`dense_state_bytes` into the ``(model, optimizer)``
     pair in place (same model and optimizer construction as the dump's);
     returns ``state``."""
+    import torch
+
     model, optimizer = state
     doc = torch.load(io.BytesIO(data), map_location="cpu",
                      weights_only=True)

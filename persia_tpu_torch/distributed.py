@@ -51,6 +51,9 @@ class DistributedOption:
             the CPU).
         init_method / world_size / rank: an explicit rendezvous
             (``tcp://host:port``); None reads torchrun's environment.
+        store: a ``torch.distributed`` store already bound (a
+            ``TCPStore`` on port 0 whose bound port was published), with
+            world_size and rank; it takes the place of init_method.
         timeout: seconds a collective may wait for a peer.
     """
 
@@ -62,6 +65,7 @@ class DistributedOption:
     world_size: Optional[int] = None
     rank: Optional[int] = None
     timeout: float = 600.0
+    store: Optional[object] = None
     _mesh: object = field(default=None, init=False, repr=False)
 
     def _rendezvous(self):
@@ -94,10 +98,18 @@ class DistributedOption:
         if backend == "nccl" and dev.type != "cuda":
             raise ValueError("the NCCL backend needs CUDA devices")
         if not dist.is_initialized():
-            init_method, world, rank = self._rendezvous()
-            dist.init_process_group(
-                backend, init_method=init_method, world_size=world,
-                rank=rank, timeout=datetime.timedelta(seconds=self.timeout))
+            timeout = datetime.timedelta(seconds=self.timeout)
+            if self.store is not None:
+                if self.world_size is None or self.rank is None:
+                    raise ValueError("a store needs world_size and rank")
+                dist.init_process_group(
+                    backend, store=self.store, world_size=self.world_size,
+                    rank=self.rank, timeout=timeout)
+            else:
+                init_method, world, rank = self._rendezvous()
+                dist.init_process_group(
+                    backend, init_method=init_method, world_size=world,
+                    rank=rank, timeout=timeout)
         elif str(dist.get_backend()) != backend:
             raise RuntimeError(f"torch.distributed is already up with "
                                f"{dist.get_backend()}, not {backend}")

@@ -9,7 +9,8 @@ tracing, the variant split, the observability sidecar and the metrics
 push gateway) and the service tier (the coordinator's address, the PS
 replica count, the PS service's dispatch, wire codec, circuit breaker,
 frames, GC tune, row dtype and spill tier, the worker's distinct-id
-monitor), with the JAX package's names, types, defaults and parse
+monitor) and whole-job supervision (the trainer group's size, rank and
+rendezvous, the snapshot cadence, the fleet's static targets), with the JAX package's names, types, defaults and parse
 conventions:
 
 - ``bool`` knobs whose default is False are enabled by ``1`` / ``true`` /
@@ -44,6 +45,7 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_FAULTS", "str", None),
     Knob("PERSIA_FAULTS_RPC", "bool", False),
     Knob("PERSIA_FAULTS_SEED", "int", None),
+    Knob("PERSIA_FLEET_TARGETS", "str", ""),
     Knob("PERSIA_FSYNC", "bool", True),
     Knob("PERSIA_HOTNESS", "bool", False),
     Knob("PERSIA_HOTNESS_CM_DEPTH", "int", 4),
@@ -53,6 +55,8 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_METRICS_GATEWAY_ADDR", "str", None),
     Knob("PERSIA_MULTIHOST_CACHE", "str", "off"),
     Knob("PERSIA_NUM_PS", "int", 1),
+    Knob("PERSIA_PROCESS_COUNT", "int", 1),
+    Knob("PERSIA_PROCESS_INDEX", "int", 0),
     Knob("PERSIA_PS_CIRCUIT_BREAKER", "bool", True),
     Knob("PERSIA_PS_CONCURRENT_STREAMS", "int", 8),
     Knob("PERSIA_PS_GC_TUNE", "bool", True),
@@ -61,6 +65,7 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_PS_SHARD_PARALLEL", "bool", True),
     Knob("PERSIA_PS_WIRE_CODEC", "str", ""),
     Knob("PERSIA_RPC_FORCE_BLOCK", "bool", False),
+    Knob("PERSIA_SNAPSHOT_INTERVAL_STEPS", "int", 50),
     Knob("PERSIA_SNAPSHOT_KEEP", "int", 3),
     Knob("PERSIA_TIER_ADMIT", "str", "lru"),
     Knob("PERSIA_TIER_SKETCH_TOPK", "int", 0),
@@ -68,6 +73,11 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_TIER_SPILL_DIR", "str", None),
     Knob("PERSIA_TIER_WINDOW_FRAC", "float", 0.125),
     Knob("PERSIA_TRACING", "bool", False),
+    Knob("PERSIA_TRAINER_PROCESSES", "int", 1),
+    # only a KV label: byte-equal to the JAX package's, so that a mixed
+    # trainer group meets under one key
+    Knob("PERSIA_TRAINER_RENDEZVOUS_KEY", "str", "trainer/jax_coordinator"),
+    Knob("PERSIA_TRAINER_RENDEZVOUS_TIMEOUT_SEC", "float", 120.0),
     Knob("PERSIA_VARIANT_ROUTE_FEATURE", "str", None),
     Knob("PERSIA_VARIANT_SPLIT_BUCKETS", "int", 10000),
 ]}

@@ -25,7 +25,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, NamedTuple, Sequence
 
-import torch
+# torch is imported by the first Launcher: a process that only builds or
+# loads the native PS library (the PS and worker services) never needs it
+torch = None
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -183,6 +185,9 @@ class Launcher:
     __slots__ = ("kernel", "fn", "error_string")
 
     def __init__(self, kernel: str, lib, symbol: str, argtypes):
+        global torch
+        import torch
+
         self.kernel = kernel
         self.fn = getattr(lib, symbol)
         self.fn.argtypes = [*argtypes, ctypes.c_void_p]

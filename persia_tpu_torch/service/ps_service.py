@@ -15,7 +15,7 @@ per-row scales under ``codec: int8``.
 Not ported: the live-resharding surface (``reshard_*``,
 ``set_routing_epoch``, the ``__routing__`` rider and the write gate) is
 no method here, so a ``reshard_*`` call gets the error an unknown method
-gets; it waits for ROADMAP.md queue A item 9b. The incremental-update
+gets; it waits for ROADMAP.md queue A item 9c. The incremental-update
 dumper and loader wait for item 6b.
 
 Run: ``python -m persia_tpu_torch.service.ps_service --port 0

@@ -11,7 +11,7 @@ lookup and its gradients reach the replica that holds the batch. The
 requests and replies are the JAX package's bytes.
 
 Not ported: the live routing epochs (``apply_routing``,
-``close_routing_window``), which wait for ROADMAP.md queue A item 9b.
+``close_routing_window``), which wait for ROADMAP.md queue A item 9c.
 
 Run: ``python -m persia_tpu_torch.service.worker_service --replica-index 0
 --replica-size 1 --coordinator host:port --embedding-config schema.yml``
@@ -45,7 +45,7 @@ from persia_tpu_torch.service.ps_service import PsClient
 
 _logger = logging.getLogger(__name__)
 
-_ROUTING_WAITS = "ROADMAP.md queue A item 9b (the worker's live routing " \
+_ROUTING_WAITS = "ROADMAP.md queue A item 9c (the worker's live routing " \
     "epochs and the PS's reshard RPCs)"
 
 
@@ -71,6 +71,10 @@ class WorkerService:
         # readiness is a call to every PS replica: cached for probes
         self._ready_lock = threading.Lock()
         self._ready_cache = (0.0, True)
+        # gradient shipments by trainer process label ("" for a trainer
+        # that sends none): each member of a trainer group's share
+        self._ship_lock = threading.Lock()
+        self._ship_counts: Dict[str, int] = {}
         self.http = obs_http.maybe_start(host, http_port, self._health)
         for name, fn in (
                 ("forward_batched", self._forward_batched),
@@ -119,6 +123,9 @@ class WorkerService:
             doc["staleness"] = w.staleness
         doc["ps_replicas"] = w.replica_size
         doc["ready"] = self._ready_cached()
+        with self._ship_lock:
+            if self._ship_counts:
+                doc["ship_counts"] = dict(self._ship_counts)
         return doc
 
     def _forward_batched(self, payload: bytes) -> bytes:
@@ -151,6 +158,9 @@ class WorkerService:
         meta, grads = ser.unpack_gradients(payload)
         self.worker.update_gradients(meta["ref_id"], grads,
                                      loss_scale=meta.get("loss_scale", 1.0))
+        label = str(meta.get("process", ""))
+        with self._ship_lock:
+            self._ship_counts[label] = self._ship_counts.get(label, 0) + 1
         return b""
 
     def _configure(self, payload: bytes) -> bytes:
@@ -211,6 +221,10 @@ class RemoteEmbeddingWorker:
         self._clients = {a: RpcClient(a) for a in self.addrs}
         self._rr = itertools.cycle(self.addrs)
         self._rr_lock = threading.Lock()
+        # a member of a trainer group sets this ("p1") to label its
+        # gradient shipments; None sends the unlabeled meta (the same
+        # bytes as a lone trainer's)
+        self.process_label: Optional[str] = None
         self.schema = None
         # the serving miss fetch follows the PS wire's codec policy
         self._fp16_rows = PsClient.parse_wire_codec(
@@ -264,6 +278,8 @@ class RemoteEmbeddingWorker:
     def update_gradients(self, ref, grads: Dict[str, np.ndarray],
                          loss_scale: float = 1.0):
         meta = {"ref_id": ref[1], "loss_scale": loss_scale}
+        if self.process_label is not None:
+            meta["process"] = self.process_label
         self._clients[ref[0]].call(
             "update_gradients", ser.pack_gradients(grads, meta), dedup=True)
 

@@ -51,7 +51,7 @@ import logging
 import os
 import re
 import time
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from persia_tpu_torch import checkpoint as ckpt
 from persia_tpu_torch import knobs
@@ -156,12 +156,15 @@ def _complete_inc_packets(inc_dir: Optional[str]) -> Optional[List[str]]:
         "waits for ROADMAP.md queue A item 6b (the online tier)")
 
 
-def _ps_watermarks(worker) -> Optional[list]:
+def _ps_watermarks(worker, ps_clients: Optional[Sequence]) -> Optional[list]:
     """Per-replica ``{update_version, routing_epoch}`` from each PS's
     health doc, forensic watermarks for the manifest (the restore keys on
-    the PSD files and the routing doc, not on these). An in-process
-    holder has no health doc: None for it."""
-    clients = getattr(worker, "ps_clients", None)
+    the PSD files and the routing doc, not on these). ``ps_clients``
+    names the replicas of a remote worker, which holds no PS clients of
+    its own; an in-process holder has no health doc: None for it."""
+    clients = ps_clients
+    if clients is None:
+        clients = getattr(worker, "ps_clients", None)
     if not clients:
         return None
     marks = []
@@ -183,11 +186,14 @@ def snapshot_job(
     snapshot_dir: str,
     worker,
     *,
+    ps_clients: Optional[Sequence] = None,
     state=None,
     cursor: Optional[dict] = None,
     inc_dir: Optional[str] = None,
     step: int = 0,
     keep: Optional[int] = None,
+    extra: Optional[dict] = None,
+    pre_manifest=None,
 ) -> str:
     """Take one coordinated job snapshot; returns the snapshot path.
 
@@ -198,6 +204,10 @@ def snapshot_job(
     point. ``state`` is the ``(model, dense optimizer)`` pair (None for
     sparse-only jobs), ``cursor`` the dataloader cursor doc, ``inc_dir``
     the incremental-update packet directory (refused: not ported).
+    ``extra`` keys join the manifest. ``pre_manifest(snap)`` runs once
+    every payload is on disk and before the manifest is written: a
+    process that dies there leaves the torn snapshot that
+    :func:`latest_snapshot` refuses and falls back past.
     """
     from persia_tpu_torch.pipeline import flush_backward_engines
 
@@ -243,9 +253,13 @@ def snapshot_job(
         "num_shards": marker.get("num_shards"),
         "routing": marker.get("routing"),
         "routing_epoch": getattr(worker, "routing_epoch", None),
-        "ps_watermarks": _ps_watermarks(worker),
+        "ps_watermarks": _ps_watermarks(worker, ps_clients),
         "inc_watermark": inc_watermark,
     }
+    if extra:
+        manifest.update(extra)
+    if pre_manifest is not None:
+        pre_manifest(snap)
     PersiaPath(os.path.join(snap, MANIFEST)).write_bytes_atomic(
         json.dumps(manifest, sort_keys=True, indent=1).encode())
 

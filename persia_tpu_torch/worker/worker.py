@@ -55,8 +55,12 @@ state. An application error from a replica that is not ready re-arms it
 the same way. The retried update still ships only the groups that had
 not landed, to whichever client now serves their shard.
 
-Live routing tables and resharding, tracing spans and registry gauges
-belong to later slices of the port.
+Tracing: a lookup runs under a ``worker/rpc`` span and an update under
+``worker/update_stream``, and each PS call on the fan-out pool under a
+``worker/ps_lookup`` / ``worker/ps_update`` child of it (the JAX
+worker's names), so that a traced request reaches the PS with its
+context. Live routing tables and resharding, the other spans and the
+registry gauges belong to later slices of the port.
 """
 
 import logging
@@ -70,6 +74,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from persia_tpu_torch import tracing
 from persia_tpu_torch.checkpoint import dump_sharded, load_sharded
 from persia_tpu_torch.config import EmbeddingSchema
 from persia_tpu_torch.data.batch import IDTypeFeature
@@ -92,6 +97,13 @@ def _wait_all(futures):
 
 class ForwardBufferFull(RuntimeError):
     """The forward buffer holds ``forward_buffer_size`` batches already."""
+
+
+def _traced(name: str, ctx, call):
+    """``call()`` inside span ``name``, a child of the propagated ``ctx``
+    (a fan-out pool thread has no span of its own)."""
+    with tracing.span(name, ctx=ctx):
+        return call()
 
 
 class EmbeddingWorker:
@@ -306,7 +318,8 @@ class EmbeddingWorker:
         def do_lookup():
             if not self.streaming:
                 results = self._fan_out([partial(ps_lookup, g)
-                                         for g in groups])
+                                         for g in groups],
+                                        "worker/ps_lookup")
                 for g, res in zip(groups, results):
                     mw.scatter_group(mats, g, res)
                 return
@@ -322,10 +335,11 @@ class EmbeddingWorker:
                     calls.append(partial(lookup_shard_mux, gs))
                 else:
                     calls.extend(partial(lookup_and_scatter, g) for g in gs)
-            self._fan_out(calls)
+            self._fan_out(calls, "worker/ps_lookup")
 
         # a retry scatters every group again into the same matrices
-        self._with_ps_retry(do_lookup)
+        with tracing.span("worker/rpc", groups=len(groups)):
+            self._with_ps_retry(do_lookup)
         out = {feat.name: mw.postprocess_feature(
             feat, self.schema.get_slot(feat.name), mat)
             for feat, mat in zip(feats, mats)}
@@ -362,16 +376,19 @@ class EmbeddingWorker:
             raise KeyError(f"missing gradients for features {missing}")
         # a retry after recovery ships only the groups still not landed,
         # through the clients serving their shards then
-        self._with_ps_retry(lambda: self._ship_pending(
-            feats, groups, landed, grads, loss_scale))
+        with tracing.span("worker/update_stream", groups=len(groups)):
+            self._with_ps_retry(lambda: self._ship_pending(
+                feats, groups, landed, grads, loss_scale))
 
     def _ship_pending(self, feats, groups, landed, grads, loss_scale):
         todo = [i for i in range(len(groups)) if i not in landed]
+        tctx = tracing.current_context()
 
         def ship(i, group_grads):
             g = groups[i]
-            self.ps_clients[g.shard].update_gradients(g.signs, group_grads,
-                                                      g.dim)
+            with tracing.span("worker/ps_update", ctx=tctx, shard=g.shard):
+                self.ps_clients[g.shard].update_gradients(
+                    g.signs, group_grads, g.dim)
             landed.add(i)
 
         # a group can ship once its last feature (feature_idx is
@@ -408,11 +425,15 @@ class EmbeddingWorker:
             partial(ship, i, mw.gather_group_grads(groups[i], per_feature))
             for i in todo])
 
-    def _fan_out(self, calls) -> list:
+    def _fan_out(self, calls, span: Optional[str] = None) -> list:
         """Run ``calls`` (callables without arguments) on the fan-out
         pool, or in order on this thread when there is no pool or one
         call; wait for every one, then raise the first error. Returns
-        their results."""
+        their results. Under a traced span each call runs in a ``span``
+        child of it."""
+        tctx = tracing.current_context() if span else None
+        if tctx is not None:
+            calls = [partial(_traced, span, tctx, call) for call in calls]
         if self._fanout is None or len(calls) <= 1:
             return [call() for call in calls]
         futures = [self._fanout.submit(call) for call in calls]

@@ -81,6 +81,32 @@ def test_plain_matches_pallas_f32(causal, t_q, t_k, dh):
     assert (plain[0] == 0).all() and np.isfinite(plain).all()
 
 
+def test_plain_f32_is_thread_independent():
+    """``test_plain_matches_pallas_f32``'s first case is no numeric
+    flake: the plain version gives the same bits with 1 and 4 torch
+    threads, and its difference from the Pallas kernel stays under 5% of
+    the 2e-5 tolerance."""
+    from persia_tpu.ops.flash_attention import flash_attention_fwd_pallas
+
+    q, k, v, mask = _inputs(4 + 100, 2, 2, 100, 100, 4, True)
+    want = np.asarray(flash_attention_fwd_pallas(
+        *(_jax(x, "float32") for x in (q, k, v)), causal=False, block_q=32,
+        block_k=32, interpret=True, kv_mask=_jax(mask, "bool_")))
+    threads = torch.get_num_threads()
+    outs = []
+    try:
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            outs.append(flash_attention_fwd_reference(
+                *(_torch(x, "float32") for x in (q, k, v)),
+                kv_mask=torch.from_numpy(mask)).numpy())
+    finally:
+        torch.set_num_threads(threads)
+    assert np.array_equal(outs[0], outs[1])
+    limit = 2e-5 + 2e-5 * np.abs(want)
+    assert (np.abs(outs[0] - want) / limit).max() < 0.05
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_matches_pallas_without_mask(dtype, causal):

@@ -209,8 +209,9 @@ def test_port_imports_no_jax():
     load either, nor ``yaml`` (the port reads its own YAML subset). The
     children a ``ServiceCtx`` starts, ``python -m
     persia_tpu_torch.service.ps_service`` and ``worker_service``, run up
-    to their registration (refused: no coordinator listens) and load
-    none of these either."""
+    to their registration (refused: no coordinator listens), and
+    ``python -m persia_tpu_torch.service.trainer_service --help``, and
+    load none of these either."""
     code = (
         "import importlib, os, pkgutil, sys\n"
         "import persia_tpu_torch\n"
@@ -284,7 +285,9 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.service.serialization', "
         "'persia_tpu_torch.service.ps_service', "
         "'persia_tpu_torch.service.worker_service', "
-        "'persia_tpu_torch.service.helper') "
+        "'persia_tpu_torch.service.helper', "
+        "'persia_tpu_torch.service.trainer_service', "
+        "'persia_tpu_torch.fleet', 'persia_tpu_torch.service_discovery') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'msgpack' not in sys.modules\n"
@@ -340,6 +343,25 @@ def _check_service_children():
             assert out.returncode == 0, (role, out.stderr[-2000:])
             assert out.stdout.split() == ["registration", "refused",
                                           "clean"], out.stdout
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['x', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('persia_tpu_torch.service.trainer_service', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'persia_tpu', 'msgpack', "
+        "'yaml'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--dense-sync-every" in out.stdout and "--device" in out.stdout
+    assert out.stdout.split()[-1] == "clean", out.stdout
 
 
 # --- knobs, storage, HyperLogLog, routing table, hotness sketches -----------

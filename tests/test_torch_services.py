@@ -671,14 +671,27 @@ def test_retried_update_ships_only_unlanded_groups_after_a_new_client_list(
 # --- refusals ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [
-    {"native_ps": True}, {"native_worker": True}, {"supervise_ps": True},
-    {"supervise_workers": True}, {"supervise_trainer": True},
-    {"postmortem_dir": "pm"}], ids=lambda kw: next(iter(kw)))
-def test_service_ctx_refusals_name_item_9b(kw):
+@pytest.mark.parametrize("kw,error,match", [pytest.param(*case, id=next(
+    iter(case[0]))) for case in [
+        ({"native_ps": True}, NotImplementedError, "item 9c"),
+        ({"native_worker": True}, NotImplementedError, "item 9c"),
+        # supervision is ported; what is refused is its pairing with a
+        # native binary (a ValueError, as in the JAX package) ...
+        ({"supervise_ps": True, "native_ps": True}, ValueError,
+         "native_ps"),
+        ({"supervise_workers": True, "native_worker": True}, ValueError,
+         "native workers"),
+        ({"supervise_trainer": True, "n_trainers": 0}, ValueError,
+         "n_trainers"),
+        # ... and the incremental-update replay of a restored PS
+        ({"postmortem_dir": "pm", "ps_inc_dir": "inc"},
+         NotImplementedError, "item 6b")]])
+def test_service_ctx_refusals_name_item_9b(kw, error, match):
+    """The refusals of what item 9b left (item 9c, native binaries) or
+    item 6b holds, and the JAX package's ValueError pairs."""
     from persia_tpu_torch.service.helper import ServiceCtx
 
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(error, match=match):
         ServiceCtx(_mixed_schema(), **kw)
 
 
@@ -718,11 +731,11 @@ def test_routing_and_monitor_refusals_name_their_items(tmp_path,
         w = EmbeddingWorker(_mixed_schema(), [PsClient(svc.addr)])
         with _serving(WorkerService(w)) as (ws,):
             rw = RemoteEmbeddingWorker([ws.addr])
-            with pytest.raises(NotImplementedError, match="item 9b"):
+            with pytest.raises(NotImplementedError, match="item 9c"):
                 rw.apply_routing(None)
-            with pytest.raises(NotImplementedError, match="item 9b"):
+            with pytest.raises(NotImplementedError, match="item 9c"):
                 rw.close_routing_window()
-            with pytest.raises(RpcError, match="item 9b"):
+            with pytest.raises(RpcError, match="item 9c"):
                 rw._clients[ws.addr].call_msg("apply_routing", table=b"")
         w.close()
     with pytest.raises(NotImplementedError, match="item 6b"):
