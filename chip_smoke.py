@@ -10,8 +10,8 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    every kernel of the port from the sources in this checkout, one nvcc
    per source, all started together on a thread while this one builds
    the native PS library from ``native/src/`` with g++ (its SIMD path
-   and the host's cores) and then starts the services phase's two
-   clusters (their processes load that library);
+   and the host's cores) and then starts the services, supervision and
+   online phases' clusters (their processes load that library);
    ptxas's registers and spills of every kernel entry, K2's, K3's and
    K4's shared memory per body, and
    the count of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
@@ -59,7 +59,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    ``make_holder(5_000_000, 8)``, 64 Zipf(1.2) requests of 128 rows
    admitted by training lookups): serialized against micro-batched
    (``max_batch_rows=1024``, ``cache_rows=2_000_000``), every bucket
-   warmed, at 1 and 8 clients of 100 requests each (the bench's 300 cut):
+   warmed, at 1 and 8 clients of 50 requests each (the bench's 300 cut):
    req/s, p50 / p99, the ratio at 8 clients, coalescing, fill and hit
    rate; no kernel may launch. (c) A second variant added over
    ``variant_admin`` from a ``dense.pt`` the phase writes must serve the
@@ -167,10 +167,10 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      disk, the restore ms (construction to the end of the first resumed
      step), the launches;
    - ``bench.py``'s ``_chaos_job_convergence_cell`` on the registry's
-     ``dlrm`` scenario at full size: 120 steps of batch 2048 straight
-     against 60, a snapshot and 60 resumed; the suffix losses and the
-     dense parameters within 1e-5, the held-out AUC within 1e-6, and no
-     kernel launched.
+     ``dlrm`` scenario at full size: 80 steps of batch 2048 straight
+     against 40, a snapshot and 40 resumed (the cell's 120 cut); the
+     suffix losses and the dense parameters within 1e-5, the held-out AUC
+     within 1e-6, and no kernel launched.
 8. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
    configuration (26 hashed tables of 2^20 x 16 resident on the card,
    ``DLRM(embedding_dim=16)`` in bf16, ``OptaxAdagrad(0.02)``, batch
@@ -253,7 +253,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
 12. ``supervision`` (right after setup, so that its clusters are down
    before anything is timed), the supervised job
    (``service/trainer_service.py``, ``ServiceCtx``'s supervisors,
-   ``fleet.FlightRecorder``): eight ``ServiceCtx(n_workers=1, n_ps=2)``
+   ``fleet.FlightRecorder``): nine ``ServiceCtx(n_workers=1, n_ps=2)``
    clusters started in setup beside the kernel build, at ``bench.py``'s
    chaos cells' sizes (dim 8, 2 slots, pool 2048, batch 64, 20 steps,
    a snapshot every 4, 0.15 s between steps), the parts run concurrently:
@@ -268,7 +268,13 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    lost, the loss within the declared ambiguity, over-application within
    the failed cycles, a bundle with the worker's health doc; (d) a
    supervised PS killed after a checkpoint: ``Idle`` at a new address,
-   its rows the checkpoint's; (e) a group of two trainers (gloo ranks
+   its rows the checkpoint's; and one whose training PS dump
+   incremental-update packets (``ServiceCtx(ps_inc_dir=)``), killed 4
+   steps after the checkpoint: the replacement replays its packets over
+   the checkpoint (``--replay-inc-dir``), and every row of the checkpoint
+   and of its packets, overlaid in replay order, reads back exactly
+   (``tests/test_faults.py:488``); the two ``Idle`` times side by side;
+   (e) a group of two trainers (gloo ranks
    sharing the card) and a group of one (NCCL) with the int8-EF dense
    rider on the card every 2 local steps: the shards' union is the
    stream (labeled shipments, the identity over the group), every rider
@@ -276,6 +282,27 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    group of one's rounds within 0.08 of its CPU run. The detection,
    respawn and resumed first-step times of each kill are printed; no
    kernel may launch.
+13. ``online`` (right after ``supervision``, so that its clusters too are
+   down before the timed phases), the train-to-serve loop
+   (``inc_update.py``, ``online.py``, the versioned hot-row cache): (a)
+   ``bench.py``'s ``bench_online`` at its smoke depth (3 freshness
+   rounds): 2 ``PsService`` over sockets with incremental-update dumpers
+   (flushed by the phase), 2 x ``make_holder(2_000_000, 8)``, 4 slots,
+   ``DLRM(embedding_dim=16)`` on the card, a live training thread; a
+   TTL-only server (4 s) against one whose cache is subscribed to the
+   packets (TTL 3600 s, a scan every 0.15 s): the subscriber's end-to-end
+   lag p99 must be at least 5x smaller, and a scan must add no PS RPC;
+   the paired predict p99 inflation is printed beside the bench's 3%
+   contract; no kernel. (b) seq_rec at the training phase's widths over
+   two ``ServiceCtx(n_workers=1, n_ps=2)`` clusters started in setup: a
+   training cluster whose PS dump packets and an infer cluster
+   (``job_type: Infer``) whose PS load them; the trainer on the card, 3
+   rounds of 4 steps, and an ``InferenceServer(worker_addrs=)`` over the
+   infer tier with the trainer's start weights and its cache subscribed:
+   a round's probe must change within 20 s of the round's last step, K2-K4
+   must launch once a trainer step and K2 on serving; at the end every
+   touched row on the infer PS must equal the training PS's bit for bit,
+   and every resident cache row its embedding slice.
    Last, one line gives every wrapper's host time a call at its
    main-path shape beside the launch floor. A ``[time]`` line follows
    each phase.
@@ -477,8 +504,9 @@ SR_TIMED_FROM = 10
 # make_holder gets.
 SR_PACKET_BYTES = 256 << 10
 # bench.py's _chaos_job_convergence_cell on the registry's dlrm scenario:
-# 120 steps of its bench batch, resumed at 60, with bench.py's gates
-DRILL_STEPS = 120
+# 80 steps of its bench batch (the cell's 120, cut when the online phase
+# came), resumed at 40, with bench.py's gates
+DRILL_STEPS = 80
 DRILL_EVAL = 2048
 DRILL_ATOL = 1e-5  # suffix losses and dense parameters
 DRILL_AUC_ATOL = 1e-6
@@ -491,15 +519,16 @@ RPC_VARIANT_KEYS = 64
 # at its full width, rows = min(4096, 128): 26 single-id slots of dim 16,
 # 13 dense features, DLRM(embedding_dim=16), 2 x make_holder(5_000_000, 8),
 # 64 Zipf(1.2) requests, 8 clients; each client's warm-up is the bench's
-# max(2 x warmup, 4) at its default warmup of 5. Cut: 100 requests a
-# client, the bench's default is 300 (PERF.md section 4).
+# max(2 x warmup, 4) at its default warmup of 5. Cut: 50 requests a
+# client (100 before the online phase came), the bench's default is 300
+# (PERF.md section 4).
 SI_ROWS = 128
 SI_SLOTS = 26
 SI_DIM = 16
 SI_DENSE = 13
 SI_BLOBS = 64
 SI_CLIENTS = 8
-SI_PER_CLIENT = 100
+SI_PER_CLIENT = 50
 SI_WARM_PER_CLIENT = 10
 SI_PS_CAPACITY = 5_000_000
 SI_PS_SHARDS = 8
@@ -4603,7 +4632,6 @@ class ServiceClusters:
         from persia_tpu_torch.utils import dump_yaml
 
         self._tmp = tempfile.TemporaryDirectory()
-        self.t0 = time.perf_counter()
         self.ctxs = []
         for name, schema, cap, shards in (
                 ("seq_rec", build_schema(), 2_000_000, 8),
@@ -4616,6 +4644,11 @@ class ServiceClusters:
                 schema, n_workers=1, n_ps=N_PS, global_config_path=path,
                 startup_timeout=SV_START_S, env={"LOG_LEVEL": "WARNING"}))
         self.seq, self.dh = self.ctxs
+        self._start()
+
+    def _start(self):
+        """Enter every cluster of ``self.ctxs`` on a thread of its own."""
+        self.t0 = time.perf_counter()
         self._errors = []
         self._up = []  # seconds from the start to each cluster up
         self._threads = [threading.Thread(target=self._enter, args=(c,),
@@ -4638,7 +4671,7 @@ class ServiceClusters:
         if self._errors:
             raise self._errors[0]
         if any(t.is_alive() for t in self._threads):
-            raise TimeoutError("the service clusters did not come up")
+            raise TimeoutError(f"the {type(self).__name__} did not come up")
         return max(self._up)
 
     def pids(self):
@@ -5083,6 +5116,7 @@ SU_SYNC_EVERY = 2  # (e): the rider every 2 local steps
 # a GEMM's rounding moves a value by a bf16 ulp (2**-8 relative) and the
 # int8 codes and error feedback carry it on
 SU_RIDER_TOL = 0.08
+SU_INC_BUFFER = 48  # (d) with packets: the dumper's buffer, in signs
 SU_DONE_S = 240  # a supervised run's deadline
 SU_WAIT_S = 60  # a recovery's deadline
 
@@ -5102,13 +5136,14 @@ def su_trainer_args(result_file: str, *extra) -> list:
 
 
 class SupervisionClusters:
-    """The supervision phase's eight ``ServiceCtx(n_workers=1, n_ps=2)``
+    """The supervision phase's nine ``ServiceCtx(n_workers=1, n_ps=2)``
     clusters, each entered on a thread of its own while the kernels
     build: (a) one a die point, its trainer supervised on the card; (b)
-    an unsupervised one; (c) supervised workers; (d) a supervised PS;
-    (e) a group of two trainers and a group of one, with the rider on the
-    card. The trainers of (a) and (e) start once their tier is up and run
-    to their end on their own; :meth:`stop` takes every cluster down."""
+    an unsupervised one; (c) supervised workers; (d) a supervised PS, and
+    one whose PS dump incremental-update packets; (e) a group of two
+    trainers and a group of one, with the rider on the card. The
+    trainers of (a) and (e) start once their tier is up and run to their
+    end on their own; :meth:`stop` takes every cluster down."""
 
     def __init__(self):
         import tempfile
@@ -5149,6 +5184,20 @@ class SupervisionClusters:
             ps_restore_dir=self.path("ps", "ckpt"), ps_probe_interval=0.25,
             postmortem_dir=self.path("ps", "postmortems"),
             flight_interval=0.3, env=traced, **common)
+        # (d) again with the training PS dumping incremental-update
+        # packets (tests/test_faults.py:488's buffer of 48 signs), which
+        # the restarted replica replays over its checkpoint
+        inc_gc = self.path("ps_inc.yml")
+        dump_yaml({"embedding_parameter_server_config": {
+            "capacity": 100_000, "num_hashmap_internal_shards": 4,
+            "enable_incremental_update": True,
+            "incremental_buffer_size": SU_INC_BUFFER,
+            "incremental_dir": self.path("ps_inc", "inc")}}, inc_gc)
+        self.ctxs["ps_inc"] = ServiceCtx(
+            su_schema(), supervise_ps=True,
+            ps_restore_dir=self.path("ps_inc", "ckpt"),
+            ps_inc_dir=self.path("ps_inc", "inc"), ps_probe_interval=0.25,
+            env=quiet, **{**common, "global_config_path": inc_gc})
         for name, n in (("group2", 2), ("group1", 1)):
             self.ctxs[name] = ServiceCtx(
                 su_schema(), supervise_trainer=True,
@@ -5159,6 +5208,7 @@ class SupervisionClusters:
                 env=quiet, **common)
         self.t0 = time.monotonic()
         self.up = {}  # name -> time.monotonic() once entered
+        self.idle_s = {}  # (d): a restarted PS's Idle, by restore kind
         self._errors = []
         self._threads = [threading.Thread(target=self._enter, args=(n, c),
                                           daemon=True)
@@ -5500,7 +5550,7 @@ def su_ps_kill(clusters: SupervisionClusters) -> str:
         ref, out = w.lookup_direct_training(feats)
         w.update_gradients(ref, {n: np.ones_like(v.embeddings)
                                  for n, v in out.items()})
-    w.dump(ckpt)  # and no update after it (replaying them is item 6b)
+    w.dump(ckpt)  # and no update after it (the packets' case is d_inc)
     deadline = time.monotonic() + SU_WAIT_S
     while not (svc.flight_recorder.last("ps1") or {}).get("spans"):
         if time.monotonic() > deadline:
@@ -5530,11 +5580,87 @@ def su_ps_kill(clusters: SupervisionClusters) -> str:
     w.close()
     detect_ms = (ev["t_detected"] - t_kill) * 1e3
     respawn_ms = (ev["t_respawned"] - ev["t_detected"]) * 1e3
+    clusters.idle_s["checkpoint"] = ev["recovery_sec"]
     return (f"(d) PS 1 killed after a checkpoint: Idle at {ev['addr']} "
             f"(was {old}), {len(want)} rows equal the checkpoint's; "
             f"detected {detect_ms:.1f} ms after the kill, Idle "
             f"{ev['recovery_sec']:.3f} s after that (respawn "
             f"{respawn_ms:.1f} ms)")
+
+
+def su_ps_inc_kill(clusters: SupervisionClusters) -> str:
+    """(d) with packets, ``tests/test_faults.py:488``: the training PS
+    dump incremental-update packets; PS 1 is killed after a checkpoint
+    and 4 more steps; the replacement replays its packets over the
+    checkpoint, and after 4 steps on a disjoint range every row of the
+    checkpoint and of replica 1's packets, overlaid in replay order,
+    reads back exactly."""
+    import numpy as np
+
+    from persia_tpu_torch.checkpoint import iter_psd_entries
+    from persia_tpu_torch.data.batch import IDTypeFeature
+    from persia_tpu_torch.service.ps_service import PsClient
+
+    svc = clusters.ctxs["ps_inc"]
+    ckpt, inc = clusters.path("ps_inc", "ckpt"), clusters.path("ps_inc",
+                                                               "inc")
+    rng = np.random.default_rng(SU_SEED)
+    w = svc.remote_worker()
+    w.configure_parameter_servers(
+        "bounded_uniform", {"lower": -0.1, "upper": 0.1}, 1.0, 10.0)
+    w.register_optimizer({"type": "sgd", "lr": 0.1, "wd": 0.0})
+
+    def step(lo, hi):
+        feats = [IDTypeFeature(f"slot_{i}", [rng.integers(
+            lo, hi, size=SU_BATCH, dtype=np.uint64)])
+            for i in range(SU_FEATS)]
+        ref, out = w.lookup_direct_training(feats)
+        w.update_gradients(ref, {n: np.ones_like(v.embeddings)
+                                 for n, v in out.items()})
+
+    for _ in range(8):
+        step(0, SU_WORKER_POOL)
+    w.dump(ckpt)
+    for _ in range(4):
+        step(0, SU_WORKER_POOL)  # packets past the checkpoint
+    old = svc.ps_addrs[1]
+    t_kill = time.monotonic()
+    svc.ps_proc(1).kill()
+    (ev,) = svc.wait_ps_recoveries(1, timeout=SU_WAIT_S)
+    if "failed" in ev or ev["addr"] == old:
+        raise AssertionError(f"supervision (d) with packets: {ev}")
+    for _ in range(4):
+        step(1 << 20, (1 << 20) + SU_WORKER_POOL)  # a disjoint range
+    if w.staleness:
+        raise AssertionError("supervision (d) with packets: staleness "
+                             f"{w.staleness}")
+    want = {s: v for s, _d, v in iter_psd_entries(
+        os.path.join(ckpt, "replica_1.psd"))}
+    n_ckpt, packets = len(want), 0
+    for name in sorted(os.listdir(inc)):
+        path = os.path.join(inc, name, "1.inc")
+        if name.startswith("inc_") and os.path.exists(path):
+            packets += 1
+            for s, _d, v in iter_psd_entries(path):
+                if s < (1 << 20):
+                    want[s] = v
+    client = PsClient(ev["addr"])
+    differ = sum(got is None or got[1][:len(v)].tobytes() != v.tobytes()
+                 for got, v in ((client.get_entry(s), v)
+                                for s, v in want.items()))
+    client.client.close()
+    w.close()
+    clusters.idle_s["checkpoint and packets"] = ev["recovery_sec"]
+    line = (f"(d) with packets: PS 1 killed 4 steps after a checkpoint: "
+            f"Idle at {ev['addr']} {ev['recovery_sec']:.3f} s after the "
+            f"kill was seen (detected "
+            f"{(ev['t_detected'] - t_kill) * 1e3:.1f} ms after it), having "
+            f"replayed replica 1's {packets} packets over the checkpoint's "
+            f"{n_ckpt} rows; {len(want)} rows of the overlay read back, "
+            f"{differ} differ")
+    if differ or packets < 2 or len(want) <= n_ckpt:
+        raise AssertionError(f"supervision {line}")
+    return line
 
 
 def su_rider_cpu(rounds: int) -> list:
@@ -5634,9 +5760,9 @@ def supervision_phase(torch, card: str, clusters: SupervisionClusters
     (each its own cluster); returns each kernel's launches over the phase
     (none)."""
     up = clusters.wait()
-    _log(f"[supervision] 8 clusters of 1 coordinator, {N_PS} PS and 1 "
-         f"worker process each, up {up:.1f}s after their start (beside the "
-         f"kernel build) | card: {card}")
+    _log(f"[supervision] {len(clusters.ctxs)} clusters of 1 coordinator, "
+         f"{N_PS} PS and 1 worker process each, up {up:.1f}s after their "
+         f"start (beside the kernel build) | card: {card}")
     reset_launch_counts()
     from functools import partial
 
@@ -5645,6 +5771,7 @@ def supervision_phase(torch, card: str, clusters: SupervisionClusters
     jobs.update(b=partial(su_torn, clusters),
                 c=partial(su_worker_kill, clusters),
                 d=partial(su_ps_kill, clusters),
+                d_inc=partial(su_ps_inc_kill, clusters),
                 e=partial(su_group, clusters))
     lines, errors = {}, {}
 
@@ -5672,8 +5799,492 @@ def supervision_phase(torch, card: str, clusters: SupervisionClusters
         if c.crashed:
             raise AssertionError(f"supervision: {name} crashed: "
                                  f"{c.crashed}")
+    _log("[supervision] (d) a restarted PS Idle after the kill was seen, "
+         "restored from: " + ", ".join(
+             f"{k} {v:.3f} s" for k, v in clusters.idle_s.items())
+         + f" | card: {card}")
     return assert_no_kernel_launched("supervision", card)
 
+
+
+# --- online: the train -> serve loop -----------------------------------------
+# (a) bench_online's stack (bench.py:5330-5600) at its smoke depth: 3
+# freshness rounds (the full depth, 10 rounds at TTL 8 s, takes 40-80 s)
+ON_ROUNDS = 3
+ON_TTL_S = 4.0
+ON_SCAN_S = 0.15
+ON_SLOTS = 4
+ON_DENSE = 13  # bench.py's NUM_DENSE
+ON_PROBE_ROWS = 8
+ON_CACHE_ROWS = 500_000
+ON_P99_BLOCKS = 3  # paired interleaved predict blocks, printed only
+ON_P99_PER_BLOCK = 30
+# (b) seq_rec trained over processes and served from the infer tier
+ON_B_ROUNDS = 3
+ON_B_STEPS = 4  # trainer steps a round
+ON_B_PROBE_S = 20.0  # a round's probe must change within this
+ON_B_CACHE_ROWS = 200_000
+ON_B_SETTLE_S = 60.0  # both consumers past the last packet within this
+
+
+class OnlineClusters(ServiceClusters):
+    """(b)'s two ``ServiceCtx(n_workers=1, n_ps=2)`` clusters at the
+    seq_rec widths, entered on threads while the kernels build: the
+    training cluster's PS dump incremental-update packets into one
+    directory (``enable_incremental_update``, a buffer of the fewest
+    distinct signs one step sends a replica, so every update RPC dumps a
+    packet and none stays buffered), and the infer cluster
+    (``job_type: Infer``) hot-loads them into its PS. :meth:`stop` takes
+    both down."""
+
+    def __init__(self):
+        import tempfile
+
+        import numpy as np
+
+        from persia_tpu_torch.hashing import sign_to_shard
+        from persia_tpu_torch.service.helper import ServiceCtx
+        from persia_tpu_torch.utils import dump_yaml
+
+        self._tmp = tempfile.TemporaryDirectory()
+        self.inc_dir = os.path.join(self._tmp.name, "inc")
+        self.batches = online_batches()
+        self.buffer_size = min(
+            int(np.bincount(sign_to_shard(signs, N_PS),
+                            minlength=N_PS).min())
+            for signs in (seq_signs([b]) for b in self.batches))
+        self.ctxs = []
+        for name, extra in (("train", {}),
+                            ("infer", {"common_config": {
+                                "job_type": "Infer"}})):
+            path = os.path.join(self._tmp.name, f"{name}.yml")
+            dump_yaml({**extra, "embedding_parameter_server_config": {
+                "capacity": 2_000_000, "num_hashmap_internal_shards": 8,
+                "enable_incremental_update": True,
+                "incremental_buffer_size": self.buffer_size,
+                "incremental_dir": self.inc_dir}}, path)
+            self.ctxs.append(ServiceCtx(
+                build_schema(), n_workers=1, n_ps=N_PS,
+                global_config_path=path, startup_timeout=SV_START_S,
+                env={"LOG_LEVEL": "WARNING"}))
+        self.train, self.infer = self.ctxs
+        self._start()
+
+
+def seq_signs(batches):
+    """The distinct signs of ``batches`` (the PS keys: the seq_rec schema
+    has no prefix or hash stack)."""
+    import numpy as np
+
+    return np.unique(np.concatenate([f.signs for b in batches
+                                     for f in b.id_type_features]))
+
+
+def online_batches():
+    """(b)'s training batches: ``ON_B_ROUNDS * ON_B_STEPS`` of seq_rec."""
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    return list(seqrec_batches(
+        ON_B_ROUNDS * ON_B_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+        seed=TRAIN_SEED + 16,
+        spec=SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)))
+
+
+def on_request(rows: int, seed: int, lo: int = 1, hi: int = 20_000):
+    """bench.py's ``_online_request``: ``rows`` single-id rows over the
+    four slots and 13 dense features, made from ``seed``."""
+    import numpy as np
+
+    from persia_tpu_torch.data.batch import IDTypeFeatureWithSingleID, \
+        NonIDTypeFeature, PersiaBatch
+
+    rng = np.random.default_rng(seed)
+    signs = rng.integers(lo, hi, size=(rows, ON_SLOTS)).astype(np.uint64)
+    return PersiaBatch(
+        [IDTypeFeatureWithSingleID(f"slot_{s}",
+                                   np.ascontiguousarray(signs[:, s]))
+         for s in range(ON_SLOTS)],
+        non_id_type_features=[NonIDTypeFeature(
+            rng.normal(size=(rows, ON_DENSE)).astype(np.float32))],
+        requires_grad=False)
+
+
+def pctl(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(values, q))
+
+
+def online_freshness(torch, card: str) -> str:
+    """(a) bench_online's freshness A/B on the port: 2 ``PsService`` over
+    sockets with dumpers armed (buffer 1 << 30, flushed by the bench), an
+    in-process worker, ``DLRM(embedding_dim=16)`` on the card, a live
+    training thread; a TTL-only server (4 s) against a subscriber server
+    (TTL 3600 s, scans every 0.15 s). Gates: the subscriber's end-to-end
+    lag p99 at least 5x smaller; a subscriber scan adds no PS RPC; no
+    kernel. The paired p99 inflation is printed beside the bench's 3%
+    contract."""
+    import tempfile
+
+    import numpy as np
+
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.inc_update import IncrementalUpdateDumper
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.ps.native import make_holder
+    from persia_tpu_torch.serving import InferenceClient, InferenceServer
+    from persia_tpu_torch.service.ps_service import PsClient, PsService
+    from persia_tpu_torch.weights import init_params
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+
+    reset_launch_counts()
+    tmp = tempfile.TemporaryDirectory()
+    inc_dir = os.path.join(tmp.name, "inc")
+    schema = EmbeddingSchema(slots_config=uniform_slots(
+        [f"slot_{s}" for s in range(ON_SLOTS)], dim=DIM))
+    holders = [make_holder(2_000_000, 8) for _ in range(N_PS)]
+    dumpers = [IncrementalUpdateDumper(h, inc_dir, buffer_size=1 << 30,
+                                       replica_index=i)
+               for i, h in enumerate(holders)]
+    services = [PsService(h, inc_dumper=d) for h, d in zip(holders, dumpers)]
+    servers, clients = {}, {}
+    stop = threading.Event()
+    trainer = flusher = None
+    try:
+        for s in services:
+            s.server.serve_background()
+        worker = EmbeddingWorker(schema, [
+            PsClient(s.addr, circuit_breaker=False) for s in services])
+        worker.configure_parameter_servers(
+            "bounded_uniform", {"lower": -0.01, "upper": 0.01}, 1.0, 1e9)
+        worker.register_optimizer({"type": "sgd", "lr": 0.1, "wd": 0.0})
+        model = init_params(DLRM(ON_DENSE, ON_SLOTS, embedding_dim=DIM,
+                                 device="cuda"), SEED).eval()
+        # the probe's signs are disjoint from the noise's: a noise update
+        # never moves the probe's prediction
+        probe = on_request(ON_PROBE_ROWS, 1, lo=1_000_000, hi=1_001_000)
+        noise = [on_request(32, 100 + i) for i in range(8)]
+        for b in [probe] + noise:
+            worker.lookup_direct(b.id_type_features, training=True)
+        errors = []
+
+        def train(b):
+            ref, out = worker.lookup_direct_training(b.id_type_features)
+            worker.update_gradients(ref, {
+                k: np.ones_like(v.embeddings) for k, v in out.items()})
+
+        def train_loop():
+            rng = np.random.default_rng(7)
+            while not stop.is_set():
+                try:
+                    train(noise[int(rng.integers(len(noise)))])
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errors.append(e)
+                    return
+                time.sleep(0.002)
+
+        def flush_all():
+            for d in dumpers:
+                d.flush()
+
+        trainer = threading.Thread(target=train_loop, daemon=True)
+        trainer.start()
+        for arm, ttl in (("ttl", ON_TTL_S), ("online", 3600.0)):
+            servers[arm] = InferenceServer(model, schema, worker,
+                                           device="cuda",
+                                           cache_rows=ON_CACHE_ROWS,
+                                           cache_ttl_sec=ttl)
+        sub = servers["online"].attach_delta_subscriber(
+            inc_dir, scan_interval_sec=ON_SCAN_S)
+        for arm, server in servers.items():
+            server.serve_background()
+            clients[arm] = InferenceClient(server.addr)
+        blob = probe.to_bytes()
+        lags = {}
+        for arm, cl in clients.items():
+            lags[arm] = []
+            for _ in range(ON_ROUNDS):
+                before = cl.predict_bytes(blob).tobytes()
+                train(probe)
+                flush_all()
+                t_flush = time.monotonic()
+                deadline = t_flush + 3 * ON_TTL_S + 30
+                while cl.predict_bytes(blob).tobytes() == before:
+                    if time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"online (a) {arm}: the probe's update was not "
+                            f"servable within {deadline - t_flush:.0f} s")
+                    time.sleep(0.02)
+                lags[arm].append(time.monotonic() - t_flush)
+        p99 = {arm: pctl(v, 99) for arm, v in lags.items()}
+        speedup = p99["ttl"] / max(p99["online"], 1e-9)
+        # the paired p99 inflation, a background flush keeping the
+        # subscriber applying
+        def flush_loop():
+            while not stop.wait(0.4):
+                flush_all()
+
+        flusher = threading.Thread(target=flush_loop, daemon=True)
+        flusher.start()
+        lat_blobs = [b.to_bytes() for b in noise[:4]]
+        for cl in clients.values():
+            for b in lat_blobs:
+                cl.predict_bytes(b)
+        samples = {arm: [] for arm in clients}
+        for _ in range(ON_P99_BLOCKS):
+            for arm, cl in clients.items():
+                for i in range(ON_P99_PER_BLOCK):
+                    t0 = time.perf_counter()
+                    cl.predict_bytes(lat_blobs[i % len(lat_blobs)])
+                    samples[arm].append(time.perf_counter() - t0)
+        stop.set()
+        trainer.join(timeout=10)
+        flusher.join(timeout=10)
+        if errors:
+            raise errors[0]
+        lat99 = {arm: pctl(v, 99) * 1e3 for arm, v in samples.items()}
+        inflation = lat99["online"] / lat99["ttl"] - 1.0
+        # the wire at rest: with the scanner thread stopped, a fresh
+        # packet, then a scan of it, moves no PS request count (the
+        # packets are read from disk)
+        sub.stop()
+        train(probe)
+        flush_all()
+        served0 = [s.server.health()["served_rpcs"] for s in services]
+        scanned = sub.scan_once()
+        served1 = [s.server.health()["served_rpcs"] for s in services]
+        health = sub.health()
+    finally:
+        stop.set()
+        for t in (trainer, flusher):
+            if t is not None:
+                t.join(timeout=10)
+        for cl in clients.values():
+            cl.close()
+        for server in servers.values():
+            server.stop()
+        for s in services:
+            s.stop()
+        tmp.cleanup()
+    launches = assert_no_kernel_launched("online", card)
+    line = (f"(a) bench_online, {ON_ROUNDS} freshness rounds: "
+            f"sign-to-servable lag TTL-only (TTL {ON_TTL_S} s) p50 "
+            f"{pctl(lags['ttl'], 50):.3f} s p99 {p99['ttl']:.3f} s, "
+            f"subscriber (scan {ON_SCAN_S} s) p50 "
+            f"{pctl(lags['online'], 50):.3f} s p99 {p99['online']:.3f} s: "
+            f"{speedup:.2f}x fresher (gate 5x); subscriber packets "
+            f"{health['packets_applied']}, rows applied "
+            f"{health['rows_applied']} skipped {health['rows_skipped']} "
+            f"filtered {health['rows_filtered']}, throttled "
+            f"{health['throttled_sec']} s; paired predict p99 TTL-only "
+            f"{lat99['ttl']:.3f} ms, subscriber {lat99['online']:.3f} ms, "
+            f"inflation {inflation:+.2%} (the bench's contract <= 3%, "
+            f"printed only; {ON_P99_BLOCKS} x {ON_P99_PER_BLOCK} a side); "
+            f"a scan of {scanned} rows moved the PS request counts "
+            f"{served0} -> {served1}")
+    if speedup < 5.0 or not health["packets_applied"] \
+            or not health["rows_applied"] or served1 != served0 \
+            or not scanned:
+        raise AssertionError(f"online (a): {line}")
+    return line, launches
+
+
+def online_seq_rec(torch, card: str, clusters: OnlineClusters):
+    """(b) seq_rec trained over the training cluster's processes on the
+    card (K2-K4 a step) while an ``InferenceServer`` over the infer
+    cluster's worker, with the trainer's start weights frozen and its
+    hot-row cache subscribed to the packets, serves a probe a round: the
+    round's first batch, cached (as zero rows: the infer PS is empty)
+    before any step. Gates: each round's probe changes within
+    ``ON_B_PROBE_S``; K2-K4 once a trainer step and K2 on serving.
+    Returns the settle check (see :func:`online_settle`) and the launch
+    counts."""
+    import numpy as np
+
+    from persia_tpu_torch.data.batch import PersiaBatch
+    from persia_tpu_torch.serving import InferenceClient, InferenceServer
+    from persia_tpu_torch.workloads.generator import SeqRecSpec
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = build_schema()
+    start = build_tower(spec.num_dense, "flash").state_dict()
+    ctx = train_ctx(torch, schema, build_tower(spec.num_dense, "flash",
+                                               state_dict=start),
+                    worker=clusters.train.remote_worker())
+    server = InferenceServer(
+        build_tower(spec.num_dense, "flash", state_dict=start).eval(),
+        schema, worker_addrs=clusters.infer.worker_addrs, device="cuda",
+        cache_rows=ON_B_CACHE_ROWS, cache_ttl_sec=3600.0)
+    sub = server.attach_delta_subscriber(clusters.inc_dir,
+                                         scan_interval_sec=ON_SCAN_S)
+    server.serve_background()
+    client = InferenceClient(server.addr)
+    probes = []
+    for r in range(ON_B_ROUNDS):
+        p = PersiaBatch.from_bytes(
+            clusters.batches[r * ON_B_STEPS].to_bytes())
+        p.requires_grad = False
+        probes.append(p.to_bytes())
+    serve = {n: 0 for n in kernel_launches()}
+    trained = dict(serve)
+
+    def count(into, before):
+        for n, c in kernel_launches().items():
+            into[n] += c - before[n]
+
+    reset_launch_counts()
+    lags = []
+    try:
+        before = kernel_launches()
+        for p in probes:  # every probe's rows resident from the start
+            client.predict_bytes(p)
+        torch.cuda.synchronize()
+        count(serve, before)
+        with ctx:
+            for r in range(ON_B_ROUNDS):
+                before = kernel_launches()
+                old = client.predict_bytes(probes[r]).tobytes()
+                count(serve, before)
+                before = kernel_launches()
+                for b in clusters.batches[r * ON_B_STEPS:
+                                          (r + 1) * ON_B_STEPS]:
+                    ctx.train_step(b)
+                torch.cuda.synchronize()
+                count(trained, before)
+                # the last step's update RPCs returned: its packets exist
+                t_done = time.monotonic()
+                before = kernel_launches()
+                while client.predict_bytes(probes[r]).tobytes() == old:
+                    if time.monotonic() - t_done > ON_B_PROBE_S:
+                        raise AssertionError(
+                            f"online (b): round {r}'s probe did not change "
+                            f"within {ON_B_PROBE_S} s")
+                    time.sleep(0.01)
+                lags.append(time.monotonic() - t_done)
+                torch.cuda.synchronize()
+                count(serve, before)
+        signs = seq_signs(clusters.batches)
+    except BaseException:
+        client.close()
+        server.stop()
+        raise
+    ctx.worker.close()
+    steps = ON_B_ROUNDS * ON_B_STEPS
+    flash = [trained[n] for n in FLASH_KERNELS]
+    line = (f"(b) seq_rec over processes, {ON_B_ROUNDS} rounds of "
+            f"{ON_B_STEPS} steps of batch {TRAIN_BATCH} (packet buffer "
+            f"{clusters.buffer_size} signs): the probe (a round's first "
+            f"batch, {TRAIN_BATCH} rows) changed {pctl(lags, 50):.3f} s "
+            f"(p50) / {pctl(lags, 99):.3f} s (p99) after the round's last "
+            f"step, each {', '.join(f'{x:.3f}' for x in lags)} s; launches "
+            f"in {steps} trainer steps {trained}, on serving {serve}")
+    if flash != [steps] * 3 or serve[FLASH_KERNELS[0]] <= 0 \
+            or any(serve[n] for n in FLASH_KERNELS[1:]) \
+            or trained["embedding_bag"] or trained["probe_copy"] \
+            or serve["embedding_bag"] or serve["probe_copy"]:
+        client.close()
+        server.stop()
+        raise AssertionError(f"online (b): {line}")
+    launches = {n: trained[n] + serve[n] for n in trained}
+    return (line, (server, client, sub, signs)), launches
+
+
+def online_settle(card: str, clusters: OnlineClusters, server, client,
+                  sub, signs) -> str:
+    """(b)'s end: once both consumers have scanned past the last packet,
+    every touched row read from the infer PS (``get_entries`` on its
+    owning replica) is bit-equal to the training PS's, and every resident
+    cache row of a touched sign equals that row's embedding slice."""
+    import numpy as np
+
+    from persia_tpu_torch.hashing import sign_to_shard
+    from persia_tpu_torch.inc_update import ready_packets
+    from persia_tpu_torch.service.ps_service import PsClient
+
+    t0 = time.monotonic()
+    train = [PsClient(a) for a in clusters.train.ps_addrs]
+    infer = [PsClient(a) for a in clusters.infer.ps_addrs]
+    try:
+        n_packets = len(list(ready_packets(clusters.inc_dir, set())))
+        while (sub.packets_applied < n_packets or any(
+                c.health()["inc_update_packets_applied"] < n_packets
+                for c in infer)):
+            if time.monotonic() - t0 > ON_B_SETTLE_S:
+                raise AssertionError(
+                    f"online (b): the consumers did not reach "
+                    f"{n_packets} packets in {ON_B_SETTLE_S} s: subscriber "
+                    f"{sub.packets_applied}, infer PS " + str([
+                        c.health()["inc_update_packets_applied"]
+                        for c in infer]))
+            time.sleep(0.1)
+        waited = time.monotonic() - t0
+        owner = sign_to_shard(signs, N_PS)
+        width = 2 * DIM  # [embedding | Adagrad state]
+        rows_differ = missing = 0
+        want = {}
+        for r in range(N_PS):
+            mine = signs[owner == r]
+            tf, tv = train[r].get_entries(mine, width)
+            jf, jv = infer[r].get_entries(mine, width)
+            missing += int((tf != 1).sum() + (jf != 1).sum())
+            rows_differ += int((tv.view(np.uint32) != jv.view(np.uint32))
+                               .any(axis=-1).sum())
+            want.update(zip(mine.tolist(), tv[:, :DIM]))
+        resident = [(s, row) for (d, s), (row, _exp, _ver)
+                    in list(server.cache._od.items()) if s in want]
+        cache_differ = sum(row.tobytes() != want[s].tobytes()
+                           for s, row in resident)
+        health = sub.health()
+    finally:
+        for c in train + infer:
+            c.client.close()
+        client.close()
+        server.stop()
+    line = (f"(b) settled {waited:.3f} s after the rounds: {n_packets} "
+            f"packets, the subscriber applied {health['rows_applied']} rows "
+            f"(skipped {health['rows_skipped']}, throttled "
+            f"{health['throttled_sec']} s); {len(signs)} touched rows on the "
+            f"infer PS against the training PS: missing {missing}, differ "
+            f"in any bit {rows_differ}; {len(resident)} resident cache rows "
+            f"against the embedding slice: differ {cache_differ}")
+    if missing or rows_differ or cache_differ or not resident:
+        raise AssertionError(f"online (b): {line}")
+    return line
+
+
+def online_phase(torch, card: str, clusters: OnlineClusters) -> dict:
+    """(a) and (b) (``online_freshness``, ``online_seq_rec``); (b)'s
+    settle check runs after (a), by when the infer PS's loader (a scan
+    every 10 s) has passed the last packet. (c) is ``supervision``'s.
+    Returns each kernel's launches over the phase."""
+    up = clusters.wait()
+    _log(f"[online] the training and infer clusters up {up:.1f}s after "
+         f"their start (beside the kernel build): train PS "
+         f"{clusters.train.ps_addrs}, infer PS {clusters.infer.ps_addrs} "
+         f"| card: {card}")
+    t0 = time.perf_counter()
+    (b_line, settle_args), launches = online_seq_rec(torch, card, clusters)
+    _log(f"[online] {b_line} | card: {card}")
+    t1 = time.perf_counter()
+    _log(f"[time] online (b) {t1 - t0:.1f}s")
+    try:
+        a_line, a_launches = online_freshness(torch, card)
+    except BaseException:
+        server, client, _sub, _signs = settle_args
+        client.close()
+        server.stop()
+        raise
+    _log(f"[online] {a_line} | card: {card}")
+    t2 = time.perf_counter()
+    _log(f"[time] online (a) {t2 - t1:.1f}s")
+    _log(f"[online] {online_settle(card, clusters, *settle_args)} "
+         f"| card: {card}")
+    _log(f"[time] online (b) settle {time.perf_counter() - t2:.1f}s")
+    for c in clusters.ctxs:
+        if c.crashed:
+            raise AssertionError(f"online: a child crashed: {c.crashed}")
+    return {n: launches[n] + a_launches[n] for n in launches}
 
 
 class _PhaseClock:
@@ -5701,7 +6312,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run it "
               f"from the root of a checkout", file=sys.stderr)
         return 2
-    procs = clusters = su_clusters = None
+    procs = clusters = su_clusters = on_clusters = None
     try:
         clock = _PhaseClock()
         card = card_line()
@@ -5725,6 +6336,7 @@ def main() -> int:
             native_s = time.perf_counter() - t0
             clusters = ServiceClusters()
             su_clusters = SupervisionClusters()
+            on_clusters = OnlineClusters()
         finally:
             kernel_build.join()
         if "paths" not in built:
@@ -5742,6 +6354,12 @@ def main() -> int:
         su_clusters.stop()
         su_clusters = None
         clock("supervision")
+        # second, for the same reason: its clusters are down before the
+        # timed phases
+        online_launches = online_phase(torch, card, on_clusters)
+        on_clusters.stop()
+        on_clusters = None
+        clock("online")
         floor = launch_path_phase(torch, card)
         clock("launch_path")
         records = kernel_phase(torch, card)
@@ -5798,6 +6416,8 @@ def main() -> int:
             records[name]["launches_services"] = n
         for name, n in su_launches.items():
             records[name]["launches_supervision"] = n
+        for name, n in online_launches.items():
+            records[name]["launches_online"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "
@@ -5821,6 +6441,8 @@ def main() -> int:
             clusters.stop()
         if su_clusters is not None:
             su_clusters.stop()
+        if on_clusters is not None:
+            on_clusters.stop()
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

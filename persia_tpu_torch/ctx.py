@@ -3,6 +3,8 @@
 - :func:`current_ctx` and the context stack: contexts nest, the innermost
   entered one is current (an embedding optimizer's ``apply()`` registers
   through it).
+- :class:`DataCtx`: the data-loader role, sending batches through a
+  dataflow client (:mod:`persia_tpu_torch.service.dataflow`).
 - :class:`EmbeddingCtx`: parameter-server configuration, feature
   preparation and the eval forward.
 - :class:`TrainCtx`: the hybrid train step (training lookup -> packed
@@ -70,6 +72,25 @@ def _check_model_device(model, device: torch.device):
             raise ValueError(
                 f"model parameters live on {p.device}, the context on "
                 f"{device}; build the model on the same device")
+
+
+class DataCtx(BaseCtx):
+    """The data-loader role: push batches toward the embedding workers and
+    the trainers through ``dataflow``, a
+    :class:`~persia_tpu_torch.service.dataflow.DataflowClient`. Batches
+    without an id are numbered on from the last one sent."""
+
+    def __init__(self, dataflow=None):
+        self.dataflow = dataflow
+        self._next_batch_id = 0
+
+    def send_data(self, batch: PersiaBatch):
+        if self.dataflow is None:
+            raise RuntimeError("DataCtx requires a dataflow client")
+        if batch.batch_id is None:
+            batch.batch_id = self._next_batch_id
+        self._next_batch_id = batch.batch_id + 1
+        self.dataflow.send(batch)
 
 
 class EmbeddingCtx(BaseCtx):

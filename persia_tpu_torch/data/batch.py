@@ -10,20 +10,18 @@ package can talk to a server of the other.
   (`PTB2`).
 """
 
-import os
 import struct
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-_TRUTHY = ("1", "true", "yes")
+from persia_tpu_torch import knobs
 
 
 def skip_check_data() -> bool:
     """Whether PersiaBatch input validation is disabled
     (``PERSIA_SKIP_CHECK_DATA``, read at call time)."""
-    return os.environ.get("PERSIA_SKIP_CHECK_DATA", "").strip().lower() \
-        in _TRUTHY
+    return knobs.get("PERSIA_SKIP_CHECK_DATA")
 
 
 # Maximum supported batch size: sample indices travel as u16 pairs in the
@@ -207,6 +205,10 @@ class PersiaBatch:
         self.requires_grad = requires_grad
         self.meta = meta
         self.batch_size = batch_size
+        # (worker_addr, ref_id) when a data loader already put this
+        # batch's ID features into a remote embedding worker's forward
+        # buffer (service.dataflow)
+        self.remote_ref = None
 
     # --- wire format -----------------------------------------------------
 

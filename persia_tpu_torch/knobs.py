@@ -1,17 +1,21 @@
 """The ``PERSIA_*`` environment knobs the port reads
 (``persia_tpu/knobs.py``).
 
-Only the knobs of the spill tier, the hotness sketches, the snapshot
+The knobs of the data layer (batch validation, the workload zoo's
+seed and skew), the PS holders (the backend, the arena's growth quantum
+and index size), the spill tier, the hotness sketches, the snapshot
 retention, the storage layer's fsync, the device cache (its admission
 policy, the hotness mapper's window and sketch, the multi-process
 negotiation), the serving wire (the RPC block codec, fault injection,
 tracing, the variant split, the observability sidecar and the metrics
-push gateway) and the service tier (the coordinator's address, the PS
-replica count, the PS service's dispatch, wire codec, circuit breaker,
-frames, GC tune, row dtype and spill tier, the worker's distinct-id
-monitor) and whole-job supervision (the trainer group's size, rank and
-rendezvous, the snapshot cadence, the fleet's static targets), with the JAX package's names, types, defaults and parse
-conventions:
+push gateway), the online tier (the delta subscriber's scan interval,
+apply batch and write-rate governor), the service tier (the
+coordinator's address, the PS replica count, the PS service's dispatch,
+wire codec, circuit breaker, frames, GC tune, row dtype and spill tier,
+the worker's data plane and distinct-id monitor) and whole-job
+supervision (the trainer group's size, rank and rendezvous, the snapshot
+cadence, the fleet's static targets), with the JAX package's names,
+types, defaults and parse conventions:
 
 - ``bool`` knobs whose default is False are enabled by ``1`` / ``true`` /
   ``yes`` (case-insensitive);
@@ -40,6 +44,8 @@ class Knob:
 
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in [
+    Knob("PERSIA_ARENA_INDEX_SLOTS", "int", 1024),
+    Knob("PERSIA_ARENA_SLAB_ROWS", "int", 65536),
     Knob("PERSIA_COORDINATOR_ADDR", "str", "127.0.0.1:23333"),
     Knob("PERSIA_ENABLE_MONITOR", "bool", False),
     Knob("PERSIA_FAULTS", "str", None),
@@ -55,8 +61,12 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_METRICS_GATEWAY_ADDR", "str", None),
     Knob("PERSIA_MULTIHOST_CACHE", "str", "off"),
     Knob("PERSIA_NUM_PS", "int", 1),
+    Knob("PERSIA_ONLINE_APPLY_BATCH_ROWS", "int", 8192),
+    Knob("PERSIA_ONLINE_APPLY_ROWS_PER_SEC", "int", 500_000),
+    Knob("PERSIA_ONLINE_SCAN_SEC", "float", 2.0),
     Knob("PERSIA_PROCESS_COUNT", "int", 1),
     Knob("PERSIA_PROCESS_INDEX", "int", 0),
+    Knob("PERSIA_PS_BACKEND", "str", "auto"),
     Knob("PERSIA_PS_CIRCUIT_BREAKER", "bool", True),
     Knob("PERSIA_PS_CONCURRENT_STREAMS", "int", 8),
     Knob("PERSIA_PS_GC_TUNE", "bool", True),
@@ -65,6 +75,7 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_PS_SHARD_PARALLEL", "bool", True),
     Knob("PERSIA_PS_WIRE_CODEC", "str", ""),
     Knob("PERSIA_RPC_FORCE_BLOCK", "bool", False),
+    Knob("PERSIA_SKIP_CHECK_DATA", "bool", False),
     Knob("PERSIA_SNAPSHOT_INTERVAL_STEPS", "int", 50),
     Knob("PERSIA_SNAPSHOT_KEEP", "int", 3),
     Knob("PERSIA_TIER_ADMIT", "str", "lru"),
@@ -80,6 +91,9 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_TRAINER_RENDEZVOUS_TIMEOUT_SEC", "float", 120.0),
     Knob("PERSIA_VARIANT_ROUTE_FEATURE", "str", None),
     Knob("PERSIA_VARIANT_SPLIT_BUCKETS", "int", 10000),
+    Knob("PERSIA_WORKER_STREAMING", "bool", True),
+    Knob("PERSIA_WORKLOAD_ALPHA", "float", 1.05),
+    Knob("PERSIA_WORKLOAD_SEED", "int", 0),
 ]}
 
 

@@ -27,8 +27,8 @@ flush queue drained, by a copy on the training thread's stream, which
 orders it after every step.
 
 The JAX engine's registry counters are not wired to the port's metrics
-registry yet (ROADMAP.md queue A item 6b); the port keeps them as plain
-ints, read by :meth:`stats`.
+registry yet (ROADMAP.md queue A item 6b, second part); the port keeps
+them as plain ints, read by :meth:`stats`.
 """
 
 import itertools

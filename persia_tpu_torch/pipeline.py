@@ -223,10 +223,15 @@ class ForwardEngine:
         """One batch's lookup, surviving connection failures. The worker
         puts its forward-buffer entry back on a failed lookup, so a retry
         by ref_id finds its batch; a ``put_batch`` that succeeded is never
-        sent again."""
+        sent again. A batch whose ID features a data loader already put
+        into a remote worker (``remote_ref``) is looked up by that ref."""
+        rref = getattr(batch, "remote_ref", None)
         state = {"ref_id": None}
 
         def attempt():
+            if rref is not None:
+                return (rref if batch.requires_grad else None), \
+                    self.worker.lookup(rref, training=batch.requires_grad)
             if batch.requires_grad:
                 if state["ref_id"] is None:
                     state["ref_id"] = self.worker.put_batch(

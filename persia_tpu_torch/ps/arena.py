@@ -56,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from persia_tpu_torch import knobs
 from persia_tpu_torch.hotness import disabled_snapshot, make_tracker
 from persia_tpu_torch.ps.optim import (
     RowPrecision,
@@ -78,11 +79,6 @@ from persia_tpu_torch.ps.store import (
 _H_MULT = 0x9E3779B97F4A7C15  # fibonacci multiplier, splits u64 keys
 _SLOT_BITS = 44  # packed index value: (class << 44) | slot
 _SLOT_MASK = (1 << _SLOT_BITS) - 1
-
-# the JAX package's PERSIA_ARENA_SLAB_ROWS / PERSIA_ARENA_INDEX_SLOTS
-# defaults (persia_tpu/knobs.py)
-SLAB_ROWS = 65536
-INDEX_SLOTS = 1024
 
 PATHS = ("lookup_batched", "lookup_rounds", "lookup_sequential",
          "update_batched", "update_rounds")
@@ -518,7 +514,8 @@ class ArenaEmbeddingHolder:
     evictions to the disk tier (at most ``spill_bytes`` on disk, oldest
     packets dropped first), ``hotness`` arms the workload sketches (None:
     the ``PERSIA_HOTNESS`` knob); ``slab_rows`` and ``index_slots`` size
-    the arena's growth quantum and each shard's initial sign index."""
+    the arena's growth quantum and each shard's initial sign index (None:
+    the ``PERSIA_ARENA_SLAB_ROWS`` / ``PERSIA_ARENA_INDEX_SLOTS`` knobs)."""
 
     def __init__(self, capacity: int = 1_000_000_000,
                  num_internal_shards: int = 8, row_dtype: str = "fp32",
@@ -526,8 +523,8 @@ class ArenaEmbeddingHolder:
                  hotness: Optional[bool] = None,
                  spill_dir: Optional[str] = None,
                  spill_bytes: Optional[int] = None,
-                 slab_rows: int = SLAB_ROWS,
-                 index_slots: int = INDEX_SLOTS):
+                 slab_rows: Optional[int] = None,
+                 index_slots: Optional[int] = None):
         if num_internal_shards <= 0:
             raise ValueError("num_internal_shards must be positive")
         capacity_bytes = capacity_bytes or None
@@ -539,6 +536,10 @@ class ArenaEmbeddingHolder:
         per_shard_bytes = (
             max(1, capacity_bytes // num_internal_shards)
             if capacity_bytes is not None else None)
+        if slab_rows is None:
+            slab_rows = knobs.get("PERSIA_ARENA_SLAB_ROWS")
+        if index_slots is None:
+            index_slots = knobs.get("PERSIA_ARENA_INDEX_SLOTS")
         self._shards = [
             _ArenaShard(per_shard, per_shard_bytes, self._rp,
                         max(1024, int(slab_rows)),

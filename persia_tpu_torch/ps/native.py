@@ -47,6 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from persia_tpu_torch import knobs
 from persia_tpu_torch.hotness import disabled_snapshot, make_tracker
 from persia_tpu_torch.ops._build import BUILD_DIR, Job, compile_all
 from persia_tpu_torch.ps.arena import ArenaEmbeddingHolder
@@ -725,7 +726,8 @@ def make_holder(capacity: int, num_internal_shards: int,
                 spill_bytes=None, backend: Optional[str] = None):
     """The holder for a storage policy:
 
-    - ``auto`` (the default, also for ``backend=None``) and ``native``:
+    - ``auto`` (the default; ``backend=None`` reads ``PERSIA_PS_BACKEND``)
+      and ``native``:
       the native C++ store, :class:`NativeEmbeddingHolder`, built at
       first use; ``prefer_native=False`` maps ``auto`` to ``arena``;
     - ``arena``: the Python arena holder (:mod:`persia_tpu_torch.ps.arena`);
@@ -735,7 +737,7 @@ def make_holder(capacity: int, num_internal_shards: int,
     ``spill_dir`` (at most ``spill_bytes`` on disk) and ``hotness`` arm
     the disk spill tier and the hotness sketches on every backend.
     """
-    backend = backend or "auto"
+    backend = backend or knobs.get("PERSIA_PS_BACKEND") or "auto"
     if backend not in BACKENDS:
         raise ValueError(f"unknown PS backend {backend!r} (expected "
                          f"{'|'.join(BACKENDS)})")

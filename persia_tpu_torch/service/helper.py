@@ -13,8 +13,7 @@ started again (``supervise_ps``, ``supervise_workers``,
 bundle. Leaving the context stops every process.
 
 Not ported: the native C++ PS and worker binaries (``native_ps=``,
-``native_worker=``), the fleet monitor (``fleet_monitor``) and the
-incremental-update replay of a restored PS (``ps_inc_dir=``); each
+``native_worker=``) and the fleet monitor (``fleet_monitor``); each
 raises naming the ROADMAP.md item it waits for.
 """
 
@@ -43,7 +42,6 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 _ITEM_9C = "ROADMAP.md queue A item 9c"
-_ITEM_6B = "ROADMAP.md queue A item 6b"
 
 
 def _schema_to_yaml_dict(schema: EmbeddingSchema) -> dict:
@@ -88,10 +86,13 @@ class ServiceCtx:
     that exits, or whose sidecar misses ``ps_probe_failures`` probes in a
     row while its process lives (wedged), under the same replica index,
     restoring its shard from ``ps_restore_dir`` (``replica_<i>.psd`` of
-    the last ``dump_sharded``) before it registers; the workers re-resolve
-    it through the coordinator. With ``supervise_workers`` a dead worker
-    replica is started again under its index and recovers once the
-    coordinator shows a new address there. With ``supervise_trainer``,
+    the last ``dump_sharded``) and replaying its incremental-update packets
+    from ``ps_inc_dir`` over it (``--replay-inc-dir``; the training PS
+    dump them there under ``enable_incremental_update``) before it
+    registers; the workers re-resolve it through the coordinator. With
+    ``supervise_workers`` a dead worker replica is started again under
+    its index and recovers once the coordinator shows a new address
+    there. With ``supervise_trainer``,
     ``trainer_args`` start ``n_trainers`` copies of
     ``persia_tpu_torch.service.trainer_service`` (``--coordinator`` and
     ``--snapshot-dir snapshot_dir`` appended; ``--process-index`` /
@@ -141,12 +142,6 @@ class ServiceCtx:
                     f"ServiceCtx({name}=True) is not ported yet: it needs a "
                     f"loader of the port's own for the {binary} binary; it "
                     f"waits for {_ITEM_9C}")
-        if ps_inc_dir is not None:
-            raise NotImplementedError(
-                f"ServiceCtx(ps_inc_dir=...) replays incremental-update "
-                f"packets over a restored PS, which is not ported yet; it "
-                f"waits for {_ITEM_6B} (a supervised PS restores from "
-                f"ps_restore_dir alone)")
         self.schema = schema
         self.n_workers = n_workers
         self.n_ps = n_ps
@@ -165,6 +160,7 @@ class ServiceCtx:
         # the PS supervisor: incarnations, sidecars, probe misses, restarts
         self.supervise_ps = supervise_ps
         self.ps_restore_dir = ps_restore_dir
+        self.ps_inc_dir = ps_inc_dir
         self.ps_probe_interval = ps_probe_interval
         self.ps_probe_failures = ps_probe_failures
         self.ps_max_restarts = ps_max_restarts
@@ -353,7 +349,8 @@ class ServiceCtx:
     def _spawn_ps(self, i: int, restore: bool = False) -> subprocess.Popen:
         """(Re)start PS replica ``i``. A supervised one always runs its
         sidecar (the supervisor's probe); a ``restore`` start loads the
-        replica's shard of ``ps_restore_dir`` before it registers."""
+        replica's shard of ``ps_restore_dir`` and replays its packets of
+        ``ps_inc_dir`` before it registers."""
         args = self._role_args("ps_service", i, self.n_ps)
         if self.supervise_ps:
             inc = self._ps_incarnation[i] = self._ps_incarnation.get(i, 0) + 1
@@ -364,10 +361,14 @@ class ServiceCtx:
             args += ["--http-port", "0", "--http-addr-file", http_file]
         elif self.http_all:
             args += ["--http-port", "0"]
-        if restore and self.ps_restore_dir:
-            ckpt = os.path.join(self.ps_restore_dir, f"replica_{i}.psd")
-            if os.path.exists(ckpt):
-                args += ["--initial-checkpoint", ckpt]
+        if restore:
+            if self.ps_restore_dir:
+                ckpt = os.path.join(self.ps_restore_dir,
+                                    f"replica_{i}.psd")
+                if os.path.exists(ckpt):
+                    args += ["--initial-checkpoint", ckpt]
+            if self.ps_inc_dir:
+                args += ["--replay-inc-dir", self.ps_inc_dir]
         proc = self._spawn(args, f"ps-{i}", i, self.n_ps)
         proc._persia_replica = i  # type: ignore[attr-defined]
         proc._persia_supervised = self.supervise_ps  # type: ignore

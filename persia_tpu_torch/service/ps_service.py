@@ -12,14 +12,22 @@ codec-negotiated client asks ``resp: fp16``, and with the holder's update
 version ``hver`` only when asked ``hv``; updates take int8 rows and
 per-row scales under ``codec: int8``.
 
+The incremental-update tier (:mod:`persia_tpu_torch.inc_update`): a
+training replica's ``inc_dumper`` commits the signs of every write
+(``update_gradients``, ``set_entry``, ``set_entries``); an infer
+replica's ``inc_loader`` hot-loads the packets, and its health doc
+carries the loader's freshness. ``restore(replay_inc_dir=)`` replays a
+replica's packets over its checkpoint after a crash.
+
 Not ported: the live-resharding surface (``reshard_*``,
 ``set_routing_epoch``, the ``__routing__`` rider and the write gate) is
 no method here, so a ``reshard_*`` call gets the error an unknown method
-gets; it waits for ROADMAP.md queue A item 9c. The incremental-update
-dumper and loader wait for item 6b.
+gets; it waits for ROADMAP.md queue A item 9c.
 
 Run: ``python -m persia_tpu_torch.service.ps_service --port 0
---replica-index 0 --replica-size 2 [--coordinator host:port]``
+--replica-index 0 --replica-size 2 [--coordinator host:port]
+[--global-config global.yml] [--initial-checkpoint replica_0.psd
+--replay-inc-dir <incremental_dir>]``
 """
 
 import argparse
@@ -46,11 +54,6 @@ from persia_tpu_torch.rpc import (
 from persia_tpu_torch.service.coordinator import ROLE_PS, CoordinatorClient
 
 _logger = logging.getLogger(__name__)
-
-# what the PS service does not do yet, and the ROADMAP.md item each waits
-# for
-_INC_WAITS = "ROADMAP.md queue A item 6b (inc_update.py, the " \
-    "incremental-update dumper and loader)"
 
 
 class ShardParallelDispatcher:
@@ -107,12 +110,19 @@ class PsService:
     """One PS replica behind an RPC server. ``http_port`` starts the
     observability sidecar (0 = ephemeral, None = off); ``legacy_frames``
     answers with the concatenating ``pack_arrays`` instead of the
-    scatter-gather frames."""
+    scatter-gather frames. ``inc_dumper`` (an
+    :class:`~persia_tpu_torch.inc_update.IncrementalUpdateDumper`) is
+    handed the signs of every write; ``inc_loader`` (an
+    :class:`~persia_tpu_torch.inc_update.IncrementalUpdateLoader`)
+    reports its freshness in the health doc."""
 
     def __init__(self, holder, host: str = "127.0.0.1", port: int = 0,
                  concurrent_streams: int = 8, legacy_frames: bool = False,
-                 http_port: Optional[int] = None):
+                 http_port: Optional[int] = None, inc_dumper=None,
+                 inc_loader=None):
         self.holder = holder
+        self.inc_dumper = inc_dumper
+        self.inc_loader = inc_loader
         # a multiplexing worker (tagged framing) gets out-of-order
         # completion from the per-connection dispatch pool
         self.server = RpcServer(host, port,
@@ -196,6 +206,15 @@ class PsService:
         spill_stats = getattr(holder, "spill_stats", None)
         if spill_stats is not None and spill_stats():
             doc["spill"] = spill_stats()
+        if self.inc_loader is not None:
+            # how far this replica's hot-loaded rows run behind the
+            # training tier
+            doc["inc_update_last_delay_sec"] = round(
+                self.inc_loader.last_delay_sec, 3)
+            doc["inc_update_sec_since_last_apply"] = round(
+                self.inc_loader.sec_since_last_apply, 3)
+            doc["inc_update_packets_applied"] = (
+                self.inc_loader.packets_applied)
         self._refresh_gauges()
         # readiness, distinct from liveness: the sidecar's
         # /healthz?ready=1 answers 503 until an optimizer is registered
@@ -280,6 +299,8 @@ class PsService:
         hver = meta.get("hver")
         if hver is not None:
             self._h_staleness.observe(max(ver - 1 - int(hver), 0))
+        if self.inc_dumper is not None:
+            self.inc_dumper.commit(signs)
         return b""
 
     def _len(self, payload: bytes) -> bytes:
@@ -296,7 +317,12 @@ class PsService:
     def _set_entry(self, payload: bytes) -> bytes:
         meta, (vec,) = unpack_arrays(payload)
         self.holder.set_entry(meta["sign"], meta["dim"], vec)
+        # a full-row write joins the version stream and the
+        # incremental-update log as a gradient apply does
         self._bump_update_ver()
+        if self.inc_dumper is not None:
+            self.inc_dumper.commit(
+                np.asarray([meta["sign"]], dtype=np.uint64))
         return b""
 
     def _get_entries(self, payload: bytes) -> bytes:
@@ -309,6 +335,8 @@ class PsService:
         self.holder.set_entries(signs, meta["dim"],
                                 vecs.reshape(len(signs), -1))
         ver = self._bump_update_ver()
+        if self.inc_dumper is not None:
+            self.inc_dumper.commit(signs)
         if meta.get("wv"):
             # the versioned write-back, answered only when asked
             return _msgpack.packb({"ver": ver})
@@ -354,29 +382,49 @@ class PsService:
             req["path"], clear=req.get("clear", True)))
 
     def restore(self, checkpoint_path: Optional[str] = None,
-                replay_inc_dir: Optional[str] = None) -> int:
-        """Boot restore: load this replica's checkpoint shard, with the
-        status machine riding along (``/healthz?ready=1`` answers 503
-        until it completes). Replaying incremental-update packets on top
-        (``replay_inc_dir``) is not ported. Returns the replayed entries
-        (0)."""
-        if replay_inc_dir:
-            raise NotImplementedError(
-                f"restore(replay_inc_dir=...) replays incremental-update "
-                f"packets, which is not ported yet; it waits for "
-                f"{_INC_WAITS}")
+                replay_inc_dir: Optional[str] = None,
+                replica_index: Optional[int] = None,
+                routing=None) -> int:
+        """Boot restore after a crash: load this replica's checkpoint
+        shard, then replay the incremental-update packets under
+        ``replay_inc_dir`` over it (``replica_index``'s own files, or with
+        ``routing`` every file's rows the table routes to
+        ``replica_index``), which together hold every row the training
+        tier recorded. The status machine rides along: ``Loading``
+        (``/healthz?ready=1`` answers 503) until it completes. With
+        ``routing`` the checkpoint, sharded by an older table, loads only
+        the rows the table routes here. Returns the replayed entries."""
+        from persia_tpu_torch.inc_update import (
+            IncrementalUpdateLoader,
+            load_owned_rows,
+        )
+
         self._set_status("Loading")
+        replayed = 0
         try:
-            if checkpoint_path:
+            if checkpoint_path and routing is not None:
+                kept = load_owned_rows(self.holder, checkpoint_path,
+                                       replica_index, routing)
+                _logger.info("restored checkpoint %s (%d rows kept under "
+                             "the live routing table)", checkpoint_path,
+                             kept)
+            elif checkpoint_path:
                 self.holder.load_file(checkpoint_path)
                 _logger.info("restored checkpoint %s (%d entries)",
                              checkpoint_path, len(self.holder))
+            if replay_inc_dir:
+                replayed = IncrementalUpdateLoader(
+                    self.holder, replay_inc_dir,
+                    replica_index=replica_index,
+                    routing=routing).scan_once()
+                _logger.info("replayed %d incremental entries from %s",
+                             replayed, replay_inc_dir)
             self._set_status("Idle")
-        except Exception as e:
+        except BaseException as e:
             _logger.error("restore failed: %s", e)
             self._set_status(f"Failed: {e}")
             raise
-        return 0
+        return replayed
 
     def _status(self, payload: bytes) -> bytes:
         with self._status_lock:
@@ -692,8 +740,31 @@ def _holder_for(gc, args):
                        spill_bytes=args.spill_bytes or ps.spill_bytes or None)
 
 
+def _inc_tier(gc, holder, replica_index: int):
+    """``(inc_dumper, inc_loader)`` under
+    ``parameter_server.enable_incremental_update``: an infer job's replica
+    hot-loads the packets on a scanner thread, any other dumps them."""
+    from persia_tpu_torch.config import JobType
+    from persia_tpu_torch.inc_update import (
+        IncrementalUpdateDumper,
+        IncrementalUpdateLoader,
+    )
+
+    ps = gc.parameter_server
+    if not ps.enable_incremental_update:
+        return None, None
+    if gc.common.job_type == JobType.INFER:
+        loader = IncrementalUpdateLoader(holder, ps.incremental_dir)
+        loader.start()
+        return None, loader
+    return IncrementalUpdateDumper(
+        holder, ps.incremental_dir,
+        buffer_size=ps.incremental_buffer_size,
+        replica_index=replica_index), None
+
+
 def main():
-    from persia_tpu_torch.config import GlobalConfig, JobType
+    from persia_tpu_torch.config import GlobalConfig
     from persia_tpu_torch.utils import write_addr_file
 
     p = argparse.ArgumentParser()
@@ -708,8 +779,8 @@ def main():
     p.add_argument("--global-config", default=None)
     p.add_argument("--initial-checkpoint", default=None)
     p.add_argument("--replay-inc-dir", default=None,
-                   help="replay incremental-update packets after "
-                        "--initial-checkpoint (not ported yet)")
+                   help="replay this replica's incremental-update packets "
+                        "after --initial-checkpoint")
     p.add_argument("--addr-file", default=None,
                    help="write the bound address here after listen")
     p.add_argument("--row-dtype", default=knobs.get("PERSIA_PS_ROW_DTYPE"),
@@ -731,16 +802,6 @@ def main():
     tracing.set_service_name(f"ps{args.replica_index}")
     gc = (GlobalConfig.load(args.global_config) if args.global_config
           else GlobalConfig())
-    if args.replay_inc_dir:
-        raise NotImplementedError(
-            f"--replay-inc-dir is not ported yet; it waits for {_INC_WAITS}")
-    if gc.parameter_server.enable_incremental_update:
-        what = ("JobType.INFER's incremental-update loader"
-                if gc.common.job_type == JobType.INFER
-                else "the incremental-update dumper")
-        raise NotImplementedError(
-            f"parameter_server.enable_incremental_update: {what} is not "
-            f"ported yet; it waits for {_INC_WAITS}")
     if knobs.get("PERSIA_PS_GC_TUNE"):
         # freeze the boot state and make full collections rare: a store's
         # Python objects would otherwise make gen2 walks request stalls
@@ -749,15 +810,19 @@ def main():
         gcmod.collect()
         gcmod.freeze()
         gcmod.set_threshold(50_000, 25, 100)
+    holder = _holder_for(gc, args)
+    inc_dumper, inc_loader = _inc_tier(gc, holder, args.replica_index)
     service = PsService(
-        _holder_for(gc, args), args.host, args.port,
+        holder, args.host, args.port,
         concurrent_streams=args.concurrent_streams,
         legacy_frames=knobs.get("PERSIA_PS_LEGACY_FRAMES"),
-        http_port=obs_http.port_from_args(args))
-    if args.initial_checkpoint:
+        http_port=obs_http.port_from_args(args), inc_dumper=inc_dumper,
+        inc_loader=inc_loader)
+    if args.initial_checkpoint or args.replay_inc_dir:
         # before registering: workers never route to a half-restored
         # replica
-        service.restore(args.initial_checkpoint)
+        service.restore(args.initial_checkpoint, args.replay_inc_dir,
+                        replica_index=args.replica_index)
     _logger.info("parameter server %d/%d listening on %s (sidecar %s)",
                  args.replica_index, args.replica_size, service.addr,
                  service.http.addr if service.http else "off")

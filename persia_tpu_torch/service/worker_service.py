@@ -384,7 +384,7 @@ def main():
         raise NotImplementedError(
             "--enable-monitor (the per-feature DistinctIdMonitor gauge) is "
             "not ported yet; it goes with the registry's series of ROADMAP.md "
-            "queue A item 6b")
+            "queue A item 6b, second part")
     tracing.set_service_name(f"worker{args.replica_index}")
     schema = EmbeddingSchema.load(args.embedding_config)
     gc = (GlobalConfig.load(args.global_config) if args.global_config

@@ -16,11 +16,15 @@ path has the JAX package's three pieces:
 - **Shape bucketing**: merged batches are padded with empty rows up to a
   small ladder of sizes, so the forward sees a handful of shapes. Padding
   rows look nothing up and are never scattered back.
-- **Cross-request sign dedup + a read-only hot-row TTL cache**
-  (``cache_rows > 0``): the merged batch is preprocessed locally, distinct
+- **Cross-request sign dedup + a hot-row TTL cache** (``cache_rows >
+  0``): the merged batch is preprocessed locally, distinct
   post-transform signs are served from an in-process LRU, and only the
   misses go to the worker through one deduplicated ``lookup_signs`` call
-  per dim.
+  per dim. The predict path never writes rows back; the online delta
+  subscriber (:meth:`InferenceServer.attach_delta_subscriber`,
+  :mod:`persia_tpu_torch.online`) upserts resident rows from the
+  trainer's incremental-update packets, so a trained row is servable
+  without waiting for its TTL.
 
 Around it:
 
@@ -36,8 +40,8 @@ Around it:
   under the JAX server's names and labels, a ``stats`` RPC, and with
   ``http_port`` the sidecar (:mod:`persia_tpu_torch.obs_http`).
 
-Remote embedding workers and the online delta subscriber are not ported
-yet (``ROADMAP.md`` queue A items 9 and 6b).
+The embedding tier is an in-process worker or, with ``worker_addrs``,
+a :class:`~persia_tpu_torch.service.worker_service.RemoteEmbeddingWorker`.
 """
 
 import itertools
@@ -177,23 +181,36 @@ def default_buckets(max_rows: int) -> Tuple[int, ...]:
 
 
 class HotRowCache:
-    """LRU of (dim, sign) -> embedding row with a TTL.
+    """LRU of (dim, sign) -> embedding row with a TTL and a delta version.
 
-    The predict path never writes rows back, so the cache cannot diverge
-    from the PS beyond one TTL. Absent signs cache as zero rows (the PS
-    eval lookup's zero-fill) under the same TTL.
+    The predict path never writes rows back. Without a delta subscriber
+    the version stays 0 and an entry expires ``ttl_sec`` after its fetch,
+    which bounds its staleness against the PS at one TTL. Absent signs
+    cache as zero rows (the PS eval lookup's zero-fill) under the same
+    TTL. :meth:`apply_delta` (the subscriber's entry point) upserts
+    resident rows in place under a new version; a miss path snapshots
+    :attr:`version` before it fetches, and :meth:`put` keeps any row a
+    delta refreshed after that snapshot.
     """
 
     def __init__(self, capacity: int, ttl_sec: float):
         self.capacity = int(capacity)
         self.ttl_sec = float(ttl_sec)
+        # (dim, sign) -> (row, expiry, version)
         self._od: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self._ver = 0
+        self.delta_rows_applied = 0
 
     def __len__(self) -> int:
         return len(self._od)
+
+    @property
+    def version(self) -> int:
+        """The delta-apply counter."""
+        return self._ver
 
     def gather(self, signs: np.ndarray, dim: int,
                out: np.ndarray) -> np.ndarray:
@@ -214,21 +231,55 @@ class HotRowCache:
             self.misses += len(miss)
         return np.asarray(miss, np.int64)
 
-    def put(self, signs: np.ndarray, dim: int, rows: np.ndarray):
-        """Install fetched rows."""
+    def put(self, signs: np.ndarray, dim: int, rows: np.ndarray,
+            seen_ver: Optional[int] = None):
+        """Install fetched rows. ``seen_ver``, the :attr:`version` taken
+        before the fetch, keeps every entry a delta upserted since: the
+        fetch read the PS before that delta landed."""
         if self.capacity <= 0:
             return
         expires = time.monotonic() + self.ttl_sec
+        stamp = self._ver if seen_ver is None else int(seen_ver)
         with self._lock:
             od = self._od
             for s, row in zip(signs.tolist(), rows):
                 key = (dim, s)
+                if seen_ver is not None:
+                    cur = od.get(key)
+                    if cur is not None and cur[2] > seen_ver:
+                        od.move_to_end(key)
+                        continue
                 # a private copy per row: a view would pin the whole
                 # fetched matrix for as long as any one row stays cached
-                od[key] = (np.array(row, np.float32), expires)
+                od[key] = (np.array(row, np.float32), expires, stamp)
                 od.move_to_end(key)
             while len(od) > self.capacity:
                 od.popitem(last=False)
+
+    def apply_delta(self, signs: np.ndarray, dim: int,
+                    rows: np.ndarray) -> int:
+        """Upsert the resident (dim, sign) entries under a new version,
+        their TTL refreshed; absent signs are ignored (a later miss
+        fetches them from the PS). Never inserts, evicts or reorders.
+        Returns the rows applied."""
+        if self.capacity <= 0:
+            return 0
+        expires = time.monotonic() + self.ttl_sec
+        applied = 0
+        with self._lock:
+            self._ver += 1
+            ver = self._ver
+            od = self._od
+            for s, row in zip(np.asarray(signs).tolist(), rows):
+                key = (dim, s)
+                if key in od:
+                    # a new tuple, not a write into the stored row: a
+                    # gather that copied the old row keeps it whole, and
+                    # assigning an existing key keeps its LRU position
+                    od[key] = (np.array(row, np.float32), expires, ver)
+                    applied += 1
+            self.delta_rows_applied += applied
+        return applied
 
     @property
     def hit_rate(self) -> float:
@@ -374,11 +425,6 @@ class _MicroBatcher:
 # the metric series' ``run`` label: a server restarted on the same port in
 # one process must not blend into the dead server's counters
 _SERVER_SEQ = itertools.count(1)
-
-# what the port's serving tier cannot do yet, and the ROADMAP.md item it
-# waits for
-_DELTA_WAITS = "ROADMAP.md queue A item 6b (inc_update.py, online.py and " \
-    "the versioned hot-row cache)"
 
 
 def _model_zoo() -> dict:
@@ -556,6 +602,9 @@ class InferenceServer:
         # request-field routing: a plain predict's route key is this id
         # feature's first sign (frozen at construction)
         self._route_feature = knobs.get("PERSIA_VARIANT_ROUTE_FEATURE")
+        # the online delta subscriber, once attach_delta_subscriber arms
+        # it; None keeps the TTL-only freshness
+        self.online = None
         self.http = obs_http.maybe_start(host, http_port, self._healthz,
                                          variants_fn=self._variants_doc)
 
@@ -575,6 +624,10 @@ class InferenceServer:
             doc["cache_ttl_sec"] = self.cache.ttl_sec
         doc["requests_total"] = self._m_requests.value
         doc["degraded_lookups_total"] = self._m_degraded.value
+        # this replica's own freshness: the subscriber's stall clock and
+        # last packet
+        if self.online is not None:
+            doc["online"] = self.online.health()
         doc["variants"] = self._variants_doc()
         epoch = getattr(self.worker, "routing_epoch", None)
         if epoch is not None:
@@ -677,10 +730,30 @@ class InferenceServer:
         return _msgpack.packb({"ok": True,
                                "variants": self._variants_doc()})
 
+    # --- online delta subscription ---------------------------------------
+
     def attach_delta_subscriber(self, inc_dir: str, **kw):
-        raise NotImplementedError(
-            f"the online delta subscriber is not ported yet; it waits for "
-            f"{_DELTA_WAITS}")
+        """Subscribe the hot-row cache to the trainer's incremental-update
+        packets under ``inc_dir`` and start scanning
+        (:class:`persia_tpu_torch.online.DeltaSubscriber`; ``kw`` goes to
+        it). The ownership filter follows the worker's live routing
+        window when it has one; otherwise pass ``routing_fn``, or every
+        packet's rows apply. Returns the subscriber."""
+        from persia_tpu_torch.online import DeltaSubscriber
+
+        if self.cache is None:
+            raise ValueError(
+                "delta subscription upserts the hot-row cache; start "
+                "the server with cache_rows > 0")
+        if self.online is not None:
+            raise RuntimeError("a delta subscriber is already attached")
+        if "routing_fn" not in kw and hasattr(self.worker,
+                                              "routing_window"):
+            kw["routing_fn"] = lambda: self.worker.routing_window
+        self.online = DeltaSubscriber(self.cache, inc_dir, **kw).start()
+        _logger.info("delta subscriber attached to %s (scan=%.2fs)",
+                     inc_dir, self.online.scan_interval_sec)
+        return self.online
 
     # --- predict paths ---------------------------------------------------
 
@@ -872,6 +945,9 @@ class InferenceServer:
         is cross-request. A dim whose fetch fails degrades to zero rows,
         which are not cached."""
         feats = mw.preprocess_batch(id_type_features, self.schema)
+        # before any fetch: a delta landing while a fetch is in flight
+        # moves the version past this, and put() keeps the delta's row
+        seen_ver = self.cache.version
         mats: List[np.ndarray] = []
         misses: Dict[int, list] = {}
         for f in feats:
@@ -895,7 +971,7 @@ class InferenceServer:
                     "degraded lookup (dim=%d): %d miss rows served as zero "
                     "vectors (%s)", dim, len(all_signs), e)
                 continue
-            self.cache.put(uniq, dim, rows)
+            self.cache.put(uniq, dim, rows, seen_ver=seen_ver)
             pos = 0
             for mat, miss_pos, s in parts:
                 mat[miss_pos] = rows[inverse[pos:pos + len(s)]]
@@ -937,10 +1013,11 @@ class InferenceServer:
                      cache_hits=self.cache.hits,
                      cache_misses=self.cache.misses,
                      cache_rows_resident=len(self.cache),
-                     # no delta subscriber yet: nothing upserts the cache
-                     cache_delta_rows_applied=0)
+                     cache_delta_rows_applied=self.cache.delta_rows_applied)
         if len(self.variants) > 1:
             d["variants"] = self._variants_doc()
+        if self.online is not None:
+            d["online"] = self.online.health()
         return d
 
     def _stats(self, payload) -> bytes:
@@ -963,6 +1040,8 @@ class InferenceServer:
         self.server.stop()
         if self._batcher is not None:
             self._batcher.close()
+        if self.online is not None:
+            self.online.stop()
         if self.http is not None:
             self.http.stop()
 

@@ -39,10 +39,10 @@ atomically, so a trainer killed mid-snapshot leaves a manifest-less
 falling back to the previous complete snapshot. Retention
 (``PERSIA_SNAPSHOT_KEEP``) removes older completes and torn debris.
 
-**Inc-packet watermark.** The manifest's ``inc_watermark`` names the
-complete incremental-update packets at capture time in the JAX package;
-the port has no incremental-update tier yet (``ROADMAP.md`` queue A item
-6), so it is None and ``inc_dir`` is refused.
+**Inc-packet watermark.** With ``inc_dir``, the manifest's
+``inc_watermark`` names every complete incremental-update packet at
+capture time (:func:`persia_tpu_torch.inc_update.ready_packets`), the
+replay watermark; without it, None.
 """
 
 import hashlib
@@ -145,15 +145,13 @@ def latest_snapshot(snapshot_dir: str) -> Optional[Tuple[str, dict]]:
 
 
 def _complete_inc_packets(inc_dir: Optional[str]) -> Optional[List[str]]:
-    """The replay watermark of the incremental-update packets: None when
-    the job runs without them. The port has no incremental-update tier,
-    so ``inc_dir`` raises."""
+    """Names of every complete incremental-update packet now, the replay
+    watermark; None when the job runs without them."""
     if not inc_dir:
         return None
-    raise NotImplementedError(
-        "snapshot_job(inc_dir=...): the incremental-update tier "
-        "(persia_tpu/inc_update.py ready_packets) is not ported yet; it "
-        "waits for ROADMAP.md queue A item 6b (the online tier)")
+    from persia_tpu_torch.inc_update import ready_packets
+
+    return sorted(name for name, _, _ in ready_packets(inc_dir, set()))
 
 
 def _ps_watermarks(worker, ps_clients: Optional[Sequence]) -> Optional[list]:
@@ -203,7 +201,8 @@ def snapshot_job(
     so the cursor/dense capture below sits behind the same quiesce
     point. ``state`` is the ``(model, dense optimizer)`` pair (None for
     sparse-only jobs), ``cursor`` the dataloader cursor doc, ``inc_dir``
-    the incremental-update packet directory (refused: not ported).
+    the incremental-update packet directory whose complete packets the
+    manifest's ``inc_watermark`` names.
     ``extra`` keys join the manifest. ``pre_manifest(snap)`` runs once
     every payload is on disk and before the manifest is written: a
     process that dies there leaves the torn snapshot that
@@ -211,8 +210,6 @@ def snapshot_job(
     """
     from persia_tpu_torch.pipeline import flush_backward_engines
 
-    # refuse inc_dir before anything is written
-    inc_watermark = _complete_inc_packets(inc_dir)
     os.makedirs(snapshot_dir, exist_ok=True)
     seqs = [_snap_seq(os.path.basename(p))
             for p in list_snapshots(snapshot_dir)]
@@ -254,7 +251,7 @@ def snapshot_job(
         "routing": marker.get("routing"),
         "routing_epoch": getattr(worker, "routing_epoch", None),
         "ps_watermarks": _ps_watermarks(worker, ps_clients),
-        "inc_watermark": inc_watermark,
+        "inc_watermark": _complete_inc_packets(inc_dir),
     }
     if extra:
         manifest.update(extra)

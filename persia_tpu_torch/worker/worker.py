@@ -29,8 +29,9 @@ interpreter lock for each call, so the shards work at once. Two planes:
   soon as its last feature has aggregated, while later features are
   still aggregating (with one dim, every group waits for the last
   feature, so the update takes the serialized plane);
-- **serialized** (``streaming=False``): every lookup result is gathered,
-  then scattered; every gradient aggregated, then every group shipped.
+- **serialized** (``streaming=False``, or ``PERSIA_WORKER_STREAMING=0``
+  when ``streaming`` is None): every lookup result is gathered, then
+  scattered; every gradient aggregated, then every group shipped.
 
 Checkpoints: ``dump`` drains this worker's backward engines and dumps
 every PS shard through :func:`persia_tpu_torch.checkpoint.dump_sharded`;
@@ -74,7 +75,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
-from persia_tpu_torch import tracing
+from persia_tpu_torch import knobs, tracing
 from persia_tpu_torch.checkpoint import dump_sharded, load_sharded
 from persia_tpu_torch.config import EmbeddingSchema
 from persia_tpu_torch.data.batch import IDTypeFeature
@@ -124,7 +125,7 @@ class EmbeddingWorker:
 
     def __init__(self, schema: EmbeddingSchema, ps_clients: Sequence,
                  buffered_data_expired_sec: float = 1800,
-                 streaming: bool = True, ps_resolver=None,
+                 streaming: Optional[bool] = None, ps_resolver=None,
                  forward_buffer_size: Optional[int] = None):
         self.schema = schema
         self.ps_clients = list(ps_clients)
@@ -134,6 +135,8 @@ class EmbeddingWorker:
         self.buffered_data_expired_sec = buffered_data_expired_sec
         self.forward_buffer_size = (forward_buffer_size
                                     or self.FORWARD_BUFFER_SIZE)
+        if streaming is None:
+            streaming = knobs.get("PERSIA_WORKER_STREAMING")
         self.streaming = bool(streaming)
         self._ps_resolver = ps_resolver
         self._ps_lock = threading.Lock()

@@ -15,12 +15,12 @@ override them.
 """
 
 import functools
-import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from persia_tpu_torch import knobs
 from persia_tpu_torch.config import EmbeddingSchema, SlotConfig, uniform_slots
 from persia_tpu_torch.workloads import generator as gen
 
@@ -86,9 +86,9 @@ def get_scenario(name: str, smoke: bool = False,
             f"unknown scenario {name!r}; registered: "
             f"{', '.join(scenario_names())}")
     if alpha is None:
-        alpha = float(os.environ.get("PERSIA_WORKLOAD_ALPHA", DEFAULT_ALPHA))
+        alpha = float(knobs.get("PERSIA_WORKLOAD_ALPHA"))
     if seed is None:
-        seed = int(os.environ.get("PERSIA_WORKLOAD_SEED", DEFAULT_SEED))
+        seed = int(knobs.get("PERSIA_WORKLOAD_SEED"))
     return _FACTORIES[name](smoke=smoke, alpha=alpha, seed=seed, **kw)
 
 

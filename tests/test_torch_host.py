@@ -209,7 +209,8 @@ def test_port_imports_no_jax():
     load either, nor ``yaml`` (the port reads its own YAML subset). The
     children a ``ServiceCtx`` starts, ``python -m
     persia_tpu_torch.service.ps_service`` and ``worker_service``, run up
-    to their registration (refused: no coordinator listens), and
+    to their registration (refused: no coordinator listens; the PS with
+    its incremental-update dumper armed), and
     ``python -m persia_tpu_torch.service.trainer_service --help``, and
     load none of these either."""
     code = (
@@ -287,7 +288,9 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.service.worker_service', "
         "'persia_tpu_torch.service.helper', "
         "'persia_tpu_torch.service.trainer_service', "
-        "'persia_tpu_torch.fleet', 'persia_tpu_torch.service_discovery') "
+        "'persia_tpu_torch.fleet', 'persia_tpu_torch.service_discovery', "
+        "'persia_tpu_torch.inc_update', 'persia_tpu_torch.online', "
+        "'persia_tpu_torch.service.dataflow') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'msgpack' not in sys.modules\n"
@@ -316,8 +319,14 @@ def _check_service_children():
             slots_config=uniform_slots(["a", "b"], dim=8))), schema_path)
         s.bind(("127.0.0.1", 0))
         dead = f"127.0.0.1:{s.getsockname()[1]}"  # bound, never listening
+        gc_path = os.path.join(tmp, "global.yml")
+        dump_yaml({"embedding_parameter_server_config": {
+            "capacity": 1000, "num_hashmap_internal_shards": 2,
+            "enable_incremental_update": True,
+            "incremental_dir": os.path.join(tmp, "inc")}}, gc_path)
         runs = {
-            "ps_service": ["--http-port", "-1", "--coordinator", dead],
+            "ps_service": ["--http-port", "-1", "--coordinator", dead,
+                           "--global-config", gc_path],
             "worker_service": ["--http-port", "-1", "--coordinator", dead,
                                "--ps-addrs", dead, "--embedding-config",
                                schema_path],
@@ -336,6 +345,9 @@ def _check_service_children():
                 "'msgpack', 'yaml'))\n"
                 "assert not bad, bad\n"
                 "assert 'persia_tpu_torch.ps.native' in sys.modules\n"
+                "assert 'torch' not in sys.modules\n"
+                f"assert {role!r} != 'ps_service' or "
+                "'persia_tpu_torch.inc_update' in sys.modules\n"
                 "print('clean')\n")
             out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                                  capture_output=True, text=True, timeout=120,

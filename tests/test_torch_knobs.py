@@ -1,0 +1,190 @@
+"""The port's ``PERSIA_*`` knobs against the JAX package's, on the CPU.
+
+Each knob the port once read outside its registry, or not at all
+(``PERSIA_WORKLOAD_SEED`` / ``_ALPHA``, ``PERSIA_SKIP_CHECK_DATA``,
+``PERSIA_PS_BACKEND``, ``PERSIA_ARENA_SLAB_ROWS`` / ``_INDEX_SLOTS``,
+``PERSIA_WORKER_STREAMING``), and the three the online tier reads
+(``PERSIA_ONLINE_*``), is set unset, to ``""``, to ``" 1"`` and to a
+value of its own, and the site that reads it must behave as the JAX
+package's site does under the same environment: the same scenario bytes,
+the same validation, the same holder backend, arena sizes, worker plane
+and subscriber settings. Tolerance: equality.
+"""
+
+import numpy as np
+import pytest
+
+from persia_tpu_torch import knobs as tknobs
+
+UNSET = object()
+OWN = {
+    "PERSIA_WORKLOAD_SEED": "3",
+    "PERSIA_WORKLOAD_ALPHA": "1.3",
+    "PERSIA_SKIP_CHECK_DATA": "TRUE",
+    "PERSIA_PS_BACKEND": "python-legacy",
+    "PERSIA_ARENA_SLAB_ROWS": "4096",
+    "PERSIA_ARENA_INDEX_SLOTS": "64",
+    "PERSIA_WORKER_STREAMING": "0",
+    "PERSIA_ONLINE_APPLY_BATCH_ROWS": "17",
+    "PERSIA_ONLINE_APPLY_ROWS_PER_SEC": "1000",
+    "PERSIA_ONLINE_SCAN_SEC": "0.25",
+}
+
+
+def _values(name):
+    return [pytest.param(
+        name, v, id=f"{name}-{'unset' if v is UNSET else repr(v)}")
+        for v in (UNSET, "", " 1", OWN[name])]
+
+
+def _set(monkeypatch, name, value):
+    if value is UNSET:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, value)
+
+
+def _both(fn_port, fn_jax):
+    """Each side's result, or the type of the error it raised."""
+    out = []
+    for fn in (fn_port, fn_jax):
+        try:
+            out.append(fn())
+        except Exception as e:  # noqa: BLE001 — the error is the result
+            out.append(type(e).__name__)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(OWN))
+def test_knob_is_registered_as_in_jax(name):
+    from persia_tpu import knobs as jknobs
+
+    mine, ref = tknobs.REGISTRY[name], jknobs.REGISTRY[name]
+    assert (mine.type, mine.default) == (ref.type, ref.default)
+
+
+@pytest.mark.parametrize("name,value", _values("PERSIA_WORKLOAD_SEED")
+                         + _values("PERSIA_WORKLOAD_ALPHA"))
+def test_workload_knobs(name, value, monkeypatch):
+    from persia_tpu.workloads import registry as jreg
+
+    from persia_tpu_torch.workloads import registry as treg
+
+    _set(monkeypatch, name, value)
+
+    def first(reg):
+        sc = reg.get_scenario("dlrm", smoke=True)
+        return next(iter(sc.batches(64, 32))).to_bytes()
+
+    mine, ref = _both(lambda: first(treg), lambda: first(jreg))
+    assert isinstance(mine, bytes) and mine == ref
+
+
+@pytest.mark.parametrize("name,value", _values("PERSIA_SKIP_CHECK_DATA")
+                         + [pytest.param("PERSIA_SKIP_CHECK_DATA", "1",
+                                         id="PERSIA_SKIP_CHECK_DATA-'1'")])
+def test_skip_check_data(name, value, monkeypatch):
+    from persia_tpu.data import batch as jbatch
+    from persia_tpu.env import skip_check_data as jskip
+
+    from persia_tpu_torch.data import batch as tbatch
+
+    _set(monkeypatch, name, value)
+    assert tbatch.skip_check_data() == jskip()
+    # a 0-d label array: validated, it raises
+    bad = np.array(1.0, np.float32)
+    mine, ref = _both(lambda: tbatch.Label(bad).data.shape,
+                      lambda: jbatch.Label(bad).data.shape)
+    assert mine == ref
+
+
+@pytest.mark.parametrize("name,value", _values("PERSIA_PS_BACKEND")
+                         + [pytest.param("PERSIA_PS_BACKEND", "arena",
+                                         id="PERSIA_PS_BACKEND-'arena'")])
+def test_ps_backend(name, value, monkeypatch):
+    """The knob picks ``make_holder``'s backend when none is passed, as
+    in JAX; unset and empty mean ``auto``, which each package resolves to
+    its own native store."""
+    from persia_tpu.ps import native as jnative
+
+    from persia_tpu_torch.ps import native as tnative
+
+    _set(monkeypatch, name, value)
+    mine, ref = _both(lambda: type(tnative.make_holder(100, 2)).__name__,
+                      lambda: type(jnative.make_holder(100, 2)).__name__)
+    if value in (UNSET, ""):
+        auto = _both(
+            lambda: type(tnative.make_holder(100, 2, backend="auto")
+                         ).__name__,
+            lambda: type(jnative.make_holder(100, 2, backend="auto")
+                         ).__name__)
+        assert [mine, ref] == auto
+    else:
+        assert mine == ref
+
+
+@pytest.mark.parametrize("name,value", _values("PERSIA_ARENA_SLAB_ROWS")
+                         + _values("PERSIA_ARENA_INDEX_SLOTS"))
+def test_arena_sizes(name, value, monkeypatch):
+    from persia_tpu.ps.arena import ArenaEmbeddingHolder as JArena
+
+    from persia_tpu_torch.ps.arena import ArenaEmbeddingHolder as TArena
+
+    _set(monkeypatch, name, value)
+
+    def sizes(cls):
+        h = cls(1000, 2)
+        sh = h._shards[0]
+        return sh.slab_rows, sh._h_size
+
+    mine, ref = _both(lambda: sizes(TArena), lambda: sizes(JArena))
+    assert isinstance(mine, tuple) and mine == ref
+
+
+@pytest.mark.parametrize("name,value", _values("PERSIA_WORKER_STREAMING"))
+def test_worker_streaming(name, value, monkeypatch):
+    from persia_tpu.config import EmbeddingSchema as JSchema
+    from persia_tpu.config import uniform_slots as juniform
+    from persia_tpu.ps.store import EmbeddingHolder as JHolder
+    from persia_tpu.worker.worker import EmbeddingWorker as JWorker
+
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.ps.store import EmbeddingHolder
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+
+    _set(monkeypatch, name, value)
+    w = EmbeddingWorker(EmbeddingSchema(slots_config=uniform_slots(
+        ["a"], dim=4)), [EmbeddingHolder(100, 1)])
+    jw = JWorker(JSchema(slots_config=juniform(["a"], dim=4)),
+                 [JHolder(100, 1)])
+    try:
+        assert w.streaming == jw.streaming
+        # an explicit argument wins over the knob in both
+        pinned = EmbeddingWorker(w.schema, w.ps_clients, streaming=True)
+        assert pinned.streaming is True
+        pinned.close()
+    finally:
+        w.close()
+
+
+@pytest.mark.parametrize(
+    "name,value", _values("PERSIA_ONLINE_APPLY_BATCH_ROWS")
+    + _values("PERSIA_ONLINE_APPLY_ROWS_PER_SEC")
+    + _values("PERSIA_ONLINE_SCAN_SEC"))
+def test_online_knobs(name, value, monkeypatch, tmp_path):
+    from persia_tpu.online import DeltaSubscriber as JSub
+    from persia_tpu.serving import HotRowCache as JCache
+
+    from persia_tpu_torch.online import DeltaSubscriber
+    from persia_tpu_torch.serving import HotRowCache
+
+    _set(monkeypatch, name, value)
+
+    def settings(sub, cache):
+        s = sub(cache(10, 1.0), str(tmp_path))
+        return (s.batch_rows, s.governor.rows_per_sec,
+                s.scan_interval_sec)
+
+    mine, ref = _both(lambda: settings(DeltaSubscriber, HotRowCache),
+                      lambda: settings(JSub, JCache))
+    assert isinstance(mine, tuple) and mine == ref

@@ -683,16 +683,33 @@ def test_retried_update_ships_only_unlanded_groups_after_a_new_client_list(
          "native workers"),
         ({"supervise_trainer": True, "n_trainers": 0}, ValueError,
          "n_trainers"),
-        # ... and the incremental-update replay of a restored PS
-        ({"postmortem_dir": "pm", "ps_inc_dir": "inc"},
-         NotImplementedError, "item 6b")]])
-def test_service_ctx_refusals_name_item_9b(kw, error, match):
-    """The refusals of what item 9b left (item 9c, native binaries) or
-    item 6b holds, and the JAX package's ValueError pairs."""
+        # ... and the incremental-update replay of a restored PS is taken
+        # (no error): a restart passes --replay-inc-dir
+        ({"postmortem_dir": "pm", "ps_inc_dir": "inc"}, None,
+         "--replay-inc-dir")]])
+def test_service_ctx_refusals_name_item_9b(kw, error, match, tmp_path,
+                                           monkeypatch):
+    """The refusals of what item 9b left (item 9c, native binaries), the
+    JAX package's ValueError pairs, and ``ps_inc_dir``, which a PS's
+    restore start passes on as the JAX supervisor does."""
     from persia_tpu_torch.service.helper import ServiceCtx
 
-    with pytest.raises(error, match=match):
-        ServiceCtx(_mixed_schema(), **kw)
+    monkeypatch.chdir(tmp_path)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            ServiceCtx(_mixed_schema(), **kw)
+        return
+    svc = ServiceCtx(_mixed_schema(), **kw)
+    svc.coordinator_addr = "127.0.0.1:1"
+    spawned = []
+    monkeypatch.setattr(svc, "_spawn", lambda args, *a, **k: spawned.append(
+        args) or type("P", (), {})())
+    svc._spawn_ps(1)
+    svc._spawn_ps(1, restore=True)
+    first, restart = spawned
+    assert match not in first
+    assert restart[restart.index(match) + 1] == "inc"
+    assert restart[restart.index("--replica-index") + 1] == "1"
 
 
 def _run_main(module, argv, monkeypatch):
@@ -703,24 +720,90 @@ def _run_main(module, argv, monkeypatch):
 @pytest.mark.parametrize("case", ["train_inc", "infer_inc", "replay"])
 def test_ps_service_refuses_the_incremental_tier(case, tmp_path,
                                                  monkeypatch):
+    """The incremental-update tier of ``ps_service.main`` (once refused,
+    now taken): a training job's replica dumps packets, an infer job's
+    hot-loads them on a scanner thread, and ``--replay-inc-dir`` replays
+    the replica's own packets over its checkpoint before it serves; each
+    as the JAX ``main`` (``persia_tpu/service/ps_service.py:2036-2066``)."""
+    from persia_tpu.inc_update import IncrementalUpdateDumper as JDumper
+    from persia_tpu.ps.store import EmbeddingHolder as JHolder
+
+    from persia_tpu_torch.inc_update import (
+        IncrementalUpdateDumper,
+        IncrementalUpdateLoader,
+    )
+    from persia_tpu_torch.rpc import RpcServer
     from persia_tpu_torch.service import ps_service
     from persia_tpu_torch.utils import dump_yaml
 
+    inc = os.fspath(tmp_path / "inc")
     path = os.fspath(tmp_path / "global.yml")
     doc = {"embedding_parameter_server_config": {
         "capacity": 1000, "num_hashmap_internal_shards": 2,
-        "enable_incremental_update": case != "replay"}}
+        "enable_incremental_update": case != "replay",
+        "incremental_buffer_size": 7, "incremental_dir": inc}}
     if case == "infer_inc":
         doc["common_config"] = {"job_type": "Infer"}
     dump_yaml(doc, path)
-    argv = ["--global-config", path, "--coordinator", ""]
+    # packets of replicas 0 and 1, dumped by the JAX package
+    jh = JHolder(1000, 2)
+    jh.configure("bounded_uniform", {"lower": -0.1, "upper": 0.1})
+    jh.register_optimizer({"type": "sgd", "lr": 0.1, "wd": 0.0})
+    for r in (0, 1):
+        signs = np.arange(1 + 10 * r, 6 + 10 * r, dtype=np.uint64)
+        jh.lookup(signs, 4, True)
+        d = JDumper(jh, inc, buffer_size=1, replica_index=r)
+        d.commit(signs)
+    served = []
+    monkeypatch.setattr(RpcServer, "serve_forever",
+                        lambda self: served.append(self))
+    made = []
+
+    class Recorded(ps_service.PsService):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(ps_service, "PsService", Recorded)
+    argv = ["--global-config", path, "--coordinator", "",
+            "--replica-index", "1"]
     if case == "replay":
-        argv += ["--replay-inc-dir", os.fspath(tmp_path)]
-    match = "INFER" if case == "infer_inc" else "item 6b"
-    with pytest.raises(NotImplementedError, match=match):
-        _run_main(ps_service, argv, monkeypatch)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        PsService(make_holder(10, 1)).restore(None, os.fspath(tmp_path))
+        argv += ["--replay-inc-dir", inc]
+    _run_main(ps_service, argv, monkeypatch)
+    (svc,) = made
+    try:
+        assert served == [svc.server]
+        if case == "train_inc":
+            assert isinstance(svc.inc_dumper, IncrementalUpdateDumper)
+            assert svc.inc_loader is None
+            assert (svc.inc_dumper.buffer_size,
+                    svc.inc_dumper.replica_index) == (7, 1)
+            assert len(svc.holder) == 0
+        elif case == "infer_inc":
+            assert svc.inc_dumper is None
+            assert isinstance(svc.inc_loader, IncrementalUpdateLoader)
+            assert svc.inc_loader._thread.is_alive()
+            assert svc.inc_loader.scan_once() == 10
+            assert svc._health()["inc_update_packets_applied"] == 2
+        else:
+            assert svc.inc_dumper is None and svc.inc_loader is None
+            assert svc.status == "Idle"
+            # replica 1's packet alone
+            assert sorted(svc.holder.get_entries(
+                np.arange(1, 16, dtype=np.uint64), 4)[0].nonzero()[0]) \
+                == list(range(10, 15))
+            for s in range(11, 16):
+                np.testing.assert_array_equal(
+                    svc.holder.get_entry(s)[1], jh.get_entry(s)[1])
+    finally:
+        if svc.inc_loader is not None:
+            svc.inc_loader.stop()
+        svc.stop()
+    # restore() without a checkpoint replays every replica's packets
+    ps = PsService(make_holder(100, 1))
+    assert ps.restore(None, inc) == 10
+    assert ps.status == "Idle" and len(ps.holder) == 10
+    ps.stop()
 
 
 def test_routing_and_monitor_refusals_name_their_items(tmp_path,

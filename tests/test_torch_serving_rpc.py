@@ -797,10 +797,24 @@ def test_unported_paths_raise_naming_their_item(world, tmp_path):
     remote.stop()
     with pytest.raises(ValueError, match="worker_addrs="):
         InferenceServer(world["model"], world["schema"], None, device="cpu")
+    # the online delta subscriber is ported: a cacheless server refuses
+    # it as the JAX server does, a cached one attaches once, reports it in
+    # its stats and stops it with itself
+    cacheless = InferenceServer(world["model"], world["schema"],
+                                world["worker"], device="cpu")
+    with pytest.raises(ValueError, match="cache_rows"):
+        cacheless.attach_delta_subscriber(os.fspath(tmp_path))
+    cacheless.stop()
     server = InferenceServer(world["model"], world["schema"],
                              world["worker"], device="cpu", cache_rows=10)
     try:
-        with pytest.raises(NotImplementedError, match="item 6b"):
+        sub = server.attach_delta_subscriber(os.fspath(tmp_path),
+                                             scan_interval_sec=30.0)
+        online = server.stats()["online"]
+        assert online["inc_dir"] == os.fspath(tmp_path)
+        assert online["packets_applied"] == 0 and online["rows_applied"] == 0
+        with pytest.raises(RuntimeError, match="already attached"):
             server.attach_delta_subscriber(os.fspath(tmp_path))
     finally:
         server.stop()
+    assert not sub._thread.is_alive()

@@ -121,9 +121,19 @@ def test_manifest_keys_equal_the_jax_manifest(tmp_path):
     # the JAX worker stamps its routing epoch; the port has no live
     # routing
     assert tm["routing_epoch"] is None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        snapshot_job(str(tmp_path / "inc"), w, inc_dir=str(tmp_path))
-    assert not os.path.exists(tmp_path / "inc")
+    # with an incremental-update directory the watermark names its
+    # complete packets, as the JAX manifest's does on the same directory
+    from persia_tpu_torch.inc_update import IncrementalUpdateDumper
+
+    inc = str(tmp_path / "packets")
+    dumper = IncrementalUpdateDumper(w.ps_clients[0], inc, buffer_size=1)
+    dumper.commit(np.array([3, 5], np.uint64))
+    os.makedirs(os.path.join(inc, "inc_99999999999999_000001_r0_p1.tmp"))
+    jm = load_manifest(jsnap.snapshot_job(str(tmp_path / "jax_inc"), jw,
+                                          inc_dir=inc))
+    tm = load_manifest(snapshot_job(str(tmp_path / "inc"), w, inc_dir=inc))
+    assert len(tm["inc_watermark"]) == 1
+    assert tm["inc_watermark"] == jm["inc_watermark"]
 
 
 def test_torn_snapshot_refused_and_fallback(tmp_path):

@@ -1,7 +1,8 @@
 """Whole-job supervision of the port on the CPU (the other tiers and the
 trainer group): ``bench.py``'s worker chaos cell and the JAX test of a
 supervised PS killed and restored (``tests/test_faults.py:488``, from a
-checkpoint only: replaying incremental updates is item 6b) at a small
+checkpoint only; with its incremental-update packets replayed it is
+``tests/test_torch_inc_update.py``'s) at a small
 size, the two-trainer group of ``tests/test_multihost_group.py:127``
 with the port's dense rider on gloo (``--mesh --dense-sync-every 2
 --device cpu``), the rider held against the JAX ``_dense_rider`` from
