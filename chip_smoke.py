@@ -10,8 +10,9 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    every kernel of the port from the sources in this checkout, one nvcc
    per source, all started together on a thread while this one builds
    the native PS library from ``native/src/`` with g++ (its SIMD path
-   and the host's cores) and then starts the services, supervision and
-   online phases' clusters (their processes load that library);
+   and the host's cores) and then starts the services, supervision,
+   online and reshard phases' clusters (their processes load that
+   library);
    ptxas's registers and spills of every kernel entry, K2's, K3's and
    K4's shared memory per body, and
    the count of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
@@ -303,6 +304,36 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    must launch once a trainer step and K2 on serving; at the end every
    touched row on the infer PS must equal the training PS's bit for bit,
    and every resident cache row its embedding slice.
+14. ``reshard`` (right after ``online``, so that its clusters too are
+   down before the timed phases), live resharding of the PS tier
+   (``routing.py``, ``reshard.py``, the PS's reshard surface, the
+   worker's settle loops): (b) seq_rec at the training phase's widths
+   over two ``ServiceCtx(n_workers=1, n_ps=2)`` clusters started in setup
+   and a third ``PsService`` process beside the first: 16 synchronous
+   steps of 256 while a ``ReshardController`` takes the first cluster
+   2→3 on a thread from step 4 (writes that meet the freeze bounce with
+   ``routing_stale`` and settle), against the same steps on the unbroken
+   cluster: losses, dense parameters with Adam's state and every touched
+   row (read from its owner under the final table) bit-equal; K2-K4 once
+   a step, K1 and K5 never; the worker's, each PS's and the controller's
+   routing epochs equal, and a snapshot's manifest carries that epoch.
+   (a) ``bench.py``'s ``bench_reshard`` at its smoke depth on the port's
+   services (dim 8, 2 slots, batch 256, the counting optimizer): a live
+   2→4→3 under two trainer threads with the counting identity exact at
+   the new owners, the worker-cycle p99 during the migrations within 25x
+   of the quiet p99 (above a 1 s floor), the skew A/B (under Zipf(1.05)
+   the hotness-planned table's max-replica share, measured server-side,
+   below hash-even's), a uniform-table checkpoint byte-identical to the
+   legacy dump; no kernel.
+   The registry series are read where their phases already run:
+   ``services`` (a) scrapes each PS's and the worker's ``/metrics``
+   (``ps_lookup_rows_total`` grows by the rows the worker sent,
+   ``ps_served_requests_total`` equals the health doc's ``served_rpcs``,
+   the worker's stage breakdown is printed); ``dlrm_cached`` (b) reads
+   the engine's ``device_cache_*`` series (probes = hits + misses =
+   ``stats()``); ``pipelined`` reads ``pipeline_staleness_permits_in_use``
+   (0 at rest) and one ``pipeline_gradient_staleness_steps`` observation
+   a step.
    Last, one line gives every wrapper's host time a call at its
    main-path shape beside the launch floor. A ``[time]`` line follows
    each phase.
@@ -2466,6 +2497,11 @@ def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
 
     from persia_tpu_torch.ctx import STAGES
 
+    from persia_tpu_torch.metrics import default_registry
+
+    reg = default_registry()
+    staleness_h = reg.histogram("pipeline_gradient_staleness_steps")
+    applied0 = staleness_h.count
     host_stats = getattr(torch.cuda, "host_memory_stats", None)
     step_ms, wait_ms, losses, host_allocs = [], [], {}, []
     all_losses = []  # every step's loss, on the device until the end
@@ -2522,11 +2558,14 @@ def pipelined_steps(torch, ctx, loader, n_steps: int, timed, split,
         raise AssertionError("a pipelined step's loss is not finite")
     engine = loader._engine
     at_rest = (ctx.worker.staleness, engine.staleness_sem._value,
-               engine.backward.lost_updates)
+               engine.backward.lost_updates,
+               reg.gauge("pipeline_staleness_permits_in_use").value,
+               staleness_h.count - applied0)
     engine.shutdown()
-    if at_rest != (0, PIPE_STALENESS, 0):
+    if at_rest != (0, PIPE_STALENESS, 0, 0, n_steps):
         raise AssertionError(f"the pipeline is not at rest after the loop: "
-                             f"(staleness, free permits, lost updates) = "
+                             f"(staleness, free permits, lost updates, "
+                             f"permits in use, staleness observations) = "
                              f"{at_rest}")
     out.update(step_ms=np.asarray(step_ms), wait_ms=np.asarray(wait_ms),
                losses=losses, host_allocs=host_allocs, at_rest=at_rest)
@@ -2557,7 +2596,10 @@ def report_pipelined(what: str, run: dict, split, card: str,
                  run["split_s"], ("wait",) + STAGES, card)
     _log(f"[{phase}] {what}: at rest after the loop: worker staleness="
          f"{run['at_rest'][0]} free permits={run['at_rest'][1]}/"
-         f"{PIPE_STALENESS} lost_updates={run['at_rest'][2]} | card: {card}")
+         f"{PIPE_STALENESS} lost_updates={run['at_rest'][2]}; registry: "
+         f"pipeline_staleness_permits_in_use={run['at_rest'][3]}, "
+         f"pipeline_gradient_staleness_steps observations="
+         f"{run['at_rest'][4]} | card: {card}")
     return rate
 
 
@@ -3056,6 +3098,8 @@ def dc_run(torch, batches, capacity: int, timed, split=None, prof=None,
             eng = ctx._cache_engine
             out["stats"], out["hit_rate"] = eng.stats(), eng.hit_rate
             out["wire_saved"] = eng.wire_bytes_saved
+            out["mapper"] = (eng.mapper.hits, eng.mapper.misses)
+            out["series"] = cache_series(eng.series_labels)
     out["rows"] = sum(len(h) for h in ctx.worker.ps_clients)
     ctx.worker.close()
     losses = torch.stack(losses).float().cpu().numpy()
@@ -3065,6 +3109,16 @@ def dc_run(torch, batches, capacity: int, timed, split=None, prof=None,
     out["steps_ms"] = np.asarray(step_s[timed.start:timed.stop]) * 1e3
     out["rate"] = DH_BATCH * len(timed) / out["wall"]
     return out
+
+
+def cache_series(labels: dict) -> dict:
+    """The ``device_cache_*`` series of the engine with ``labels``, read
+    from the registry's exposition."""
+    from persia_tpu_torch.metrics import default_registry, parse_exposition
+
+    samples, _ = parse_exposition(default_registry().render())
+    return {name: v for name, lab, v in samples
+            if name.startswith("device_cache_") and lab == labels}
 
 
 def dc_report(what: str, run: dict, card: str):
@@ -3142,6 +3196,22 @@ def dlrm_cached_phase(torch, card: str) -> dict:
     _log(f"[dlrm_cached] (b) cached / uncached samples/s "
          f"{run['rate'] / ref['rate']:.3f}; loss step0={run['losses'][0]:.4f}"
          f" last={run['losses'][-1]:.4f} | card: {card}")
+    ser, st = run["series"], run["stats"]
+    _log(f"[dlrm_cached] (b) the engine's registry series: "
+         + " ".join(f"{k}={int(v)}" for k, v in sorted(ser.items()))
+         + f"; the mapper's hits/misses {run['mapper']} | card: {card}")
+    probes = ser.get("device_cache_probes_total")
+    if not (probes == ser.get("device_cache_hits_total", 0)
+            + ser.get("device_cache_misses_total", 0)
+            == st["probes"] == st["hits"] + st["misses"]
+            == sum(run["mapper"]) and all(
+                ser.get(f"device_cache_{k}_total") == st[k]
+                for k in ("hits", "misses", "evictions", "promotions",
+                          "writeback_rows"))
+            and ser.get("device_cache_resident_rows") == st[
+                "resident_rows"]):
+        raise AssertionError(f"dlrm_cached (b): the device_cache series "
+                             f"disagree: {ser} against stats {st}")
 
     admit = batches[:DC_ADMIT_STEPS]
     for admission in ("lru", "hotness"):
@@ -4795,6 +4865,39 @@ def ps_clients_of(svc):
     return SimpleNamespace(ps_clients=[PsClient(a) for a in svc.ps_addrs])
 
 
+WORKER_STAGES = {"preprocess": "lookup_preprocess_time_cost_sec",
+                 "rpc": "lookup_rpc_time_cost_sec",
+                 "postprocess": "lookup_postprocess_time_cost_sec",
+                 "aggregate": "update_aggregate_time_cost_sec",
+                 "ship": "update_ship_time_cost_sec"}
+
+
+def cluster_series(svc) -> dict:
+    """One scrape of the cluster's sidecars: each PS's
+    ``ps_lookup_rows_total`` and ``ps_served_requests_total`` with its
+    health doc's ``served_rpcs`` read right after, and the worker's stage
+    snapshot ({stage: (count, sum)}, as ``EmbeddingWorker.stage_snapshot``
+    gives it) from its histograms."""
+    from persia_tpu_torch.service.coordinator import ROLE_PS, ROLE_WORKER
+
+    out = {"ps": [], "stages": {k: (0, 0.0) for k in WORKER_STAGES}}
+    for t in svc.fleet_targets():
+        samples, _ = obs_get(t["http_addr"], "/metrics")
+        vals = {}
+        for name, _labels, v in samples:
+            vals[name] = vals.get(name, 0.0) + v
+        if t["role"] == ROLE_PS:
+            out["ps"].append((
+                vals["ps_lookup_rows_total"],
+                vals["ps_served_requests_total"],
+                obs_get(t["http_addr"], "/healthz")["served_rpcs"]))
+        elif t["role"] == ROLE_WORKER:
+            for k, name in WORKER_STAGES.items():
+                out["stages"][k] = (int(vals[f"{name}_count"]),
+                                    vals[f"{name}_sum"])
+    return out
+
+
 def services_seq_rec(torch, card: str, svc) -> dict:
     """(a) seq_rec at the example's widths over the cluster: 10 steps
     bit-equal to the in-process native-PS run from the same weights and
@@ -4838,6 +4941,13 @@ def services_seq_rec(torch, card: str, svc) -> dict:
             got["rows"] = touched_rows(ps_clients_of(svc), signs)
 
     launches = {}
+    # the registry series: the rows each lookup sends, by the worker's own
+    # preprocessing (one row a distinct sign of a feature)
+    from persia_tpu_torch.worker import middleware as mw
+
+    sent_rows = 2 * sum(f.num_distinct for b in batches for f in
+                        mw.preprocess_batch(b.id_type_features, schema))
+    series0 = cluster_series(svc)
     with ctx:
         reset_launch_counts()
         sync_ms, sync_cpu, losses = sv_sync_run(
@@ -4847,6 +4957,28 @@ def services_seq_rec(torch, card: str, svc) -> dict:
         pipe_rate, pipe_ms, pipe_cpu = sv_pipelined_run(
             torch, ctx, batches, SV_TIMED_FROM, cpu)
         launches["pipelined"] = kernel_launches()
+    series1 = cluster_series(svc)
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+
+    looked_up = sum(a[0] for a in series1["ps"]) - sum(
+        a[0] for a in series0["ps"])
+    breakdown = EmbeddingWorker.stage_breakdown(series0["stages"],
+                                                series1["stages"])
+    _log(f"[services] (a) registry series over the synchronous and "
+         f"pipelined runs: ps_lookup_rows_total grew {looked_up:.0f} (the "
+         f"worker sent {sent_rows}); ps_served_requests_total / health "
+         f"served_rpcs at rest, each PS: "
+         + ", ".join(f"{int(m)}/{int(h)}" for _r, m, h in series1["ps"])
+         + "; the worker's stage breakdown "
+         + ", ".join(f"{k} {v['count']} x {v['avg_ms']} ms"
+                     for k, v in breakdown.items()) + f" | card: {card}")
+    if looked_up != sent_rows or len(series1["ps"]) != N_PS or any(
+            m != h for _r, m, h in series1["ps"]) or breakdown["rpc"][
+                "count"] != 2 * SV_STEPS:
+        raise AssertionError(f"services (a): the registry series disagree "
+                             f"with the traffic: rows {looked_up} against "
+                             f"{sent_rows}, PS {series1['ps']}, stages "
+                             f"{breakdown}")
     loss_diff = sum(a != b for a, b in zip(losses, ref_losses))
     (rf, rr), (sf, sr) = ref_rows, got["rows"]
     dense_diff = first_difference(ref_dense, got["dense"])
@@ -6287,6 +6419,520 @@ def online_phase(torch, card: str, clusters: OnlineClusters) -> dict:
     return {n: launches[n] + a_launches[n] for n in launches}
 
 
+# --- reshard: live resharding of the PS tier ---------------------------------
+
+RS_DIM = 8  # (a): bench_reshard's widths
+RS_FEATS = 2
+RS_BATCH = 256
+RS_SIGN_SPACE = 1 << 20
+RS_QUIET_S = 0.4  # (a): quiet traffic before, between and after the moves
+RS_DRAIN_S = 0.25  # the double-read window the controller waits out
+RS_P99_X = 25.0  # (a): the bench's p99 inflation gate ...
+RS_P99_FLOOR_S = 1.0  # ... above this p99 during the migration
+RS_SKEW_WARM = 12  # (a): sketch-building batches, then the A/B trace
+RS_SKEW_TRACE = 24
+RS_STEPS = 16  # (b): synchronous steps of each run
+RS_FROM = 4  # (b): the controller starts before this step
+
+
+class ReshardClusters(ServiceClusters):
+    """(b)'s two ``ServiceCtx(n_workers=1, n_ps=2)`` clusters at the
+    seq_rec widths, entered on threads while the kernels build: one to be
+    resharded 2→3 under the trainer, one unbroken (the reference); and the
+    resharded cluster's third ``PsService`` process, which registers with
+    no coordinator (the migration hands its address to the worker).
+    :meth:`stop` takes them all down."""
+
+    def __init__(self):
+        import subprocess
+        import tempfile
+
+        from persia_tpu_torch.service.helper import ServiceCtx
+        from persia_tpu_torch.utils import dump_yaml
+
+        self._tmp = tempfile.TemporaryDirectory()
+        path = os.path.join(self._tmp.name, "global.yml")
+        dump_yaml({"embedding_parameter_server_config": {
+            "capacity": 2_000_000, "num_hashmap_internal_shards": 8}}, path)
+        self.ctxs = [ServiceCtx(build_schema(), n_workers=1, n_ps=N_PS,
+                                global_config_path=path,
+                                startup_timeout=SV_START_S,
+                                env={"LOG_LEVEL": "WARNING"})
+                     for _ in range(2)]
+        self.rs, self.ref = self.ctxs
+        self.extra_addr_file = os.path.join(self._tmp.name, "ps2.addr")
+        env = {**os.environ, "LOG_LEVEL": "WARNING",
+               "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        self.extra_ps = subprocess.Popen(
+            [sys.executable, "-m", "persia_tpu_torch.service.ps_service",
+             "--port", "0", "--replica-index", str(N_PS), "--replica-size",
+             str(N_PS + 1), "--coordinator", "", "--global-config", path,
+             "--http-port", "-1", "--addr-file", self.extra_addr_file],
+            env=env)
+        self._start()
+
+    def extra_addr(self) -> str:
+        from persia_tpu_torch.utils import wait_addr_file
+
+        return wait_addr_file(self.extra_addr_file, SV_START_S,
+                              self.extra_ps)
+
+    def stop(self):
+        self.extra_ps.terminate()
+        try:
+            self.extra_ps.wait(timeout=10)
+        except Exception:  # noqa: BLE001 — then it is killed
+            self.extra_ps.kill()
+            self.extra_ps.wait(timeout=10)
+        super().stop()
+
+
+def rs_rows(holder) -> dict:
+    """sign -> (dim, row) of an in-process per-entry PS holder."""
+    return {int(s): e for shard in holder._shards for s, e in shard.items()}
+
+
+def rs_applied(holders, table) -> float:
+    """Minus the sum of every row's value at the owner ``table`` routes
+    it to (donors keep stale copies of moved rows, which do not count):
+    with zero init, unit gradients and SGD at lr 1, the updates applied."""
+    import numpy as np
+
+    applied = 0.0
+    for i, h in enumerate(holders):
+        rows = rs_rows(h)
+        if not rows:
+            continue
+        owners = table.replica_of(np.fromiter(rows, np.uint64, len(rows)))
+        applied += sum(-float(v[:d].sum()) / RS_DIM
+                       for (d, v), o in zip(rows.values(), owners) if o == i)
+    return applied
+
+
+def reshard_dance(card: str) -> str:
+    """(a) bench_reshard at its smoke depth on the port's services: the
+    live 2→4→3 under two trainer threads (the counting identity exact at
+    the new owners across both cutovers; the worker-cycle p99 during the
+    migrations within 25x of the quiet p99 above a 1 s floor), the skew
+    A/B under Zipf(1.05) (the hotness-planned table's max-replica share,
+    measured server-side, below hash-even's), and a uniform-table
+    checkpoint byte-identical to the legacy dump. Returns the report."""
+    import filecmp
+    import tempfile
+
+    import numpy as np
+
+    from persia_tpu_torch import hotness, knobs
+    from persia_tpu_torch.checkpoint import dump_sharded
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.data.batch import IDTypeFeature
+    from persia_tpu_torch.ps.store import EmbeddingHolder
+    from persia_tpu_torch.reshard import ReshardController
+    from persia_tpu_torch.routing import RoutingTable
+    from persia_tpu_torch.service.ps_service import PsClient, PsService
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+
+    schema = EmbeddingSchema(slots_config=uniform_slots(
+        [f"slot_{i}" for i in range(RS_FEATS)], dim=RS_DIM))
+
+    def feature(name, signs):
+        return IDTypeFeature(name, [np.asarray(signs, dtype=np.uint64)])
+
+    def stack(n, hotness_on=False):
+        holders, services, clients = [], [], []
+        for _ in range(n):
+            h = EmbeddingHolder(capacity=2_000_000, hotness=hotness_on)
+            svc = PsService(h, port=0)
+            svc.server.serve_background()
+            c = PsClient(svc.addr, circuit_breaker=False)
+            c.configure("bounded_uniform", {"lower": 0.0, "upper": 0.0},
+                        admit_probability=1.0, weight_bound=1e9,
+                        enable_weight_bound=False)
+            c.register_optimizer({"type": "sgd", "lr": 1.0, "wd": 0.0})
+            holders.append(h)
+            services.append(svc)
+            clients.append(c)
+        return holders, services, clients
+
+    # the live 2→4→3 under traffic; the controllers' counters are the
+    # process's, so (a)'s are read as deltas
+    from persia_tpu_torch.metrics import default_registry
+
+    reg = default_registry()
+    counted0 = [reg.counter(n).value for n in (
+        "reshard_moved_rows_total", "reshard_replayed_rows_total")]
+    holders, services, clients = stack(4)
+    table = RoutingTable.uniform(2)
+    worker = EmbeddingWorker(schema, clients[:2], routing=table)
+    ships, samples, errors = [0], [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def train(seed):
+        # every sign occurrence adds exactly -1 to its row
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            raw = [rng.integers(0, RS_SIGN_SPACE, RS_BATCH, dtype=np.uint64)
+                   for _ in range(RS_FEATS)]
+            t0 = time.perf_counter()
+            try:
+                ref, out = worker.lookup_direct_training(
+                    [feature(f"slot_{i}", r) for i, r in enumerate(raw)])
+                worker.update_gradients(ref, {
+                    k: np.ones_like(v.embeddings) for k, v in out.items()})
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+                return
+            dt = time.perf_counter() - t0
+            with lock:
+                ships[0] += RS_FEATS * RS_BATCH
+                samples.append((t0, dt))
+
+    threads = [threading.Thread(target=train, args=(s,), daemon=True)
+               for s in range(2)]
+    for t in threads:
+        t.start()
+    windows = []
+    ctrl = ReshardController(clients[:2], table, workers=[worker],
+                             replay_settle_rows=64, drain_sec=RS_DRAIN_S)
+    try:
+        time.sleep(RS_QUIET_S)
+        w0 = time.perf_counter()
+        t4 = ctrl.reshard_to(4, new_ps_clients=clients)
+        windows.append((w0, time.perf_counter()))
+        time.sleep(RS_QUIET_S)
+        w0 = time.perf_counter()
+        t3 = ctrl.reshard_to(3)
+        windows.append((w0, time.perf_counter()))
+        time.sleep(RS_QUIET_S)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    if errors:
+        raise AssertionError(f"reshard (a): a trainer thread died "
+                             f"mid-reshard: {errors[0]!r}")
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("reshard (a): a trainer thread wedged across "
+                             "the reshard")
+    ctrl.finalize(drain_sec=0.0)
+    if not (worker.routing_epoch == t3.epoch == t4.epoch + 1
+            and t3.num_replicas == 3):
+        raise AssertionError(f"reshard (a): epochs {t4.epoch}, {t3.epoch}, "
+                             f"worker {worker.routing_epoch}")
+    applied = rs_applied(holders, t3)
+    lost = ships[0] - applied
+
+    def p99(vals):
+        return float(np.percentile(np.asarray(vals), 99)) if vals else 0.0
+
+    during = [d for t0, d in samples
+              if any(a <= t0 <= b for a, b in windows)]
+    quiet = [d for t0, d in samples
+             if not any(a - 0.1 <= t0 <= b + 0.1 for a, b in windows)]
+    p99_quiet, p99_during = p99(quiet), p99(during)
+    inflation = p99_during / p99_quiet if p99_quiet > 0 else 0.0
+    moved, replayed = (int(ctrl._c_moved.value - counted0[0]),
+                       int(ctrl._c_replayed.value - counted0[1]))
+    worker.close()
+    for svc in services:
+        svc.stop()
+    dance = (f"2→4→3 ships={ships[0]} applied={applied:.1f} "
+             f"lost={lost:.3f}; moved rows {moved}, replayed rows "
+             f"{replayed}; worker-cycle p99 quiet "
+             f"{p99_quiet * 1e3:.2f} ms ({len(quiet)} cycles) vs during the "
+             f"migrations {p99_during * 1e3:.2f} ms ({len(during)} cycles): "
+             f"{inflation:.2f}x (gate {RS_P99_X}x above "
+             f"{RS_P99_FLOOR_S}s); migrations "
+             + ", ".join(f"{b - a:.3f}s" for a, b in windows))
+    if abs(lost) > 1e-3:
+        raise AssertionError(f"reshard (a): lost updates across the live "
+                             f"2→4→3: {dance}")
+    if p99_during > RS_P99_FLOOR_S and inflation > RS_P99_X:
+        raise AssertionError(f"reshard (a): worker p99 inflated: {dance}")
+
+    # the skew A/B: a zipf(1.05)-ranked hot set in every batch over a
+    # uniform cold tail, through 4 replicas under hash-even routing and
+    # under the placement planned from the fleet's own merged sketches;
+    # load is counted server-side (signs each replica served)
+    holders, services, clients = stack(4, hotness_on=True)
+    spr = int(knobs.get("PERSIA_ROUTING_SLOTS_PER_REPLICA"))
+    even = RoutingTable(1, np.arange(4 * spr, dtype=np.int32) % 4, 4)
+    worker = EmbeddingWorker(schema, clients, routing=even)
+    rng = np.random.default_rng(11)
+    hot_n = 128
+    hot_p = np.arange(1, hot_n + 1, dtype=np.float64) ** -1.05
+    hot_p /= hot_p.sum()
+    with np.errstate(over="ignore"):
+        hot_pool = (np.arange(1, hot_n + 1, dtype=np.uint64)
+                    * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(1)
+
+    def zipf_feats():
+        n_hot = int(RS_BATCH * 0.7)
+        signs = np.concatenate([
+            rng.choice(hot_pool, size=n_hot, p=hot_p),
+            rng.integers(1 << 30, 1 << 40, RS_BATCH - n_hot,
+                         dtype=np.uint64)])
+        return [feature(f"slot_{i}", signs) for i in range(RS_FEATS)]
+
+    for _ in range(RS_SKEW_WARM):
+        worker.lookup_direct(zipf_feats(), training=False)
+    snap = hotness.merge_snapshots([c.hotness() for c in clients])
+    plan = hotness.placement_plan(snap, 4, current_table=even)
+    balanced = even.derive(np.asarray(plan["assignment"], np.int32), 4,
+                           weights=np.asarray(plan["slot_weights"]))
+    trace = [zipf_feats() for _ in range(RS_SKEW_TRACE)]
+
+    def measured_shares(tbl):
+        worker.apply_routing(tbl)
+        worker.close_routing_window()
+        before = [c.hotness().get("total", 0) for c in clients]
+        for feats in trace:
+            worker.lookup_direct(feats, training=False)
+        after = [c.hotness().get("total", 0) for c in clients]
+        served = np.array(after, np.float64) - np.array(before, np.float64)
+        return served / max(served.sum(), 1.0)
+
+    even_max = float(measured_shares(
+        even.derive(even.replica_of_slot, 4)).max())
+    bal_max = float(measured_shares(
+        balanced.derive(balanced.replica_of_slot, 4)).max())
+    worker.close()
+    for svc in services:
+        svc.stop()
+    skew = (f"skew A/B under Zipf(1.05): max-replica share {even_max:.4f} "
+            f"hash-even vs {bal_max:.4f} hotness-balanced "
+            f"({even_max / bal_max:.3f}x; planned "
+            f"{plan['max_replica_share']} vs "
+            f"{plan['hash_even_max_share']}, {plan['moved_slots']} slots "
+            f"moved)")
+    if not bal_max < even_max:
+        raise AssertionError(f"reshard (a): the balanced placement did not "
+                             f"beat hash-even: {skew}")
+
+    # a uniform table's dump is the legacy dump byte for byte
+    with tempfile.TemporaryDirectory() as tmp:
+        hs = [EmbeddingHolder(capacity=10_000) for _ in range(2)]
+        t2 = RoutingTable.uniform(2)
+        signs = np.unique(rng.integers(0, 1 << 40, 500, dtype=np.uint64))
+        for sign, owner in zip(signs, t2.replica_of(signs)):
+            hs[owner].set_entry(int(sign), RS_DIM,
+                                np.arange(2 * RS_DIM, dtype=np.float32))
+        a, b = os.path.join(tmp, "legacy"), os.path.join(tmp, "routed")
+        dump_sharded(hs, a)
+        dump_sharded(hs, b, routing=t2)
+        names = sorted(os.listdir(a))
+        identical = names == sorted(os.listdir(b)) and all(
+            filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                        shallow=False) for n in names)
+    if not identical:
+        raise AssertionError("reshard (a): a uniform-table checkpoint is "
+                             "not byte-identical to the legacy dump")
+    return (f"{dance}; {skew}; the uniform-table checkpoint byte-identical "
+            f"to the legacy dump ({len(names)} files)")
+
+
+def reshard_seq_rec(torch, card: str, clusters: ReshardClusters):
+    """(b) seq_rec at the training phase's widths over the resharded
+    cluster, a ``ReshardController`` taking its PS tier 2→3 on a thread
+    from step 4 while the trainer steps on (writes meeting the freeze
+    bounce and settle), against the same steps on the unbroken cluster.
+    Gates: losses, dense state with Adam's, and every touched row (read
+    from its owner under the final table) equal bit for bit; K2-K4 once a
+    step, K1 and K5 never; the worker's, each PS's and the controller's
+    epochs equal; a snapshot's manifest carries that epoch. Returns (the
+    report, the resharded run's launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from persia_tpu_torch.reshard import ReshardController
+    from persia_tpu_torch.routing import RoutingTable
+    from persia_tpu_torch.service.coordinator import CoordinatorClient
+    from persia_tpu_torch.service.ps_service import PsClient
+    from persia_tpu_torch.snapshot import load_manifest
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = build_schema()
+    batches = list(seqrec_batches(RS_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED + 17, spec=spec))
+    signs = np.unique(np.concatenate([f.signs for b in batches
+                                      for f in b.id_type_features]))
+    start = build_tower(spec.num_dense, "flash").state_dict()
+
+    def run(svc, on_step=None):
+        ctx = train_ctx(torch, schema, build_tower(
+            spec.num_dense, "flash", state_dict=start),
+            worker=svc.remote_worker())
+        losses = []
+        with ctx:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for step, b in enumerate(batches):
+                if on_step is not None:
+                    on_step(step, ctx)
+                losses.append(ctx.train_step(b)[0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_launches()
+        losses = torch.stack(losses).float().cpu().tolist()
+        if not np.isfinite(losses).all():
+            raise AssertionError("reshard (b): a loss is not finite")
+        return ctx, losses, dense_state(ctx), launches, wall
+
+    ref_ctx, ref_losses, ref_dense, _, ref_wall = run(clusters.ref)
+    ref_clients = [PsClient(a) for a in clusters.ref.ps_addrs]
+    found = np.zeros(len(signs), np.int64)
+    ref_rows = np.zeros((len(signs), 2 * DIM), np.float32)
+    for c in ref_clients:
+        f, v = c.get_entries(signs, 2 * DIM)
+        found += f
+        ref_rows[f] = v[f]
+    ref_ctx.worker.close()
+
+    from persia_tpu_torch.metrics import default_registry
+
+    reg = default_registry()
+    counted0 = [reg.counter(n).value for n in (
+        "reshard_moved_rows_total", "reshard_replayed_rows_total")]
+    rs = clusters.rs
+    clients = [PsClient(a, circuit_breaker=False)
+               for a in [*rs.ps_addrs, clusters.extra_addr()]]
+    box = {}
+
+    def on_step(step, ctx):
+        if step == 0:
+            # the new replica gets the init, admission and optimizer the
+            # context armed the first two with
+            ec = ctx.embedding_config
+            lower, upper = ec.emb_initialization
+            clients[-1].configure(
+                "bounded_uniform", {"lower": lower, "upper": upper},
+                ec.admit_probability, ec.weight_bound,
+                enable_weight_bound=True)
+            clients[-1].register_optimizer(
+                ctx.embedding_optimizer.config,
+                feature_index_prefix_bit=schema.feature_index_prefix_bit)
+        if step != RS_FROM:
+            return
+        ctrl = box["ctrl"] = ReshardController(
+            clients[:N_PS], RoutingTable.uniform(N_PS), workers=[ctx.worker],
+            coordinator=CoordinatorClient(rs.coordinator_addr),
+            drain_sec=RS_DRAIN_S)
+
+        def migrate():
+            try:
+                t0 = time.perf_counter()
+                box["table"] = ctrl.reshard_to(N_PS + 1,
+                                               new_ps_clients=clients)
+                box["migrate_s"] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001 — raised below
+                box["error"] = e
+
+        box["thread"] = threading.Thread(target=migrate, daemon=True)
+        box["thread"].start()
+
+    ctx, losses, dense, launches, wall = run(rs, on_step)
+    box["thread"].join(timeout=120)
+    if "error" in box or box["thread"].is_alive():
+        raise AssertionError(f"reshard (b): the migration failed: "
+                             f"{box.get('error')!r}")
+    ctrl, table = box["ctrl"], box["table"]
+    ctrl.finalize()
+    rows = np.zeros((len(signs), 2 * DIM), np.float32)
+    owner = table.replica_of(signs)
+    for r, c in enumerate(clients):
+        sel = np.nonzero(owner == r)[0]
+        f, v = c.get_entries(signs[sel], 2 * DIM)
+        if not f.all():
+            raise AssertionError(f"reshard (b): {int((~f).sum())} touched "
+                                 f"rows absent at their owner {r}")
+        rows[sel] = v
+    with tempfile.TemporaryDirectory() as tmp:
+        with ctx:
+            manifest = load_manifest(ctx.snapshot(tmp))
+    ctx.worker.close()
+    loss_diff = sum(a != b for a, b in zip(losses, ref_losses))
+    dense_diff = first_difference(ref_dense, dense)
+    row_diff = int((rows.view(np.uint32) != ref_rows.view(np.uint32))
+                   .any(axis=-1).sum())
+    ps_epochs = [c.reshard_status()["routing_epoch"] for c in clients]
+    health = [t for t in rs.fleet_targets()
+              if t["role"] == "embedding-worker"]
+    worker_epochs = [obs_get(t["http_addr"], "/healthz")["routing_epoch"]
+                     for t in health]
+    epochs = {"controller": table.epoch, "worker broadcast":
+              ctx.worker.routing_epoch, "worker health": worker_epochs,
+              "PS": ps_epochs, "manifest": manifest["routing_epoch"],
+              "manifest table": (manifest.get("routing") or {}).get("epoch")}
+    line = (f"(b) seq_rec {RS_STEPS} synchronous steps of {TRAIN_BATCH} "
+            f"over the services, 2→3 from step {RS_FROM} (migration "
+            f"{box['migrate_s']:.3f}s, moved rows "
+            f"{int(ctrl._c_moved.value - counted0[0])}, replayed rows "
+            f"{int(ctrl._c_replayed.value - counted0[1])}) against the "
+            f"unbroken cluster: "
+            f"losses that differ {loss_diff}, dense state "
+            f"{dense_diff or 'bit-equal'}; {len(signs)} touched rows from "
+            f"their owners under epoch {table.epoch} ({np.bincount(owner, minlength=3).tolist()} a replica), rows that differ in "
+            f"any bit {row_diff}; epochs {epochs}; wall {wall:.2f}s "
+            f"resharded vs {ref_wall:.2f}s unbroken; launches "
+            + " ".join(f"{n}={c}" for n, c in launches.items()))
+    flash = [launches[n] for n in FLASH_KERNELS]
+    if flash != [RS_STEPS] * 3 or launches["embedding_bag"] \
+            or launches["probe_copy"]:
+        raise AssertionError(f"reshard (b): K2-K4 must launch once a step "
+                             f"and K1, K5 never: {line}")
+    if loss_diff or dense_diff or row_diff or not (found == 1).all():
+        raise AssertionError(f"reshard (b): the resharded run differs from "
+                             f"the unbroken one: {line}")
+    want = table.epoch
+    if not (want == N_PS and epochs["worker broadcast"] == want
+            and worker_epochs == [want] and ps_epochs == [want] * 3
+            and epochs["manifest"] == want
+            and epochs["manifest table"] == want):
+        raise AssertionError(f"reshard (b): the epochs disagree: {line}")
+    return line, launches
+
+
+def reshard_phase(torch, card: str, clusters: ReshardClusters) -> dict:
+    """(b) on the clusters started in setup, then (a) in process, which
+    launches no kernel. Returns (b)'s launches."""
+    up = clusters.wait()
+    _log(f"[reshard] the resharded and the unbroken clusters up "
+         f"{up:.1f}s after their start (beside the kernel build), and a "
+         f"third PS at {clusters.extra_addr()} | card: {card}")
+    t0 = time.perf_counter()
+    b_line, launches = reshard_seq_rec(torch, card, clusters)
+    _log(f"[reshard] {b_line} | card: {card}")
+    t1 = time.perf_counter()
+    _log(f"[time] reshard (b) {t1 - t0:.1f}s")
+    reset_launch_counts()
+    a_line = reshard_dance(card)
+    _log(f"[reshard] (a) {a_line} | card: {card}")
+    assert_no_kernel_launched("reshard (a)", card)
+    _log(f"[time] reshard (a) {time.perf_counter() - t1:.1f}s")
+    for c in clusters.ctxs:
+        if c.crashed:
+            raise AssertionError(f"reshard: a child crashed: {c.crashed}")
+    if clusters.extra_ps.poll() is not None:
+        raise AssertionError("reshard: the third PS process exited")
+    return launches
+
+
+def obs_get(addr: str, path: str):
+    """A sidecar's ``/metrics`` as (samples, families), or its JSON
+    document at ``path``."""
+    import urllib.request
+
+    from persia_tpu_torch.metrics import parse_exposition
+
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=10) as r:
+        body = r.read().decode()
+    return parse_exposition(body) if path == "/metrics" else json.loads(body)
+
+
 class _PhaseClock:
     """Logs each phase's wall time and the run's, for the time budget."""
 
@@ -6312,7 +6958,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run it "
               f"from the root of a checkout", file=sys.stderr)
         return 2
-    procs = clusters = su_clusters = on_clusters = None
+    procs = clusters = su_clusters = on_clusters = rs_clusters = None
     try:
         clock = _PhaseClock()
         card = card_line()
@@ -6337,6 +6983,7 @@ def main() -> int:
             clusters = ServiceClusters()
             su_clusters = SupervisionClusters()
             on_clusters = OnlineClusters()
+            rs_clusters = ReshardClusters()
         finally:
             kernel_build.join()
         if "paths" not in built:
@@ -6360,6 +7007,11 @@ def main() -> int:
         on_clusters.stop()
         on_clusters = None
         clock("online")
+        # third, for the same reason
+        reshard_launches = reshard_phase(torch, card, rs_clusters)
+        rs_clusters.stop()
+        rs_clusters = None
+        clock("reshard")
         floor = launch_path_phase(torch, card)
         clock("launch_path")
         records = kernel_phase(torch, card)
@@ -6418,6 +7070,8 @@ def main() -> int:
             records[name]["launches_supervision"] = n
         for name, n in online_launches.items():
             records[name]["launches_online"] = n
+        for name, n in reshard_launches.items():
+            records[name]["launches_reshard"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "
@@ -6443,6 +7097,8 @@ def main() -> int:
             su_clusters.stop()
         if on_clusters is not None:
             on_clusters.stop()
+        if rs_clusters is not None:
+            rs_clusters.stop()
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

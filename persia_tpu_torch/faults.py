@@ -38,19 +38,25 @@ Zero-overhead disabled path: call sites guard on the module global
 pays a single predictable branch per site — the wire and the timing are
 identical to a build without the harness.
 
-Sites in the port:
+Sites, by tier:
 
 - ``rpc.client.send`` / ``rpc.server.recv`` — the transport plane
   (kwargs: addr/method);
+- ``ps.lookup`` / ``ps.update`` — the PS data plane (kwargs: n, dim);
+- ``ps.reshard.{begin,extract,install,drain,freeze,finish}`` — the live
+  migration protocol's server side (``drain`` carries ``frozen=``, so a
+  rule can tell the replay rounds from the cutover's drain);
+- ``reshard.controller`` — fired by the ReshardController at each
+  protocol transition (kwargs: ``state=`` copy / replay / freeze /
+  cutover / drain, and ``donor=`` where there is one); a ``die`` rule
+  here kills the controller at that state;
 - ``obs.http`` — the observability sidecar (kwarg: path).
-
-The JAX package's PS and reshard sites belong to tiers the port has not
-taken over yet.
 
 Example::
 
     faults.add("rpc.server.recv", "reset", after=2, method="predict")
     faults.add("rpc.client.send", "delay", arg=0.05, prob=0.5)
+    faults.add("reshard.controller", "die", state="freeze")
 """
 
 import json

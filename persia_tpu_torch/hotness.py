@@ -22,9 +22,12 @@ tracker's locks are leaves.
 
 The report the observability sidecar serves at ``/hotness``
 (:func:`summary_view`: per-table totals, the fitted zipf skew, the
-coverage curve and the hottest rows) is ported with it. The planner
-functions of the JAX module (placement plans, fleet reports) feed the
-control plane and are not ported.
+coverage curve and the hottest rows), and the planner half that feeds
+the control plane: the device cache's HBM plan (:func:`planner_report`),
+per-routing-slot traffic weights (:func:`slot_weights`), the
+hotness-balanced placement the reshard controller executes
+(:func:`placement_plan`) and the ``/fleet/hotness`` document
+(:func:`fleet_report`).
 """
 
 import base64
@@ -695,3 +698,158 @@ def summary_view(snapshot: Dict, top_n: int = 16) -> Dict:
         "tables": {t: table_report(ts, top_n=top_n)
                    for t, ts in snapshot.get("tables", {}).items()},
     }
+
+
+def planner_report(snapshot: Dict, hbm_bytes: int,
+                   row_bytes: Optional[Dict[str, int]] = None,
+                   fracs: Sequence[float] = DEFAULT_COVERAGE_FRACS,
+                   num_replicas: Optional[int] = None,
+                   measured_hit_rate: Optional[float] = None) -> Dict:
+    """HBM plan of the frequency-admitted device cache: ``hbm_bytes``
+    split across tables in proportion to their lookup traffic, each
+    table's hot set sized, its expected hit rate read off its coverage
+    curve. Bytes a row: the caller's ``row_bytes`` (table -> bytes) wins;
+    else the snapshot's per-table ``row_bytes`` floored at the f32 width
+    ``dim * 4`` (the cache imports rows as f32 values whatever the PS
+    stores); optimizer state is left out.
+
+    ``measured_hit_rate`` (a hit rate measured under the planned budget)
+    rides beside the prediction with ``hit_rate_delta = predicted -
+    measured``; ``num_replicas`` adds :func:`placement_plan`."""
+    tables = snapshot.get("tables", {})
+    total = float(snapshot.get("total") or 0) or float(
+        sum(t.get("total", 0) for t in tables.values())) or 1.0
+    plan = []
+    overall = 0.0
+    for table, t in sorted(tables.items(), key=lambda kv: kv[0]):
+        share = float(t.get("total", 0)) / total
+        rb = (int((row_bytes or {}).get(table, 0))
+              or max(int(t.get("row_bytes") or 0), int(table) * 4))
+        budget = int(share * hbm_bytes)
+        uniq = max(float(t.get("unique_est") or 0.0), 1.0)
+        hot_rows = min(int(budget // rb) if rb else 0, int(uniq))
+        curve = coverage_curve(t, fracs=[min(hot_rows / uniq, 1.0)])
+        hit = curve[0]["coverage"] if hot_rows else 0.0
+        overall += share * hit
+        plan.append({
+            "table": table,
+            "row_bytes": rb,
+            "traffic_share": round(share, 6),
+            "unique_rows_est": round(uniq, 1),
+            "budget_bytes": budget,
+            "hot_rows": hot_rows,
+            "hot_row_frac": round(hot_rows / uniq, 6),
+            "expected_hit_rate": hit,
+        })
+    doc = {
+        "hbm_bytes": int(hbm_bytes),
+        "total_lookups": int(total),
+        "expected_overall_hit_rate": round(overall, 6),
+        "tables": plan,
+    }
+    if measured_hit_rate is not None:
+        doc["measured_overall_hit_rate"] = round(
+            float(measured_hit_rate), 6)
+        doc["hit_rate_delta"] = round(
+            overall - float(measured_hit_rate), 6)
+    if num_replicas:
+        doc["placement_plan"] = placement_plan(snapshot, num_replicas)
+    return doc
+
+
+def slot_weights(snapshot: Dict, num_slots: int) -> np.ndarray:
+    """Per-routing-slot traffic weights from a (merged) snapshot: each
+    table's tracked heads (bias-corrected midpoint counts ``c - e/2``)
+    land on their slot by the routing table's ``farmhash % num_slots``,
+    summed over tables (routing is global); the untracked tail mass
+    (total - head) spreads evenly over the slots. Raw lookup counts,
+    length ``num_slots``."""
+    w = np.zeros(int(num_slots), dtype=np.float64)
+    tail_total = 0.0
+    for t in snapshot.get("tables", {}).values():
+        rows = t.get("topk", ())
+        head = 0.0
+        if rows:
+            signs = np.array([r[0] for r in rows], dtype=np.uint64)
+            counts = np.array([max(c - e / 2.0, 0.0)
+                               for _s, c, e in rows], dtype=np.float64)
+            slots = (farmhash64_np(signs)
+                     % np.uint64(num_slots)).astype(np.int64)
+            np.add.at(w, slots, counts)
+            head = float(counts.sum())
+        tail_total += max(float(t.get("total", 0)) - head, 0.0)
+    w += tail_total / float(num_slots)
+    return w
+
+
+def placement_plan(snapshot: Dict, num_replicas: int,
+                   num_slots: Optional[int] = None,
+                   current_table=None) -> Dict:
+    """Hotness-balanced slot→replica placement for ``num_replicas``:
+    :func:`slot_weights` assigned by the move-minimizing greedy LPT of
+    :func:`persia_tpu_torch.reshard.plan_assignment`, reported beside
+    what hash-even (``slot % R``) would carry. Every share is rounded to
+    6 decimals, so the shares of R replicas sum to 1 within
+    ``R * 0.5e-6``, not exactly."""
+    from persia_tpu_torch.reshard import plan_assignment
+    from persia_tpu_torch.routing import RoutingTable
+
+    if current_table is not None:
+        num_slots = current_table.num_slots
+    elif num_slots is None:
+        num_slots = num_replicas * int(
+            knobs.get("PERSIA_ROUTING_SLOTS_PER_REPLICA"))
+    if current_table is None:
+        current_table = RoutingTable(
+            1, np.arange(num_slots, dtype=np.int32)
+            % np.int32(num_replicas), num_replicas)
+    w = slot_weights(snapshot, num_slots)
+    total = float(w.sum()) or 1.0
+    assignment = plan_assignment(current_table, num_replicas, w)
+    loads = np.bincount(assignment, weights=w, minlength=num_replicas)
+    even = np.bincount(
+        np.arange(num_slots, dtype=np.int64) % num_replicas,
+        weights=w, minlength=num_replicas)
+    moved = int(np.count_nonzero(
+        assignment != current_table.replica_of_slot))
+    return {
+        "num_replicas": int(num_replicas),
+        "num_slots": int(num_slots),
+        "assignment": [int(r) for r in assignment],
+        "slot_weights": [round(float(x), 3) for x in w],
+        "replica_shares": [round(float(x) / total, 6) for x in loads],
+        "max_replica_share": round(float(loads.max()) / total, 6),
+        "hash_even_shares": [round(float(x) / total, 6) for x in even],
+        "hash_even_max_share": round(float(even.max()) / total, 6),
+        "moved_slots": moved,
+    }
+
+
+def fleet_report(snapshot: Dict, hbm_bytes: Optional[int] = None,
+                 fracs: Sequence[float] = DEFAULT_COVERAGE_FRACS,
+                 num_replicas: Optional[int] = None,
+                 measured_hit_rate: Optional[float] = None) -> Dict:
+    """The ``/fleet/hotness`` document: merged totals, each table's
+    report, the capacity plan when a budget is named, and the placement
+    plan when a replica count is named. A ``measured_hit_rate`` without
+    a budget and armed telemetry has nothing to be compared with and
+    raises."""
+    if measured_hit_rate is not None and not (
+            hbm_bytes and snapshot.get("enabled")):
+        raise ValueError(
+            "measured_hit_rate requires an HBM budget (hbm_bytes / "
+            "?hbm_gb=) and armed hotness telemetry — there is no "
+            "predicted hit rate to compare against without them")
+    doc = {
+        "enabled": bool(snapshot.get("enabled")),
+        "total": int(snapshot.get("total") or 0),
+        "tables": {t: table_report(ts, fracs=fracs)
+                   for t, ts in snapshot.get("tables", {}).items()},
+    }
+    if hbm_bytes and snapshot.get("enabled"):
+        doc["planner"] = planner_report(snapshot, hbm_bytes, fracs=fracs,
+                                        num_replicas=num_replicas,
+                                        measured_hit_rate=measured_hit_rate)
+    elif num_replicas and snapshot.get("enabled"):
+        doc["placement_plan"] = placement_plan(snapshot, num_replicas)
+    return doc

@@ -12,9 +12,12 @@ push gateway), the online tier (the delta subscriber's scan interval,
 apply batch and write-rate governor), the service tier (the
 coordinator's address, the PS replica count, the PS service's dispatch,
 wire codec, circuit breaker, frames, GC tune, row dtype and spill tier,
-the worker's data plane and distinct-id monitor) and whole-job
-supervision (the trainer group's size, rank and rendezvous, the snapshot
-cadence, the fleet's static targets), with the JAX package's names,
+the worker's data plane and distinct-id monitor), whole-job supervision
+(the trainer group's size, rank and rendezvous, the snapshot cadence,
+the fleet's static targets) and live routing (a uniform table's slots a
+replica, the ``__routing__`` rider, the reshard controller's chunk,
+drain, lease, journal, RPC deadline and the worker's stale-retry
+budget), with the JAX package's names,
 types, defaults and parse conventions:
 
 - ``bool`` knobs whose default is False are enabled by ``1`` / ``true`` /
@@ -74,6 +77,14 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_PS_ROW_DTYPE", "str", None),
     Knob("PERSIA_PS_SHARD_PARALLEL", "bool", True),
     Knob("PERSIA_PS_WIRE_CODEC", "str", ""),
+    Knob("PERSIA_RESHARD_BATCH_ROWS", "int", 65536),
+    Knob("PERSIA_RESHARD_DRAIN_SEC", "float", 5.0),
+    Knob("PERSIA_RESHARD_FREEZE_LEASE_SEC", "float", 30.0),
+    Knob("PERSIA_RESHARD_JOURNAL_DIR", "str", None),
+    Knob("PERSIA_RESHARD_RPC_TIMEOUT_SEC", "float", 120.0),
+    Knob("PERSIA_RESHARD_STALE_RETRY_SEC", "float", 10.0),
+    Knob("PERSIA_ROUTING_SLOTS_PER_REPLICA", "int", 64),
+    Knob("PERSIA_ROUTING_WIRE", "bool", False),
     Knob("PERSIA_RPC_FORCE_BLOCK", "bool", False),
     Knob("PERSIA_SKIP_CHECK_DATA", "bool", False),
     Knob("PERSIA_SNAPSHOT_INTERVAL_STEPS", "int", 50),

@@ -26,9 +26,14 @@ a later step overwrites. :meth:`flush_all` reads the cache after the
 flush queue drained, by a copy on the training thread's stream, which
 orders it after every step.
 
-The JAX engine's registry counters are not wired to the port's metrics
-registry yet (ROADMAP.md queue A item 6b, second part); the port keeps
-them as plain ints, read by :meth:`stats`.
+The engine's counters (:data:`COUNTERS`) are its registry series
+``device_cache_<name>_total`` with the gauge
+``device_cache_resident_rows``, labelled by ``dim`` and an ``engine``
+sequence number (two engines in one process keep their own series);
+:meth:`stats` reads them. The mapper's plain counters reach them as
+deltas once a batch. ``wire_bytes_saved`` and the flush token change
+under the same lock as the counters: the flush thread and the training
+thread both reach the engine.
 """
 
 import itertools
@@ -42,6 +47,7 @@ import torch
 
 from persia_tpu_torch import knobs
 from persia_tpu_torch.device import DeviceLike, resolve_device
+from persia_tpu_torch.metrics import default_registry
 from persia_tpu_torch.parallel.cached_train import (
     init_cache_arrays,
     pad_to_bucket,
@@ -55,10 +61,25 @@ _logger = logging.getLogger(__name__)
 
 _BUCKETS = (64, 256, 1024, 4096, 16384, 65536)
 
-# the engine's counters, each the JAX engine's registry counter
+# the engine's counters, each the registry counter
 # device_cache_<name>_total
 COUNTERS = ("probes", "hits", "misses", "evictions", "promotions",
             "writeback_rows")
+_HELP = {
+    "probes": "sign positions probed against the device cache "
+              "(hits + misses) — the hit-rate denominator",
+    "hits": "device-cache hits (rows served from HBM, no "
+            "host<->device or PS traffic)",
+    "misses": "device-cache misses (rows imported from the PS "
+              "tier / victim buffer)",
+    "evictions": "rows evicted from the device cache (each queues "
+                 "one PS write-back)",
+    "promotions": "window->protected promotions of the "
+                  "hotness-admitted mapper (0 under LRU admission)",
+    "writeback_rows": "rows written back to the PS tier (eviction "
+                      "flushes + flush_all)",
+}
+_ENGINE_SEQ = itertools.count()
 
 
 class _HostRows(NamedTuple):
@@ -127,7 +148,18 @@ class DeviceCacheEngine:
         self._flush_thread = self._start_flush_thread()
         self.wire_bytes_saved = 0
         self._counts_lock = threading.Lock()
-        self._counts = dict.fromkeys(COUNTERS, 0)
+        reg = default_registry()
+        # the labels of this engine's series (a scrape selects by them)
+        self.series_labels = {"dim": str(self.dim),
+                              "engine": str(next(_ENGINE_SEQ))}
+        lbl = self.series_labels
+        self._counters = {
+            name: reg.counter(f"device_cache_{name}_total", lbl,
+                              help_text=_HELP[name])
+            for name in COUNTERS}
+        self._m_resident = reg.gauge(
+            "device_cache_resident_rows", lbl,
+            help_text="signs currently resident in the device cache")
         self._counted = (0, 0, 0, 0)  # the mapper's hits/misses/evictions/
         #                               promotions already counted
 
@@ -138,12 +170,13 @@ class DeviceCacheEngine:
         return t
 
     def _count(self, name: str, n: int):
-        with self._counts_lock:
-            self._counts[name] += n
+        if n:
+            with self._counts_lock:
+                self._counters[name].inc(n)
 
     def _publish_counters(self):
         """The mapper's counters' deltas since the last batch into the
-        engine's (once a batch, after assign)."""
+        engine's (once a batch, after assign), and the resident rows."""
         m = self.mapper
         now = (m.hits, m.misses, m.evictions, getattr(m, "promotions", 0))
         d = [a - b for a, b in zip(now, self._counted)]
@@ -151,14 +184,21 @@ class DeviceCacheEngine:
         with self._counts_lock:
             for name, n in zip(("hits", "misses", "evictions",
                                 "promotions"), d):
-                self._counts[name] += n
-            self._counts["probes"] += d[0] + d[1]
+                if n:
+                    self._counters[name].inc(n)
+            if d[0] + d[1]:
+                self._counters["probes"].inc(d[0] + d[1])
+        self._m_resident.set(len(m))
+
+    def _save_wire_bytes(self, packed: int, moved: int):
+        with self._counts_lock:
+            self.wire_bytes_saved += max(0, packed - moved)
 
     def stats(self) -> dict:
         """The counters (:data:`COUNTERS`, cumulative over the engine's
         life) and ``resident_rows``, the signs cached now."""
         with self._counts_lock:
-            out = dict(self._counts)
+            out = {name: int(c.value) for name, c in self._counters.items()}
         out["resident_rows"] = len(self.mapper)
         return out
 
@@ -189,7 +229,7 @@ class DeviceCacheEngine:
         packed = batch * num_slots * self.dim * 2 * 2
         moved = (slot_idx.nbytes + cold_idx.nbytes + cold_vals.nbytes
                  + cold_acc.nbytes + (2 * mpad * self.dim * 4))
-        self.wire_bytes_saved += max(0, packed - moved)
+        self._save_wire_bytes(packed, moved)
         return (slot_idx, cold_idx, cold_vals, cold_acc, evicted_signs,
                 evicted_mask, res.inverse, unique_slots)
 
@@ -241,7 +281,7 @@ class DeviceCacheEngine:
         moved = (flat_slot_idx.nbytes + seg_pad.nbytes + scale.nbytes
                  + cold_idx.nbytes + cold_vals.nbytes + cold_acc.nbytes
                  + (2 * mpad * self.dim * 4))
-        self.wire_bytes_saved += max(0, packed - moved)
+        self._save_wire_bytes(packed, moved)
         return (flat_slot_idx, seg_pad, scale, cold_idx, cold_vals,
                 cold_acc, evicted_signs, evicted_mask, inverse,
                 unique_slots)
@@ -304,8 +344,9 @@ class DeviceCacheEngine:
             return
         rows = int(real[-1]) + 1
         host = _to_host(ev_vals[:rows], ev_acc[:rows])
-        self._flush_token += 1
-        token = self._flush_token
+        with self._counts_lock:
+            self._flush_token += 1
+            token = self._flush_token
         self.victims.put_many(evicted_signs[real].tolist(),
                               zip(itertools.repeat(host), real.tolist()),
                               token=token)
@@ -388,6 +429,7 @@ class DeviceCacheEngine:
             pass
         self.mapper = make_sign_slot_map(self.capacity, self.admission)
         self._counted = (0, 0, 0, 0)
+        self._m_resident.set(0)
         with torch.no_grad():
             self.cache_vals.zero_()
             self.cache_acc.fill_(self.acc_init)

@@ -17,8 +17,16 @@
 hands its still-on-device packed gradients to the batch's backward
 engine, whose thread copies them to the host and unpacks them.
 
-Tracing spans, stage-timer histograms, heartbeats, deadlock detection
-and registry gauges are not ported (ROADMAP.md queue A items 6 and 8).
+Registry series: the backward engine's
+``pipeline_backward_pending_updates`` gauge (queued and running
+updates), its ``pipeline_gradient_staleness_steps`` histogram (the
+batches submitted after a batch before its update applied) and its
+``pipeline_lost_updates_total`` counter; the forward engine's
+``pipeline_staleness_permits_in_use`` gauge (a
+:class:`_GaugedSemaphore`), ``pipeline_lookup_queue_depth`` and
+``pipeline_ready_queue_depth``. Tracing spans, stage-timer histograms,
+heartbeats and deadlock detection are not ported (ROADMAP.md queue A
+item 8).
 """
 
 import heapq
@@ -33,6 +41,7 @@ from typing import (Any, Dict, Hashable, Iterator, List, Optional, Sequence,
                     Tuple)
 
 from persia_tpu_torch.data.batch import PersiaBatch
+from persia_tpu_torch.metrics import STEP_BUCKETS, default_registry
 
 _logger = logging.getLogger(__name__)
 
@@ -87,6 +96,31 @@ class _PackedGrads:
     names: Sequence[str]
 
 
+class _GaugedSemaphore:
+    """A semaphore that mirrors its permits in use into a gauge (pegged
+    at the bound: the PS tier is the bottleneck; near zero: the card
+    is)."""
+
+    def __init__(self, value: int, gauge):
+        self._sem = threading.Semaphore(value)
+        self._gauge = gauge
+
+    def acquire(self, *a, **kw):
+        got = self._sem.acquire(*a, **kw)
+        if got:
+            self._gauge.add(1)
+        return got
+
+    def release(self):
+        self._gauge.dec(1)
+        self._sem.release()
+
+    @property
+    def _value(self):
+        """The permits available, as ``threading.Semaphore``'s."""
+        return self._sem._value
+
+
 def flush_backward_engines(worker, timeout: Optional[float] = None):
     """Flush every BackwardEngine feeding ``worker``: wait for the
     in-flight asynchronous gradient updates (before a checkpoint dump)."""
@@ -118,6 +152,17 @@ class BackwardEngine:
         self._pending_cv = threading.Condition()
         self._errors: List[BaseException] = []
         self.lost_updates = 0  # guarded by _pending_cv
+        reg = default_registry()
+        self._g_pending = reg.gauge("pipeline_backward_pending_updates")
+        # step-shaped buckets: the default sub-second latency bounds
+        # would put every observation in one bucket
+        self._h_staleness = reg.histogram(
+            "pipeline_gradient_staleness_steps",
+            help_text="training steps submitted between a batch's "
+                      "gradient submit and its PS apply",
+            buckets=STEP_BUCKETS)
+        self._submit_seq = 0  # guarded by _pending_cv
+        self._c_lost = reg.counter("pipeline_lost_updates_total")
         # register on the worker so checkpoint dumps can quiesce us
         engines = getattr(worker, "_backward_engines", None)
         if engines is None:
@@ -140,7 +185,10 @@ class BackwardEngine:
             raise self._errors[0]
         with self._pending_cv:
             self._pending += 1
-        self._q.put((ref_id, grads))
+            self._submit_seq += 1
+            seq = self._submit_seq
+        self._g_pending.add(1)
+        self._q.put((ref_id, grads, seq))
 
     def submit_packed(self, ref_id: int, flat_grads,
                       shapes: Sequence[Tuple[int, ...]],
@@ -157,7 +205,7 @@ class BackwardEngine:
             item = self._q.get()
             if item is _SENTINEL:
                 return
-            ref_id, grads = item
+            ref_id, grads, seq = item
             try:
                 if isinstance(grads, _PackedGrads):
                     # .cpu() runs on this thread's current stream, the
@@ -169,11 +217,15 @@ class BackwardEngine:
                     lambda: self.worker.update_gradients(
                         ref_id, grads, loss_scale=self.loss_scale),
                     "gradient update")
+                with self._pending_cv:
+                    now_seq = self._submit_seq
+                self._h_staleness.observe(now_seq - seq)
             except (ConnectionError, OSError) as e:
                 # the connection stayed down through every retry: drop
                 # this update rather than wedge the engine
                 with self._pending_cv:
                     self.lost_updates += 1
+                self._c_lost.inc()
                 _logger.error("backward update permanently failed (%s); "
                               "counted as lost update #%d", e,
                               self.lost_updates)
@@ -181,6 +233,7 @@ class BackwardEngine:
                 _logger.error("backward update failed: %s", e)
                 self._errors.append(e)
             finally:
+                self._g_pending.dec(1)
                 if self.staleness_sem is not None:
                     self.staleness_sem.release()
                 with self._pending_cv:
@@ -213,8 +266,13 @@ class ForwardEngine:
         self.num_workers = num_workers
         self.buffer_size = buffer_size
         self.reproducible = reproducible
-        self.staleness_sem = (threading.Semaphore(embedding_staleness)
-                              if embedding_staleness is not None else None)
+        reg = default_registry()
+        self.staleness_sem = (
+            _GaugedSemaphore(embedding_staleness,
+                             reg.gauge("pipeline_staleness_permits_in_use"))
+            if embedding_staleness is not None else None)
+        self._g_in_q = reg.gauge("pipeline_lookup_queue_depth")
+        self._g_out_q = reg.gauge("pipeline_ready_queue_depth")
         self.backward = BackwardEngine(self.worker,
                                        staleness_sem=self.staleness_sem)
 
@@ -265,6 +323,7 @@ class ForwardEngine:
                     if batch.requires_grad and self.staleness_sem is not None:
                         self.staleness_sem.acquire()
                     in_q.put((next(seq_counter), batch))
+                    self._g_in_q.add(1)
             except BaseException as e:
                 errors.append(e)
             finally:
@@ -277,6 +336,7 @@ class ForwardEngine:
                 if item is _SENTINEL:
                     out_q.put(_SENTINEL)
                     return
+                self._g_in_q.dec(1)
                 seq, batch = item
                 if stop.is_set():
                     # another worker failed: drain, don't process
@@ -293,6 +353,7 @@ class ForwardEngine:
                         staged = stage(batch, lookup)
                     out_q.put((seq, LookedUpBatch(batch, lookup, ref_id,
                                                   self, staged)))
+                    self._g_out_q.add(1)
                 except BaseException as e:
                     # this batch will never train: release its permit, and
                     # stop the feeder taking more
@@ -323,6 +384,7 @@ class ForwardEngine:
             if item is _SENTINEL:
                 finished_workers += 1
                 continue
+            self._g_out_q.dec(1)
             heapq.heappush(heap, item)
             while heap and heap[0][0] == next_seq:
                 _, lb = heapq.heappop(heap)
@@ -357,6 +419,7 @@ class ForwardEngine:
             except queue.Empty:
                 break
             if item is not _SENTINEL:
+                self._g_out_q.dec(1)
                 release_for(item[1].batch)
         deadline = time.monotonic() + 10.0
         while feeder_thread.is_alive() or not in_q.empty():
@@ -367,6 +430,7 @@ class ForwardEngine:
                     break
                 continue
             if item is not _SENTINEL:
+                self._g_in_q.dec(1)
                 release_for(item[1])
 
     def flush(self, timeout: Optional[float] = None):

@@ -72,6 +72,7 @@ from persia_tpu_torch.ps.spill import SpillStore
 from persia_tpu_torch.ps.store import (
     _DTYPE_CODES,
     DUMP_MAGIC,
+    bump_miss,
     iter_psd_records,
     read_psd_header,
 )
@@ -556,6 +557,9 @@ class ArenaEmbeddingHolder:
         # per-shard cells, each written only under its shard's lock
         self._index_miss = [0] * num_internal_shards
         self._gradient_id_miss = [0] * num_internal_shards
+        # their registry twins, ps_index_miss_total and
+        # ps_gradient_id_miss_total by table
+        self._miss_counters: dict = {}
         self.hotness = make_tracker(num_internal_shards, enabled=hotness)
         self.spill: Optional[SpillStore] = (
             SpillStore(spill_dir, max_bytes=spill_bytes or None)
@@ -570,6 +574,9 @@ class ArenaEmbeddingHolder:
     @property
     def resident_bytes(self) -> int:
         return sum(s.resident_bytes for s in self._shards)
+
+    def resident_bytes_per_shard(self) -> List[int]:
+        return [s.resident_bytes for s in self._shards]
 
     @property
     def index_miss_count(self) -> int:
@@ -696,7 +703,9 @@ class ArenaEmbeddingHolder:
                 else:
                     n_miss = self._lookup_eval_locked(
                         shard, signs[sel], sel, dim, out)
+            if n_miss:
                 self._index_miss[shard_idx] += n_miss
+                bump_miss(self._miss_counters, "index_miss", dim, n_miss)
         return out
 
     def _lookup_train_locked(self, shard, ssigns, sel, dim, space,
@@ -890,8 +899,12 @@ class ArenaEmbeddingHolder:
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
             with shard.lock:
-                self._gradient_id_miss[shard_idx] += self._update_locked(
+                n_miss = self._update_locked(
                     shard, signs[sel], sel, grads, dim, space, batch_state)
+            if n_miss:
+                self._gradient_id_miss[shard_idx] += n_miss
+                bump_miss(self._miss_counters, "gradient_id_miss", dim,
+                          n_miss)
 
     def _update_locked(self, shard, ssigns, sel, grads, dim, space,
                        batch_state) -> int:

@@ -59,6 +59,27 @@ _DTYPE_CODES = {"fp32": 0, "fp16": 1, "bf16": 2}
 _DTYPE_NAMES = {v: k for k, v in _DTYPE_CODES.items()}
 
 
+def bump_miss(counters: dict, kind: str, dim: int, n: int):
+    """Add ``n`` to the table-labelled registry counter ``ps_<kind>_total``
+    (``index_miss``: lookups that read zeros; ``gradient_id_miss``:
+    updates of absent or re-laid-out rows), one locked add a (call,
+    shard). ``counters`` caches the holder's cells; two first uses that
+    race build one cell, the registry's."""
+    key = (kind, dim)
+    c = counters.get(key)
+    if c is None:
+        from persia_tpu_torch.metrics import default_registry
+
+        c = counters[key] = default_registry().counter(
+            f"ps_{kind}_total", {"table": str(dim)},
+            help_text=(
+                "eval/unadmitted/cold lookups that read zeros, per "
+                "embedding table (dim)" if kind == "index_miss" else
+                "gradient updates whose sign was absent or "
+                "re-laid-out, per embedding table (dim)"))
+    c.inc(n)
+
+
 class EmbeddingHolder:
     """One process-level PS replica: ``num_internal_shards``
     independently-locked LRU maps of ``sign -> (dim, f32 row)``.
@@ -89,6 +110,9 @@ class EmbeddingHolder:
         # per-shard cells, each written only under its shard's lock
         self._index_miss = [0] * num_internal_shards
         self._gradient_id_miss = [0] * num_internal_shards
+        # their registry twins, ps_index_miss_total and
+        # ps_gradient_id_miss_total by table
+        self._miss_counters: dict = {}
         # the tracker's and the spill store's locks are leaves: the
         # holder calls into them under its shard locks (spill) or
         # outside them (hotness), never the other way round
@@ -190,6 +214,7 @@ class EmbeddingHolder:
             self.hotness.observe(dim, signs)
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
+            n_miss = 0
             with self._locks[shard_idx]:
                 for pos in sel:
                     sign = int(signs[pos])
@@ -204,6 +229,7 @@ class EmbeddingHolder:
                     elif not training or (entry is None
                                           and not admitted[pos]):
                         self._index_miss[shard_idx] += 1
+                        n_miss += 1
                     else:
                         # admitted miss, or a dim mismatch (re-initialized
                         # unconditionally)
@@ -211,6 +237,9 @@ class EmbeddingHolder:
                         out[pos] = vec[:dim]
                         self._insert_locked(shard_idx, sign, dim, vec)
                         self._index_miss[shard_idx] += 1
+                        n_miss += 1
+            if n_miss:
+                bump_miss(self._miss_counters, "index_miss", dim, n_miss)
         return out
 
     def update_gradients(self, signs: np.ndarray, grads: np.ndarray,
@@ -229,6 +258,7 @@ class EmbeddingHolder:
         has_dups = len(np.unique(signs)) != len(signs)
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
+            n_miss = 0
             # the whole gather/update/write-back runs under the lock
             with self._locks[shard_idx]:
                 found_pos: List[int] = []
@@ -242,6 +272,7 @@ class EmbeddingHolder:
                     if entry is None or entry[0] != dim or \
                             len(entry[1]) != width:
                         self._gradient_id_miss[shard_idx] += 1
+                        n_miss += 1
                     elif has_dups:
                         row = entry[1][None, :]  # updated in place
                         st = (batch_state[pos:pos + 1]
@@ -265,6 +296,9 @@ class EmbeddingHolder:
                         apply_weight_bound(mat[:, :dim], self.weight_bound)
                     for row, vec in zip(mat, found_entries):
                         vec[:] = row
+            if n_miss:
+                bump_miss(self._miss_counters, "gradient_id_miss", dim,
+                          n_miss)
 
     def _insert_locked(self, shard_idx: int, sign: int, dim: int,
                        vec: np.ndarray):

@@ -10,8 +10,13 @@ more replicas, whose refs are ``(worker address, ref id)`` pairs, so a
 lookup and its gradients reach the replica that holds the batch. The
 requests and replies are the JAX package's bytes.
 
-Not ported: the live routing epochs (``apply_routing``,
-``close_routing_window``), which wait for ROADMAP.md queue A item 9c.
+The reshard controller publishes a successor routing table to a worker
+fleet through :meth:`RemoteEmbeddingWorker.apply_routing` (a partial
+broadcast raises :class:`PartialPublishError`), and each replica's
+``apply_routing`` handler dials only the PS addresses it does not hold
+yet. A replica that found its PS through the coordinator also pulls
+published tables from the coordinator's KV when a write bounces
+(``routing_fetch``); its health doc carries its ``routing_epoch``.
 
 Run: ``python -m persia_tpu_torch.service.worker_service --replica-index 0
 --replica-size 1 --coordinator host:port --embedding-config schema.yml``
@@ -44,10 +49,6 @@ from persia_tpu_torch.service.coordinator import (
 from persia_tpu_torch.service.ps_service import PsClient
 
 _logger = logging.getLogger(__name__)
-
-_ROUTING_WAITS = "ROADMAP.md queue A item 9c (the worker's live routing " \
-    "epochs and the PS's reshard RPCs)"
-
 
 def _ps_ready(worker) -> bool:
     """Whether every PS replica of ``worker`` is serving."""
@@ -87,7 +88,7 @@ class WorkerService:
                 ("dump", self._dump), ("load", self._load),
                 ("staleness", self._staleness), ("ready", self._ready),
                 ("apply_routing", self._apply_routing),
-                ("close_routing_window", self._apply_routing)):
+                ("close_routing_window", self._close_routing_window)):
             self.server.register(name, fn)
 
     @property
@@ -122,6 +123,8 @@ class WorkerService:
             doc["post_forward_buffer_depth"] = len(w._post_forward_buffer)
             doc["staleness"] = w.staleness
         doc["ps_replicas"] = w.replica_size
+        # the epoch this worker splits by (a fleet compares them)
+        doc["routing_epoch"] = w.routing_epoch
         doc["ready"] = self._ready_cached()
         with self._ship_lock:
             if self._ship_counts:
@@ -186,9 +189,25 @@ class WorkerService:
         return _msgpack.packb({"staleness": self.worker.staleness})
 
     def _apply_routing(self, payload: bytes) -> bytes:
-        raise NotImplementedError(
-            f"the worker's live routing epochs are not ported yet; they "
-            f"wait for {_ROUTING_WAITS}")
+        from persia_tpu_torch.routing import RoutingTable
+
+        req = _msgpack.unpackb(payload)
+        table = RoutingTable.from_bytes(req["table"])
+        clients = None
+        if req.get("ps_addrs"):
+            # keep the live client (and its connections) of every address
+            # held already; the worker closes those that drop out
+            held = {getattr(c, "addr", None): c
+                    for c in self.worker.ps_clients}
+            clients = [held.get(a) or PsClient(a)
+                       for a in req["ps_addrs"]]
+        applied = self.worker.apply_routing(table, ps_clients=clients)
+        return _msgpack.packb({"applied": bool(applied),
+                               "epoch": self.worker.routing_epoch})
+
+    def _close_routing_window(self, payload: bytes) -> bytes:
+        self.worker.close_routing_window()
+        return b""
 
     def _ready(self, payload: bytes) -> bytes:
         """Ready iff every PS replica is serving (the trainer's recovery
@@ -226,6 +245,11 @@ class RemoteEmbeddingWorker:
         # bytes as a lone trainer's)
         self.process_label: Optional[str] = None
         self.schema = None
+        # the lowest epoch the replicas answered the last complete
+        # apply_routing broadcast with (None before one): what a snapshot
+        # manifest records, and what tells the reshard controller that a
+        # repeated publish found the fleet at its epoch already
+        self.routing_epoch: Optional[int] = None
         # the serving miss fetch follows the PS wire's codec policy
         self._fp16_rows = PsClient.parse_wire_codec(
             knobs.get("PERSIA_PS_WIRE_CODEC"))[0]
@@ -336,14 +360,32 @@ class RemoteEmbeddingWorker:
         self._clients[self.addrs[0]].call_msg("load", path=path)
 
     def apply_routing(self, table, ps_addrs=None) -> bool:
-        raise NotImplementedError(
-            f"RemoteEmbeddingWorker.apply_routing is not ported yet; it "
-            f"waits for {_ROUTING_WAITS}")
+        """Broadcast a successor table (and, on a scale-out, the grown PS
+        address list) to every replica: the controller's cutover publish.
+        A broadcast that fails on some replica raises
+        :class:`PartialPublishError`, saying whether any replica applied
+        (then the donors must stay frozen, not roll back)."""
+        applied = False
+        failures = []
+        epochs = []
+        for addr in self.addrs:
+            try:
+                rep = self._clients[addr].call_msg(
+                    "apply_routing", table=table.to_bytes(),
+                    ps_addrs=list(ps_addrs) if ps_addrs else None)
+            except Exception as e:  # noqa: BLE001 — reported together
+                failures.append((addr, e))
+                continue
+            applied = applied or bool(rep.get("applied"))
+            epochs.append(int(rep.get("epoch", 0)))
+        if failures:
+            raise PartialPublishError(applied, failures)
+        self.routing_epoch = min(epochs)
+        return applied
 
     def close_routing_window(self):
-        raise NotImplementedError(
-            f"RemoteEmbeddingWorker.close_routing_window is not ported "
-            f"yet; it waits for {_ROUTING_WAITS}")
+        for addr in self.addrs:
+            self._clients[addr].call("close_routing_window")
 
     def shutdown(self):
         for c in self._clients.values():
@@ -376,35 +418,38 @@ def main():
                    help="comma-separated fixed PS addresses")
     p.add_argument("--enable-monitor", action="store_true",
                    default=knobs.get("PERSIA_ENABLE_MONITOR"),
-                   help="estimate distinct ids per feature (not ported)")
+                   help="estimate distinct ids per feature (HLL gauge)")
     obs_http.add_http_args(p)
     args = p.parse_args()
     logging.basicConfig(level=os.environ.get("LOG_LEVEL", "INFO").upper())
-    if args.enable_monitor:
-        raise NotImplementedError(
-            "--enable-monitor (the per-feature DistinctIdMonitor gauge) is "
-            "not ported yet; it goes with the registry's series of ROADMAP.md "
-            "queue A item 6b, second part")
     tracing.set_service_name(f"worker{args.replica_index}")
     schema = EmbeddingSchema.load(args.embedding_config)
     gc = (GlobalConfig.load(args.global_config) if args.global_config
           else GlobalConfig())
-    ps_resolver = None
+    ps_resolver = routing_fetch = None
     if args.ps_addrs:
         ps_addrs = args.ps_addrs.split(",")
     else:
+        from persia_tpu_torch.routing import fetch_from_coordinator
+
         coord = CoordinatorClient(args.coordinator)
         ps_addrs = coord.wait_members(ROLE_PS, args.num_ps, timeout=120)
 
         def ps_resolver():
             return [PsClient(a) for a in
                     coord.wait_members(ROLE_PS, args.num_ps, timeout=120)]
+
+        def routing_fetch():
+            # the tables the reshard controller publishes to the KV: a
+            # bounced write pulls the epoch when nobody pushes it
+            return fetch_from_coordinator(coord)
     worker = EmbeddingWorker(
         schema, [PsClient(a) for a in ps_addrs],
         forward_buffer_size=gc.embedding_worker.forward_buffer_size,
         buffered_data_expired_sec=gc.embedding_worker
         .buffered_data_expired_sec,
-        ps_resolver=ps_resolver)
+        enable_monitor=args.enable_monitor,
+        ps_resolver=ps_resolver, routing_fetch=routing_fetch)
     service = WorkerService(worker, args.host, args.port,
                             http_port=obs_http.port_from_args(args))
     _logger.info("embedding worker %d/%d listening on %s (%d PS, sidecar "

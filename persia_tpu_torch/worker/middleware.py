@@ -36,6 +36,7 @@ them (last-k pooling has no kernel and stays on numpy); the numpy path
 beside each is their twin, reached by patching ``_mw_native``.
 """
 
+import logging
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -286,15 +287,42 @@ class ShardGroup:
     distinct_idx: np.ndarray  # (m,) int32 — index into its distinct signs
 
 
+_NONUNIFORM_WARNED = [False]
+
+
+def _routing_replicas(signs: np.ndarray, routing) -> np.ndarray:
+    """The table's replica a sign, leaving the native ``shard_order``
+    (which hard-codes ``hash % R``) with one warning a process: a
+    non-uniform epoch is an operator-visible event."""
+    if not _NONUNIFORM_WARNED[0]:
+        _NONUNIFORM_WARNED[0] = True
+        logging.getLogger(__name__).warning(
+            "routing epoch %d is non-uniform: negotiating down from "
+            "native shard_order (modulo-only kernel) to the Python "
+            "slot-table split", routing.epoch)
+    return routing.replica_of(signs)
+
+
 def shard_split(feats: List[DedupedFeature], schema: EmbeddingSchema,
-                replica_size: int) -> List[ShardGroup]:
+                replica_size: int, routing=None) -> List[ShardGroup]:
     """Group every feature's distinct signs by (PS shard, dim), in
-    ascending (shard, dim) order with features in batch order. (The
-    port has no routing table yet, so the native split always applies.)"""
-    native = _mw_native()
+    ascending (shard, dim) order with features in batch order.
+    ``routing`` (a :class:`persia_tpu_torch.routing.RoutingTable`)
+    replaces ``farmhash % replica_size`` when it is not uniform; a
+    uniform table routes exactly like the modulo and keeps the native
+    split."""
+    if routing is not None and routing.is_uniform_modulo:
+        routing = None
+    native = _mw_native() if routing is None else None
     by_key: Dict[Tuple[int, int], List[Tuple[np.ndarray, int]]] = {}
     for fi, feat in enumerate(feats):
         dim = schema.get_slot(feat.name).dim
+        if routing is not None:
+            shards = _routing_replicas(feat.distinct_signs, routing)
+            for shard in np.unique(shards):
+                sel = np.nonzero(shards == shard)[0].astype(np.int32)
+                by_key.setdefault((int(shard), dim), []).append((sel, fi))
+            continue
         if native is not None:
             # fused farmhash and counting sort; ascending within a shard,
             # as the nonzero split below
@@ -502,12 +530,12 @@ def gather_group_grads(group: ShardGroup,
 
 def shard_gradients(feats: List[DedupedFeature], schema: EmbeddingSchema,
                     per_feature_grads: List[np.ndarray], replica_size: int,
-                    groups: Optional[List[ShardGroup]] = None
+                    groups: Optional[List[ShardGroup]] = None, routing=None
                     ) -> List[Tuple[int, int, np.ndarray, np.ndarray]]:
     """Group per-sign gradients by (shard, dim) for the PS update calls:
     a list of (shard, dim, signs, grads). Pass the forward's ``groups``
     to skip re-hashing and re-grouping every sign."""
     if groups is None:
-        groups = shard_split(feats, schema, replica_size)
+        groups = shard_split(feats, schema, replica_size, routing=routing)
     return [(g.shard, g.dim, g.signs, gather_group_grads(g, per_feature_grads))
             for g in groups]

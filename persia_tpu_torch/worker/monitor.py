@@ -1,13 +1,18 @@
 """Distinct-id estimation (``persia_tpu/worker/monitor.py``): the
-HyperLogLog only, which the hotness sketches count distinct rows with.
-The per-feature ``DistinctIdMonitor`` gauge is not ported.
+HyperLogLog, which the hotness sketches count distinct rows with, and
+:class:`DistinctIdMonitor`, the worker's per-feature
+``estimated_distinct_id`` gauge (``EmbeddingWorker(enable_monitor=True)``,
+the worker service's ``--enable-monitor``).
 """
 
 import math
+import threading
+from typing import Dict
 
 import numpy as np
 
 from persia_tpu_torch.hashing import farmhash64_np
+from persia_tpu_torch.metrics import default_registry
 
 
 class HyperLogLog:
@@ -70,3 +75,39 @@ class HyperLogLog:
         if raw > (1 << 32) / 30.0:
             return -(1 << 32) * math.log(1.0 - raw / (1 << 32))
         return raw
+
+
+class DistinctIdMonitor:
+    """Per-feature HyperLogLogs behind the ``estimated_distinct_id``
+    gauge (labelled by ``feat``). Thread-safe: the registers change under
+    a lock (RPC handlers and pipeline threads observe together). The
+    O(2^p) estimate is refreshed on the first and then every
+    ``refresh_every``-th observation of a feature."""
+
+    def __init__(self, p: int = 14, refresh_every: int = 64):
+        self.p = p
+        self.refresh_every = refresh_every
+        self._hlls: Dict[str, HyperLogLog] = {}
+        self._observes: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._registry = default_registry()
+
+    def observe(self, feature_name: str, distinct_signs: np.ndarray):
+        with self._lock:
+            hll = self._hlls.get(feature_name)
+            if hll is None:
+                hll = self._hlls[feature_name] = HyperLogLog(self.p)
+                self._observes[feature_name] = 0
+            hll.add_signs(distinct_signs)
+            self._observes[feature_name] += 1
+            refresh = self._observes[feature_name] % self.refresh_every == 1
+            estimate = hll.estimate() if refresh else None
+        if estimate is not None:
+            self._registry.gauge(
+                "estimated_distinct_id", {"feat": feature_name}
+            ).set(estimate)
+
+    def estimate(self, feature_name: str) -> float:
+        with self._lock:
+            hll = self._hlls.get(feature_name)
+            return hll.estimate() if hll is not None else 0.0

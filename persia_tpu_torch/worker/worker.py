@@ -33,10 +33,37 @@ interpreter lock for each call, so the shards work at once. Two planes:
   when ``streaming`` is None): every lookup result is gathered, then
   scattered; every gradient aggregated, then every group shipped.
 
+Routing: every shard decision reads one immutable
+:class:`~persia_tpu_torch.routing.RoutingTable` through a
+:class:`~persia_tpu_torch.routing.RoutingHolder` (``routing=``, by
+default the uniform table, which routes as ``farmhash64(sign) %
+replica_size`` and keeps the native split). The reshard controller, or a
+``routing_fetch`` pull from the coordinator, installs successor epochs
+with :meth:`EmbeddingWorker.apply_routing` (the client list may grow with
+it); the predecessor stays for the double-read window until
+:meth:`EmbeddingWorker.close_routing_window`. A write bounced with
+``routing_stale`` (its slots froze for a migration) settles by itself:
+the bounced portion alone is split again by the table whose epoch the
+bounce demands (``_settle_stale``; each round returns to the current
+epoch after 0.25 s, so an aborted migration settles too), within
+``PERSIA_RESHARD_STALE_RETRY_SEC``. A gradient return whose forward split
+used an older epoch splits its groups that have not landed again by the
+live table.
+
 Checkpoints: ``dump`` drains this worker's backward engines and dumps
-every PS shard through :func:`persia_tpu_torch.checkpoint.dump_sharded`;
-``load`` loads (and reshards) a dump onto the shards. Both route by the
-uniform table, ``farmhash64(sign) % replica_size``.
+every PS shard the live table routes to through
+:func:`persia_tpu_torch.checkpoint.dump_sharded` (a uniform table's dump
+is the legacy one byte for byte); ``load`` loads (and reshards) a dump
+onto them.
+
+Registry series, each labelled by a ``worker`` sequence number: the
+stage histograms ``lookup_{preprocess,rpc,postprocess}_time_cost_sec``
+and ``update_{aggregate,ship}_time_cost_sec`` (``stage_snapshot`` /
+``stage_breakdown`` diff them), and the gauges
+``worker_forward_buffer_depth``, ``worker_post_forward_buffer_depth`` and
+``worker_staleness``, set under the buffers' lock.
+``enable_monitor=True`` feeds each feature's distinct signs to a
+:class:`~persia_tpu_torch.worker.monitor.DistinctIdMonitor`.
 
 Remote parameter servers (:class:`~persia_tpu_torch.service.ps_service.PsClient`,
 anything with an ``addr``): the fan-out pool exists whenever there is
@@ -60,10 +87,10 @@ Tracing: a lookup runs under a ``worker/rpc`` span and an update under
 ``worker/update_stream``, and each PS call on the fan-out pool under a
 ``worker/ps_lookup`` / ``worker/ps_update`` child of it (the JAX
 worker's names), so that a traced request reaches the PS with its
-context. Live routing tables and resharding, the other spans and the
-registry gauges belong to later slices of the port.
+context.
 """
 
+import itertools
 import logging
 import os
 import threading
@@ -79,9 +106,13 @@ from persia_tpu_torch import knobs, tracing
 from persia_tpu_torch.checkpoint import dump_sharded, load_sharded
 from persia_tpu_torch.config import EmbeddingSchema
 from persia_tpu_torch.data.batch import IDTypeFeature
-from persia_tpu_torch.hashing import sign_to_shard
+from persia_tpu_torch.metrics import default_registry
 from persia_tpu_torch.pipeline import flush_backward_engines
-from persia_tpu_torch.routing import RoutingTable
+from persia_tpu_torch.routing import (
+    RoutingHolder,
+    RoutingTable,
+    is_routing_stale,
+)
 from persia_tpu_torch.worker import middleware as mw
 
 _logger = logging.getLogger(__name__)
@@ -100,6 +131,26 @@ class ForwardBufferFull(RuntimeError):
     """The forward buffer holds ``forward_buffer_size`` batches already."""
 
 
+# a worker's series label: two workers in one process keep their own
+_WORKER_SEQ = itertools.count(1)
+
+
+class _Pending:
+    """A looked-up training batch awaiting its gradients: its features,
+    the shard groups of its forward split and the routing epoch of that
+    split, the indices of the groups whose update landed, and its enter
+    time."""
+
+    __slots__ = ("feats", "groups", "epoch", "landed", "t")
+
+    def __init__(self, feats, groups, epoch: int, t: float):
+        self.feats = feats
+        self.groups = groups
+        self.epoch = epoch
+        self.landed: Set[int] = set()
+        self.t = t
+
+
 def _traced(name: str, ctx, call):
     """``call()`` inside span ``name``, a child of the propagated ``ctx``
     (a fan-out pool thread has no span of its own)."""
@@ -110,11 +161,15 @@ def _traced(name: str, ctx, call):
 class EmbeddingWorker:
     """``ps_clients`` are objects with the ``EmbeddingHolder`` interface
     (``configure``, ``register_optimizer``, ``lookup``,
-    ``update_gradients``, ``set_entries``); shard r owns the signs with
-    ``farmhash64(sign) % len(ps_clients) == r``. ``streaming`` picks the
-    data plane (module docstring); ``ps_resolver`` returns a fresh client
-    list after a connection failure; ``forward_buffer_size`` bounds the
-    forward buffer. Call :meth:`close` when done."""
+    ``update_gradients``, ``set_entries``); shard r owns the signs the
+    routing table (``routing``, by default the uniform one:
+    ``farmhash64(sign) % len(ps_clients) == r``) routes to it.
+    ``streaming`` picks the data plane (module docstring); ``ps_resolver``
+    returns a fresh client list after a connection failure;
+    ``routing_fetch`` returns the latest published table (or None);
+    ``forward_buffer_size`` bounds the forward buffer; ``enable_monitor``
+    estimates each feature's distinct ids. Call :meth:`close` when
+    done."""
 
     FORWARD_BUFFER_SIZE = 1000
     # multiplex a remote shard's group lookups on one connection only
@@ -126,12 +181,22 @@ class EmbeddingWorker:
     def __init__(self, schema: EmbeddingSchema, ps_clients: Sequence,
                  buffered_data_expired_sec: float = 1800,
                  streaming: Optional[bool] = None, ps_resolver=None,
-                 forward_buffer_size: Optional[int] = None):
+                 forward_buffer_size: Optional[int] = None,
+                 enable_monitor: bool = False, routing=None,
+                 routing_fetch=None):
         self.schema = schema
         self.ps_clients = list(ps_clients)
         self.replica_size = len(self.ps_clients)
         if self.replica_size == 0:
             raise ValueError("EmbeddingWorker needs at least one PS client")
+        if routing is None:
+            routing = RoutingTable.uniform(self.replica_size)
+        elif routing.num_replicas > self.replica_size:
+            raise ValueError(
+                f"routing table references {routing.num_replicas} "
+                f"replicas but only {self.replica_size} PS clients given")
+        self._routing = RoutingHolder(routing)
+        self._routing_fetch = routing_fetch
         self.buffered_data_expired_sec = buffered_data_expired_sec
         self.forward_buffer_size = (forward_buffer_size
                                     or self.FORWARD_BUFFER_SIZE)
@@ -161,13 +226,34 @@ class EmbeddingWorker:
         # training lookup
         self._forward_id_buffer: Dict[
             int, Tuple[List[mw.DedupedFeature], float]] = {}
-        # ref_id -> (features, shard groups, indices of the groups whose
-        # update landed, enter time), awaiting their gradients
-        self._post_forward_buffer: Dict[
-            int, Tuple[List[mw.DedupedFeature], List[mw.ShardGroup],
-                       Set[int], float]] = {}
+        # ref_id -> its _Pending, awaiting the gradients
+        self._post_forward_buffer: Dict[int, _Pending] = {}
         # training lookups whose gradients are not taken yet (under _lock)
         self.staleness = 0
+        if enable_monitor:
+            from persia_tpu_torch.worker.monitor import DistinctIdMonitor
+
+            self.monitor = DistinctIdMonitor()
+        else:
+            self.monitor = None
+        reg = default_registry()
+        labels = {"worker": str(next(_WORKER_SEQ))}
+        self._t_preprocess = reg.histogram(
+            "lookup_preprocess_time_cost_sec", labels)
+        self._t_rpc = reg.histogram("lookup_rpc_time_cost_sec", labels)
+        self._t_postprocess = reg.histogram(
+            "lookup_postprocess_time_cost_sec", labels)
+        self._t_aggregate = reg.histogram(
+            "update_aggregate_time_cost_sec", labels)
+        self._t_ship = reg.histogram("update_ship_time_cost_sec", labels)
+        # set under self._lock with the buffers they mirror: a stuck
+        # pipeline shows as staleness pegged at its bound or a forward
+        # buffer climbing toward ForwardBufferFull
+        self._g_forward_buf = reg.gauge("worker_forward_buffer_depth",
+                                        labels)
+        self._g_post_buf = reg.gauge("worker_post_forward_buffer_depth",
+                                     labels)
+        self._g_staleness = reg.gauge("worker_staleness", labels)
         # the expiry sweep: without it a dead pipeline's entries (and
         # their staleness counts) stay until the next put_batch, which
         # for a dead pipeline never comes. It holds the worker weakly,
@@ -199,6 +285,112 @@ class EmbeddingWorker:
                 config,
                 feature_index_prefix_bit=self.schema.feature_index_prefix_bit)
 
+    # --- routing ---------------------------------------------------------
+
+    @property
+    def routing(self) -> RoutingTable:
+        """The current table (immutable; a reference read)."""
+        return self._routing.table
+
+    @property
+    def routing_epoch(self) -> int:
+        return self._routing.epoch
+
+    @property
+    def routing_window(self):
+        """``(table, prev)``: the live table and, while a migration's
+        window is open, its predecessor, read together (a consumer that
+        must agree with this worker's split across epochs, as the
+        serving tier's delta subscriber, never sees a torn pair)."""
+        return self._routing.window()
+
+    def apply_routing(self, table: RoutingTable, ps_clients=None) -> bool:
+        """Swap in a successor table (and, on a scale-out or in, the
+        client list) under traffic. A table whose epoch does not advance
+        changes nothing (False). The predecessor stays readable until
+        :meth:`close_routing_window`; batches split under it keep their
+        groups, and a gradient return splits again by the live table."""
+        dropped = []
+        with self._ps_lock:
+            if table.epoch <= self._routing.epoch:
+                return False
+            new_clients = (list(ps_clients) if ps_clients is not None
+                           else self.ps_clients)
+            if table.num_replicas > len(new_clients):
+                raise ValueError(
+                    f"routing epoch {table.epoch} references "
+                    f"{table.num_replicas} replicas but worker has "
+                    f"{len(new_clients)} PS clients")
+            applied = self._routing.apply(table)
+            if applied:
+                # the client list changes only with its table
+                if self.ps_clients is not new_clients:
+                    keep = set(map(id, new_clients))
+                    dropped = [c for c in self.ps_clients
+                               if id(c) not in keep]
+                self.ps_clients = new_clients
+                self.replica_size = len(new_clients)
+        for c in dropped:
+            # a replaced client's sockets do not outlive it
+            close = getattr(getattr(c, "client", None), "close", None)
+            if close is not None:
+                try:
+                    close()
+                except OSError:
+                    pass
+        if applied and self._fanout is None and len(self.ps_clients) > 1:
+            self._fanout = ThreadPoolExecutor(
+                max_workers=min(2 * len(self.ps_clients), 32),
+                thread_name_prefix="ps-fanout")
+        if applied:
+            _logger.info("routing epoch %d applied (%d replicas, %d slots)",
+                         table.epoch, table.num_replicas, table.num_slots)
+        return applied
+
+    def close_routing_window(self):
+        """End the double-read window (the migration drained)."""
+        self._routing.close_window()
+
+    def _await_epoch(self, min_epoch: int, deadline: float,
+                     retry_interval: float = 0.25):
+        """Wait until the table's epoch reaches ``min_epoch``, returning
+        early every ``retry_interval`` so that the settle loop retries at
+        the current epoch (an aborted migration unfreezes its donors and
+        never publishes the demanded epoch). Pulls from ``routing_fetch``
+        when there is one; a pulled table that needs more replicas than
+        this worker has clients for takes the resolver's list."""
+        t_next_retry = time.monotonic() + retry_interval
+        while self._routing.epoch < min_epoch:
+            if self._routing_fetch is not None:
+                try:
+                    t = self._routing_fetch()
+                    if t is not None and t.epoch > self._routing.epoch:
+                        try:
+                            self.apply_routing(t)
+                            continue
+                        except ValueError:
+                            if self._ps_resolver is not None:
+                                clients = list(self._ps_resolver())
+                                if len(clients) >= t.num_replicas:
+                                    self.apply_routing(t,
+                                                       ps_clients=clients)
+                                    continue
+                except Exception as e:  # noqa: BLE001 — the deadline bounds
+                    _logger.debug("routing fetch failed: %s", e)
+            now = time.monotonic()
+            if now > deadline:
+                raise RuntimeError(
+                    f"routing epoch {min_epoch} demanded by a resharding "
+                    f"PS never arrived within the stale-retry budget")
+            if now >= t_next_retry:
+                return
+            time.sleep(0.01)
+
+    @staticmethod
+    def _stale_deadline() -> float:
+        return time.monotonic() + float(
+            knobs.get("PERSIA_RESHARD_STALE_RETRY_SEC"))
+
     # --- forward ---------------------------------------------------------
 
     def put_batch(self, id_type_features: List[IDTypeFeature]) -> int:
@@ -213,7 +405,15 @@ class EmbeddingWorker:
         feats = mw.preprocess_batch(id_type_features, self.schema)
         with self._lock:
             self._forward_id_buffer[ref_id] = (feats, time.monotonic())
+            self._sync_gauges_locked()
         return ref_id
+
+    def _sync_gauges_locked(self):
+        """The buffer depths and the staleness into their gauges (the
+        caller holds ``_lock``)."""
+        self._g_forward_buf.set(len(self._forward_id_buffer))
+        self._g_post_buf.set(len(self._post_forward_buffer))
+        self._g_staleness.set(self.staleness)
 
     def _expire_stale(self):
         """Drop the entries of both buffers older than
@@ -221,12 +421,16 @@ class EmbeddingWorker:
         the staleness count its lookup took."""
         horizon = time.monotonic() - self.buffered_data_expired_sec
         with self._lock:
-            for buf in (self._forward_id_buffer, self._post_forward_buffer):
-                expired = [r for r, item in buf.items() if item[-1] < horizon]
+            for buf, enter_time in (
+                    (self._forward_id_buffer, lambda item: item[1]),
+                    (self._post_forward_buffer, lambda item: item.t)):
+                expired = [r for r, item in buf.items()
+                           if enter_time(item) < horizon]
                 for r in expired:
                     del buf[r]
                 if buf is self._post_forward_buffer:
                     self.staleness -= len(expired)
+            self._sync_gauges_locked()
 
     @staticmethod
     def _sweep_loop(ref, stop: threading.Event, interval: float):
@@ -243,26 +447,56 @@ class EmbeddingWorker:
         if self._fanout is not None:
             self._fanout.shutdown(wait=False)
 
+    # --- observability -----------------------------------------------------
+
+    STAGE_NAMES = ("preprocess", "rpc", "postprocess", "aggregate", "ship")
+
+    def _stage_hists(self):
+        return dict(zip(self.STAGE_NAMES, (
+            self._t_preprocess, self._t_rpc, self._t_postprocess,
+            self._t_aggregate, self._t_ship)))
+
+    def stage_snapshot(self) -> Dict[str, tuple]:
+        """(count, total seconds) of each worker-cycle stage; diff two
+        with :meth:`stage_breakdown`."""
+        return {k: h.snapshot() for k, h in self._stage_hists().items()}
+
+    @staticmethod
+    def stage_breakdown(before: Dict[str, tuple],
+                        after: Dict[str, tuple]) -> Dict[str, dict]:
+        """Each stage's {count, total_sec, avg_ms} between two
+        snapshots."""
+        out = {}
+        for k in before:
+            n = after[k][0] - before[k][0]
+            sec = after[k][1] - before[k][1]
+            out[k] = {"count": n, "total_sec": round(sec, 4),
+                      "avg_ms": round(sec / n * 1e3, 3) if n else 0.0}
+        return out
+
     def lookup(self, ref_id: int, training: bool = True) -> Dict[str, object]:
         """Look up a batch filed by ``put_batch``. A training lookup keeps
         the batch for its ``update_gradients``."""
         with self._lock:
             item = self._forward_id_buffer.pop(ref_id, None)
+            self._sync_gauges_locked()
         if item is None:
             raise KeyError(f"ref_id {ref_id} not in forward buffer")
         feats = item[0]
         try:
-            result, groups = self._lookup_feats(feats, training)
+            result, groups, epoch = self._lookup_feats(feats, training)
         except BaseException:
             # a retry after the PS recovers must still find its batch
             with self._lock:
                 self._forward_id_buffer[ref_id] = item
+                self._sync_gauges_locked()
             raise
         if training:
             with self._lock:
-                self._post_forward_buffer[ref_id] = (feats, groups, set(),
-                                                     time.monotonic())
+                self._post_forward_buffer[ref_id] = _Pending(
+                    feats, groups, epoch, time.monotonic())
                 self.staleness += 1
+                self._sync_gauges_locked()
         return result
 
     def lookup_direct(self, id_type_features: List[IDTypeFeature],
@@ -280,12 +514,25 @@ class EmbeddingWorker:
         return ref_id, self.lookup(ref_id, training=True)
 
     def _lookup_feats(self, feats: List[mw.DedupedFeature], training: bool
-                      ) -> Tuple[Dict[str, object], List[mw.ShardGroup]]:
-        groups = mw.shard_split(feats, self.schema, self.replica_size)
-        mats = mw.alloc_lookup_mats(feats, self.schema)
+                      ) -> Tuple[Dict[str, object], List[mw.ShardGroup],
+                                 int]:
+        """The lookup fan-out; returns (the rows a feature, the shard
+        groups, the routing epoch that split them)."""
+        if self.monitor is not None:
+            for f in feats:
+                self.monitor.observe(f.name, f.distinct_signs)
+        routing = self._routing.table
+        with self._t_preprocess.timer():
+            groups = mw.shard_split(feats, self.schema,
+                                    routing.num_replicas, routing=routing)
+            mats = mw.alloc_lookup_mats(feats, self.schema)
 
         def ps_lookup(g):
-            return self.ps_clients[g.shard].lookup(g.signs, g.dim, training)
+            try:
+                return self.ps_clients[g.shard].lookup(g.signs, g.dim,
+                                                       training)
+            except Exception as e:  # noqa: BLE001 — settled or raised
+                return self._settle_stale_lookup(g, training, e)
 
         def lookup_and_scatter(g):
             mw.scatter_group(mats, g, ps_lookup(g))
@@ -307,7 +554,9 @@ class EmbeddingWorker:
                 try:
                     return resolve()
                 except (ConnectionError, OSError):
-                    return client.lookup(g.signs, g.dim, training)
+                    return ps_lookup(g)
+                except Exception as e:  # noqa: BLE001 — settled or raised
+                    return self._settle_stale_lookup(g, training, e)
 
             pending = []
             for g in gs:
@@ -341,12 +590,14 @@ class EmbeddingWorker:
             self._fan_out(calls, "worker/ps_lookup")
 
         # a retry scatters every group again into the same matrices
-        with tracing.span("worker/rpc", groups=len(groups)):
+        with self._t_rpc.timer(), tracing.span("worker/rpc",
+                                               groups=len(groups)):
             self._with_ps_retry(do_lookup)
-        out = {feat.name: mw.postprocess_feature(
-            feat, self.schema.get_slot(feat.name), mat)
-            for feat, mat in zip(feats, mats)}
-        return out, groups
+        with self._t_postprocess.timer():
+            out = {feat.name: mw.postprocess_feature(
+                feat, self.schema.get_slot(feat.name), mat)
+                for feat, mat in zip(feats, mats)}
+        return out, groups, routing.epoch
 
     # --- backward --------------------------------------------------------
 
@@ -359,29 +610,45 @@ class EmbeddingWorker:
             item = self._post_forward_buffer.pop(ref_id, None)
             if item is not None:
                 self.staleness -= 1
+            self._sync_gauges_locked()
         if item is None:
             raise KeyError(f"ref_id {ref_id} not in post-forward buffer")
         try:
-            self._update_gradients_inner(item, grads, loss_scale)
+            self._update_gradients_inner(ref_id, item, grads, loss_scale)
         except BaseException:
             # put the batch back so a retry still finds it; its landed
             # set keeps the retry from applying those groups again
             with self._lock:
                 self._post_forward_buffer[ref_id] = item
                 self.staleness += 1
+                self._sync_gauges_locked()
             raise
 
-    def _update_gradients_inner(self, item, grads, loss_scale):
-        feats, groups, landed, _ = item
+    def _update_gradients_inner(self, ref_id, item: _Pending, grads,
+                                loss_scale):
         # before any group ships (the streaming plane ships as it goes)
-        missing = [f.name for f in feats if f.name not in grads]
+        missing = [f.name for f in item.feats if f.name not in grads]
         if missing:
             raise KeyError(f"missing gradients for features {missing}")
+        routing = self._routing.table
+        if item.epoch != routing.epoch:
+            # a reshard cut over between this batch's forward and its
+            # gradients: its split routes by a retired table, whose
+            # donors may have disarmed their capture (the moved rows
+            # there are unreachable). The groups not landed yet split
+            # again by the live table.
+            _logger.info(
+                "gradient return for ref %s crosses routing epochs "
+                "(%d -> %d); re-splitting by the live table", ref_id,
+                item.epoch, routing.epoch)
+            item.groups = _resplit(item.groups, item.landed, routing)
+            item.landed = set()
+            item.epoch = routing.epoch
         # a retry after recovery ships only the groups still not landed,
         # through the clients serving their shards then
-        with tracing.span("worker/update_stream", groups=len(groups)):
+        with tracing.span("worker/update_stream", groups=len(item.groups)):
             self._with_ps_retry(lambda: self._ship_pending(
-                feats, groups, landed, grads, loss_scale))
+                item.feats, item.groups, item.landed, grads, loss_scale))
 
     def _ship_pending(self, feats, groups, landed, grads, loss_scale):
         todo = [i for i in range(len(groups)) if i not in landed]
@@ -390,8 +657,12 @@ class EmbeddingWorker:
         def ship(i, group_grads):
             g = groups[i]
             with tracing.span("worker/ps_update", ctx=tctx, shard=g.shard):
-                self.ps_clients[g.shard].update_gradients(
-                    g.signs, group_grads, g.dim)
+                try:
+                    self.ps_clients[g.shard].update_gradients(
+                        g.signs, group_grads, g.dim)
+                except Exception as e:  # noqa: BLE001 — settled or raised
+                    self._settle_stale_update(g.signs, group_grads, g.dim,
+                                              e)
             landed.add(i)
 
         # a group can ship once its last feature (feature_idx is
@@ -405,28 +676,36 @@ class EmbeddingWorker:
             return
         futures = []
         per_feature: List[Optional[np.ndarray]] = [None] * len(feats)
+        agg_sec = 0.0
         try:
             for fi, feat in enumerate(feats):
+                t0 = time.perf_counter()
                 per_feature[fi] = mw.aggregate_gradients(
                     feat, self.schema.get_slot(feat.name), grads[feat.name],
                     loss_scale)
-                for i in by_last.get(fi, ()):
-                    futures.append(self._fanout.submit(
-                        ship, i, mw.gather_group_grads(groups[i],
-                                                       per_feature)))
+                ready = [(i, mw.gather_group_grads(groups[i], per_feature))
+                         for i in by_last.get(fi, ())]
+                agg_sec += time.perf_counter() - t0
+                for i, gmat in ready:
+                    futures.append(self._fanout.submit(ship, i, gmat))
         finally:
-            _wait_all(futures)
+            self._t_aggregate.observe(agg_sec)
+            with self._t_ship.timer():
+                _wait_all(futures)
 
     def _update_serialized(self, feats, groups, todo, ship, grads,
                            loss_scale):
         """Aggregate every feature, then ship the groups ``todo``."""
-        per_feature = [
-            mw.aggregate_gradients(feat, self.schema.get_slot(feat.name),
-                                   grads[feat.name], loss_scale)
-            for feat in feats]
-        self._fan_out([
-            partial(ship, i, mw.gather_group_grads(groups[i], per_feature))
-            for i in todo])
+        with self._t_aggregate.timer():
+            per_feature = [
+                mw.aggregate_gradients(feat, self.schema.get_slot(feat.name),
+                                       grads[feat.name], loss_scale)
+                for feat in feats]
+            calls = [partial(ship, i, mw.gather_group_grads(groups[i],
+                                                            per_feature))
+                     for i in todo]
+        with self._t_ship.timer():
+            self._fan_out(calls)
 
     def _fan_out(self, calls, span: Optional[str] = None) -> list:
         """Run ``calls`` (callables without arguments) on the fan-out
@@ -443,25 +722,176 @@ class EmbeddingWorker:
         _wait_all(futures)
         return [f.result() for f in futures]
 
+    # --- the reshard cutover's settlement ----------------------------------
+
+    def _settle_stale(self, signs, exc, ship_fn, prepare_fn=None):
+        """The bounce-retry protocol of every write path. A shipment
+        bounced with ``routing_stale`` (its slots froze for a migration)
+        splits again, alone, by the current table and ships to each new
+        owner: landed portions are not touched, and the migration replays
+        every captured row to the target before the new epoch publishes,
+        so a re-routed portion lands where its rows already are. Each
+        round waits for the demanded epoch at most 0.25 s, so an aborted
+        migration settles at the current one. ``ship_fn(replica, sel)``
+        ships the sign indices ``sel``; a second reshard bouncing a retry
+        loops until ``PERSIA_RESHARD_STALE_RETRY_SEC``.
+
+        A connection failure (the original one, or one in a round: a
+        replica killed during the cutover) is settled here too, when
+        something can recover (a resolver, or replicas that report
+        readiness): the client tier recovers first, and each round splits
+        the failed portion by the then current table. The
+        caller's whole-fan-out retry would ship its pre-reshard groups
+        to a restarted donor's stale copies instead. Before each ship of
+        such a round ``prepare_fn(replica, sel)`` runs (the update path's
+        training lookup re-creates rows a restarted replica lost). A
+        portion that never settles raises the last connection error at
+        the deadline; any other error is raised at once."""
+        from persia_tpu_torch.rpc import RpcError
+
+        last_conn_exc = None
+        min_epoch = is_routing_stale(exc)
+        if min_epoch is None:
+            if not (isinstance(exc, (ConnectionError, OSError))
+                    and self._can_recover()):
+                raise exc
+            last_conn_exc = exc
+            min_epoch = self._routing.epoch
+        deadline = self._stale_deadline()
+        need_prepare = last_conn_exc is not None
+        if need_prepare:
+            # the client's own retries are spent: recover before the
+            # first round, as the whole-fan-out retry would
+            self._recover_transport()
+        pending = np.arange(len(signs), dtype=np.int64)
+        while len(pending):
+            if time.monotonic() > deadline:
+                if last_conn_exc is not None:
+                    raise last_conn_exc
+                raise RuntimeError(
+                    "routing_stale bounces did not settle within the "
+                    "stale-retry budget (a replica is refusing writes "
+                    "for slots the current table routes to it)")
+            self._await_epoch(min_epoch, deadline)
+            shards = self._routing.table.replica_of(signs[pending])
+            bounced = []
+            conn_failed = False
+            for r in np.unique(shards):
+                sel = pending[np.nonzero(shards == r)[0]]
+                try:
+                    if need_prepare and prepare_fn is not None:
+                        prepare_fn(int(r), sel)
+                    ship_fn(int(r), sel)
+                except Exception as e:  # noqa: BLE001 — sorted below
+                    me = is_routing_stale(e)
+                    if me is not None:
+                        min_epoch = max(min_epoch, me)
+                        bounced.append(sel)
+                        continue
+                    if isinstance(e, (ConnectionError, OSError)):
+                        conn_failed = True
+                        last_conn_exc = e
+                        bounced.append(sel)
+                        continue
+                    if (isinstance(e, RpcError)
+                            and self._rearm_unready_clients()):
+                        # a restored but blank replica, re-armed in place
+                        need_prepare = True
+                        bounced.append(sel)
+                        continue
+                    raise
+            if conn_failed:
+                need_prepare = True
+                self._recover_transport()
+            pending = (np.concatenate(bounced) if bounced
+                       else pending[:0])
+            if len(pending):
+                # a bounce at the current epoch: the freeze window is
+                # still closing; a downed replica needs its restart
+                time.sleep(0.2 if conn_failed else 0.005)
+
+    def _recover_transport(self):
+        """One recovery pass after a connection failure: the resolver's
+        new client list, else the not-ready replicas re-armed. A replica
+        still down is left to the settle loop's deadline."""
+        try:
+            if self._ps_resolver is not None:
+                self._refresh_ps_clients()
+            else:
+                self._rearm_unready_clients()
+        except Exception as e:  # noqa: BLE001 — the deadline bounds
+            _logger.debug("recovery pass failed: %s", e)
+
+    def _settle_stale_lookup(self, group, training: bool, exc):
+        signs, dim = group.signs, group.dim
+        res = np.empty((len(signs), dim), np.float32)
+
+        def ship(r, sel):
+            res[sel] = self.ps_clients[r].lookup(signs[sel], dim, training)
+
+        self._settle_stale(signs, exc, ship)
+        return res
+
+    def _settle_stale_update(self, signs, gmat, dim, exc):
+        # in a recovery round a training lookup first re-creates the rows
+        # a restarted replica lost (the PS drops gradients of missing
+        # rows, so the update would be acked and not applied)
+        self._settle_stale(
+            signs, exc,
+            lambda r, sel: self.ps_clients[r].update_gradients(
+                signs[sel], gmat[sel], dim),
+            prepare_fn=lambda r, sel: self.ps_clients[r].lookup(
+                signs[sel], dim, True))
+
+    def _settle_stale_set(self, signs, vecs, dim, exc):
+        self._settle_stale(
+            signs, exc,
+            lambda r, sel: self.ps_clients[r].set_entries(
+                signs[sel], dim, vecs[sel]))
+
     # --- rows ------------------------------------------------------------
 
     def lookup_signs(self, signs: np.ndarray, dim: int) -> np.ndarray:
         """Eval-mode rows for already-preprocessed distinct signs (the
         serving tier's hot-row cache miss path). Absent signs read zeros
-        and are never created."""
+        and are never created. In a reshard's double-read window, a moved
+        sign that reads all-zero from its new owner is read from its
+        previous one, so an epoch swap never serves a transient zero for
+        a row the fleet holds."""
+        routing, prev = self._routing.window()
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         out = np.zeros((len(signs), dim), np.float32)
-        for sel, rows in zip(*self._per_shard(
+        if len(signs) == 0:
+            return out
+        with self._t_rpc.timer():
+            sels, results = self._per_shard(
                 signs, lambda r, sel: self.ps_clients[r].lookup(
-                    signs[sel], dim, False))):
+                    signs[sel], dim, False), routing)
+        for sel, rows in zip(sels, results):
             out[sel] = rows
+        if prev is not None and prev.num_slots == routing.num_slots:
+            moved = np.nonzero(prev.replica_of(signs)
+                               != routing.replica_of(signs))[0]
+            empty = moved[~out[moved].any(axis=1)]
+            if len(empty):
+                old_owner = prev.replica_of(signs[empty])
+                for r in np.unique(old_owner):
+                    sel = empty[np.nonzero(old_owner == r)[0]]
+                    try:
+                        out[sel] = self.ps_clients[int(r)].lookup(
+                            signs[sel], dim, False)
+                    except Exception as e:  # noqa: BLE001 — keep zeros
+                        _logger.debug("double read on donor %d: %s",
+                                      int(r), e)
         return out
 
-    def _per_shard(self, signs: np.ndarray, call):
+    def _per_shard(self, signs: np.ndarray, call, routing=None):
         """``call(shard, sel)`` for each shard owning some of ``signs``
-        (``sel`` their indices), fanned out, once more after a recovery.
-        Returns (the selections, the results)."""
-        shards = sign_to_shard(signs, self.replica_size)
+        (``sel`` their indices) under ``routing`` (default the live
+        table), fanned out, once more after a recovery. Returns (the
+        selections, the results)."""
+        routing = routing or self._routing.table
+        shards = routing.replica_of(signs)
         sels = [np.nonzero(shards == r)[0] for r in np.unique(shards)]
         return sels, self._with_ps_retry(lambda: self._fan_out(
             [partial(call, int(shards[sel[0]]), sel) for sel in sels]))
@@ -486,8 +916,7 @@ class EmbeddingWorker:
         """
         from persia_tpu_torch.rpc import RpcError
 
-        if self._ps_resolver is None and not any(
-                hasattr(c, "ready_for_serving") for c in self.ps_clients):
+        if not self._can_recover():
             return fn()
         try:
             return fn()
@@ -501,6 +930,13 @@ class EmbeddingWorker:
             if not self._rearm_unready_clients():
                 raise
             return fn()
+
+    def _can_recover(self) -> bool:
+        """Whether a failed PS call can recover here: with a resolver, or
+        with replicas that report their readiness (not in-process
+        holders, whose errors reach the caller at once)."""
+        return self._ps_resolver is not None or any(
+            hasattr(c, "ready_for_serving") for c in self.ps_clients)
 
     def _rearm_unready_clients(self) -> bool:
         """Push the remembered configuration and optimizer to the
@@ -581,23 +1017,48 @@ class EmbeddingWorker:
         return vals, state
 
     def set_rows(self, signs: np.ndarray, vecs: np.ndarray, dim: int):
-        """Write whole rows to their owning PS shards."""
+        """Write whole rows to their owning PS shards (a write to frozen
+        moving slots settles as a gradient shipment does)."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         vecs = np.ascontiguousarray(vecs, dtype=np.float32)
-        self._per_shard(signs, lambda r, sel: self.ps_clients[r].set_entries(
-            signs[sel], dim, vecs[sel]))
+
+        def push(r, sel):
+            try:
+                self.ps_clients[r].set_entries(signs[sel], dim, vecs[sel])
+            except Exception as e:  # noqa: BLE001 — settled or raised
+                self._settle_stale_set(signs[sel], vecs[sel], dim, e)
+
+        self._per_shard(signs, push)
 
     # --- checkpoints -------------------------------------------------------
 
     def dump(self, dirpath: str):
-        """Dump every PS shard into ``dirpath`` once the in-flight
-        gradient updates of this worker's backward engines have landed."""
+        """Dump every PS shard the live table routes to into ``dirpath``
+        once the in-flight gradient updates of this worker's backward
+        engines have landed."""
         flush_backward_engines(self)
-        dump_sharded(self.ps_clients, dirpath,
-                     routing=RoutingTable.uniform(self.replica_size))
+        t = self._routing.table
+        dump_sharded(self.ps_clients[:t.num_replicas], dirpath, routing=t)
 
     def load(self, dirpath: str):
         """Load the dump in ``dirpath`` onto the PS shards, resharding
-        when it was taken over another shard count."""
-        load_sharded(self.ps_clients, dirpath,
-                     routing=RoutingTable.uniform(self.replica_size))
+        when it was taken over another table."""
+        t = self._routing.table
+        load_sharded(self.ps_clients[:t.num_replicas], dirpath, routing=t)
+
+
+def _resplit(groups: List[mw.ShardGroup], landed: Set[int],
+             routing: RoutingTable) -> List[mw.ShardGroup]:
+    """The groups not in ``landed``, each split by ``routing``'s owner of
+    its signs (features stay in batch order inside a piece)."""
+    out = []
+    for i, g in enumerate(groups):
+        if i in landed:
+            continue
+        owners = routing.replica_of(g.signs)
+        for r in np.unique(owners):
+            sel = np.nonzero(owners == r)[0]
+            out.append(mw.ShardGroup(int(r), g.dim, g.signs[sel],
+                                     g.feature_idx[sel],
+                                     g.distinct_idx[sel]))
+    return out

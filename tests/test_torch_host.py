@@ -290,7 +290,7 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.service.trainer_service', "
         "'persia_tpu_torch.fleet', 'persia_tpu_torch.service_discovery', "
         "'persia_tpu_torch.inc_update', 'persia_tpu_torch.online', "
-        "'persia_tpu_torch.service.dataflow') "
+        "'persia_tpu_torch.service.dataflow', 'persia_tpu_torch.reshard') "
         "if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'msgpack' not in sys.modules\n"

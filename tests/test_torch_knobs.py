@@ -8,7 +8,10 @@ Each knob the port once read outside its registry, or not at all
 value of its own, and the site that reads it must behave as the JAX
 package's site does under the same environment: the same scenario bytes,
 the same validation, the same holder backend, arena sizes, worker plane
-and subscriber settings. Tolerance: equality.
+and subscriber settings. The live-routing knobs
+(``PERSIA_ROUTING_SLOTS_PER_REPLICA``, ``PERSIA_ROUTING_WIRE`` and the
+``PERSIA_RESHARD_*`` ones) the same way, at the sites that read them.
+Tolerance: equality.
 """
 
 import numpy as np
@@ -188,3 +191,89 @@ def test_online_knobs(name, value, monkeypatch, tmp_path):
     mine, ref = _both(lambda: settings(DeltaSubscriber, HotRowCache),
                       lambda: settings(JSub, JCache))
     assert isinstance(mine, tuple) and mine == ref
+
+
+# --- live routing: the uniform table, the rider, the reshard controller ---
+
+ROUTING_OWN = {
+    "PERSIA_ROUTING_SLOTS_PER_REPLICA": "16",
+    "PERSIA_ROUTING_WIRE": "yes",
+    "PERSIA_RESHARD_BATCH_ROWS": "128",
+    "PERSIA_RESHARD_DRAIN_SEC": "0",
+    "PERSIA_RESHARD_FREEZE_LEASE_SEC": "0.5",
+    "PERSIA_RESHARD_JOURNAL_DIR": "journal",
+    "PERSIA_RESHARD_RPC_TIMEOUT_SEC": "0",
+    "PERSIA_RESHARD_STALE_RETRY_SEC": "2.5",
+}
+
+
+def _routing_values(name):
+    return [pytest.param(
+        name, v, id=f"{name}-{'unset' if v is UNSET else repr(v)}")
+        for v in (UNSET, "", " 1", ROUTING_OWN[name])]
+
+
+@pytest.mark.parametrize("name", sorted(ROUTING_OWN))
+def test_routing_knob_is_registered_as_in_jax(name):
+    from persia_tpu import knobs as jknobs
+
+    mine, ref = tknobs.REGISTRY[name], jknobs.REGISTRY[name]
+    assert (mine.type, mine.default) == (ref.type, ref.default)
+
+
+def _routing_site(name, pkg):
+    """What the knob's reading site does in package ``pkg``."""
+    import time
+
+    if pkg == "jax":
+        from persia_tpu import reshard, routing
+        from persia_tpu.service import ps_service
+        from persia_tpu.worker.worker import EmbeddingWorker as W
+
+        def stale_deadline():
+            return W._stale_deadline(None)
+    else:
+        from persia_tpu_torch import reshard, routing
+        from persia_tpu_torch.service import ps_service
+        from persia_tpu_torch.worker.worker import EmbeddingWorker as W
+
+        stale_deadline = W._stale_deadline
+    if name == "PERSIA_ROUTING_SLOTS_PER_REPLICA":
+        return routing.RoutingTable.uniform(2).num_slots
+    if name == "PERSIA_ROUTING_WIRE":
+        return ps_service.PsClient("127.0.0.1:1").routing_wire
+    table = routing.RoutingTable.uniform(2, slots_per_replica=4)
+    if name == "PERSIA_RESHARD_BATCH_ROWS":
+        return reshard.ReshardController([], table).batch_rows
+    if name == "PERSIA_RESHARD_JOURNAL_DIR":
+        ctrl = reshard.ReshardController([], table)
+        return None if ctrl.journal is None else ctrl.journal.root
+    if name == "PERSIA_RESHARD_DRAIN_SEC":
+        h = routing.RoutingHolder(table)
+        h.apply(table.derive(table.replica_of_slot, 2))
+        return h.prev is None  # the window expires at 2x the drain
+    if name == "PERSIA_RESHARD_FREEZE_LEASE_SEC":
+        return ps_service._ReshardState([0], 4, 2).lease_sec
+    if name == "PERSIA_RESHARD_RPC_TIMEOUT_SEC":
+        c = ps_service.PsClient("127.0.0.1:1", circuit_breaker=False)
+        c.enable_reshard_deadline()
+        return (getattr(c, "_reshard_rpc_deadline", None),
+                c.client.enable_deadline)
+    assert name == "PERSIA_RESHARD_STALE_RETRY_SEC"
+    return round(stale_deadline() - time.monotonic(), 1)
+
+
+@pytest.mark.parametrize(
+    "name,value", [p for n in sorted(ROUTING_OWN)
+                   for p in _routing_values(n)])
+def test_routing_knobs(name, value, monkeypatch, tmp_path):
+    """Each restored knob read where JAX reads it (``knobs.py:262-323``):
+    the uniform table's slots, the client's rider, the controller's chunk
+    and journal, the double-read window, the freeze lease, the reshard
+    deadline, the stale-retry budget."""
+    monkeypatch.chdir(tmp_path)  # a journal directory lands here
+    _set(monkeypatch, name, value)
+    mine, ref = _both(lambda: _routing_site(name, "port"),
+                      lambda: _routing_site(name, "jax"))
+    assert mine == ref
+    assert not isinstance(mine, str) or name.endswith("JOURNAL_DIR"), mine

@@ -32,12 +32,10 @@ import numpy as np
 import pytest
 import torch
 
-from persia_tpu_torch import _msgpack
 from persia_tpu_torch import config as tcfg
 from persia_tpu_torch import wire_codec as twc
 from persia_tpu_torch.data.batch import IDTypeFeature
 from persia_tpu_torch.ps.native import make_holder
-from persia_tpu_torch.rpc import RpcError
 from persia_tpu_torch.service import serialization as tser
 from persia_tpu_torch.service.coordinator import (
     Coordinator,
@@ -324,25 +322,63 @@ def test_dispatcher_tunes_the_native_store_and_keeps_its_rows(monkeypatch):
     assert ShardParallelDispatcher(make_holder(1000, 8)).mode == "serial"
 
 
-def test_reshard_calls_get_the_unknown_method_error():
-    from persia_tpu.rpc import RpcError as JRpcError
-    from persia_tpu.service.ps_service import PsClient as JClient
+def _reshard_surface(client_pkg, ps_pkg):
+    """One migration's calls from ``client_pkg``'s ``PsClient`` against
+    ``ps_pkg``'s ``PsService`` (both on the native store): the replies,
+    with the frozen age masked, and the drained and installed rows."""
+    import importlib
 
-    with _serving(*_port_ps(1)) as (svc,):
-        c = PsClient(svc.addr, circuit_breaker=False)
-        with pytest.raises(RpcError, match="no such method 'no_such'"):
-            c.client.call("no_such")
-        for method in ("reshard_begin", "reshard_extract", "reshard_drain",
-                       "reshard_freeze", "reshard_finish", "reshard_status",
-                       "set_routing_epoch"):
-            with pytest.raises(RpcError,
-                               match=f"no such method '{method}'"):
-                c.client.call(method, _msgpack.packb({}))
-        j = JClient(svc.addr, circuit_breaker=False, routing_wire=False)
-        with pytest.raises(JRpcError, match="no such method"):
-            j.reshard_begin([1], 16, epoch=1)
-        with pytest.raises(JRpcError, match="no such method"):
-            j.set_routing_epoch(2)
+    ps = importlib.import_module(f"{ps_pkg}.service.ps_service")
+    cl = importlib.import_module(f"{client_pkg}.service.ps_service")
+    rs = importlib.import_module(f"{client_pkg}.reshard")
+    holders = importlib.import_module(f"{ps_pkg}.ps.native")
+    with _serving(*[ps.PsService(holders.make_holder(100_000, 4))
+                    for _ in range(2)]) as (donor, target):
+        c, t = (cl.PsClient(s.addr, circuit_breaker=False,
+                            routing_wire=True) for s in (donor, target))
+        for x in (c, t):
+            x.configure("bounded_uniform", {"lower": -0.1, "upper": 0.1},
+                        admit_probability=1.0, weight_bound=10.0)
+            x.register_optimizer({"type": "sgd", "lr": 0.5, "wd": 0.0})
+        signs = np.arange(1, 257, dtype=np.uint64)
+        c.lookup(signs, 8, True)
+        out = [c.reshard_begin([0, 1, 5], 8, epoch=2, fence=(2, 0),
+                               mig_id="m")]
+        blob, done = c.reshard_extract(1 << 20, fence=(2, 0))
+        out += [done, t.reshard_install(blob, fence=(2, 0), mig_id="m")]
+        c.update_gradients(signs[:16], np.ones((16, 8), np.float32), 8)
+        drained = c.reshard_drain(fence=(2, 0))
+        out.append(sorted((s, v.tobytes())
+                          for s, _d, v in rs.unpack_rows(drained)))
+        t.reshard_install(drained, fence=(2, 0))
+        c.reshard_freeze(epoch=2, fence=(2, 0), mig_id="m")
+        st = c.reshard_status(fence=(2, 0))
+        st.pop("frozen_age_sec")
+        out.append(st)
+        for x in (c, t):
+            x.set_routing_epoch(2)
+        out += [c.reshard_finish(fence=(2, 0), mig_id="m"),
+                c.reshard_status(), c.health()["routing_epoch"]]
+        found, rows = t.get_entries(signs, 8)
+        out += [found.tobytes(), rows[found].tobytes(), blob]
+    return out
+
+
+@pytest.mark.parametrize("client,server", [("persia_tpu", "persia_tpu_torch"),
+                                           ("persia_tpu_torch", "persia_tpu")])
+def test_reshard_surface_across_packages(client, server):
+    """The PS's reshard surface answers a client of the other package as
+    a server of the client's own does: the same snapshot, drain and
+    install, the same fencing and status replies, the same rows on the
+    target."""
+    mixed = _reshard_surface(client, server)
+    same = _reshard_surface(client, client)
+    assert mixed == same
+    assert mixed[0] > 0 and mixed[1] is True and mixed[2] == mixed[0]
+    assert len(mixed[3]) > 0
+    assert mixed[4]["frozen"] is True and mixed[4]["token"] == [2, 0]
+    assert mixed[5]["was_active"] is True
+    assert mixed[6]["active"] is False and mixed[7] == 2
 
 
 # --- the coordinator --------------------------------------------------------
@@ -808,22 +844,57 @@ def test_ps_service_refuses_the_incremental_tier(case, tmp_path,
 
 def test_routing_and_monitor_refusals_name_their_items(tmp_path,
                                                        monkeypatch):
+    """Once refused, now taken: a routing table published over the wire
+    (``apply_routing`` with the PS addresses, ``close_routing_window``)
+    and ``--enable-monitor``; what is still refused (the native binaries,
+    the fleet monitor) names item 9c."""
+    from persia_tpu_torch.routing import RoutingTable
     from persia_tpu_torch.service import worker_service
+    from persia_tpu_torch.service.helper import ServiceCtx
+    from persia_tpu_torch.worker import worker as worker_mod
 
-    with _serving(*_port_ps(1)) as (svc,):
-        w = EmbeddingWorker(_mixed_schema(), [PsClient(svc.addr)])
+    with _serving(*_port_ps(2)) as svcs:
+        w = EmbeddingWorker(_mixed_schema(), [PsClient(svcs[0].addr)])
         with _serving(WorkerService(w)) as (ws,):
             rw = RemoteEmbeddingWorker([ws.addr])
-            with pytest.raises(NotImplementedError, match="item 9c"):
-                rw.apply_routing(None)
-            with pytest.raises(NotImplementedError, match="item 9c"):
-                rw.close_routing_window()
-            with pytest.raises(RpcError, match="item 9c"):
-                rw._clients[ws.addr].call_msg("apply_routing", table=b"")
+            t = RoutingTable.uniform(1)
+            t2 = t.derive(np.arange(t.num_slots) % 2, 2)
+            assert rw.apply_routing(t2, ps_addrs=[s.addr for s in svcs])
+            assert (rw.routing_epoch, w.routing_epoch, w.replica_size) \
+                == (2, 2, 2)
+            assert w.routing_window[1] is not None
+            rw.close_routing_window()
+            assert w.routing_window[1] is None
+            assert rw._clients[ws.addr].call_msg(
+                "apply_routing", table=t2.to_bytes()) == {
+                    "applied": False, "epoch": 2}
         w.close()
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        _run_main(worker_service, ["--embedding-config", "x.yml",
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_worker(*a, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(worker_mod, "EmbeddingWorker", fake_worker)
+    schema_path = str(tmp_path / "schema.yml")
+    from persia_tpu_torch.utils import dump_yaml
+    from persia_tpu_torch.service.helper import _schema_to_yaml_dict
+
+    dump_yaml(_schema_to_yaml_dict(_mixed_schema()), schema_path)
+    with pytest.raises(Stop):
+        _run_main(worker_service, ["--embedding-config", schema_path,
+                                   "--ps-addrs", "127.0.0.1:1",
                                    "--enable-monitor"], monkeypatch)
+    assert seen["enable_monitor"] is True
+    assert seen["routing_fetch"] is None  # fixed addresses: no pull
+    for kw in ({"native_ps": True}, {"native_worker": True}):
+        with pytest.raises(NotImplementedError, match="item 9c"):
+            ServiceCtx(_mixed_schema(), **kw)
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        ServiceCtx(_mixed_schema()).fleet_monitor()
 
 
 def test_device_cache_refuses_a_remote_worker():

@@ -118,9 +118,8 @@ def test_manifest_keys_equal_the_jax_manifest(tmp_path):
     for k in ("version", "seq", "step", "cursor", "num_shards", "routing",
               "ps_watermarks", "inc_watermark"):
         assert tm[k] == jm[k], k
-    # the JAX worker stamps its routing epoch; the port has no live
-    # routing
-    assert tm["routing_epoch"] is None
+    # both workers stamp their routing epoch (the uniform table's, 1)
+    assert tm["routing_epoch"] == jm["routing_epoch"] == 1
     # with an incremental-update directory the watermark names its
     # complete packets, as the JAX manifest's does on the same directory
     from persia_tpu_torch.inc_update import IncrementalUpdateDumper
