@@ -134,7 +134,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      ``hotness`` admission at 131,072 rows over the first 30 batches:
      hit rate, promotions, samples/s;
    - ``zoo``: the registry's ``dlrm``, ``seqrec`` and ``multitask``
-     scenarios at full size on ``bench.py``'s e2e stack, 200 steps at
+     scenarios at full size on ``bench.py``'s e2e stack, 120 steps at
      each bench batch: samples/s, the loss falling, the held-out AUC of
      each task at the scenario's bar;
    - ``adult_income``: ``DNN`` with its two batch norms at
@@ -325,6 +325,39 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    the hotness-planned table's max-replica share, measured server-side,
    below hash-even's), a uniform-table checkpoint byte-identical to the
    legacy dump; no kernel.
+15. ``fleet`` (right after ``reshard``, so that its processes too are
+   down before the timed phases), the fleet monitor and SLO engine
+   (``fleet.py``, ``slos.py``), the native service binaries and the
+   serving CLI, every process started right after setup: (b) seq_rec at
+   the training phase's widths, 20 synchronous steps over a
+   ``ServiceCtx(n_workers=1, n_ps=2, http_all=True)`` watched by
+   ``svc.fleet_monitor`` (the default rules, a scrape every 0.5 s, the
+   trainer's sidecar added), PS 1 SIGSTOPped for 4 scrape intervals
+   between steps 10 and 11: no rule fires before the stall,
+   ``target_down`` on ps1 within 2 intervals with a postmortem bundle
+   and cleared after SIGCONT, ``fleet_status`` lists the trainer, the
+   worker and both PS up without version skew, ``fleet_history`` has a
+   rate of ``ps_lookup_rows_total`` above 0, and losses, dense state and
+   every touched row equal, bit for bit, a second cluster's 20 steps with
+   no monitor; K2-K4 once a step, K1 and K5 never. (c) ``python -m
+   persia_tpu_torch.serving --model dlrm`` on a ``dense.pt`` of seeded
+   weights over (b)'s worker (``--max-batch-rows 256 --cache-rows
+   100000``, registered with the coordinator): 64 serialized replies
+   bit-equal to an in-process server from the same ``dense.pt`` and
+   worker, its row up in ``fleet_status``, no kernel; the seconds from its
+   spawn to its first reply. (d) seq_rec's slots (the clicks slot summed:
+   the C++ worker has no last-k pooling), 10 synchronous steps over
+   ``ServiceCtx(native_ps=True, native_worker=True, ps_capacity=2_000_000,
+   ps_num_shards=8)`` against the Python services on the same batches:
+   losses, dense state and every touched row bit-equal; each tier's
+   samples/s. (a) ``bench.py``'s ``bench_fleet`` at batch 512 over the
+   port's worker and two PS processes: no PS request added by a
+   scrape-only window, a SIGSTOPped PS tripping ``target_down`` within
+   2 scrape intervals with a bundle, and the federated views (labels,
+   status, one trace_id across the trainer and both PS), in a process of
+   its own that loads no torch; the paired interleaved cycle inflation
+   (one full re-measure when over 3%) is printed beside the bench's 3%
+   contract, not enforced.
    The registry series are read where their phases already run:
    ``services`` (a) scrapes each PS's and the worker's ``/metrics``
    (``ps_lookup_rows_total`` grows by the rows the worker sent,
@@ -504,8 +537,9 @@ DC_REL_TOL = 1e-4
 DC_ADMIT_STEPS = 30
 DC_ADMIT_CAPACITY = 131_072
 # training / zoo: the registry's scenarios at full size on bench.py's e2e
-# stack, at least 200 steps each (bench.py --mode e2e)
-ZOO_STEPS = 200
+# stack; bench.py --mode e2e runs at least 200 steps each, cut here to pay
+# for the fleet phase's time (PERF.md §4)
+ZOO_STEPS = 120
 ZOO_EVAL = 8192
 # training / adult_income: examples/adult_income/train.py's widths and
 # optimizers; the AUC bar of tests/test_e2e_local.py
@@ -6921,6 +6955,794 @@ def reshard_phase(torch, card: str, clusters: ReshardClusters) -> dict:
     return launches
 
 
+FL_SLOTS = 26  # (a): bench_fleet's 26 slots of dims 8/16/32/64
+FL_DIM = 16
+FL_BATCH = 512
+FL_STEPS = 5  # (a): bench.py's max(steps, 5): 4 paired rounds
+FL_SCRAPE_S = 0.75
+FL_SCRAPE_TIMEOUT_S = 0.5
+FL_INFLATION_GATE = 1.03  # reported beside, not enforced (see fl_bench)
+FL_B_STEPS = 20  # (b): synchronous steps of each run
+FL_B_STALL_AT = 10  # (b): PS 1 stopped between steps 10 and 11
+FL_B_SCRAPE_S = 0.5
+# (b): a GET's socket timeout, so that a stopped replica reads down within
+# two scrape intervals (the next round plus one timeout)
+FL_B_SCRAPE_TIMEOUT_S = 0.35
+FL_C_REQUESTS = 64  # (c): serialized replies held bit-equal
+FL_D_STEPS = 10  # (d): synchronous steps of each tier
+FL_D_CAPACITY = 2_000_000
+FL_D_SHARDS = 8
+
+
+def fl_native_schema():
+    """seq_rec's slots with the clicks slot summed: the C++ worker has no
+    last-k pooling (``ServiceCtx(native_worker=True)`` refuses it)."""
+    from persia_tpu_torch.config import EmbeddingSchema, SlotConfig
+    from persia_tpu_torch.workloads.generator import SEQ_CLICKS_SLOT
+
+    slots = dict(build_schema().slots_config)
+    slots[SEQ_CLICKS_SLOT] = SlotConfig(name=SEQ_CLICKS_SLOT, dim=DIM)
+    return EmbeddingSchema(slots_config=slots)
+
+
+def fl_cli_schema():
+    """The serving CLI's schema: seq_rec's summed slots (the zoo's DLRM
+    pools no sequence), served by (b)'s worker."""
+    from persia_tpu_torch.config import EmbeddingSchema
+    from persia_tpu_torch.workloads.generator import SEQ_HISTORY_SLOT
+
+    return EmbeddingSchema(slots_config={
+        n: s for n, s in build_schema().slots_config.items()
+        if n != SEQ_HISTORY_SLOT})
+
+
+def fl_cli_requests(seed: int, n: int):
+    """``n`` requests of ``REQUEST_ROWS`` rows of seq_rec traffic without
+    the history slot."""
+    from persia_tpu_torch.data.batch import PersiaBatch
+    from persia_tpu_torch.workloads.generator import SEQ_HISTORY_SLOT, \
+        SeqRecSpec, seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    return [PersiaBatch([f for f in b.id_type_features
+                         if f.name != SEQ_HISTORY_SLOT],
+                        non_id_type_features=b.non_id_type_features,
+                        requires_grad=False)
+            for b in seqrec_batches(n * REQUEST_ROWS, REQUEST_ROWS,
+                                    seed=seed, spec=spec)]
+
+
+class FleetClusters(ServiceClusters):
+    """The fleet phase's processes, started right after setup, while the
+    first three phases run: (a)'s two PS processes with sidecars (tracing on); (b)'s
+    watched and reference seq_rec clusters (every service with its
+    sidecar), the watched one's serving CLI (``python -m
+    persia_tpu_torch.serving`` on the card, spawned once that cluster is
+    up, and probed once for its first reply); (d)'s Python-service and
+    all-native tiers. :meth:`stop` takes them all down."""
+
+    def __init__(self):
+        import subprocess
+        import tempfile
+
+        from persia_tpu_torch import checkpoint as ckpt
+        from persia_tpu_torch.serving import _model_zoo
+        from persia_tpu_torch.service.helper import ServiceCtx, \
+            _schema_to_yaml_dict
+        from persia_tpu_torch.utils import dump_yaml
+        from persia_tpu_torch.weights import init_params
+        from persia_tpu_torch.workloads.generator import SeqRecSpec
+
+        self._tmp = tempfile.TemporaryDirectory()
+        tmp = self._tmp.name
+        self.pm_dir = os.path.join(tmp, "postmortems")
+        path = os.path.join(tmp, "global.yml")
+        dump_yaml({"embedding_parameter_server_config": {
+            "capacity": 2_000_000, "num_hashmap_internal_shards": 8}}, path)
+        env = {"LOG_LEVEL": "WARNING"}
+        self.watched, self.ref = (ServiceCtx(
+            build_schema(), n_workers=1, n_ps=N_PS, global_config_path=path,
+            http_all=True, startup_timeout=SV_START_S, env=env)
+            for _ in range(2))
+        self.py_tier = ServiceCtx(fl_native_schema(), n_workers=1, n_ps=N_PS,
+                                  global_config_path=path,
+                                  startup_timeout=SV_START_S, env=env)
+        self.native_tier = ServiceCtx(
+            fl_native_schema(), n_workers=1, n_ps=N_PS, native_ps=True,
+            native_worker=True, ps_capacity=FL_D_CAPACITY,
+            ps_num_shards=FL_D_SHARDS, startup_timeout=SV_START_S, env=env)
+        self.ctxs = [self.watched, self.ref, self.py_tier, self.native_tier]
+        # (c): the CLI's schema file and a dense.pt of seeded weights
+        self.cli_schema_path = os.path.join(tmp, "cli_schema.yml")
+        dump_yaml(_schema_to_yaml_dict(fl_cli_schema()),
+                  self.cli_schema_path)
+        self.num_dense = SeqRecSpec().num_dense
+        self.ckpt_dir = os.path.join(tmp, "ckpt")
+        os.makedirs(self.ckpt_dir)
+        donor = init_params(_model_zoo()["dlrm"](
+            self.num_dense, fl_cli_schema(), device="cpu"), SEED + 5)
+        with open(os.path.join(self.ckpt_dir, ckpt.DENSE_FILE), "wb") as f:
+            f.write(ckpt.dense_state_bytes((donor, None)))
+        self.cli = None
+        self.cli_first = {}
+        # (a): bench_fleet's PS processes (tracing on, untraced dials)
+        penv = {**os.environ, "LOG_LEVEL": "WARNING", "PERSIA_TRACING": "1",
+                "PERSIA_PS_SHARD_PARALLEL": "1",
+                "PERSIA_PS_LEGACY_FRAMES": "0",
+                "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        self.a_procs, self.a_files = [], []
+        for i in range(N_PS):
+            files = (os.path.join(tmp, f"a_ps{i}.addr"),
+                     os.path.join(tmp, f"a_ps{i}.http"))
+            self.a_files.append(files)
+            self.a_procs.append(subprocess.Popen(
+                [sys.executable, "-m", "persia_tpu_torch.service.ps_service",
+                 "--port", "0", "--replica-index", str(i), "--replica-size",
+                 str(N_PS), "--coordinator", "", "--addr-file", files[0],
+                 "--concurrent-streams", "16", "--http-port", "0",
+                 "--http-addr-file", files[1]], env=penv))
+        self._start()
+
+    def _enter(self, ctx):
+        super()._enter(ctx)
+        if ctx is self.watched and ctx.coordinator_addr is not None \
+                and not self._errors:
+            try:
+                self._start_cli()
+            except BaseException as e:  # raised by wait()
+                self._errors.append(e)
+
+    def _start_cli(self):
+        """Spawn the serving CLI against the watched cluster's worker and
+        coordinator, then send it one request of signs no later request
+        uses, for its first reply."""
+        import subprocess
+
+        from persia_tpu_torch.serving import InferenceClient
+        from persia_tpu_torch.service.coordinator import ROLE_INFERENCE
+
+        svc = self.watched
+        t0 = time.monotonic()
+        self.cli = subprocess.Popen(
+            [sys.executable, "-m", "persia_tpu_torch.serving", "--model",
+             "dlrm", "--dense-checkpoint", self.ckpt_dir,
+             "--embedding-config", self.cli_schema_path, "--num-dense",
+             str(self.num_dense), "--host", "127.0.0.1", "--port", "0",
+             "--coordinator", svc.coordinator_addr, "--worker-addrs",
+             svc.worker_addrs[0], "--max-batch-rows", "256",
+             "--cache-rows", "100000", "--http-port", "0", "--device",
+             "cuda"],
+            env={**os.environ, "LOG_LEVEL": "WARNING",
+                 "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+        coord = svc.coordinator_client()
+        deadline = t0 + SV_START_S
+        while not coord.list(ROLE_INFERENCE):
+            if self.cli.poll() is not None:
+                raise RuntimeError(f"the serving CLI exited "
+                                   f"rc={self.cli.returncode}")
+            if time.monotonic() > deadline:
+                raise TimeoutError("the serving CLI never registered")
+            time.sleep(0.05)
+        t_reg = time.monotonic()
+        (addr,) = coord.list(ROLE_INFERENCE)
+        probe = fl_cli_requests(SEED + 911, 1)[0]
+        for f in probe.id_type_features:  # signs above every seq_rec id
+            f.signs = f.signs + (1 << 40)
+        cl = InferenceClient(addr)
+        pred = cl.predict(probe)
+        cl.close()
+        self.cli_first = {"addr": addr, "registered_s": t_reg - t0,
+                          "first_reply_s": time.monotonic() - t0,
+                          "probe": pred}
+
+    def a_addrs(self):
+        """(a)'s PS (RPC, sidecar) addresses."""
+        from persia_tpu_torch.utils import wait_addr_file
+
+        return [(wait_addr_file(a, SV_START_S, p),
+                 wait_addr_file(h, SV_START_S, p))
+                for p, (a, h) in zip(self.a_procs, self.a_files)]
+
+    def stop(self):
+        import signal
+
+        procs = [*self.a_procs, *([self.cli] if self.cli else [])]
+        for p in procs:
+            try:
+                p.send_signal(signal.SIGCONT)
+            except OSError:
+                pass
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except Exception:  # noqa: BLE001 — then it is killed
+                p.kill()
+                p.wait(timeout=10)
+        super().stop()
+
+
+def fl_bench(card: str, addrs, pids, pm_dir: str) -> str:
+    """(a) ``bench.py``'s ``bench_fleet`` at its smoke depth over the
+    port's worker and the two ``PsService`` processes at ``addrs`` ((RPC,
+    sidecar) pairs; ``pids`` their processes), every sidecar scraped by a
+    ``FleetMonitor`` with the default rules: wire neutrality (no PS
+    request in a scrape-only window, exact), the paired interleaved cycle
+    inflation (one full re-measure when over 3%; printed beside the
+    bench's 3% contract, not enforced), a SIGSTOPped PS tripping
+    ``target_down`` within 2 scrape intervals with a postmortem bundle, and the federated views (``/fleet/metrics``
+    labeled, ``/fleet/status`` all up without skew, one trace_id across
+    the trainer and both PS in ``/fleet/trace``). Run in a process of its
+    own (:func:`fl_bench_process`), as the bench runs. Returns the
+    report."""
+    import signal
+    import statistics
+
+    import numpy as np
+
+    from persia_tpu_torch import tracing
+    from persia_tpu_torch.config import EmbeddingSchema, SlotConfig
+    from persia_tpu_torch.data.batch import IDTypeFeatureWithSingleID
+    from persia_tpu_torch.fleet import FleetMonitor
+    from persia_tpu_torch.metrics import parse_exposition
+    from persia_tpu_torch.obs_http import ObservabilityServer
+    from persia_tpu_torch.service.ps_service import PsClient
+    from persia_tpu_torch.slos import SloEngine, default_rules
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+
+    dims = (FL_DIM // 2, FL_DIM, 2 * FL_DIM, 4 * FL_DIM)
+    schema = EmbeddingSchema(slots_config={
+        f"slot_{s}": SlotConfig(name=f"slot_{s}", dim=dims[s % len(dims)])
+        for s in range(FL_SLOTS)})
+    rng = np.random.default_rng(0)
+
+    def batch():
+        return [IDTypeFeatureWithSingleID(
+            f"slot_{s}", rng.integers(0, 1 << 40, size=FL_BATCH,
+                                      dtype=np.uint64))
+            for s in range(FL_SLOTS)]
+
+    clients = [PsClient(a) for a, _ in addrs]
+    worker = EmbeddingWorker(schema, clients, streaming=True)
+    worker.configure_parameter_servers(
+        "bounded_uniform", {"lower": -0.01, "upper": 0.01}, 1.0, 10.0)
+    worker.register_optimizer({
+        "type": "adagrad", "lr": 0.02, "initialization": 0.1,
+        "g_square_momentum": 1.0, "vectorwise_shared": False})
+    tracing.set_service_name("trainer")
+    sidecar = ObservabilityServer(service="trainer").start()
+    targets = [{"service": f"ps{i}", "http_addr": h, "role": "ps",
+                "replica": i} for i, (_, h) in enumerate(addrs)]
+    targets.append({"service": "trainer", "http_addr": sidecar.addr,
+                    "role": "trainer", "replica": 0})
+    monitor = FleetMonitor(
+        targets=targets, scrape_interval=FL_SCRAPE_S,
+        scrape_timeout=FL_SCRAPE_TIMEOUT_S,
+        flight_interval=FL_SCRAPE_S * 4, first_scrape_delay=FL_SCRAPE_S,
+        slo_engine=SloEngine(default_rules()), postmortem_dir=pm_dir)
+
+    def cycle(b):
+        ref = worker.put_batch(b)
+        lk = worker.lookup(ref)
+        worker.update_gradients(ref,
+                                {k: v.embeddings for k, v in lk.items()})
+
+    try:
+        for _ in range(3):
+            cycle(batch())
+        hot = batch()
+        cycle(hot)
+        # 1. wire neutrality: a scrape-only window adds no request; each
+        # health read is counted before itself, so exactly one a replica
+        served0 = [c.health()["served_rpcs"] for c in clients]
+        monitor.start()
+        deadline = time.monotonic() + max(FL_SCRAPE_S * 5, 4.0)
+        while monitor.rounds < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        monitor.stop()
+        if monitor.rounds < 1:
+            raise AssertionError("fleet (a): the monitor never completed "
+                                 "a scrape")
+        served1 = [c.health()["served_rpcs"] for c in clients]
+        extra = [b - a - 1 for a, b in zip(served0, served1)]
+        if any(extra):
+            raise AssertionError(f"fleet (a): scraping put {extra} extra "
+                                 f"requests on the RPC plane")
+        neutral_rounds = monitor.rounds
+
+        # 2. the paired interleaved cycle inflation
+        t0 = time.perf_counter()
+        for _ in range(3):
+            cycle(hot)
+        est = (time.perf_counter() - t0) / 3
+        block = max(4, int(2.5 * FL_SCRAPE_S / est))
+
+        def inflation(rounds):
+            per = {"off": [], "on": []}
+            ratios = []
+            for r in range(rounds):
+                times = {}
+                for phase in (("off", "on") if r % 2 == 0
+                              else ("on", "off")):
+                    if phase == "on":
+                        monitor.start()
+                    t0 = time.perf_counter()
+                    for _ in range(block):
+                        cycle(hot)
+                    times[phase] = (time.perf_counter() - t0) / block
+                    if phase == "on":
+                        monitor.stop()
+                    per[phase].append(times[phase])
+                ratios.append(times["on"] / times["off"])
+            return (statistics.median(ratios),
+                    statistics.median(per["off"]) * 1e3,
+                    statistics.median(per["on"]) * 1e3)
+
+        rounds = max(4, FL_STEPS // 4)
+        first = ratio, off_ms, on_ms = inflation(rounds)
+        remeasured = None
+        if ratio > FL_INFLATION_GATE:
+            remeasured = inflation(rounds)
+            if remeasured[0] < ratio:
+                ratio, off_ms, on_ms = remeasured
+        # reported beside the bench's 3% contract, not enforced: on the
+        # card's shared 8-core host the paired medians spread from -5.5%
+        # to +27% between runs (PERF.md §6, PR 18)
+        infl = (f"{(ratio - 1) * 100:+.3f}% (contract +3%: "
+                + ("met" if ratio <= FL_INFLATION_GATE else "missed")
+                + ", reported, not enforced)")
+
+        # 3. SIGSTOP a PS: target_down within 2 scrape intervals
+        r0 = monitor.rounds
+        monitor.start()
+        deadline = time.monotonic() + max(FL_SCRAPE_S * 4, 3.0)
+        while monitor.rounds == r0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        victim = f"ps{N_PS - 1}"
+        n0 = len(monitor.engine.breach_events())
+        t_fault = time.monotonic()
+        os.kill(pids[-1], signal.SIGSTOP)
+        breach = None
+        try:
+            deadline = (time.monotonic() + FL_SCRAPE_S * 2
+                        + FL_SCRAPE_TIMEOUT_S * 3 + 5)
+            while time.monotonic() < deadline and breach is None:
+                breach = next((e for e in
+                               monitor.engine.breach_events()[n0:]
+                               if e["rule"] == "target_down"
+                               and e["service"] == victim), None)
+                time.sleep(0.02)
+        finally:
+            os.kill(pids[-1], signal.SIGCONT)
+        monitor.stop()
+        if breach is None:
+            raise AssertionError(f"fleet (a): the stopped {victim} never "
+                                 f"tripped target_down")
+        latency = breach["t"] - t_fault
+        bundles = [p for p in monitor.recorder.captures if victim in p]
+        if latency > 2 * FL_SCRAPE_S or not bundles:
+            raise AssertionError(
+                f"fleet (a): target_down after {latency:.3f}s (budget "
+                f"{2 * FL_SCRAPE_S}s), bundles {bundles}")
+        monitor.start()
+        deadline = time.monotonic() + 10
+        while (time.monotonic() < deadline
+               and monitor.fleet_status()["n_up"] != len(targets)):
+            time.sleep(0.1)
+        monitor.stop()
+
+        # 4. the federated views
+        if monitor.scrape_once() != len(targets):
+            raise AssertionError("fleet (a): not every target up after "
+                                 "the victim resumed")
+        samples, _ = parse_exposition(monitor.fleet_metrics())
+        labeled = {(lb.get("service"), lb.get("replica"))
+                   for _, lb, _ in samples if "service" in lb}
+        status = monitor.fleet_status()
+        if not ({(f"ps{i}", str(i)) for i in range(N_PS)} <= labeled
+                and status["n_up"] == len(targets)
+                and not status["version_skew"]):
+            raise AssertionError(f"fleet (a): federated views: labels "
+                                 f"{sorted(labeled)}, status {status}")
+        tracing.enable_tracing(True)
+        try:
+            for c in clients:
+                c.client.close()  # redial with the trace probe
+            cycle(batch())
+            tracing.default_collector().clear()
+            with tracing.span("trainer/step", root=True) as root:
+                cycle(batch())
+        finally:
+            tracing.enable_tracing(False)
+        monitor.scrape_once()
+        spans = monitor.fleet_trace(trace_id=f"{root.trace_id:016x}",
+                                    fmt="raw")["spans"]
+        services = {sp["service"] for sp in spans}
+        if not {"trainer", *(f"ps{i}" for i in range(N_PS))} <= services:
+            raise AssertionError(f"fleet (a): one trace_id spans only "
+                                 f"{sorted(services)}")
+        return (f"(a) bench_fleet, batch {FL_BATCH} x {FL_SLOTS} slots, "
+                f"{N_PS} PS processes, scrape every {FL_SCRAPE_S}s: wire "
+                f"neutrality 0 extra requests over {neutral_rounds} rounds; "
+                f"cycle {off_ms:.3f} ms scraper off, {on_ms:.3f} ms on, "
+                f"inflation {infl}, the median of {rounds} paired rounds "
+                f"of {block} cycles (first set "
+                f"{(first[0] - 1) * 100:+.3f}%"
+                + (f", re-measured {(remeasured[0] - 1) * 100:+.3f}%"
+                   if remeasured else "")
+                + f"); SIGSTOP {victim} -> target_down in "
+                f"{latency:.3f}s (budget {2 * FL_SCRAPE_S}s), bundle "
+                f"{os.path.basename(bundles[-1])}; /fleet/metrics "
+                f"{len(samples)} series, /fleet/status {status['n_up']}/"
+                f"{len(targets)} up, no skew; /fleet/trace {len(spans)} "
+                f"spans on one trace_id from {sorted(services)}")
+    finally:
+        tracing.enable_tracing(False)
+        monitor.stop()
+        sidecar.stop()
+        worker.close()
+        for c in clients:
+            c.client.close()
+
+
+def fl_bench_process(card: str, clusters: FleetClusters) -> str:
+    """(a) in a child process (``chip_smoke.py fleet_bench <spec>``), as
+    ``bench.py --mode fleet`` runs: the monitor and the worker share a
+    process holding nothing else, not this one's registry of every
+    earlier phase and its clusters' threads. Returns its report; raises
+    its failure."""
+    import subprocess
+
+    spec = os.path.join(clusters.pm_dir, "a.json")
+    os.makedirs(clusters.pm_dir, exist_ok=True)
+    with open(spec, "w") as f:
+        json.dump({"card": card, "addrs": clusters.a_addrs(),
+                   "pids": [p.pid for p in clusters.a_procs],
+                   "pm_dir": os.path.join(clusters.pm_dir, "a"),
+                   "out": spec + ".out"}, f)
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "fleet_bench", spec], timeout=600, check=False)
+    with open(spec + ".out") as f:
+        out = json.load(f)
+    if out.get("error"):
+        raise AssertionError(out["error"])
+    return out["line"]
+
+
+def fleet_bench_main(spec_path: str) -> int:
+    """The child of :func:`fl_bench_process`: run (a), write its report
+    or its failure. It never loads torch, so it launches no kernel."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    try:
+        out = {"line": fl_bench(spec["card"], spec["addrs"], spec["pids"],
+                                spec["pm_dir"])}
+        if "torch" in sys.modules:  # then no kernel could launch here
+            raise AssertionError("fleet (a): the bench's process loaded "
+                                 "torch")
+    except Exception as e:  # noqa: BLE001 — the parent raises it
+        traceback.print_exc()
+        out = {"error": f"{type(e).__name__}: {e}"}
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0 if "line" in out else 1
+
+
+def fl_rows(svc, signs, dim: int):
+    """Every row of ``signs`` read from ``svc``'s PS replicas (each must
+    hold it exactly once)."""
+    import numpy as np
+
+    from persia_tpu_torch.service.ps_service import PsClient
+
+    found = np.zeros(len(signs), np.int64)
+    rows = np.zeros((len(signs), dim), np.float32)
+    for a in svc.ps_addrs:
+        c = PsClient(a)
+        f, v = c.get_entries(signs, dim)
+        c.client.close()
+        found += f
+        rows[f] = v[f]
+    if not (found == 1).all():
+        raise AssertionError(f"fleet: {int((found != 1).sum())} touched "
+                             f"rows not held exactly once")
+    return rows
+
+
+def fl_train(torch, schema, svc, batches, start, on_step=None):
+    """seq_rec's ``TrainCtx`` on the card over ``svc``'s processes from
+    the weights ``start``: (losses, dense state, launches, seconds of the
+    steps). ``on_step(step)`` runs before a step and returns the seconds
+    it spent (not counted)."""
+    import numpy as np
+
+    from persia_tpu_torch.workloads.generator import SeqRecSpec
+
+    ctx = train_ctx(torch, schema, build_tower(
+        SeqRecSpec().num_dense, "flash", state_dict=start),
+        worker=svc.remote_worker())
+    losses, paused = [], 0.0
+    with ctx:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for step, b in enumerate(batches):
+            if on_step is not None:
+                torch.cuda.synchronize()
+                paused += on_step(step)
+            losses.append(ctx.train_step(b)[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - paused
+        launches = kernel_launches()
+    losses = torch.stack(losses).float().cpu().tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError("fleet: a loss is not finite")
+    ctx.worker.close()
+    return losses, dense_state(ctx), launches, wall
+
+
+def fl_compare(tag: str, a, b, rows_a, rows_b) -> str:
+    """Losses, dense state and rows of two runs; raises where any bit
+    differs."""
+    loss_diff = sum(x != y for x, y in zip(a[0], b[0]))
+    dense_diff = first_difference(a[1], b[1])
+    row_diff = int((rows_a.view("<u4") != rows_b.view("<u4"))
+                   .any(axis=-1).sum())
+    line = (f"losses that differ {loss_diff}, dense state "
+            f"{dense_diff or 'bit-equal'}, {len(rows_a)} touched rows of "
+            f"which differ in any bit {row_diff}")
+    if loss_diff or dense_diff or row_diff:
+        raise AssertionError(f"fleet {tag}: {line}")
+    return line
+
+
+def fl_seq_rec(torch, card: str, clusters: FleetClusters):
+    """(b) seq_rec at the training phase's widths, 20 synchronous steps
+    over the watched cluster under ``svc.fleet_monitor`` (the default
+    rules, a scrape every 0.5 s, the trainer's own sidecar added), PS 1
+    SIGSTOPped for 4 scrape intervals between steps 10 and 11, against
+    the same steps over the reference cluster with no monitor. Gates: no
+    rule fires before the stall; ``target_down`` on ps1 within 2
+    intervals with a bundle, cleared after SIGCONT; ``fleet_status``
+    lists the trainer, the worker and both PS up without skew;
+    ``fleet_history`` has a rate of ``ps_lookup_rows_total`` above 0;
+    losses, dense state and every touched row bit-equal to the reference;
+    K2-K4 once a step, K1 and K5 never. Returns (the report, the watched
+    run's launches, the running monitor and the trainer's sidecar)."""
+    import signal
+
+    from persia_tpu_torch.obs_http import ObservabilityServer
+    from persia_tpu_torch.slos import SloEngine, default_rules
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = build_schema()
+    batches = list(seqrec_batches(FL_B_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED + 23, spec=spec))
+    signs = seq_signs(batches)
+    start = build_tower(spec.num_dense, "flash").state_dict()
+    ref = fl_train(torch, schema, clusters.ref, batches, start)
+    ref_rows = fl_rows(clusters.ref, signs, 2 * DIM)
+
+    svc = clusters.watched
+    sidecar = ObservabilityServer(service="trainer").start()
+    monitor = svc.fleet_monitor(
+        slo_engine=SloEngine(default_rules()),
+        postmortem_dir=os.path.join(clusters.pm_dir, "b"),
+        scrape_interval=FL_B_SCRAPE_S, scrape_timeout=FL_B_SCRAPE_TIMEOUT_S)
+    monitor.add_target("trainer", sidecar.addr, role="trainer")
+    stall = {}
+    victim = "ps1"
+
+    def on_step(step) -> float:
+        if step == 0:
+            monitor.start()
+            return 0.0
+        if step != FL_B_STALL_AT:
+            return 0.0
+        t0 = time.monotonic()
+        stall["before"] = monitor.engine.breach_events()
+        stall["rounds_before"] = monitor.rounds
+        proc = svc.ps_proc(1)
+        n0 = len(stall["before"])
+        stall["t_fault"] = time.monotonic()
+        proc.send_signal(signal.SIGSTOP)
+        try:
+            time.sleep(4 * FL_B_SCRAPE_S)
+            stall["breach"] = next(
+                (e for e in monitor.engine.breach_events()[n0:]
+                 if e["rule"] == "target_down" and e["service"] == victim),
+                None)
+        finally:
+            proc.send_signal(signal.SIGCONT)
+        t_cont = time.monotonic()
+        deadline = t_cont + 10
+        while time.monotonic() < deadline:
+            if not [a for a in monitor.alerts(firing_only=True)
+                    if a["rule"] == "target_down"]:
+                stall["cleared_s"] = time.monotonic() - t_cont
+                break
+            time.sleep(0.05)
+        return time.monotonic() - t0
+
+    try:
+        run = fl_train(torch, schema, svc, batches, start, on_step)
+        monitor.scrape_once()
+        status = monitor.fleet_status()
+        history = monitor.fleet_history("ps_lookup_rows_total",
+                                        window_sec=120.0)
+    except BaseException:
+        monitor.stop()
+        sidecar.stop()
+        raise
+    launches = run[2]
+    rows = fl_rows(svc, signs, 2 * DIM)
+    same = fl_compare("(b)", ref, run, ref_rows, rows)
+    before = [(e["rule"], e["service"]) for e in stall.get("before", [])]
+    breach = stall.get("breach")
+    latency = breach["t"] - stall["t_fault"] if breach else None
+    bundles = [p for p in monitor.recorder.captures if victim in p]
+    rows_up = {t["service"]: t["up"] for t in status["targets"]}
+    want = {"trainer", "worker0", "ps0", "ps1"}
+    line = (f"(b) seq_rec {FL_B_STEPS} synchronous steps of {TRAIN_BATCH} "
+            f"under the monitor (scrape {FL_B_SCRAPE_S}s, "
+            f"{len(monitor.engine.rules)} default rules, "
+            f"{monitor.rounds} rounds): breaches before the stall "
+            f"{before}; SIGSTOP {victim} -> target_down in "
+            + (f"{latency:.3f}s" if latency is not None else "never")
+            + f" (budget {2 * FL_B_SCRAPE_S}s), cleared "
+            f"{stall.get('cleared_s', float('nan')):.3f}s after SIGCONT, "
+            f"bundles {len(bundles)}; status {rows_up}, version_skew "
+            f"{status['version_skew']}; ps_lookup_rows_total rate "
+            f"{history['rate']}/s; against the unmonitored cluster: {same}; "
+            f"samples/s {FL_B_STEPS * TRAIN_BATCH / run[3]:.1f} watched "
+            f"(the stall left out) vs {FL_B_STEPS * TRAIN_BATCH / ref[3]:.1f}"
+            f" unwatched; launches "
+            + " ".join(f"{n}={c}" for n, c in launches.items()))
+    flash = [launches[n] for n in FLASH_KERNELS]
+    ok = (not before and latency is not None
+          and latency <= 2 * FL_B_SCRAPE_S and bundles
+          and "cleared_s" in stall and want <= set(rows_up)
+          and all(rows_up[s] for s in want)
+          and not status["version_skew"]
+          and (history["rate"] or 0) > 0
+          and flash == [FL_B_STEPS] * 3 and not launches["embedding_bag"]
+          and not launches["probe_copy"])
+    if not ok:
+        monitor.stop()
+        sidecar.stop()
+        raise AssertionError(f"fleet (b): {line}")
+    return line, launches, monitor, sidecar
+
+
+def fl_serving_cli(torch, card: str, clusters: FleetClusters,
+                   monitor) -> str:
+    """(c) the serving CLI started after setup (``--model dlrm`` on a
+    ``dense.pt`` of seeded weights, (b)'s worker, ``--max-batch-rows
+    256 --cache-rows 100000``): 64 serialized ``InferenceClient`` replies
+    bit-equal to an in-process ``InferenceServer`` built from the same
+    ``dense.pt`` over the same worker; the monitor discovers its sidecar
+    and lists it up; no kernel launches. Returns the report."""
+    import numpy as np
+
+    from persia_tpu_torch.serving import InferenceClient, InferenceServer, \
+        load_zoo_model
+
+    first = clusters.cli_first
+    if not np.isfinite(first["probe"]).all():
+        raise AssertionError("fleet (c): the CLI's first reply is not "
+                             "finite")
+    requests = fl_cli_requests(SEED + 31, FL_C_REQUESTS)
+    model = load_zoo_model("dlrm", clusters.ckpt_dir, clusters.num_dense,
+                           fl_cli_schema(), "cuda")
+    local = InferenceServer(model, fl_cli_schema(),
+                            worker_addrs=clusters.watched.worker_addrs,
+                            device="cuda", max_batch_rows=256,
+                            cache_rows=100_000)
+    local.serve_background()
+    remote_cl = InferenceClient(first["addr"])
+    local_cl = InferenceClient(local.addr)
+    reset_launch_counts()
+    try:
+        differ = 0
+        for b in requests:
+            got, want = remote_cl.predict(b), local_cl.predict(b)
+            if not (np.isfinite(got).all() and got.shape == want.shape):
+                raise AssertionError(f"fleet (c): a reply of shape "
+                                     f"{got.shape} is not finite")
+            differ += int(not np.array_equal(got.view(np.uint32),
+                                             want.view(np.uint32)))
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        served = remote_cl.stats()["requests"]
+    finally:
+        remote_cl.close()
+        local_cl.close()
+        local.stop()
+    monitor.discover()
+    monitor.scrape_once()
+    status = {t["service"]: t for t in monitor.fleet_status()["targets"]}
+    serving = status.get("serving0")
+    line = (f"(c) serving CLI (dlrm, dense.pt, (b)'s worker): registered "
+            f"{first['registered_s']:.3f}s and first reply "
+            f"{first['first_reply_s']:.3f}s after its spawn; "
+            f"{FL_C_REQUESTS} serialized replies of {REQUEST_ROWS} rows, "
+            f"{differ} differ in any bit from the in-process server's; "
+            f"its /healthz row in fleet_status: "
+            + (f"up={serving['up']} ready={serving['ready']} version "
+               f"{serving['version']}" if serving else "absent")
+            + f"; it served {served} requests (the probe included); "
+            f"launches " + " ".join(f"{n}={c}" for n, c in launches.items()))
+    if differ or not serving or not serving["up"] or any(launches.values()):
+        raise AssertionError(f"fleet (c): {line}")
+    return line
+
+
+def fl_native(torch, card: str, clusters: FleetClusters) -> str:
+    """(d) seq_rec's slots (clicks summed), 10 synchronous steps over
+    ``ServiceCtx(native_ps=True, native_worker=True, ps_capacity=
+    2_000_000, ps_num_shards=8)`` against the Python services on the same
+    batches and weights: losses, dense state and every touched row
+    bit-equal; the samples/s of each tier. Returns the report."""
+    from persia_tpu_torch.service.native_bin import zstd_mode
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = fl_native_schema()
+    batches = list(seqrec_batches(FL_D_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED + 29, spec=spec))
+    signs = seq_signs(batches)
+    start = build_tower(spec.num_dense, "flash").state_dict()
+    py = fl_train(torch, schema, clusters.py_tier, batches, start)
+    cc = fl_train(torch, schema, clusters.native_tier, batches, start)
+    same = fl_compare("(d)", py, cc, fl_rows(clusters.py_tier, signs,
+                                             2 * DIM),
+                      fl_rows(clusters.native_tier, signs, 2 * DIM))
+    flash = [cc[2][n] for n in FLASH_KERNELS]
+    line = (f"(d) seq_rec (clicks summed) {FL_D_STEPS} synchronous steps "
+            f"over the all-native tier (persia-embedding-ps / -worker, "
+            f"zstd {zstd_mode()}) against the Python services: {same}; "
+            f"samples/s native {FL_D_STEPS * TRAIN_BATCH / cc[3]:.1f}, "
+            f"Python {FL_D_STEPS * TRAIN_BATCH / py[3]:.1f}; launches "
+            + " ".join(f"{n}={c}" for n, c in cc[2].items()))
+    if flash != [FL_D_STEPS] * 3:
+        raise AssertionError(f"fleet (d): {line}")
+    return line
+
+
+def fleet_phase(torch, card: str, clusters: FleetClusters) -> dict:
+    """(b) and (c) on the watched cluster (the monitor of (b) discovers
+    (c)'s CLI), (d), then (a) in a child process, which touches no card.
+    Returns (b)'s launches."""
+    up = clusters.wait()
+    _log(f"[fleet] clusters, (a)'s PS and the serving CLI up {up:.1f}s "
+         f"after their start (beside the first three phases) | card: "
+         f"{card}")
+    t0 = time.perf_counter()
+    b_line, launches, monitor, sidecar = fl_seq_rec(torch, card, clusters)
+    _log(f"[fleet] {b_line} | card: {card}")
+    t1 = time.perf_counter()
+    _log(f"[time] fleet (b) {t1 - t0:.1f}s")
+    try:
+        c_line = fl_serving_cli(torch, card, clusters, monitor)
+    finally:
+        monitor.stop()
+        sidecar.stop()
+    _log(f"[fleet] {c_line} | card: {card}")
+    t2 = time.perf_counter()
+    _log(f"[time] fleet (c) {t2 - t1:.1f}s")
+    _log(f"[fleet] {fl_native(torch, card, clusters)} | card: {card}")
+    t3 = time.perf_counter()
+    _log(f"[time] fleet (d) {t3 - t2:.1f}s")
+    _log(f"[fleet] {fl_bench_process(card, clusters)} | card: {card}")
+    _log(f"[time] fleet (a) {time.perf_counter() - t3:.1f}s")
+    for c in clusters.ctxs:
+        if c.crashed:
+            raise AssertionError(f"fleet: a child crashed: {c.crashed}")
+    return launches
+
+
 def obs_get(addr: str, path: str):
     """A sidecar's ``/metrics`` as (samples, families), or its JSON
     document at ``path``."""
@@ -6959,6 +7781,7 @@ def main() -> int:
               f"from the root of a checkout", file=sys.stderr)
         return 2
     procs = clusters = su_clusters = on_clusters = rs_clusters = None
+    fl_clusters = None
     try:
         clock = _PhaseClock()
         card = card_line()
@@ -6996,6 +7819,10 @@ def main() -> int:
              f"{native.native_simd_path()}, os.cpu_count()={os.cpu_count()}")
         report_build(paths, sources)
         clock("setup")
+        # after setup's own work, so that its ~20 processes (the CLI's
+        # torch and CUDA start among them) come up during the first three
+        # phases, which mostly wait, and not against the build's reports
+        fl_clusters = FleetClusters()
         # first, so that its clusters are down before anything is timed
         su_launches = supervision_phase(torch, card, su_clusters)
         su_clusters.stop()
@@ -7012,6 +7839,11 @@ def main() -> int:
         rs_clusters.stop()
         rs_clusters = None
         clock("reshard")
+        # fourth, for the same reason
+        fleet_launches = fleet_phase(torch, card, fl_clusters)
+        fl_clusters.stop()
+        fl_clusters = None
+        clock("fleet")
         floor = launch_path_phase(torch, card)
         clock("launch_path")
         records = kernel_phase(torch, card)
@@ -7072,6 +7904,8 @@ def main() -> int:
             records[name]["launches_online"] = n
         for name, n in reshard_launches.items():
             records[name]["launches_reshard"] = n
+        for name, n in fleet_launches.items():
+            records[name]["launches_fleet"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "
@@ -7099,6 +7933,8 @@ def main() -> int:
             on_clusters.stop()
         if rs_clusters is not None:
             rs_clusters.stop()
+        if fl_clusters is not None:
+            fl_clusters.stop()
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -7108,7 +7944,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1:  # a rank of the multi_rank phase
+    if sys.argv[1:2] == ["fleet_bench"]:  # the fleet phase's (a)
+        sys.exit(fleet_bench_main(sys.argv[2]))
+    elif len(sys.argv) > 1:  # a rank of the multi_rank phase
         _ranks_module().rank_main(RANK_BODIES)
     else:
         sys.exit(main())

@@ -13,8 +13,9 @@ apply batch and write-rate governor), the service tier (the
 coordinator's address, the PS replica count, the PS service's dispatch,
 wire codec, circuit breaker, frames, GC tune, row dtype and spill tier,
 the worker's data plane and distinct-id monitor), whole-job supervision
-(the trainer group's size, rank and rendezvous, the snapshot cadence,
-the fleet's static targets) and live routing (a uniform table's slots a
+(the trainer group's size, rank and rendezvous, the snapshot cadence),
+the fleet monitor (its static targets, its history ring's window and
+points a series, the postmortem directory) and live routing (a uniform table's slots a
 replica, the ``__routing__`` rider, the reshard controller's chunk,
 drain, lease, journal, RPC deadline and the worker's stale-retry
 budget), with the JAX package's names,
@@ -54,6 +55,8 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_FAULTS", "str", None),
     Knob("PERSIA_FAULTS_RPC", "bool", False),
     Knob("PERSIA_FAULTS_SEED", "int", None),
+    Knob("PERSIA_FLEET_HISTORY_POINTS", "int", 512),
+    Knob("PERSIA_FLEET_HISTORY_SEC", "float", 600.0),
     Knob("PERSIA_FLEET_TARGETS", "str", ""),
     Knob("PERSIA_FSYNC", "bool", True),
     Knob("PERSIA_HOTNESS", "bool", False),
@@ -67,6 +70,7 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_ONLINE_APPLY_BATCH_ROWS", "int", 8192),
     Knob("PERSIA_ONLINE_APPLY_ROWS_PER_SEC", "int", 500_000),
     Knob("PERSIA_ONLINE_SCAN_SEC", "float", 2.0),
+    Knob("PERSIA_POSTMORTEM_DIR", "str", None),
     Knob("PERSIA_PROCESS_COUNT", "int", 1),
     Knob("PERSIA_PROCESS_INDEX", "int", 0),
     Knob("PERSIA_PS_BACKEND", "str", "auto"),

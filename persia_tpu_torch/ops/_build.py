@@ -68,13 +68,14 @@ def _lib_path(name: str) -> Path:
 
 
 class Job(NamedTuple):
-    """One compiler run: ``cmd -o <private name> source``, renamed to
-    ``path`` once it succeeded."""
+    """One compiler run: ``cmd -o <private name> source libs``, renamed
+    to ``path`` once it succeeded."""
 
     name: str
     path: Path
     cmd: Sequence[str]
     source: Path
+    libs: Sequence[str] = ()
 
 
 def compile_all(jobs: Sequence[Job]) -> Dict[str, str]:
@@ -90,7 +91,7 @@ def compile_all(jobs: Sequence[Job]) -> Dict[str, str]:
     for job in jobs:
         tmp = job.path.with_suffix(f".{os.getpid()}.tmp")
         procs.append((job, tmp, subprocess.Popen(
-            [*job.cmd, "-o", str(tmp), str(job.source)],
+            [*job.cmd, "-o", str(tmp), str(job.source), *job.libs],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = {}, []
     for job, tmp, proc in procs:

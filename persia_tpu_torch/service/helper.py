@@ -3,18 +3,19 @@
 
 :class:`ServiceCtx` starts a coordinator, then the PS and worker
 processes (``python -m persia_tpu_torch.service.<role>``, each binding
-port 0 and registering with the coordinator), waits for their
-registration, and watches them: when one dies, the group goes down and
-``crashed`` names it, unless its role is supervised, in which case it is
-started again (``supervise_ps``, ``supervise_workers``,
+port 0 and registering with the coordinator, or with ``native_ps`` /
+``native_worker`` the C++ binaries ``persia-embedding-ps`` /
+``persia-embedding-worker``, which the port builds from ``native/src/``
+at first use: :mod:`persia_tpu_torch.service.native_bin`), waits for
+their registration, and watches them: when one dies, the group goes down
+and ``crashed`` names it, unless its role is supervised, in which case it
+is started again (``supervise_ps``, ``supervise_workers``,
 ``supervise_trainer`` with a group of ``n_trainers`` trainer drivers).
 ``postmortem_dir`` arms the flight recorder: the supervised processes'
 ``/flight`` snapshots are polled, and a dead one leaves a postmortem
-bundle. Leaving the context stops every process.
-
-Not ported: the native C++ PS and worker binaries (``native_ps=``,
-``native_worker=``) and the fleet monitor (``fleet_monitor``); each
-raises naming the ROADMAP.md item it waits for.
+bundle. :meth:`ServiceCtx.fleet_monitor` builds a
+:class:`~persia_tpu_torch.fleet.FleetMonitor` over the cluster's
+coordinator. Leaving the context stops every process.
 """
 
 import json
@@ -40,8 +41,6 @@ _logger = logging.getLogger(__name__)
 # the checkout's root, which the children import the package from
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-_ITEM_9C = "ROADMAP.md queue A item 9c"
 
 
 def _schema_to_yaml_dict(schema: EmbeddingSchema) -> dict:
@@ -103,12 +102,23 @@ class ServiceCtx:
     ``trainer_recoveries``) with its ``time.monotonic()`` stamps. A role
     past its ``*_max_restarts`` tears the group down at its next death.
     ``postmortem_dir`` arms the flight recorder over the supervised
-    processes (polled every ``flight_interval`` seconds)."""
+    processes (polled every ``flight_interval`` seconds).
+
+    Native binaries. ``native_ps`` runs each PS replica as
+    ``persia-embedding-ps --capacity ps_capacity --num-shards
+    ps_num_shards`` (the global config's PS section is not read there);
+    ``native_worker`` each worker as ``persia-embedding-worker``, with the
+    global config's ``forward_buffer_size`` and
+    ``buffered_data_expired_sec`` as flags. Neither has a sidecar, and
+    neither can be supervised (``supervise_ps`` / ``supervise_workers``
+    raise with them). The C++ worker sums every summed slot, so a schema
+    with mean or last-k pooling is refused with ``native_worker``."""
 
     def __init__(self, schema: EmbeddingSchema, n_workers: int = 1,
                  n_ps: int = 1, global_config_path: Optional[str] = None,
                  env: Optional[dict] = None, startup_timeout: float = 120.0,
                  native_ps: bool = False, native_worker: bool = False,
+                 ps_capacity: int = 1_000_000_000, ps_num_shards: int = 16,
                  supervise_ps: bool = False,
                  ps_restore_dir: Optional[str] = None,
                  ps_inc_dir: Optional[str] = None,
@@ -133,18 +143,22 @@ class ServiceCtx:
                              "level")
         if n_trainers < 1:
             raise ValueError(f"n_trainers must be >= 1, got {n_trainers}")
-        for on, name, binary in ((native_ps, "native_ps",
-                                  "persia-embedding-ps"),
-                                 (native_worker, "native_worker",
-                                  "the C++ worker")):
-            if on:
-                raise NotImplementedError(
-                    f"ServiceCtx({name}=True) is not ported yet: it needs a "
-                    f"loader of the port's own for the {binary} binary; it "
-                    f"waits for {_ITEM_9C}")
+        pooled = sorted(name for name, s in schema.slots_config.items()
+                        if s.pooling != "sum")
+        if native_worker and pooled:
+            # the C++ worker sums every summed slot (worker_core.h); it
+            # would serve these slots' rows summed, not as configured
+            raise ValueError(
+                f"native_worker has no mean or last-k pooling, and slots "
+                f"{pooled} ask for it; run the Python worker tier")
         self.schema = schema
         self.n_workers = n_workers
         self.n_ps = n_ps
+        self.native_ps = native_ps
+        self.native_worker = native_worker
+        self.ps_capacity = ps_capacity
+        self.ps_num_shards = ps_num_shards
+        self._binaries: dict = {}  # name -> path, built at start
         self.global_config_path = global_config_path
         self.extra_env = env or {}
         self.startup_timeout = startup_timeout
@@ -208,6 +222,12 @@ class ServiceCtx:
     def _spawn(self, args: List[str], name: str, replica_index: int,
                replica_size: int,
                env_extra: Optional[dict] = None) -> subprocess.Popen:
+        return self._spawn_raw([sys.executable, *args], name, replica_index,
+                               replica_size, env_extra=env_extra)
+
+    def _spawn_raw(self, cmd: List[str], name: str, replica_index: int,
+                   replica_size: int,
+                   env_extra: Optional[dict] = None) -> subprocess.Popen:
         env = dict(os.environ)
         env["PYTHONPATH"] = _REPO_ROOT + os.pathsep + env.get("PYTHONPATH",
                                                               "")
@@ -218,7 +238,7 @@ class ServiceCtx:
         env.update({k: str(v) for k, v in self.extra_env.items()})
         if env_extra:
             env.update({k: str(v) for k, v in env_extra.items()})
-        proc = subprocess.Popen([sys.executable, *args], env=env)
+        proc = subprocess.Popen(cmd, env=env)
         proc._persia_name = name  # type: ignore[attr-defined]
         self.procs.append(proc)
         return proc
@@ -241,6 +261,13 @@ class ServiceCtx:
         return self
 
     def _start(self):
+        wanted = [name for on, name in (
+            (self.native_ps, "persia-embedding-ps"),
+            (self.native_worker, "persia-embedding-worker")) if on]
+        if wanted:
+            from persia_tpu_torch.service.native_bin import ensure_binaries
+
+            self._binaries = ensure_binaries(wanted)
         schema_path = os.path.join(self._tmpdir.name, "embedding_config.yml")
         dump_yaml(_schema_to_yaml_dict(self.schema), schema_path)
         # the coordinator binds port 0 and publishes the address it got
@@ -253,9 +280,15 @@ class ServiceCtx:
                                                coord_proc)
         coord = CoordinatorClient(self.coordinator_addr)
         for i in range(self.n_ps):
-            self._spawn_ps(i)
+            if self.native_ps:
+                self._spawn_native_ps(i)
+            else:
+                self._spawn_ps(i)
         for i in range(self.n_workers):
-            self._spawn_worker(i, schema_path)
+            if self.native_worker:
+                self._spawn_native_worker(i, schema_path)
+            else:
+                self._spawn_worker(i, schema_path)
         self.ps_addrs = self._wait_members(coord, ROLE_PS, self.n_ps)
         self.worker_addrs = self._wait_members(coord, ROLE_WORKER,
                                                self.n_workers)
@@ -289,6 +322,29 @@ class ServiceCtx:
             time.sleep(0.05)
 
     # --- spawning ---------------------------------------------------------
+
+    def _spawn_native_ps(self, i: int) -> subprocess.Popen:
+        return self._spawn_raw(
+            [self._binaries["persia-embedding-ps"], "--replica-index",
+             str(i), "--capacity", str(self.ps_capacity), "--num-shards",
+             str(self.ps_num_shards), "--coordinator",
+             self.coordinator_addr], f"ps-{i}", i, self.n_ps)
+
+    def _spawn_native_worker(self, i: int,
+                             schema_path: str) -> subprocess.Popen:
+        """The C++ worker takes the worker section of the global config as
+        flags, so both tiers honour the same config."""
+        cmd = [self._binaries["persia-embedding-worker"], "--replica-index",
+               str(i), "--embedding-config", schema_path, "--coordinator",
+               self.coordinator_addr, "--num-ps", str(self.n_ps)]
+        if self.global_config_path:
+            from persia_tpu_torch.config import GlobalConfig
+
+            gc = GlobalConfig.load(self.global_config_path).embedding_worker
+            cmd += ["--forward-buffer-size", str(gc.forward_buffer_size),
+                    "--buffered-data-expired-sec",
+                    str(gc.buffered_data_expired_sec)]
+        return self._spawn_raw(cmd, f"worker-{i}", i, self.n_workers)
 
     def _spawn_worker(self, i: int, schema_path: str) -> subprocess.Popen:
         """Start worker replica ``i``; its arguments are kept for a
@@ -763,9 +819,12 @@ class ServiceCtx:
         return get_fleet_targets(self.coordinator_addr)
 
     def fleet_monitor(self, **kw):
-        raise NotImplementedError(
-            f"ServiceCtx.fleet_monitor: FleetMonitor (persia_tpu/fleet.py) "
-            f"is not ported yet; it waits for {_ITEM_9C}")
+        """A :class:`~persia_tpu_torch.fleet.FleetMonitor` over this
+        cluster's coordinator, built and not started (``kw`` goes to its
+        constructor)."""
+        from persia_tpu_torch.fleet import FleetMonitor
+
+        return FleetMonitor(coordinator_addr=self.coordinator_addr, **kw)
 
     def coordinator_client(self) -> CoordinatorClient:
         return CoordinatorClient(self.coordinator_addr)

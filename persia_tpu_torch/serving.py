@@ -494,6 +494,37 @@ def _remote_worker(worker_addrs: Optional[Sequence[str]],
     return worker
 
 
+def dense_path(dense_checkpoint: str) -> str:
+    """The dense file a ``--dense-checkpoint`` names: a checkpoint
+    directory's ``dense.pt`` (through :func:`checkpoint.dense_file`), or
+    the file itself. The JAX package's ``dense.msgpack`` (flax state) is
+    refused by name."""
+    if os.path.isdir(dense_checkpoint):
+        path = ckpt.dense_file(dense_checkpoint)
+        if path is None:
+            raise FileNotFoundError(
+                f"{dense_checkpoint} holds no {ckpt.DENSE_FILE}")
+        return path
+    if dense_checkpoint.endswith(".msgpack"):
+        raise ValueError(
+            f"{dense_checkpoint} is a flax msgpack dense state (the JAX "
+            f"package's {ckpt.JAX_DENSE_FILE}); the port reads only torch "
+            f"dense state ({ckpt.DENSE_FILE})")
+    return dense_checkpoint
+
+
+def load_zoo_model(model_name: str, dense_checkpoint: str, num_dense: int,
+                   schema: EmbeddingSchema, device: DeviceLike = None,
+                   **kw):
+    """A zoo tower (``_model_zoo``'s widths from ``schema``) on
+    ``device`` with the weights of ``dense_checkpoint``, in eval mode."""
+    model = _model_zoo()[model_name](int(num_dense), schema, device=device,
+                                     **kw)
+    with open(dense_path(dense_checkpoint), "rb") as f:
+        ckpt.apply_dense_bytes((model, None), f.read())
+    return model.eval()
+
+
 class InferenceServer:
     """Predict server over an :class:`InferCtx` on ``device`` (default
     CUDA), reachable in process and over the RPC wire.
@@ -661,19 +692,12 @@ class InferenceServer:
         checkpoint directory, read through :func:`checkpoint.dense_file`,
         or a ``dense.pt`` file). The tower computes in the boot model's
         dtype."""
-        path = dense_checkpoint
-        if os.path.isdir(path):
-            path = ckpt.dense_file(path)
-            if path is None:
-                raise FileNotFoundError(
-                    f"{dense_checkpoint} holds no {ckpt.DENSE_FILE}")
-        kw = {"device": self.device}
+        kw = {}
         if hasattr(self.model, "compute_dtype"):
             kw["compute_dtype"] = self.model.compute_dtype
-        model = _model_zoo()[model_name](int(num_dense), self.schema, **kw)
-        with open(path, "rb") as f:
-            ckpt.apply_dense_bytes((model, None), f.read())
-        self.add_variant(name, model.eval(), weight=weight, default=default,
+        model = load_zoo_model(model_name, dense_checkpoint, num_dense,
+                               self.schema, self.device, **kw)
+        self.add_variant(name, model, weight=weight, default=default,
                          meta={"model": model_name,
                                "dense_checkpoint": dense_checkpoint})
 
@@ -1097,3 +1121,134 @@ class InferenceClient:
 
     def close(self):
         self.client.close()
+
+
+def main(argv=None):
+    """Serve a trained zoo model (the JAX package's ``persia-tpu-serving``,
+    ``persia_tpu/serving.py`` ``main``): ``python -m
+    persia_tpu_torch.serving --model dlrm --dense-checkpoint dense.pt
+    --embedding-config schema.yml [--worker-addrs a,b] [--coordinator
+    addr] [--device cuda]``. With ``--coordinator`` the replica registers
+    as ``inference-server`` with its sidecar, so the fleet monitor
+    scrapes it."""
+    import argparse
+
+    from persia_tpu_torch.service_discovery import (
+        get_embedding_worker_services,
+    )
+
+    zoo = _model_zoo()
+    p = argparse.ArgumentParser(prog="persia-tpu-torch-serving")
+    p.add_argument("--model", choices=sorted(zoo), default="dnn")
+    p.add_argument("--dense-checkpoint", required=True,
+                   help="dense.pt from dump_checkpoint, or its checkpoint "
+                        "directory (a JAX dense.msgpack is refused)")
+    p.add_argument("--embedding-config", required=True)
+    p.add_argument("--num-dense", type=int, default=5,
+                   help="dense feature width the model was trained with")
+    p.add_argument("--device", default="cuda",
+                   help="the towers' device (default cuda; cpu on a host "
+                        "without a card)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8501)
+    p.add_argument("--worker-addrs", default=None,
+                   help="comma-separated; default EMBEDDING_WORKER_SERVICE "
+                        "or the coordinator's workers")
+    p.add_argument("--coordinator",
+                   default=knobs.get_raw("PERSIA_COORDINATOR_ADDR"),
+                   help="register this serving replica (and its "
+                        "observability sidecar) with the coordinator so "
+                        "the fleet monitor scrapes it")
+    p.add_argument("--replica-index", type=int,
+                   default=int(os.environ.get("REPLICA_INDEX", 0)))
+    p.add_argument("--max-batch-rows", type=int, default=0,
+                   help="enable micro-batching up to this many coalesced "
+                        "rows (0 = serialized path)")
+    p.add_argument("--max-wait-us", type=int, default=2000,
+                   help="adaptive linger window for straggler coalescing")
+    p.add_argument("--cache-rows", type=int, default=0,
+                   help="hot-row LRU capacity (0 = no cache)")
+    p.add_argument("--cache-ttl-sec", type=float, default=30.0,
+                   help="hot-row TTL; bounds staleness vs inc_update")
+    p.add_argument("--inc-dir", default=None,
+                   help="attach the online delta subscriber to this "
+                        "incremental-update packet directory: trained "
+                        "rows upsert the hot-row cache in place instead "
+                        "of waiting out the TTL. Requires --cache-rows")
+    p.add_argument("--online-scan-sec", type=float, default=None,
+                   help="delta-subscriber scan interval "
+                        "(default PERSIA_ONLINE_SCAN_SEC)")
+    p.add_argument("--variant", action="append", default=[],
+                   metavar="NAME=WEIGHT:MODEL:DENSE_CKPT[:default]",
+                   help="register an extra serving variant at boot "
+                        "(repeatable); more can be added live through the "
+                        "variant_admin RPC")
+    p.add_argument("--variant-name", default="default",
+                   help="name of the boot model's variant (the default "
+                        "unless a --variant entry claims it)")
+    p.add_argument("--no-degraded-fallback", action="store_true",
+                   help="fail predicts when the embedding tier is "
+                        "unreachable instead of serving zero-vector "
+                        "embeddings for the affected signs")
+    p.add_argument("--wire-codec", default=None,
+                   choices=["off", "fp16", "fp16+int8"],
+                   help="embedding-row wire precision policy "
+                        "(PERSIA_PS_WIRE_CODEC): the miss-fetch hop ships "
+                        "fp16 rows when enabled; legacy peers negotiate "
+                        "down to fp32")
+    obs_http.add_http_args(p)
+    args = p.parse_args(argv)
+    logging.basicConfig(level=os.environ.get("LOG_LEVEL", "INFO").upper())
+    tracing.set_service_name(f"serving:{args.port}")
+    if args.wire_codec is not None:
+        # read by every row-wire client built below
+        os.environ["PERSIA_PS_WIRE_CODEC"] = args.wire_codec
+
+    schema = EmbeddingSchema.load(args.embedding_config)
+    model = load_zoo_model(args.model, args.dense_checkpoint, args.num_dense,
+                           schema, args.device)
+    if args.worker_addrs:
+        addrs = [a.strip() for a in args.worker_addrs.split(",")
+                 if a.strip()]
+    else:
+        addrs = get_embedding_worker_services(args.coordinator)
+    server = InferenceServer(model, schema, worker_addrs=addrs,
+                             device=args.device, host=args.host,
+                             port=args.port,
+                             max_batch_rows=args.max_batch_rows,
+                             max_wait_us=args.max_wait_us,
+                             cache_rows=args.cache_rows,
+                             cache_ttl_sec=args.cache_ttl_sec,
+                             http_port=obs_http.port_from_args(args),
+                             degraded_fallback=not args.no_degraded_fallback,
+                             variant_name=args.variant_name)
+    for spec in args.variant:
+        name, _, rest = spec.partition("=")
+        parts = rest.split(":")
+        if len(parts) < 3:
+            p.error(f"--variant {spec!r}: expected "
+                    "NAME=WEIGHT:MODEL:DENSE_CKPT[:default]")
+        server.add_variant_from_checkpoint(
+            name, parts[1], parts[2], num_dense=args.num_dense,
+            weight=float(parts[0]),
+            default=len(parts) > 3 and parts[3] == "default")
+    if args.inc_dir:
+        kw = {}
+        if args.online_scan_sec is not None:
+            kw["scan_interval_sec"] = args.online_scan_sec
+        server.attach_delta_subscriber(args.inc_dir, **kw)
+    obs_http.write_addr_file_from_args(server.http, args)
+    if args.coordinator:
+        from persia_tpu_torch.service.coordinator import (
+            ROLE_INFERENCE,
+            CoordinatorClient,
+        )
+
+        CoordinatorClient(args.coordinator).register(
+            ROLE_INFERENCE, args.replica_index, server.addr,
+            http_addr=server.http.addr if server.http else None)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -288,7 +288,9 @@ def test_port_imports_no_jax():
         "'persia_tpu_torch.service.worker_service', "
         "'persia_tpu_torch.service.helper', "
         "'persia_tpu_torch.service.trainer_service', "
-        "'persia_tpu_torch.fleet', 'persia_tpu_torch.service_discovery', "
+        "'persia_tpu_torch.fleet', 'persia_tpu_torch.slos', "
+        "'persia_tpu_torch.service.native_bin', "
+        "'persia_tpu_torch.service_discovery', "
         "'persia_tpu_torch.inc_update', 'persia_tpu_torch.online', "
         "'persia_tpu_torch.service.dataflow', 'persia_tpu_torch.reshard') "
         "if n not in sys.modules]\n"

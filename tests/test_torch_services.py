@@ -434,6 +434,11 @@ def _mixed_schema():
                                 feature_index_prefix_bit=8)
 
 
+def _summed_schema():
+    return tcfg.EmbeddingSchema(slots_config=tcfg.uniform_slots(
+        ["a", "b"], dim=8))
+
+
 def _grads(rng, lookup):
     return {n: rng.standard_normal(r.embeddings.shape).astype(np.float32)
             for n, r in lookup.items()}
@@ -709,8 +714,11 @@ def test_retried_update_ships_only_unlanded_groups_after_a_new_client_list(
 
 @pytest.mark.parametrize("kw,error,match", [pytest.param(*case, id=next(
     iter(case[0]))) for case in [
-        ({"native_ps": True}, NotImplementedError, "item 9c"),
-        ({"native_worker": True}, NotImplementedError, "item 9c"),
+        # the native binaries are taken (no error): each replica starts
+        # with the JAX package's command line
+        ({"native_ps": True, "ps_capacity": 5000, "ps_num_shards": 3},
+         None, "--capacity"),
+        ({"native_worker": True}, None, "--forward-buffer-size"),
         # supervision is ported; what is refused is its pairing with a
         # native binary (a ValueError, as in the JAX package) ...
         ({"supervise_ps": True, "native_ps": True}, ValueError,
@@ -725,18 +733,48 @@ def test_retried_update_ships_only_unlanded_groups_after_a_new_client_list(
          "--replay-inc-dir")]])
 def test_service_ctx_refusals_name_item_9b(kw, error, match, tmp_path,
                                            monkeypatch):
-    """The refusals of what item 9b left (item 9c, native binaries), the
-    JAX package's ValueError pairs, and ``ps_inc_dir``, which a PS's
-    restore start passes on as the JAX supervisor does."""
+    """The native binaries, once refused and now started with the JAX
+    package's command lines (``service/helper.py:270-305``: the PS's
+    capacity and shards, the worker's buffer flags from the global
+    config), the JAX package's ValueError pairs, and ``ps_inc_dir``,
+    which a PS's restore start passes on as the JAX supervisor does."""
     from persia_tpu_torch.service.helper import ServiceCtx
+    from persia_tpu_torch.utils import dump_yaml
 
     monkeypatch.chdir(tmp_path)
     if error is not None:
         with pytest.raises(error, match=match):
             ServiceCtx(_mixed_schema(), **kw)
         return
-    svc = ServiceCtx(_mixed_schema(), **kw)
+    gc_path = os.fspath(tmp_path / "global.yml")
+    dump_yaml({"embedding_worker_config": {
+        "forward_buffer_size": 7, "buffered_data_expired_sec": 9}}, gc_path)
+    # the C++ worker has no mean pooling: its schema sums every slot
+    schema = (_summed_schema() if "native_worker" in kw
+              else _mixed_schema())
+    svc = ServiceCtx(schema, global_config_path=gc_path, **kw)
     svc.coordinator_addr = "127.0.0.1:1"
+    if "native_ps" in kw or "native_worker" in kw:
+        svc._binaries = {"persia-embedding-ps": "/bin/ps",
+                         "persia-embedding-worker": "/bin/worker"}
+        cmds = []
+        monkeypatch.setattr(svc, "_spawn_raw", lambda cmd, name, i, n, **k:
+                            cmds.append((cmd, name, i, n)))
+        if "native_ps" in kw:
+            svc._spawn_native_ps(1)
+            assert cmds == [(["/bin/ps", "--replica-index", "1",
+                              "--capacity", "5000", "--num-shards", "3",
+                              "--coordinator", "127.0.0.1:1"], "ps-1", 1,
+                             1)]
+        else:
+            svc._spawn_native_worker(0, "schema.yml")
+            assert cmds == [(["/bin/worker", "--replica-index", "0",
+                              "--embedding-config", "schema.yml",
+                              "--coordinator", "127.0.0.1:1", "--num-ps",
+                              "1", match, "7",
+                              "--buffered-data-expired-sec", "9"],
+                             "worker-0", 0, 1)]
+        return
     spawned = []
     monkeypatch.setattr(svc, "_spawn", lambda args, *a, **k: spawned.append(
         args) or type("P", (), {})())
@@ -845,9 +883,9 @@ def test_ps_service_refuses_the_incremental_tier(case, tmp_path,
 def test_routing_and_monitor_refusals_name_their_items(tmp_path,
                                                        monkeypatch):
     """Once refused, now taken: a routing table published over the wire
-    (``apply_routing`` with the PS addresses, ``close_routing_window``)
-    and ``--enable-monitor``; what is still refused (the native binaries,
-    the fleet monitor) names item 9c."""
+    (``apply_routing`` with the PS addresses, ``close_routing_window``),
+    ``--enable-monitor``, the native binaries and the fleet monitor
+    (built over the cluster's coordinator, not started)."""
     from persia_tpu_torch.routing import RoutingTable
     from persia_tpu_torch.service import worker_service
     from persia_tpu_torch.service.helper import ServiceCtx
@@ -890,11 +928,19 @@ def test_routing_and_monitor_refusals_name_their_items(tmp_path,
                                    "--enable-monitor"], monkeypatch)
     assert seen["enable_monitor"] is True
     assert seen["routing_fetch"] is None  # fixed addresses: no pull
+    from persia_tpu_torch.fleet import FleetMonitor
+
     for kw in ({"native_ps": True}, {"native_worker": True}):
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            ServiceCtx(_mixed_schema(), **kw)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        ServiceCtx(_mixed_schema()).fleet_monitor()
+        svc = ServiceCtx(_summed_schema(), **kw)
+        assert (svc.native_ps, svc.native_worker) == (
+            "native_ps" in kw, "native_worker" in kw)
+    svc = ServiceCtx(_mixed_schema())
+    svc.coordinator_addr = "127.0.0.1:1"  # nothing listens: no target
+    mon = svc.fleet_monitor(scrape_interval=0.5)
+    assert isinstance(mon, FleetMonitor) and mon._thread is None
+    assert (mon.coordinator_addr, mon.scrape_interval) == ("127.0.0.1:1",
+                                                           0.5)
+    assert mon.targets() == []
 
 
 def test_device_cache_refuses_a_remote_worker():
