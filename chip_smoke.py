@@ -216,7 +216,8 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      values a 1024-bucket after int8_ef, and neither after f32;
      samples/s of each;
    - (b) device mode at ``bench_device``'s width (26 x 2^20 x 16) over
-     the data axis with an f32 tower, 5 steps against rank 0 alone under
+     the data axis with an f32 tower, 3 steps (5 before (e) came)
+     against rank 0 alone under
      device mode's agreement rule; K1 once a step on each rank; the two
      ranks' tables equal (a digest of their bits); step ms and peak
      memory;
@@ -226,7 +227,27 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      1e-4 / 1e-3), then 10 bf16 Ulysses steps in which K2, K3 and K4 each
      launch once a step on every rank; one Ulysses forward and backward
      at the attention bench's shape against K2-K4 on one rank (2e-2),
-     each rank's ms.
+     each rank's ms;
+   - (e) seq_rec at the example's widths (bf16 flash tower) on
+     ``TrainCtx(mesh=make_mesh((2, 1)))``, the native PS in the leader's
+     process, through the ``DataLoader`` on the mesh (the leader reads
+     the dataset; rank 1 is given none and trains the leader's batches):
+     (e1) 24 steps (4 lookup workers, staleness 8): every loss finite,
+     K2, K3 and K4 once a step on each rank, the ranks' dense parameters
+     bit-equal, no permit held at the end; (e2) 10 reproducible
+     staleness-1 steps equal 10 synchronous mesh steps bit for bit
+     (losses, model and Adam state on each rank, every touched PS row);
+     (e3) a collective ``ctx.snapshot`` at step 12 of 24 and a fresh
+     ``TrainCtx(mesh=, resume_from=)`` on both ranks running steps 13-24
+     from the cursor equal the unbroken run bit for bit (the same three);
+     (e4) ``eval_ctx`` of the f32 Ulysses tower over ``make_mesh((1,
+     2))`` on 4 held-out batches on every rank, within 1e-4 of the
+     single-rank flash tower, K2 once a batch on each rank; (e5) a
+     ``StepProfiler`` window of steps 10-12 of (e1) on rank 0: its
+     Chrome trace parses and holds exactly 3 ``trainer/train_step``
+     ranges and K2, K3 and K4 3 times each (when the card's CUPTI gives
+     device events; without them only the ranges are held), with the
+     card's busy share of the window and its top kernels printed.
    On the NCCL rank, once the gloo ranks are done: (d) f32 and int8_ef
    DDP steps of (a)'s model, which must take NCCL's all_reduce,
    all_to_all, all_gather and broadcast.
@@ -2226,14 +2247,15 @@ def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
                backend=None, spill_root=None, hotness=None,
                resume_from=None, mesh=None, grad_reduce_dtype=None,
                device_cache_capacity=0, device_cache_admission=None,
-               worker=None):
+               worker=None, profiler=None):
     """A TrainCtx on the model's device over a fresh worker whose PS
     shards are ``make_holder(capacity, shards, backend=backend)`` for each
     ``(capacity, shards)`` of ``holders`` (or over ``worker``, a remote
     one); the tower seeded unless ``seed`` is None. ``spill_root`` arms
     each shard's spill tier in ``<spill_root>/spill_<i>``, ``hotness`` its
     sketches; ``resume_from`` and the device cache's arguments go to the
-    TrainCtx. Over a ``mesh`` only its leader builds the worker."""
+    TrainCtx, as does ``profiler``. Over a ``mesh`` only its leader builds
+    the worker."""
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding import EmbeddingConfig
     from persia_tpu_torch.embedding.optim import Adagrad
@@ -2255,7 +2277,8 @@ def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
                     resume_from=resume_from, mesh=mesh,
                     grad_reduce_dtype=grad_reduce_dtype,
                     device_cache_capacity=device_cache_capacity,
-                    device_cache_admission=device_cache_admission)
+                    device_cache_admission=device_cache_admission,
+                    profiler=profiler)
 
 
 def run_errors(run, ref):
@@ -4079,12 +4102,24 @@ MR_EF_TOL = 0.08
 # ~3e-3, so the update is near linear in the gradient's scale).
 MR_PARAM_RTOL = 5e-2
 MR_PARAM_ULPS = 8 * 2.0 ** -23
-MR_DM_STEPS = 5
+MR_DM_STEPS = 3  # 5 before (e) came
 MR_CP_AGREE_STEPS = 3
 MR_CP_STEPS = 10
 MR_NCCL_STEPS = 3
 MR_BENCH_SHAPE = (4, 8, 8192, 128)  # the attention bench's B, H, T, Dh
 MR_BENCH_ITERS = 3
+# (e) seq_rec through the DataLoader on the (2, 1) mesh
+MR_PIPE_STEPS = 24  # (e1): 4 lookup workers, staleness 8
+MR_PIPE_AGREE_STEPS = 10  # (e2): reproducible, staleness 1, vs synchronous
+MR_RESUME_STEPS, MR_RESUME_AT = 24, 12  # (e3): snapshot at 12 of 24
+MR_EVAL_BATCHES = 4  # (e4): held-out batches through the CP eval
+MR_EVAL_ATOL = 1e-4
+MR_PROF_START, MR_PROF_STEPS = 10, 3  # (e5): the window inside (e1)
+# K2, K3, K4 in a Chrome trace: the port's kernels' names after their
+# namespace (the library's own flash kernels are flash_fwd_kernel ...)
+MR_PROF_KERNELS = {"flash_attention_fwd": "::fwd_kernel<",
+                   "flash_attention_bwd_dq": "::bwd_dq_kernel<",
+                   "flash_attention_bwd_dkv": "::bwd_dkv_kernel<"}
 MR_TIMEOUT_S = 300  # a collective that waits on a dead peer fails then
 MR_DEADLINE_S = 480  # a rank group that outlives this is killed
 MR_WAIT_S = 900  # a rank started before the build waits this for its go
@@ -4428,8 +4463,234 @@ def mr_context_parallel(torch, mesh):
     return out
 
 
+def rows_equal(want: dict, got: dict) -> bool:
+    """Two ``ps_rows`` maps hold the same rows, bit for bit."""
+    import numpy as np
+
+    return set(want) == set(got) and all(
+        np.array_equal(want[k].view(np.uint32), got[k].view(np.uint32))
+        for k in want)
+
+
+def trace_summary(path: str) -> dict:
+    """A step profiler's Chrome trace: its events, the ``trainer/train_step``
+    ranges, the card's kernels by name pattern (``MR_PROF_KERNELS``), the
+    card's busy share of the window (the union of its kernels, copies and
+    fills over the first step's start to the last event's end), the mean
+    device ms of K2-K4 and the 5 kernels with the most time."""
+    from collections import Counter
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name") == "trainer/train_step"]
+    gpu = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in gpu if e["cat"] == "kernel"]
+    mine = {k: [float(e["dur"]) for e in kernels if pat in e["name"]]
+            for k, pat in MR_PROF_KERNELS.items()}
+    out = {"events": len(events), "steps": len(steps),
+           "gpu_events": len(gpu),
+           "counts": {k: len(v) for k, v in mine.items()},
+           "kernel_ms": {k: round(sum(v) / len(v) / 1e3, 6) if v else None
+                         for k, v in mine.items()}}
+    if not steps or not gpu:
+        return out
+    t0 = min(float(e["ts"]) for e in steps)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in steps + gpu)
+    busy, end = 0.0, t0
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in gpu):
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    by_name = Counter()
+    for e in kernels:
+        name = e["name"].replace("(anonymous namespace)::", "")
+        by_name[name.split("(")[0].replace("void ", "")[:70]] += float(
+            e["dur"])
+    out.update(window_ms=(t1 - t0) / 1e3, busy_share=busy / (t1 - t0),
+               top_ms=[(n, round(us / 1e3, 4))
+                       for n, us in by_name.most_common(5)])
+    return out
+
+
+def mr_mesh_pipeline(torch, mesh):
+    """(e) seq_rec at the example's widths (bf16 flash tower) over the
+    (2, 1) mesh, the native PS in the leader's process: (e1) 24
+    ``DataLoader`` steps (4 lookup workers, staleness 8; the other rank's
+    dataset is empty: it trains the leader's batches), with (e5) a step
+    profiler window of 3 steps on rank 0; (e2) 10 reproducible
+    staleness-1 ``DataLoader`` steps against 10 synchronous mesh steps;
+    (e3) a collective snapshot at step 12 of 24 and a fresh
+    ``TrainCtx(mesh=, resume_from=)`` that runs the other 12 from the
+    cursor, against the unbroken run; (e4) ``eval_ctx`` of the f32
+    Ulysses tower over (1, 2) on 4 held-out batches against the
+    single-rank flash tower on rank 0."""
+    import itertools
+    import tempfile
+
+    import torch.distributed as dist
+
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+    from persia_tpu_torch.ctx import eval_ctx
+    from persia_tpu_torch.data.dataloader import DataLoader, ResumableDataset
+    from persia_tpu_torch.ops import flash_attention as fa
+    from persia_tpu_torch.parallel import collectives as coll
+    from persia_tpu_torch.parallel.mesh import is_leader, make_mesh
+    from persia_tpu_torch.tracing import StepProfiler
+    from persia_tpu_torch.workloads.generator import (
+        SeqRecSpec,
+        seqrec_batches,
+    )
+
+    leader = is_leader(mesh)
+    schema = build_schema()
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    state = build_tower(spec.num_dense, "flash").state_dict()
+    tmp = tempfile.mkdtemp(prefix="mr_e_")
+    out = {}
+
+    def ctx_of(resume_from=None, profiler=None):
+        return hybrid_ctx(
+            torch, build_tower(spec.num_dense, "flash", state_dict=state),
+            schema, [(2_000_000, 8)] * N_PS,
+            lambda p: torch.optim.Adam(p, lr=1e-3), 1e-2, (-0.05, 0.05),
+            seed=None, mesh=mesh, resume_from=resume_from,
+            profiler=profiler)
+
+    def done(ctx, rows=False):
+        """The run's dense state, and its PS rows on the leader; the
+        leader's worker closed."""
+        got = {"dense": dense_state(ctx)}
+        if ctx.worker is not None:
+            got["rows"] = ps_rows(ctx.worker) if rows else None
+            ctx.worker.close()
+        return got
+
+    # (e1), (e5)
+    batches = list(seqrec_batches(MR_PIPE_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                                  seed=TRAIN_SEED, spec=spec))
+    prof = (StepProfiler(os.path.join(tmp, "prof"), MR_PROF_START,
+                         MR_PROF_STEPS) if dist.get_rank() == 0 else None)
+    ctx = ctx_of(profiler=prof)
+    fa.reset_launch_count()
+    with ctx:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = [ctx.train_step(lb)[0]
+                  for lb in pipelined_loader(batches if leader else [])]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = {n: fa.launch_count(n) for n in FLASH_KERNELS}
+    end = _dense_flat(torch, ctx)
+    both = coll.all_gather(end[None], None, 0)
+    out["e1"] = {"losses": [float(x) for x in losses], "launches": launches,
+                 "params_equal": bool(torch.equal(both[0], both[1])),
+                 "samples_per_s": TRAIN_BATCH * len(losses) / wall,
+                 "staleness": (ctx.worker.staleness if leader else 0)}
+    done(ctx)
+    if prof is not None:
+        out["e5"] = {"trace": prof.trace_path, **(
+            trace_summary(prof.trace_path) if prof.trace_path else {})}
+
+    # (e2)
+    agree = batches[:MR_PIPE_AGREE_STEPS]
+    runs = {}
+    for name in ("synchronous", "pipelined"):
+        ctx = ctx_of()
+        with ctx:
+            src = (pipelined_loader(agree if leader else [],
+                                    reproducible=True, staleness=1)
+                   if name == "pipelined" else agree)
+            runs[name] = [float(ctx.train_step(b)[0]) for b in src]
+        runs[name] = {"losses": runs[name], **done(ctx, rows=True)}
+    sync, pipe = runs["synchronous"], runs["pipelined"]
+    out["e2"] = {"losses_equal": sync["losses"] == pipe["losses"],
+                 "dense": first_difference(sync["dense"], pipe["dense"]),
+                 "rows": (len(sync["rows"]),
+                          rows_equal(sync["rows"], pipe["rows"]))
+                 if leader else None}
+
+    # (e3)
+    snaps = os.path.join(tmp, "snaps")
+
+    def factory(seed):
+        return iter(seqrec_batches(MR_RESUME_STEPS * TRAIN_BATCH,
+                                   TRAIN_BATCH, seed=seed, spec=spec))
+
+    def run(ctx, ds, snapshot=False):
+        got = {}
+        with ctx:
+            got["losses"] = [float(ctx.train_step(lb)[0]) for lb in
+                             DataLoader(ds, num_workers=PIPE_WORKERS,
+                                        reproducible=True,
+                                        embedding_staleness=1)]
+            if snapshot:
+                t = time.perf_counter()
+                got["snap"] = ctx.snapshot(
+                    snaps, cursor=ds.cursor(len(got["losses"])))
+                got["snapshot_ms"] = 1e3 * (time.perf_counter() - t)
+        return {**got, **done(ctx, rows=True)}
+
+    seed = TRAIN_SEED + 3
+    a = run(ctx_of(), ResumableDataset(factory, seed=seed))
+    b = run(ctx_of(), ResumableDataset(
+        lambda s: itertools.islice(factory(s), MR_RESUME_AT), seed=seed),
+        snapshot=True)
+    t = time.perf_counter()
+    c_ctx = ctx_of(resume_from=snaps)
+    with c_ctx:  # the rollback runs on the first entry
+        construct_rollback_ms = 1e3 * (time.perf_counter() - t)
+    c = run(c_ctx, ResumableDataset.from_cursor(factory,
+                                                c_ctx.resume_cursor))
+    out["e3"] = {
+        "prefix_equal": b["losses"] == a["losses"][:MR_RESUME_AT],
+        "suffix_equal": c["losses"] == a["losses"][MR_RESUME_AT:],
+        "dense": first_difference(a["dense"], c["dense"]),
+        "rows": (len(a["rows"]), rows_equal(a["rows"], c["rows"]))
+        if leader else None,
+        "cursor": c_ctx.resume_cursor, "snap": b["snap"],
+        "snapshot_ms": b["snapshot_ms"],
+        "construct_rollback_ms": construct_rollback_ms}
+
+    # (e4)
+    mesh12 = make_mesh((1, MR_WORLD), device="cuda")
+    cp_leader = is_leader(mesh12)
+    f32 = GlobalConfig(CommonConfig("f32"))
+    held = list(seqrec_batches(MR_EVAL_BATCHES * TRAIN_BATCH, TRAIN_BATCH,
+                               seed=TRAIN_SEED + 7, spec=spec))
+    world = build_world()[1] if cp_leader else None
+    single = None
+    if cp_leader:
+        sctx = train_ctx(torch, schema, build_tower(
+            spec.num_dense, "flash", state_dict=state,
+            compute_dtype=torch.float32), f32, worker=world)
+        with eval_ctx(sctx) as e:
+            single = torch.cat([e.forward(x)[0].float() for x in held])
+    dist.barrier()
+    cctx = train_ctx(torch, schema, build_tower(
+        spec.num_dense, "flash", state_dict=state,
+        compute_dtype=torch.float32, mesh=mesh12,
+        context_parallel="ulysses"), f32, mesh=mesh12, worker=world)
+    fa.reset_launch_count()
+    with eval_ctx(cctx) as e:
+        preds = torch.cat([e.forward(x)[0].float() for x in held])
+    eval_launches = {n: fa.launch_count(n) for n in FLASH_KERNELS}
+    both = coll.all_gather(preds[None], None, 0)
+    out["e4"] = {"launches": eval_launches,
+                 "finite": bool(torch.isfinite(preds).all())}
+    if cp_leader:
+        out["e4"]["max_abs_err"] = [float((p - single).abs().max())
+                                    for p in both]
+        world.close()
+    return out
+
+
 def mr_gloo_body(inputs):
-    """The rank body of the two gloo ranks: (a), (b), (c)."""
+    """The rank body of the two gloo ranks: (a), (b), (c), (e)."""
     import torch.distributed as dist
 
     from persia_tpu_torch.parallel import collectives as coll
@@ -4445,6 +4706,9 @@ def mr_gloo_body(inputs):
     out["c"] = mr_context_parallel(torch,
                                    make_mesh((1, MR_WORLD), device="cuda"))
     out["c"]["wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["e"] = mr_mesh_pipeline(torch, mesh)
+    out["e"]["wall_s"] = time.perf_counter() - t
     out["calls"] = dict(coll.calls)
     dist.destroy_process_group()
     return out
@@ -4608,9 +4872,10 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
          f"transport of a multi-card job) and one NCCL rank, started once "
          f"before the build (start-up, warmed by a DLRM step, "
          f"{r0['warm_s']:.1f}s on rank 0): phase {wall:.1f}s, rank init "
-         f"{r0['init_s']:.1f}s, parts a/b/c "
+         f"{r0['init_s']:.1f}s, parts a/b/c/e "
          f"{r0['a']['wall_s']:.1f}/{r0['b']['wall_s']:.1f}/"
-         f"{r0['c']['wall_s']:.1f}s, (d) after them {solo_s:.1f}s; gloo's point-to-point ring shifts of "
+         f"{r0['c']['wall_s']:.1f}/{r0['e']['wall_s']:.1f}s, (d) after "
+         f"them {solo_s:.1f}s; gloo's point-to-point ring shifts of "
          f"device tensors staged through host memory "
          f"(collectives._p2p_exchange): {staged}; collectives by backend, "
          f"rank 0: {r0['calls']} | card: {card}")
@@ -4688,6 +4953,9 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
         raise AssertionError("multi_rank (c): K2, K3 and K4 did not each "
                              "launch once a step on every rank")
 
+    e = [r["e"] for r in ranks]
+    check_mesh_pipeline(e, card)
+
     # (d)
     need = {"all_reduce", "all_to_all", "all_gather", "broadcast"}
     taken = {k.split("/")[0] for k in solo["calls"] if k.endswith("/nccl")}
@@ -4704,8 +4972,106 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
                             + solo["int8_ef"]["losses"]).all()):
         raise AssertionError("multi_rank (d): the NCCL world did not take "
                              "its collectives or its losses are not finite")
-    return {"embedding_bag": [r["launches"] for r in b],
-            **{n: [r["launches"][n] for r in c] for n in FLASH_KERNELS}}
+    return {"embedding_bag": {"launches_multi_rank":
+                              [r["launches"] for r in b]},
+            **{n: {"launches_multi_rank": [r["launches"][n] for r in c],
+                   "launches_mesh_pipeline": [r["e1"]["launches"][n]
+                                              for r in e],
+                   "launches_mesh_eval": [r["e4"]["launches"][n]
+                                          for r in e]}
+               for n in FLASH_KERNELS}}
+
+
+def check_mesh_pipeline(e, card: str):
+    """multi_rank (e)'s lines and gates (``mr_mesh_pipeline``)."""
+    import numpy as np
+
+    e1, e2, e3, e4 = ([r[k] for r in e] for k in ("e1", "e2", "e3", "e4"))
+    prof = e[0]["e5"]
+    _log(f"[multi_rank] (e1) seq_rec (dim {DIM}, {HEADS} heads, t_hist "
+         f"{T_HIST}, MLP {MLP}, batch {TRAIN_BATCH}, bf16 flash tower) over "
+         f"make_mesh(({MR_WORLD}, 1)) through the DataLoader ({PIPE_WORKERS} "
+         f"lookup workers, staleness {PIPE_STALENESS}; rank 1 reads no "
+         f"dataset), {MR_PIPE_STEPS} steps: {e1[0]['samples_per_s']:.1f} "
+         f"samples/s (host clock, synchronized at both ends, over all "
+         f"{MR_PIPE_STEPS} steps, rank 0's profiled steps "
+         f"{MR_PROF_START}-{MR_PROF_START + MR_PROF_STEPS - 1} included), "
+         f"losses {e1[0]['losses'][0]:.5f} -> {e1[0]['losses'][-1]:.5f}, "
+         f"K2/K3/K4 launches by rank "
+         f"{[[r['launches'][n] for n in FLASH_KERNELS] for r in e1]}, dense "
+         f"parameters bit-equal on the ranks {e1[0]['params_equal']}, "
+         f"staleness at rest {e1[0]['staleness']} | card: {card}")
+    _log(f"[multi_rank] (e2) {MR_PIPE_AGREE_STEPS} reproducible staleness-1 "
+         f"DataLoader steps vs as many synchronous mesh steps: losses equal "
+         f"{[r['losses_equal'] for r in e2]}, dense state difference by rank "
+         f"{[r['dense'] or 'none' for r in e2]}, PS rows (count, equal) "
+         f"{e2[0]['rows']} | card: {card}")
+    _log(f"[multi_rank] (e3) collective snapshot at step {MR_RESUME_AT} of "
+         f"{MR_RESUME_STEPS} ({e3[0]['snapshot_ms']:.1f} ms on rank 0; path "
+         f"the same on both ranks {e3[0]['snap'] == e3[1]['snap']}), "
+         f"TrainCtx(mesh=, resume_from=) on both ranks (construction and "
+         f"rollback {e3[0]['construct_rollback_ms']:.1f} ms: the tower, the "
+         f"worker and its PS holders built, then the rollback, cursor "
+         f"{e3[0]['cursor']}): prefix / suffix losses equal "
+         f"{[(r['prefix_equal'], r['suffix_equal']) for r in e3]}, model and "
+         f"Adam state difference by rank {[r['dense'] or 'none' for r in e3]}"
+         f", PS rows (count, equal) {e3[0]['rows']} | card: {card}")
+    _log(f"[multi_rank] (e4) eval_ctx of the f32 Ulysses tower over "
+         f"make_mesh((1, {MR_WORLD})), {MR_EVAL_BATCHES} held-out batches on "
+         f"every rank: max_abs_err against the single-rank flash tower by "
+         f"rank {[f'{x:.3e}' for x in e4[0]['max_abs_err']]} (atol "
+         f"{MR_EVAL_ATOL}), K2/K3/K4 launches by rank "
+         f"{[[r['launches'][n] for n in FLASH_KERNELS] for r in e4]} | card: "
+         f"{card}")
+    counts = prof.get("counts", {})
+    _log(f"[multi_rank] (e5) step profiler window, rank 0, steps "
+         f"{MR_PROF_START}-{MR_PROF_START + MR_PROF_STEPS - 1} of (e1): trace "
+         f"{prof['trace']}; {prof.get('events')} events, "
+         f"{prof.get('steps')} trainer/train_step ranges, "
+         f"{prof.get('gpu_events')} card events (kernels, copies, fills); "
+         f"K2/K3/K4 kernel events {[counts.get(n) for n in FLASH_KERNELS]}"
+         f", device ms a launch "
+         f"{[prof.get('kernel_ms', {}).get(n) for n in FLASH_KERNELS]}; "
+         f"window {prof.get('window_ms', float('nan')):.3f} ms, the card busy "
+         f"{prof.get('busy_share', float('nan')):.4f} of it; top kernels "
+         f"(ms) {prof.get('top_ms')} | card: {card}")
+    if not (all(np.isfinite(r["losses"]).all() for r in e1)
+            and all(r["params_equal"] for r in e1)
+            and e1[0]["staleness"] == 0
+            and all(r["launches"][n] == MR_PIPE_STEPS for r in e1
+                    for n in FLASH_KERNELS)):
+        raise AssertionError("multi_rank (e1): a loss is not finite, the "
+                             "ranks' parameters differ, a permit is held, "
+                             "or K2-K4 did not launch once a step a rank")
+    if not (all(r["losses_equal"] and not r["dense"] for r in e2)
+            and e2[0]["rows"][0] > 0 and e2[0]["rows"][1]):
+        raise AssertionError("multi_rank (e2): the reproducible DataLoader "
+                             "run differs from the synchronous one")
+    if not (all(r["prefix_equal"] and r["suffix_equal"] and not r["dense"]
+                for r in e3)
+            and e3[0]["rows"][0] > 0 and e3[0]["rows"][1]
+            and e3[0]["snap"] == e3[1]["snap"]
+            and e3[1]["cursor"] == e3[0]["cursor"]):
+        raise AssertionError("multi_rank (e3): the resumed run differs from "
+                             "the unbroken one")
+    if not (all(r["finite"] for r in e4)
+            and max(e4[0]["max_abs_err"]) <= MR_EVAL_ATOL
+            and all(r["launches"]["flash_attention_fwd"] == MR_EVAL_BATCHES
+                    for r in e4)):
+        raise AssertionError("multi_rank (e4): the context-parallel eval "
+                             "disagrees with one rank, or K2 did not launch "
+                             "once a batch on every rank")
+    if prof.get("steps") != MR_PROF_STEPS:
+        raise AssertionError("multi_rank (e5): the profiler window does not "
+                             "hold exactly its steps, or wrote no trace")
+    if prof.get("gpu_events"):
+        if any(counts[n] != MR_PROF_STEPS for n in FLASH_KERNELS):
+            raise AssertionError("multi_rank (e5): the window does not hold "
+                                 "K2, K3 and K4 once a step")
+    else:
+        _log(f"[multi_rank] (e5) this card's CUPTI gave the profiler no "
+             f"device event: the window is checked on the host ranges alone "
+             f"| card: {card}")
 
 
 # --- services (the service tier as processes) --------------------------------
@@ -7853,7 +8219,7 @@ def main() -> int:
         # card and cores
         torch.cuda.empty_cache()
         for name, n in multi_rank_phase(torch, card, procs).items():
-            records[name]["launches_multi_rank"] = n
+            records[name].update(n)
         clock("multi_rank")
         in_process_rate = serving_phase(torch, card)
         clock("serving")

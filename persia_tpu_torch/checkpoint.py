@@ -257,16 +257,33 @@ def dump_checkpoint(ctx, dst_dir: str, with_dense: bool = True):
                 (ctx.model, getattr(ctx, "dense_optimizer", None))))
 
 
-def load_checkpoint(ctx, src_dir: str, with_dense: bool = True):
+def dense_bytes(dirpath: str) -> Optional[bytes]:
+    """``dirpath``'s ``dense.pt`` bytes, None when it has none (see
+    :func:`dense_file`)."""
+    path = dense_file(dirpath)
+    if path is None:
+        return None
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def load_sparse(ctx, src_dir: str, with_dense: bool = True) -> bytes:
+    """The PS shards through ``ctx.worker.load``; returns the dense bytes
+    to install (b"" without ``with_dense`` or when ``src_dir`` has
+    none)."""
     ctx.worker.load(src_dir)
-    if with_dense:
-        path = dense_file(src_dir)
-        if path is not None:
-            if ctx.model is None:
-                raise RuntimeError(
-                    f"{src_dir} holds dense state but the context has no "
-                    f"model to load it into")
-            with open(path, "rb") as f:
-                apply_dense_bytes(
-                    (ctx.model, getattr(ctx, "dense_optimizer", None)),
-                    f.read())
+    dense = dense_bytes(src_dir) if with_dense else None
+    if dense is None:
+        return b""
+    if ctx.model is None:
+        raise RuntimeError(
+            f"{src_dir} holds dense state but the context has no "
+            f"model to load it into")
+    return dense
+
+
+def load_checkpoint(ctx, src_dir: str, with_dense: bool = True):
+    dense = load_sparse(ctx, src_dir, with_dense)
+    if dense:
+        apply_dense_bytes((ctx.model, getattr(ctx, "dense_optimizer", None)),
+                          dense)

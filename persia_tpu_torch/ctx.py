@@ -12,7 +12,11 @@
   batch or pipelined on a ``DataLoader``'s looked-up batch, job
   snapshots and ``resume_from`` (:mod:`persia_tpu_torch.snapshot`), and
   :func:`eval_ctx` over it. Over a mesh of ranks (``mesh=``) the dense
-  step is data-parallel and the mesh's rank 0 is the sparse leader. With
+  step is data-parallel and the mesh's rank 0 is the sparse leader; a
+  ``DataLoader``, snapshots, checkpoints and the resume run there too,
+  each call collective. Each step runs under a ``trainer/train_step``
+  span and drives the opt-in step profiler window
+  (:class:`~persia_tpu_torch.tracing.StepProfiler`). With
   ``device_cache_capacity`` hot rows live and train on the device
   (:mod:`persia_tpu_torch.parallel.cached_engine`).
 - :class:`InferCtx`: eval-mode lookups and forward for serving.
@@ -23,15 +27,18 @@ to the device through pinned buffers with asynchronous copies on the
 current stream.
 """
 
+import hashlib
+import json
 import logging
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from persia_tpu_torch import tracing
 from persia_tpu_torch.config import EmbeddingSchema, GlobalConfig
 from persia_tpu_torch.data.batch import PersiaBatch
 from persia_tpu_torch.device import DeviceLike, resolve_device
@@ -195,10 +202,11 @@ class EmbeddingCtx(BaseCtx):
 
 STAGES = ("lookup", "h2d", "dense", "d2h", "update")
 
-# what a TrainCtx over a mesh does not do yet, and the ROADMAP.md item
-# each waits for
-_MESH_WAITS = "ROADMAP.md queue A item 3c (the pipeline, snapshots and " \
-    "checkpoints on a mesh)"
+_NO_SCOPE = nullcontext()
+
+# the status word of a _bcast_bytes: the payload, the end of a stream, a
+# failure on the leader (the payload its message)
+BCAST_OK, BCAST_END, BCAST_FAILED = 0, 1, 2
 
 
 class TrainCtx(EmbeddingCtx):
@@ -240,6 +248,15 @@ class TrainCtx(EmbeddingCtx):
     step. ``resume_cursor`` is its data cursor, from which the caller
     resumes the batch stream. :meth:`snapshot` takes one.
 
+    ``profiler`` is an object with ``on_step(i)`` and ``close()`` (a
+    :class:`~persia_tpu_torch.tracing.StepProfiler`; without one,
+    :func:`~persia_tpu_torch.tracing.profiler_from_env`): ``on_step`` runs
+    at each step's start with the step's number, ``close`` on
+    ``__exit__``. A StepProfiler traces the context's device. Each step
+    runs under a ``trainer/train_step`` span, a child of the batch's
+    ``pipeline/lookup`` span when it came through a ``DataLoader`` and a
+    new root otherwise.
+
     ``mesh`` (:func:`persia_tpu_torch.parallel.mesh.make_mesh`) makes the
     step data-parallel over the mesh's ranks, as the JAX package's one
     controller over many devices is. Every rank builds its context and
@@ -257,9 +274,23 @@ class TrainCtx(EmbeddingCtx):
     as in JAX; otherwise every rank runs the single-device step on the
     whole batch (the gradients averaged in f32, which keeps the ranks
     equal) and the leader ships its own. ``_ddp`` says which path ran.
-    ``eval_ctx`` evaluates on the leader. A ``DataLoader``, snapshots,
-    ``resume_from`` and checkpoints on a mesh raise
-    ``NotImplementedError``.
+
+    The pipeline over a mesh: the loop is the same on every rank (``for
+    b in loader: ctx.train_step(b)``). The leader alone reads the dataset
+    and runs the ``DataLoader``'s forward engine (its lookups, the
+    staleness permits, the backward engine that ships the gathered
+    embedding gradients); it sends each batch the engine yields to the
+    other ranks, which yield the same batches in the same order, so a
+    dataset with one receiver works. ``stage_batch`` stages nothing on a
+    mesh: the step places the batch. :meth:`snapshot`,
+    :meth:`dump_checkpoint`, :meth:`load_checkpoint` and ``resume_from``
+    are collective: every rank calls them and gets the same result. The
+    leader drains its backward engines and writes the PS shards, the
+    dense state (equal on every rank, and checked so) and its cursor; a
+    restore rolls the PS back on the leader, installs the leader's dense
+    state on every rank and checks that the ranks agree. A failure on the
+    leader raises on every rank. ``eval_ctx`` evaluates on the leader, or
+    for a context-parallel tower on every rank (see :func:`eval_ctx`).
 
     ``device_cache_capacity`` keeps that many hot rows, and their Adagrad
     state, on the device: each step maps its signs to cache slots, imports
@@ -298,18 +329,10 @@ class TrainCtx(EmbeddingCtx):
                  device_cache_admission: Optional[str] = None,
                  profiler=None, resume_from: Optional[str] = None,
                  grad_reduce_dtype: Optional[str] = None):
-        if profiler is not None:
-            raise NotImplementedError(
-                "TrainCtx(profiler=...) is not ported yet; it waits for "
-                "ROADMAP.md queue A item 8 (tooling)")
         device_cache_capacity = int(device_cache_capacity)
         if device_cache_capacity and mesh is not None and mesh.size() > 1:
             device_cache_capacity = _negotiate_multirank_cache(
                 device_cache_capacity, mesh.size())
-        if mesh is not None and resume_from:
-            raise NotImplementedError(
-                f"TrainCtx(mesh=..., resume_from=...) is not ported yet; it "
-                f"waits for {_MESH_WAITS}")
         from persia_tpu_torch.parallel.train import grad_reduce_mode
 
         grad_reduce_mode(grad_reduce_dtype)  # raises on a bad name early
@@ -344,6 +367,12 @@ class TrainCtx(EmbeddingCtx):
         self._cache_engine = None
         self._cached_step = None
         self._cache_multi_id = False
+        self.profiler = (profiler if profiler is not None
+                         else tracing.profiler_from_env())
+        bind = getattr(self.profiler, "bind_device", None)
+        if bind is not None:
+            bind(self.device)
+        self._resumes = bool(resume_from)
         if mesh is not None:
             self._join_mesh()
         # resolved and verified here, so a torn or absent snapshot fails
@@ -354,13 +383,19 @@ class TrainCtx(EmbeddingCtx):
         if resume_from:
             from persia_tpu_torch import snapshot as _snapshot
 
-            self._resume_snap, self.resume_manifest = (
-                _snapshot.resolve_snapshot(resume_from))
-            self.resume_cursor = _snapshot.load_cursor(self._resume_snap)
+            def resolve() -> bytes:
+                snap, manifest = _snapshot.resolve_snapshot(resume_from)
+                return json.dumps([snap, manifest,
+                                   _snapshot.load_cursor(snap)]).encode()
+
+            doc = resolve() if mesh is None else self._from_leader(resolve)
+            (self._resume_snap, self.resume_manifest,
+             self.resume_cursor) = json.loads(doc)
 
     def _join_mesh(self):
-        """The leader holds the worker, and every rank takes the leader's
-        dense weights (as DDP broadcasts its module at construction)."""
+        """The leader holds the worker, every rank takes the leader's
+        dense weights (as DDP broadcasts its module at construction), and
+        either every rank resumes or none does."""
         import torch.distributed as dist
 
         from persia_tpu_torch.parallel import collectives as coll
@@ -373,10 +408,17 @@ class TrainCtx(EmbeddingCtx):
         self._leader = is_leader(self.mesh)
         # every rank learns whether any was misconfigured, and all raise
         bad = torch.tensor(
-            [float(self._leader != (self.worker is not None))],
+            [float(self._leader != (self.worker is not None)),
+             float(self._resumes), -float(self._resumes)],
             device=self.device)
         coll.pmax_([bad])
-        if bad.item():
+        wrong_worker, some, not_all = bad.tolist()
+        if some != -not_all:
+            raise ValueError(
+                "TrainCtx(mesh=..., resume_from=...): some ranks of the "
+                "mesh were given resume_from and some not; every rank "
+                "resumes (the leader reads the snapshot)")
+        if wrong_worker:
             raise ValueError(
                 f"on a mesh only the sparse leader (global rank "
                 f"{leader_rank(self.mesh)}) holds the embedding worker; "
@@ -401,6 +443,8 @@ class TrainCtx(EmbeddingCtx):
         # leaving leaves the PS current (an eval, a dump or another
         # context reads it) and stops the flush thread; the context leaves
         # the stack even when the flush raises
+        if self.profiler is not None:
+            self.profiler.close()  # an open window writes its trace
         try:
             if self._cache_engine is not None:
                 try:
@@ -417,18 +461,29 @@ class TrainCtx(EmbeddingCtx):
         shards are replaced by its dump (updates after it are derived
         again by replaying the batches from ``resume_cursor``), the model
         and dense optimizer take its dense state, the step counter its
-        step. Entering the context again does not roll back again."""
-        from persia_tpu_torch import checkpoint as ckpt
-        from persia_tpu_torch import snapshot as _snapshot
-
+        step. Entering the context again does not roll back again. On a
+        mesh the leader rolls the PS back and every rank installs the
+        leader's dense state."""
         snap, self._resume_snap = self._resume_snap, None
         if self._cache_engine is not None:
             self._cache_engine.invalidate()  # the cached rows predate it
-        self.worker.load(snap)
-        dense = _snapshot.dense_bytes(snap)
-        if dense is not None:
-            ckpt.apply_dense_bytes((self.model, self.dense_optimizer), dense)
+        self._install_dense(snap, True, "resume_from")
         self._step_count = int(self.resume_manifest.get("step", 0))
+
+    def _install_dense(self, src_dir: str, with_dense: bool, what: str):
+        """The leader (every rank, off a mesh) loads ``src_dir``'s PS
+        shards (:func:`checkpoint.load_sparse`), and every rank installs
+        its dense bytes; on a mesh the ranks must then agree."""
+        from persia_tpu_torch import checkpoint as ckpt
+
+        def load() -> bytes:
+            return ckpt.load_sparse(self, src_dir, with_dense)
+
+        dense = load() if self.mesh is None else self._from_leader(load)
+        if dense:
+            ckpt.apply_dense_bytes((self.model, self.dense_optimizer), dense)
+        if self.mesh is not None:
+            self._check_ranks_agree(what)
 
     def snapshot(self, snapshot_dir: str, cursor: Optional[dict] = None,
                  inc_dir: Optional[str] = None,
@@ -436,34 +491,52 @@ class TrainCtx(EmbeddingCtx):
         """One coordinated job snapshot under ``snapshot_dir``: the
         backward pipeline drained, then the PS shards, the dense state
         and ``cursor`` captured as one manifest-stamped unit. Returns its
-        path."""
+        path. On a mesh every rank calls it and gets the path; the
+        leader writes the snapshot with its ``cursor``."""
         from persia_tpu_torch import snapshot as _snapshot
 
-        self._refuse_on_mesh("TrainCtx.snapshot")
         self.flush_device_cache()
-        return _snapshot.snapshot_job(
-            snapshot_dir, self.worker,
-            state=(self.model, self.dense_optimizer), cursor=cursor,
-            inc_dir=inc_dir, step=self._step_count, keep=keep)
 
-    def _refuse_on_mesh(self, what: str):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh is not ported yet; it waits for "
-                f"{_MESH_WAITS}")
+        def write() -> bytes:
+            return _snapshot.snapshot_job(
+                snapshot_dir, self.worker,
+                state=(self.model, self.dense_optimizer), cursor=cursor,
+                inc_dir=inc_dir, step=self._step_count, keep=keep).encode()
+
+        return self._on_leader(write, "snapshot").decode()
+
+    def _on_leader(self, leader_fn, what: str) -> bytes:
+        """``leader_fn()``'s bytes: off a mesh run here; on a mesh, once
+        the ranks' dense states agree, run on the leader and sent to every
+        rank (the other ranks wait for it there, so the write is closed on
+        every rank when the call returns)."""
+        if self.mesh is None:
+            return leader_fn()
+        self._check_ranks_agree(what)
+        return self._from_leader(leader_fn)
 
     def dump_checkpoint(self, dst_dir: str, with_dense: bool = True):
-        self._refuse_on_mesh("TrainCtx.dump_checkpoint")
+        """The PS shards and, with ``with_dense``, ``dense.pt``; on a mesh
+        collective, written by the leader."""
+        from persia_tpu_torch import checkpoint as ckpt
+
         self.flush_device_cache()
-        super().dump_checkpoint(dst_dir, with_dense)
+
+        def write() -> bytes:
+            ckpt.dump_checkpoint(self, dst_dir, with_dense=with_dense)
+            return b""
+
+        self._on_leader(write, "dump_checkpoint")
 
     def load_checkpoint(self, src_dir: str, with_dense: bool = True):
-        self._refuse_on_mesh("TrainCtx.load_checkpoint")
+        """The PS shards and, with ``with_dense``, the dense state from
+        ``src_dir``; on a mesh collective: the leader loads the PS and
+        every rank the leader's dense state."""
         # drop (not flush) the cache first: its rows predate the restore,
         # and serving or flushing them would overwrite the loaded ones
         if self._cache_engine is not None:
             self._cache_engine.invalidate()
-        super().load_checkpoint(src_dir, with_dense)
+        self._install_dense(src_dir, with_dense, "load_checkpoint")
 
     def flush_device_cache(self) -> int:
         """Write every cached row back to the PS (the cache stays valid
@@ -512,8 +585,10 @@ class TrainCtx(EmbeddingCtx):
         ``train_step`` of this batch takes. The copies are issued on the
         worker thread's current stream, the default stream, which orders
         them before any kernel the training thread issues after the batch
-        reaches it."""
-        self._refuse_on_mesh("a DataLoader")
+        reaches it. On a mesh it stages nothing and returns None: the step
+        places the batch on the training thread."""
+        if self.mesh is not None:
+            return None
         return self._prep_train_inputs(batch, lookup)
 
     def train_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -528,13 +603,26 @@ class TrainCtx(EmbeddingCtx):
         from a ``DataLoader``, whose lookup and staging already ran in a
         prefetch worker; its packed gradients then go to the batch's
         backward engine still on the device."""
+        from persia_tpu_torch.pipeline import LookedUpBatch
+
+        self._step_count += 1
+        if self.profiler is not None:
+            self.profiler.on_step(self._step_count)
+        trace = batch.trace if isinstance(batch, LookedUpBatch) else None
+        kw = {"ctx": trace} if trace is not None else {"root": True}
+        scope = getattr(self.profiler, "step_scope", None)
+        with tracing.span("trainer/train_step", step=self._step_count,
+                          **kw), \
+                (scope() if scope is not None else _NO_SCOPE):
+            return self._train_step_inner(batch)
+
+    def _train_step_inner(self, batch):
         from persia_tpu_torch.parallel.train import (
             make_train_step,
             unpack_embedding_grads,
         )
         from persia_tpu_torch.pipeline import LookedUpBatch
 
-        self._step_count += 1
         if self.device_cache_capacity:
             if isinstance(batch, LookedUpBatch):
                 # a DataLoader yields raw batches over a cached context,
@@ -550,8 +638,6 @@ class TrainCtx(EmbeddingCtx):
                     f"LookedUpBatch, not {type(batch).__name__}")
             return self._cached_train_step(batch)
         if self.mesh is not None:
-            if isinstance(batch, LookedUpBatch):
-                self._refuse_on_mesh("a DataLoader's looked-up batch")
             return self._mesh_train_step(batch)
         engine = staged = None
         if isinstance(batch, LookedUpBatch):
@@ -696,7 +782,7 @@ class TrainCtx(EmbeddingCtx):
         from persia_tpu_torch.parallel import collectives as coll
 
         bid = -1 if batch.batch_id is None else int(batch.batch_id)
-        rows = int(batch.labels[0].data.shape[0])
+        rows = int(batch.batch_size)
         seen = torch.tensor([bid, -bid, rows, -rows], dtype=torch.int64,
                             device=self.device)
         coll.pmax_([seen])
@@ -707,12 +793,101 @@ class TrainCtx(EmbeddingCtx):
                 f"(batch ids {-b_min}..{b_max}, rows {-r_min}..{r_max}); "
                 f"every rank calls train_step on the same global batch")
 
-    def _share_lookup(self, batch: PersiaBatch, lookup, batch_major: bool):
+    def _bcast_bytes(self, data: Optional[bytes] = None,
+                     status: int = BCAST_OK) -> Tuple[int, bytes]:
+        """The leader's ``(status, data)`` on every rank (the other ranks
+        pass nothing): a header of two int64 words, then the bytes as a
+        uint8 tensor, both on the context's device."""
+        from persia_tpu_torch.parallel import collectives as coll
+        from persia_tpu_torch.parallel.mesh import leader_rank
+
+        src = leader_rank(self.mesh)
+        n = len(data) if self._leader else 0
+        head = torch.tensor([status, n], dtype=torch.int64,
+                            device=self.device)
+        coll.broadcast_([head], src)
+        status, n = head.tolist()
+        if n == 0:
+            return status, b""
+        if self._leader:
+            buf = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(
+                self.device)
+        else:
+            buf = torch.empty(n, dtype=torch.uint8, device=self.device)
+        coll.broadcast_([buf], src)
+        return status, (data if self._leader
+                        else buf.cpu().numpy().tobytes())
+
+    def _from_leader(self, leader_fn) -> bytes:
+        """``leader_fn()`` (bytes) run on the leader alone and its result
+        on every rank. An error there raises on every rank (the leader
+        raises its own), so no rank waits on a collective the others
+        never reach."""
+        out, err = b"", None
+        if self._leader:
+            try:
+                out = leader_fn()
+            except Exception as e:  # raised below, after the others learn
+                err, out = e, f"{type(e).__name__}: {e}".encode()
+        status, out = self._bcast_bytes(
+            out, BCAST_FAILED if err is not None else BCAST_OK)
+        if err is not None:
+            raise err
+        if status == BCAST_FAILED:
+            raise RuntimeError(f"the sparse leader failed: {out.decode()}")
+        return out
+
+    def _check_ranks_agree(self, what: str):
+        """Every rank's dense state (the model's tensors and the dense
+        optimizer's) digested and compared by one max-reduction; raises on
+        every rank when they differ."""
+        from persia_tpu_torch.parallel import collectives as coll
+
+        h = hashlib.blake2b(digest_size=7)  # 56 bits: fits an int64
+        tensors = list(self.model.state_dict().values())
+        if self.dense_optimizer is not None:
+            for st in self.dense_optimizer.state_dict()["state"].values():
+                for v in st.values():
+                    if isinstance(v, torch.Tensor):
+                        tensors.append(v)
+                    else:
+                        h.update(repr(v).encode())
+        for t in tensors:
+            h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        d = int.from_bytes(h.digest(), "little")
+        seen = torch.tensor([d, -d], dtype=torch.int64, device=self.device)
+        coll.pmax_([seen])
+        if seen[0] != -seen[1]:
+            raise RuntimeError(
+                f"{what}: the ranks of the mesh hold different dense states "
+                f"(model or optimizer)")
+
+    def _mesh_eval_forward(self, batch: PersiaBatch):
+        """The eval forward of a context-parallel tower on every rank of
+        the mesh: the leader's eval lookup shared (f32 values, as the
+        single-rank eval feeds the model), each rank its part of the
+        attention. Returns (the full predictions, the labels)."""
+        self._check_same_batch(batch)
+        lookup = (self.worker.lookup_direct(batch.id_type_features,
+                                            training=False)
+                  if self._leader else None)
+        emb_shapes, flat_emb, indices = self._share_lookup(
+            batch, lookup, False, wire_dtype=torch.float32)
+        values = flat_emb.split([r * d for r, d in emb_shapes])
+        emb_inputs = [v.view(r, d) if i is None else (v.view(r, d), i)
+                      for v, (r, d), i in zip(values, emb_shapes, indices)]
+        non_id = [self.to_device(f.data) for f in batch.non_id_type_features]
+        labels = [torch.from_numpy(l.data) for l in batch.labels]
+        return self._apply_model(non_id, emb_inputs), labels
+
+    def _share_lookup(self, batch: PersiaBatch, lookup, batch_major: bool,
+                      wire_dtype=None):
         """The leader's lookup on every rank: the leader packs the wire
-        (batch-major (bs, sum dims) when ``batch_major``, else flat) and
-        the raw slots' index tensors on the device, broadcasts a header
-        of their shapes and then the tensors. Returns (emb_shapes,
-        flat_emb, emb_indices)."""
+        (batch-major (bs, sum dims) when ``batch_major``, else flat; in
+        ``wire_dtype``, default the context's) and the raw slots' index
+        tensors on the device, broadcasts a header of their shapes and
+        then the tensors. Returns (emb_shapes, flat_emb, emb_indices)."""
         from persia_tpu_torch.parallel import collectives as coll
         from persia_tpu_torch.parallel.mesh import leader_rank
         from persia_tpu_torch.parallel.train import (
@@ -721,6 +896,7 @@ class TrainCtx(EmbeddingCtx):
         )
 
         feats = batch.id_type_features
+        wire_dtype = wire_dtype or self.wire_dtype
         header = torch.zeros(4 * len(feats), dtype=torch.int64,
                              device=self.device)
         if self._leader:
@@ -736,7 +912,7 @@ class TrainCtx(EmbeddingCtx):
                 emb_np.append(r.embeddings)
             pack = (pack_embedding_values_batch_major if batch_major
                     else pack_embedding_values)
-            flat_emb = self.to_device(pack(emb_np, self.wire_dtype))
+            flat_emb = self.to_device(pack(emb_np, wire_dtype))
             indices = [None if i is None else self.to_device(i)
                        for i in idx_np]
             header.copy_(torch.tensor(
@@ -750,8 +926,7 @@ class TrainCtx(EmbeddingCtx):
         if not self._leader:
             n = (emb_shapes[0][0], sum(d for _, d in emb_shapes)) \
                 if batch_major else (sum(r * d for r, d in emb_shapes),)
-            flat_emb = torch.empty(n, dtype=self.wire_dtype,
-                                   device=self.device)
+            flat_emb = torch.empty(n, dtype=wire_dtype, device=self.device)
             indices = [torch.empty((a, b), dtype=torch.int32,
                                    device=self.device) if a else None
                        for _, _, a, b in dims]
@@ -759,8 +934,11 @@ class TrainCtx(EmbeddingCtx):
                         src)
         return emb_shapes, flat_emb, indices
 
-    def _mesh_train_step(self, batch: PersiaBatch):
-        """One global batch over the mesh (see the class docstring)."""
+    def _mesh_train_step(self, batch):
+        """One global batch over the mesh (see the class docstring): a
+        raw batch, or a ``DataLoader``'s, whose lookup the leader's
+        prefetch worker ran and whose gradients go to its backward
+        engine."""
         from persia_tpu_torch.parallel import collectives as coll
         from persia_tpu_torch.parallel.mesh import (
             DATA_AXIS,
@@ -772,14 +950,20 @@ class TrainCtx(EmbeddingCtx):
             unpack_embedding_grads,
             unpack_embedding_grads_batch_major,
         )
+        from persia_tpu_torch.pipeline import LookedUpBatch
 
+        lookup = engine = None
+        if isinstance(batch, LookedUpBatch):
+            if self._leader:
+                ref_id, lookup, engine = (batch.ref_id, batch.lookup,
+                                          batch.engine)
+            batch = batch.batch
         if not isinstance(batch, PersiaBatch):
             raise TypeError(
-                f"TrainCtx.train_step on a mesh takes a PersiaBatch, not "
-                f"{type(batch).__name__}")
+                f"TrainCtx.train_step takes a PersiaBatch or a "
+                f"LookedUpBatch, not {type(batch).__name__}")
         self._check_same_batch(batch)
-        lookup = None
-        if self._leader:
+        if self._leader and lookup is None:
             with self._stage("lookup"):
                 ref_id, lookup = self.worker.lookup_direct_training(
                     batch.id_type_features)
@@ -815,6 +999,12 @@ class TrainCtx(EmbeddingCtx):
         if not self._leader:
             return loss, pred
         names = [f.name for f in batch.id_type_features]
+        if engine is not None:
+            with self._stage("update"):
+                engine.backward.submit_packed(
+                    ref_id, grads, emb_shapes, names,
+                    slot_dims=[d for _, d in emb_shapes] if ddp else None)
+            return loss, pred
         with self._stage("d2h"):
             per_slot = (unpack_embedding_grads_batch_major(
                 grads.cpu(), [d for _, d in emb_shapes]) if ddp
@@ -901,19 +1091,17 @@ def _negotiate_multirank_cache(capacity: int, world: int) -> int:
 
 class _EvalCtx(EmbeddingCtx):
     def __init__(self, parent: TrainCtx):
-        if parent.mesh is not None:
+        # a context-parallel tower's attention needs every rank
+        self._every_rank = parent.mesh is not None and any(
+            getattr(m, "context_parallel_active", False)
+            for m in parent.model.modules())
+        if (parent.mesh is not None and not self._every_rank
+                and not parent._leader):
             import torch.distributed as dist
 
-            if not parent._leader:
-                raise RuntimeError(
-                    f"eval_ctx over a mesh evaluates on the sparse leader; "
-                    f"rank {dist.get_rank()} holds no embedding worker")
-            if any(getattr(m, "context_parallel_active", False)
-                   for m in parent.model.modules()):
-                raise NotImplementedError(
-                    f"eval_ctx of a context-parallel tower is not ported "
-                    f"yet: its attention needs every rank of the mesh; it "
-                    f"waits for {_MESH_WAITS}")
+            raise RuntimeError(
+                f"eval_ctx over a mesh evaluates on the sparse leader; "
+                f"rank {dist.get_rank()} holds no embedding worker")
         super().__init__(model=parent.model, schema=parent.schema,
                          worker=parent.worker,
                          embedding_config=parent.embedding_config,
@@ -925,13 +1113,24 @@ class _EvalCtx(EmbeddingCtx):
         # the eval lookups read it
         parent.flush_device_cache()
 
+    def forward(self, batch: PersiaBatch):
+        if self._every_rank:
+            return self._parent._mesh_eval_forward(batch)
+        return super().forward(batch)
+
     def _apply_model(self, non_id, emb_inputs):
         return self._parent._apply_model(non_id, emb_inputs)
 
 
 def eval_ctx(train_ctx: Optional[TrainCtx] = None) -> _EvalCtx:
     """Evaluation context over a TrainCtx (the given one, else the
-    current context): eval lookups and an eval-mode forward."""
+    current context): eval lookups and an eval-mode forward.
+
+    Over a mesh the sparse leader evaluates alone (another rank raises),
+    except for a context-parallel tower: then every rank enters the
+    context and calls ``forward`` on the same batch, the leader looks it
+    up and shares the values, each rank runs its part of the attention,
+    and every rank returns the full predictions."""
     ctx = train_ctx or current_ctx()
     if not isinstance(ctx, TrainCtx):
         raise RuntimeError("eval_ctx requires a TrainCtx")

@@ -5,7 +5,11 @@ over a dataset: the engine prefetches embedding lookups and stages each
 batch's inputs on the device, bounded by the embedding-staleness
 semaphore, and yields :class:`TrainingBatch` objects that
 ``TrainCtx.train_step`` takes. Over a context with a device cache it
-starts no engine and yields the dataset's raw batches in order.
+starts no engine and yields the dataset's raw batches in order. Over a
+``TrainCtx`` on a mesh the sparse leader alone reads the dataset and runs
+the engine; each batch it yields is sent to the other ranks, which yield
+the same batches in the same order (``LookedUpBatch`` objects without a
+lookup: the leader shares its lookup in the step).
 """
 
 import itertools
@@ -13,7 +17,12 @@ import queue
 import threading
 from typing import Dict, Iterable, Iterator, List, Optional
 
-from persia_tpu_torch.ctx import current_ctx
+from persia_tpu_torch.ctx import (
+    BCAST_END,
+    BCAST_FAILED,
+    BCAST_OK,
+    current_ctx,
+)
 from persia_tpu_torch.data.batch import PersiaBatch
 from persia_tpu_torch.pipeline import ForwardEngine
 # the batch type DataLoader yields: embeddings fetched, gradient handle
@@ -193,8 +202,6 @@ class DataLoader:
             if ctx is None:
                 raise RuntimeError(
                     "DataLoader requires an active EmbeddingCtx/TrainCtx")
-            if getattr(ctx, "mesh", None) is not None:
-                ctx._refuse_on_mesh("a DataLoader")
             self._engine = ForwardEngine(
                 ctx=ctx, num_workers=self.num_workers,
                 buffer_size=self.forward_buffer_size,
@@ -210,10 +217,43 @@ class DataLoader:
             # the cache's LRU order)
             yield from iter(self.dataset)
             return
+        if getattr(ctx, "mesh", None) is not None:
+            yield from self._iter_mesh(ctx)
+            return
         engine = self._ensure_engine()
         try:
             yield from engine.run(iter(self.dataset),
                                   timeout_ms=self.timeout_ms)
         finally:
             # a finished epoch leaves no pending PS writes
+            engine.flush(timeout=self.timeout_ms / 1000.0)
+
+    def _iter_mesh(self, ctx) -> Iterator[TrainingBatch]:
+        """The pipeline over a mesh (module docstring). The end of the
+        leader's stream ends every rank's, and an error in its pipeline
+        raises on every rank."""
+        if not ctx._leader:
+            while True:
+                status, data = ctx._bcast_bytes()
+                if status == BCAST_END:
+                    return
+                if status == BCAST_FAILED:
+                    raise RuntimeError(f"the sparse leader's pipeline "
+                                       f"failed: {data.decode()}")
+                yield TrainingBatch(PersiaBatch.from_bytes(data), None, None)
+        engine = self._ensure_engine()
+        try:
+            for lb in engine.run(iter(self.dataset),
+                                 timeout_ms=self.timeout_ms):
+                ctx._bcast_bytes(lb.batch.to_bytes(), BCAST_OK)
+                yield lb
+        except Exception as e:
+            # a loop left early (GeneratorExit) is every rank's: only a
+            # failure is sent
+            ctx._bcast_bytes(f"{type(e).__name__}: {e}".encode(),
+                             BCAST_FAILED)
+            raise
+        else:
+            ctx._bcast_bytes(b"", BCAST_END)
+        finally:
             engine.flush(timeout=self.timeout_ms / 1000.0)

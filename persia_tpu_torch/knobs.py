@@ -15,7 +15,8 @@ wire codec, circuit breaker, frames, GC tune, row dtype and spill tier,
 the worker's data plane and distinct-id monitor), whole-job supervision
 (the trainer group's size, rank and rendezvous, the snapshot cadence),
 the fleet monitor (its static targets, its history ring's window and
-points a series, the postmortem directory) and live routing (a uniform table's slots a
+points a series, the postmortem directory), tooling (the step profiler's
+window, the stall watchdog) and live routing (a uniform table's slots a
 replica, the ``__routing__`` rider, the reshard controller's chunk,
 drain, lease, journal, RPC deadline and the worker's stale-retry
 budget), with the JAX package's names,
@@ -51,6 +52,7 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_ARENA_INDEX_SLOTS", "int", 1024),
     Knob("PERSIA_ARENA_SLAB_ROWS", "int", 65536),
     Knob("PERSIA_COORDINATOR_ADDR", "str", "127.0.0.1:23333"),
+    Knob("PERSIA_DEADLOCK_DETECTION", "bool", False),
     Knob("PERSIA_ENABLE_MONITOR", "bool", False),
     Knob("PERSIA_FAULTS", "str", None),
     Knob("PERSIA_FAULTS_RPC", "bool", False),
@@ -73,6 +75,9 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_POSTMORTEM_DIR", "str", None),
     Knob("PERSIA_PROCESS_COUNT", "int", 1),
     Knob("PERSIA_PROCESS_INDEX", "int", 0),
+    Knob("PERSIA_PROFILE_DIR", "str", None),
+    Knob("PERSIA_PROFILE_NUM_STEPS", "int", 5),
+    Knob("PERSIA_PROFILE_START_STEP", "int", 10),
     Knob("PERSIA_PS_BACKEND", "str", "auto"),
     Knob("PERSIA_PS_CIRCUIT_BREAKER", "bool", True),
     Knob("PERSIA_PS_CONCURRENT_STREAMS", "int", 8),

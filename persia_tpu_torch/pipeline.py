@@ -15,7 +15,13 @@
 
 ``TrainCtx.train_step`` takes the engine's :class:`LookedUpBatch` and
 hands its still-on-device packed gradients to the batch's backward
-engine, whose thread copies them to the host and unpacks them.
+engine, whose thread copies them to the host and unpacks them. Over a
+mesh the engine runs on the sparse leader alone (``DataLoader``).
+
+Tracing: each batch's lookup opens a root ``pipeline/lookup`` span (the
+trace the worker's and the PS's spans, the trainer's step and the
+asynchronous ``pipeline/backward_update`` join), carried on
+:attr:`LookedUpBatch.trace`.
 
 Registry series: the backward engine's
 ``pipeline_backward_pending_updates`` gauge (queued and running
@@ -24,9 +30,12 @@ batches submitted after a batch before its update applied) and its
 ``pipeline_lost_updates_total`` counter; the forward engine's
 ``pipeline_staleness_permits_in_use`` gauge (a
 :class:`_GaugedSemaphore`), ``pipeline_lookup_queue_depth`` and
-``pipeline_ready_queue_depth``. Tracing spans, stage-timer histograms,
-heartbeats and deadlock detection are not ported (ROADMAP.md queue A
-item 8).
+``pipeline_ready_queue_depth``; the ``forward_client_time_cost_sec`` and
+``backward_client_time_cost_sec`` histograms (a batch's lookup, and its
+update with the copy and unpack). Both engines beat the stall watchdog's
+heartbeat and count their work in flight
+(:func:`~persia_tpu_torch.tracing.start_deadlock_detection`, armed by a
+forward engine under ``PERSIA_DEADLOCK_DETECTION``).
 """
 
 import heapq
@@ -40,8 +49,16 @@ from dataclasses import dataclass
 from typing import (Any, Dict, Hashable, Iterator, List, Optional, Sequence,
                     Tuple)
 
+from persia_tpu_torch import tracing
 from persia_tpu_torch.data.batch import PersiaBatch
 from persia_tpu_torch.metrics import STEP_BUCKETS, default_registry
+from persia_tpu_torch.tracing import (
+    StageTimer,
+    heartbeat,
+    start_deadlock_detection,
+    work_finished,
+    work_started,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -71,7 +88,10 @@ def _retry_with_recovery(fn, what: str, max_recoveries: int = 4,
 class LookedUpBatch:
     """A batch whose embeddings have been fetched: ready for the dense
     step. ``staged`` carries its device-resident train-step inputs when a
-    prefetch worker already ran the host-to-device staging."""
+    prefetch worker already ran the host-to-device staging. ``trace`` is
+    the ``(trace_id, span_id)`` of the prefetch worker's
+    ``pipeline/lookup`` span, which the trainer's step and the batch's
+    backward update join (None untraced)."""
 
     batch: PersiaBatch
     lookup: Dict[str, Any]
@@ -80,6 +100,7 @@ class LookedUpBatch:
     ref_id: Optional[Hashable]
     engine: Optional["ForwardEngine"] = None
     staged: Optional[tuple] = None
+    trace: Optional[Tuple[int, int]] = None
 
     @property
     def requires_grad(self) -> bool:
@@ -89,11 +110,14 @@ class LookedUpBatch:
 @dataclass
 class _PackedGrads:
     """A still-on-device packed gradient array awaiting the copy to the
-    host and the unpack: the flat per-slot concatenation of ``shapes``."""
+    host and the unpack: the flat per-slot concatenation of ``shapes``,
+    or with ``slot_dims`` the batch-major (batch, sum dims) layout of the
+    data-parallel step."""
 
     flat: Any  # a torch tensor in the wire dtype
     shapes: Sequence[Tuple[int, ...]]
     names: Sequence[str]
+    slot_dims: Optional[Sequence[int]] = None
 
 
 class _GaugedSemaphore:
@@ -163,6 +187,7 @@ class BackwardEngine:
             buckets=STEP_BUCKETS)
         self._submit_seq = 0  # guarded by _pending_cv
         self._c_lost = reg.counter("pipeline_lost_updates_total")
+        self._timer_hist = StageTimer("backward_client_time_cost_sec").hist
         # register on the worker so checkpoint dumps can quiesce us
         engines = getattr(worker, "_backward_engines", None)
         if engines is None:
@@ -188,38 +213,56 @@ class BackwardEngine:
             self._submit_seq += 1
             seq = self._submit_seq
         self._g_pending.add(1)
-        self._q.put((ref_id, grads, seq))
+        work_started()
+        # the submitting thread's span (the trainer's step) parents the
+        # update on the backward thread
+        self._q.put((ref_id, grads, tracing.current_context(), seq))
 
     def submit_packed(self, ref_id: int, flat_grads,
                       shapes: Sequence[Tuple[int, ...]],
-                      names: Sequence[str]):
+                      names: Sequence[str],
+                      slot_dims: Optional[Sequence[int]] = None):
         """Queue a packed gradient tensor WITHOUT copying it to the host:
         the copy and the unpack run in a backward worker thread, off the
-        training thread."""
-        self.submit(ref_id, _PackedGrads(flat_grads, shapes, names))
+        training thread. ``slot_dims`` names the batch-major layout."""
+        self.submit(ref_id, _PackedGrads(flat_grads, shapes, names,
+                                         slot_dims))
 
     def _run(self):
-        from persia_tpu_torch.parallel.train import unpack_embedding_grads
+        from persia_tpu_torch.parallel.train import (
+            unpack_embedding_grads,
+            unpack_embedding_grads_batch_major,
+        )
 
         while True:
             item = self._q.get()
             if item is _SENTINEL:
                 return
-            ref_id, grads, seq = item
+            ref_id, grads, tctx, seq = item
             try:
-                if isinstance(grads, _PackedGrads):
-                    # .cpu() runs on this thread's current stream, the
-                    # default stream the training thread also issues on,
-                    # so it is ordered after the kernels that wrote flat
-                    grads = dict(zip(grads.names, unpack_embedding_grads(
-                        grads.flat.cpu(), grads.shapes)))
-                _retry_with_recovery(
-                    lambda: self.worker.update_gradients(
-                        ref_id, grads, loss_scale=self.loss_scale),
-                    "gradient update")
+                with self._timer_hist.timer(), \
+                        tracing.span("pipeline/backward_update", ctx=tctx,
+                                     ref_id=ref_id):
+                    if isinstance(grads, _PackedGrads):
+                        # .cpu() runs on this thread's current stream, the
+                        # default stream the training thread also issues
+                        # on, so it is ordered after the kernels that
+                        # wrote flat
+                        flat = grads.flat.cpu()
+                        per_slot = (
+                            unpack_embedding_grads(flat, grads.shapes)
+                            if grads.slot_dims is None else
+                            unpack_embedding_grads_batch_major(
+                                flat, grads.slot_dims))
+                        grads = dict(zip(grads.names, per_slot))
+                    _retry_with_recovery(
+                        lambda: self.worker.update_gradients(
+                            ref_id, grads, loss_scale=self.loss_scale),
+                        "gradient update")
                 with self._pending_cv:
                     now_seq = self._submit_seq
                 self._h_staleness.observe(now_seq - seq)
+                heartbeat()
             except (ConnectionError, OSError) as e:
                 # the connection stayed down through every retry: drop
                 # this update rather than wedge the engine
@@ -233,6 +276,7 @@ class BackwardEngine:
                 _logger.error("backward update failed: %s", e)
                 self._errors.append(e)
             finally:
+                work_finished()
                 self._g_pending.dec(1)
                 if self.staleness_sem is not None:
                     self.staleness_sem.release()
@@ -275,6 +319,8 @@ class ForwardEngine:
         self._g_out_q = reg.gauge("pipeline_ready_queue_depth")
         self.backward = BackwardEngine(self.worker,
                                        staleness_sem=self.staleness_sem)
+        self._forward_hist = StageTimer("forward_client_time_cost_sec").hist
+        start_deadlock_detection()
 
     def _lookup_with_recovery(self, batch: PersiaBatch,
                               stop: Optional[threading.Event] = None):
@@ -343,16 +389,25 @@ class ForwardEngine:
                     if batch.requires_grad and self.staleness_sem is not None:
                         self.staleness_sem.release()
                     continue
+                work_started()
                 try:
-                    ref_id, lookup = self._lookup_with_recovery(batch,
-                                                                stop=stop)
-                    staged = None
-                    stage = getattr(self.ctx, "stage_batch", None)
-                    if stage is not None and batch.requires_grad:
-                        # host-to-device staging off the training thread
-                        staged = stage(batch, lookup)
+                    # the batch's root span; the histogram times the
+                    # lookup alone, not the staging
+                    with tracing.span("pipeline/lookup", root=True,
+                                      seq=seq) as sp:
+                        with self._forward_hist.timer():
+                            ref_id, lookup = self._lookup_with_recovery(
+                                batch, stop=stop)
+                        staged = None
+                        stage = getattr(self.ctx, "stage_batch", None)
+                        if stage is not None and batch.requires_grad:
+                            # host-to-device staging off the training
+                            # thread
+                            staged = stage(batch, lookup)
+                    heartbeat()
                     out_q.put((seq, LookedUpBatch(batch, lookup, ref_id,
-                                                  self, staged)))
+                                                  self, staged,
+                                                  trace=sp.ctx)))
                     self._g_out_q.add(1)
                 except BaseException as e:
                     # this batch will never train: release its permit, and
@@ -363,6 +418,8 @@ class ForwardEngine:
                     errors.append(e)
                     out_q.put(_SENTINEL)
                     return
+                finally:
+                    work_finished()
 
         feeder_thread = threading.Thread(target=feeder, daemon=True,
                                          name="forward-feeder")

@@ -141,6 +141,7 @@ class EmbeddingHolder:
 
     def register_optimizer(self, config: dict,
                            feature_index_prefix_bit: int = 0):
+        # persialint: ok[lock-discipline] arm-time reference swap; the shard locks guard entry buffers (which optimizer.update mutates in place), not the optimizer binding itself
         self.optimizer = SparseOptimizer.from_config(
             config, feature_index_prefix_bit=feature_index_prefix_bit)
 
@@ -373,6 +374,7 @@ class EmbeddingHolder:
             with lock:
                 shard.clear()
         if self.spill is not None:
+            # persialint: ok[lock-discipline] SpillStore guards its own state with its leaf lock; shard locks never guard the spill binding
             self.spill.clear()
 
     def __len__(self) -> int:

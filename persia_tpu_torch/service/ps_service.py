@@ -1597,6 +1597,7 @@ def main():
                    help="per-connection dispatch pool depth (1 = serial)")
     args = p.parse_args()
     logging.basicConfig(level=os.environ.get("LOG_LEVEL", "INFO").upper())
+    tracing.start_deadlock_detection()
     tracing.set_service_name(f"ps{args.replica_index}")
     gc = (GlobalConfig.load(args.global_config) if args.global_config
           else GlobalConfig())

@@ -422,6 +422,7 @@ def main():
     obs_http.add_http_args(p)
     args = p.parse_args()
     logging.basicConfig(level=os.environ.get("LOG_LEVEL", "INFO").upper())
+    tracing.start_deadlock_detection()
     tracing.set_service_name(f"worker{args.replica_index}")
     schema = EmbeddingSchema.load(args.embedding_config)
     gc = (GlobalConfig.load(args.global_config) if args.global_config

@@ -305,11 +305,7 @@ def dense_bytes(snap_dir: str) -> Optional[bytes]:
     """The snapshot's ``dense.pt`` bytes, None when it has none; a
     snapshot that holds only the JAX package's ``dense.msgpack`` is
     refused."""
-    path = ckpt.dense_file(snap_dir)
-    if path is None:
-        return None
-    with open(path, "rb") as f:
-        return f.read()
+    return ckpt.dense_bytes(snap_dir)
 
 
 def load_cursor(snap_dir: str) -> Optional[dict]:

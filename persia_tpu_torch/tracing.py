@@ -1,4 +1,5 @@
-"""Cross-tier tracing: spans (the span half of ``persia_tpu/tracing.py``).
+"""Cross-tier tracing, the step profiler and the stall watchdog
+(``persia_tpu/tracing.py``).
 
 One logical request spans several tiers (client <-> inference server <->
 embedding worker), and aggregate histograms cannot tell which tier made
@@ -17,21 +18,37 @@ turns it on): every ``span(...)`` call site then returns a shared no-op
 context manager, and the RPC client never probes ``__trace__`` — the
 disabled wire is byte-identical to the untraced one.
 
-The step profiler, heartbeats, deadlock detection and stage timer of the
-JAX module are not ported yet.
+:class:`StepProfiler` is a ``torch.profiler`` window keyed to trainer
+steps (``TrainCtx(profiler=)``, or the ``PERSIA_PROFILE_*`` knobs through
+:func:`profiler_from_env`): its Chrome trace holds the card's kernels
+beside the host's ``trainer/train_step`` ranges of exactly those steps.
+The pipeline beats :func:`heartbeat` and counts its work in flight
+(:func:`work_started` / :func:`work_finished`);
+:func:`start_deadlock_detection` (``PERSIA_DEADLOCK_DETECTION=1``) arms a
+watchdog thread that dumps every thread's stack when work is in flight
+and no beat came for an interval. :class:`StageTimer` times a block into
+a registry histogram.
+
+This module imports no torch at import time (the service children load
+it without torch); the profiler imports it when a window opens.
 """
 
+import contextlib
 import json
+import logging
 import os
 import struct
+import sys
 import threading
 import time
+import traceback
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 from persia_tpu_torch import knobs
 from persia_tpu_torch.metrics import default_registry
 
+_logger = logging.getLogger(__name__)
 
 # --- span context ---------------------------------------------------------
 
@@ -368,3 +385,198 @@ def validate_span_dicts(spans: List[Dict]) -> Dict:
         "services": sorted({s["service"] for s in spans}),
         "names": sorted({s["name"] for s in spans}),
     }
+
+
+# --- the step profiler --------------------------------------------------------
+
+
+class StepProfiler:
+    """Opt-in ``torch.profiler`` window keyed to trainer step indices.
+
+    ``on_step(i)`` is called at each step boundary, before step ``i``
+    runs: the capture starts at the first ``i >= start_step`` and stops
+    at the boundary ``num_steps`` steps later, so the trace holds exactly
+    those steps; ``close()`` stops an open capture (the context's exit)
+    and does nothing after its first call. The activities are the CPU,
+    and CUDA once :meth:`bind_device` was given a CUDA device
+    (``TrainCtx`` binds its own). The Chrome trace is written under
+    ``logdir`` (``trace_path``). While the window is open,
+    :meth:`step_scope` marks each step as a ``trainer/train_step`` range
+    on the host timeline. A start or stop that fails logs a warning and
+    never stops training. Environment: :func:`profiler_from_env`."""
+
+    def __init__(self, logdir: str, start_step: int = 10,
+                 num_steps: int = 5):
+        self.logdir = logdir
+        self.start_step = int(start_step)
+        self.num_steps = max(1, int(num_steps))
+        self.active = False
+        self.trace_path: Optional[str] = None
+        self._done = False
+        self._cuda = False
+        self._prof = None
+        self._first = self._stop_at = 0
+
+    def bind_device(self, device):
+        """Trace the card's activity too when ``device`` is a CUDA
+        device (a ``torch.device`` or its name)."""
+        kind = getattr(device, "type", None) or str(device).split(":")[0]
+        self._cuda = kind == "cuda"
+
+    def on_step(self, step_idx: int):
+        if self._done:
+            return
+        if not self.active and step_idx >= self.start_step:
+            try:
+                from torch import profiler as tp
+
+                acts = [tp.ProfilerActivity.CPU]
+                if self._cuda:
+                    acts.append(tp.ProfilerActivity.CUDA)
+                prof = tp.profile(activities=acts)
+                prof.start()
+            except Exception as e:  # profiling must never kill training
+                _logger.warning("torch.profiler start failed: %s", e)
+                self._done = True
+                return
+            self._prof, self.active = prof, True
+            self._first, self._stop_at = step_idx, step_idx + self.num_steps
+            _logger.info("step profiler started at step %d -> %s",
+                         step_idx, self.logdir)
+        elif self.active and step_idx >= self._stop_at:
+            self.close()
+
+    def step_scope(self):
+        """A ``trainer/train_step`` range while the window is open, else
+        a no-op context."""
+        if not self.active:
+            return contextlib.nullcontext()
+        from torch.profiler import record_function
+
+        return record_function("trainer/train_step")
+
+    def close(self):
+        if not self.active:
+            return
+        self.active = False
+        self._done = True
+        prof, self._prof = self._prof, None
+        try:
+            prof.stop()
+            os.makedirs(self.logdir, exist_ok=True)
+            path = os.path.join(
+                self.logdir, f"trace_{os.getpid()}_step{self._first}.json")
+            prof.export_chrome_trace(path)
+            self.trace_path = path
+            _logger.info("step profiler stopped -> %s", path)
+        except Exception as e:
+            _logger.warning("torch.profiler stop failed: %s", e)
+
+
+def profiler_from_env() -> Optional[StepProfiler]:
+    """A StepProfiler from the ``PERSIA_PROFILE_*`` knobs, or None when
+    ``PERSIA_PROFILE_DIR`` is unset or empty."""
+    logdir = knobs.get("PERSIA_PROFILE_DIR")
+    if not logdir:
+        return None
+    return StepProfiler(
+        logdir,
+        start_step=knobs.get("PERSIA_PROFILE_START_STEP"),
+        num_steps=knobs.get("PERSIA_PROFILE_NUM_STEPS"),
+    )
+
+
+# --- the stall watchdog -------------------------------------------------------
+
+_beat = 0
+_inflight = 0
+_lock = threading.Lock()
+_watchdog: Optional["_Watchdog"] = None
+
+
+def heartbeat():
+    global _beat
+    _beat += 1  # a lost increment is still a change: progress
+
+
+def work_started():
+    global _inflight
+    with _lock:
+        _inflight += 1
+
+
+def work_finished():
+    global _inflight
+    with _lock:
+        _inflight -= 1
+
+
+def dump_all_stacks(out=None):
+    """Every thread's stack, each headed by the thread's name, to ``out``
+    (default stderr)."""
+    out = sys.stderr if out is None else out
+    frames = sys._current_frames()
+    names = {t.ident: t.name for t in threading.enumerate()}
+    print("==== persia_tpu_torch thread dump ====", file=out)
+    for tid, frame in frames.items():
+        print(f"--- thread {names.get(tid, tid)} ---", file=out)
+        traceback.print_stack(frame, file=out)
+    out.flush()
+
+
+class _Watchdog(threading.Thread):
+    """Every ``interval_sec``: work in flight and no heartbeat since the
+    last look logs an error and dumps every stack to stderr."""
+
+    def __init__(self, interval_sec: float):
+        super().__init__(daemon=True, name="deadlock-watchdog")
+        self.interval_sec = float(interval_sec)
+        self.dumps = 0
+        self._halt = threading.Event()
+
+    def run(self):
+        last = _beat
+        while not self._halt.wait(self.interval_sec):
+            if _inflight > 0 and _beat == last:
+                _logger.error(
+                    "no pipeline progress for %.1fs with %d items in flight "
+                    "- dumping stacks", self.interval_sec, _inflight)
+                dump_all_stacks()
+                self.dumps += 1
+            last = _beat
+
+    def stop(self):
+        self._halt.set()
+
+
+def start_deadlock_detection(interval_sec: float = 30.0
+                             ) -> Optional[_Watchdog]:
+    """Start the stall watchdog; a no-op returning None unless
+    ``PERSIA_DEADLOCK_DETECTION`` is set. A process runs one watchdog:
+    while it lives, a later call returns it unchanged (the JAX package
+    starts one a call, so one an engine). ``stop()`` ends it."""
+    global _watchdog
+    if not knobs.get("PERSIA_DEADLOCK_DETECTION"):
+        return None
+    with _lock:
+        if _watchdog is None or not _watchdog.is_alive():
+            _watchdog = _Watchdog(interval_sec)
+            _watchdog.start()
+        return _watchdog
+
+
+class StageTimer:
+    """A context that times its block into the registry histogram
+    ``name`` (``forward_client_time_cost_sec``,
+    ``backward_client_time_cost_sec``, ...)."""
+
+    def __init__(self, name: str):
+        self.hist = default_registry().histogram(name)
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.hist.observe(time.perf_counter() - self._t0)
+        return False

@@ -83,11 +83,17 @@ state. An application error from a replica that is not ready re-arms it
 the same way. The retried update still ships only the groups that had
 not landed, to whichever client now serves their shard.
 
-Tracing: a lookup runs under a ``worker/rpc`` span and an update under
-``worker/update_stream``, and each PS call on the fan-out pool under a
-``worker/ps_lookup`` / ``worker/ps_update`` child of it (the JAX
-worker's names), so that a traced request reaches the PS with its
-context.
+Tracing (the JAX worker's names): a lookup runs its stages under
+``worker/preprocess``, ``worker/rpc`` and ``worker/postprocess`` spans,
+each PS call on the fan-out pool under a ``worker/ps_lookup`` child of
+``worker/rpc``, and a remote shard's multiplexed groups under one
+``worker/ps_lookup_mux``. An update that ships groups while later
+features aggregate (the streaming plane with a pool, and more than one
+last feature) runs under ``worker/update_stream``; any other aggregates
+every feature and gathers each group's rows under ``worker/aggregate``,
+then ships under ``worker/ship`` (which, as in JAX, also holds a retry
+after recovery). Each PS update call is a ``worker/ps_update`` child,
+so that a traced request reaches the PS with its context.
 """
 
 import itertools
@@ -522,22 +528,32 @@ class EmbeddingWorker:
             for f in feats:
                 self.monitor.observe(f.name, f.distinct_signs)
         routing = self._routing.table
-        with self._t_preprocess.timer():
+        with self._t_preprocess.timer(), tracing.span("worker/preprocess"):
             groups = mw.shard_split(feats, self.schema,
                                     routing.num_replicas, routing=routing)
             mats = mw.alloc_lookup_mats(feats, self.schema)
+        # the fan-out pool's threads have no span of their own: each call
+        # parents to the worker/rpc span, captured when the fan-out runs
+        tctx = None
 
         def ps_lookup(g):
-            try:
-                return self.ps_clients[g.shard].lookup(g.signs, g.dim,
-                                                       training)
-            except Exception as e:  # noqa: BLE001 — settled or raised
-                return self._settle_stale_lookup(g, training, e)
+            with tracing.span("worker/ps_lookup", ctx=tctx, shard=g.shard,
+                              dim=g.dim, n=len(g.signs)):
+                try:
+                    return self.ps_clients[g.shard].lookup(g.signs, g.dim,
+                                                           training)
+                except Exception as e:  # noqa: BLE001 — settled or raised
+                    return self._settle_stale_lookup(g, training, e)
 
         def lookup_and_scatter(g):
             mw.scatter_group(mats, g, ps_lookup(g))
 
         def lookup_shard_mux(gs):
+            with tracing.span("worker/ps_lookup_mux", ctx=tctx,
+                              shard=gs[0].shard, groups=len(gs)):
+                mux_groups(gs)
+
+        def mux_groups(gs):
             # one remote shard's groups in flight together on this
             # thread's connection, each scattered as it resolves
             client = self.ps_clients[gs[0].shard]
@@ -568,10 +584,11 @@ class EmbeddingWorker:
                 mw.scatter_group(mats, g, settle(g, resolve))
 
         def do_lookup():
+            nonlocal tctx
+            tctx = tracing.current_context()
             if not self.streaming:
                 results = self._fan_out([partial(ps_lookup, g)
-                                         for g in groups],
-                                        "worker/ps_lookup")
+                                         for g in groups])
                 for g, res in zip(groups, results):
                     mw.scatter_group(mats, g, res)
                 return
@@ -587,13 +604,14 @@ class EmbeddingWorker:
                     calls.append(partial(lookup_shard_mux, gs))
                 else:
                     calls.extend(partial(lookup_and_scatter, g) for g in gs)
-            self._fan_out(calls, "worker/ps_lookup")
+            self._fan_out(calls)
 
         # a retry scatters every group again into the same matrices
         with self._t_rpc.timer(), tracing.span("worker/rpc",
                                                groups=len(groups)):
             self._with_ps_retry(do_lookup)
-        with self._t_postprocess.timer():
+        with self._t_postprocess.timer(), \
+                tracing.span("worker/postprocess"):
             out = {feat.name: mw.postprocess_feature(
                 feat, self.schema.get_slot(feat.name), mat)
                 for feat, mat in zip(feats, mats)}
@@ -646,16 +664,50 @@ class EmbeddingWorker:
             item.epoch = routing.epoch
         # a retry after recovery ships only the groups still not landed,
         # through the clients serving their shards then
-        with tracing.span("worker/update_stream", groups=len(item.groups)):
-            self._with_ps_retry(lambda: self._ship_pending(
-                item.feats, item.groups, item.landed, grads, loss_scale))
+        if self._streams(item):
+            with tracing.span("worker/update_stream",
+                              groups=len(item.groups)):
+                self._with_ps_retry(lambda: self._ship_streaming(
+                    item, grads, loss_scale))
+            return
+        with self._t_aggregate.timer(), tracing.span("worker/aggregate"):
+            per_feature = [
+                mw.aggregate_gradients(feat, self.schema.get_slot(feat.name),
+                                       grads[feat.name], loss_scale)
+                for feat in item.feats]
+            gathered = {i: mw.gather_group_grads(g, per_feature)
+                        for i, g in enumerate(item.groups)
+                        if i not in item.landed}
+        with self._t_ship.timer(), tracing.span("worker/ship"):
+            self._with_ps_retry(lambda: self._ship_aggregated(
+                item, gathered))
 
-    def _ship_pending(self, feats, groups, landed, grads, loss_scale):
-        todo = [i for i in range(len(groups)) if i not in landed]
+    @staticmethod
+    def _by_last(item: _Pending) -> Dict[int, List[int]]:
+        """The groups not landed yet, by their last feature
+        (``feature_idx`` is nondecreasing): a group can ship once that
+        feature has aggregated."""
+        by_last: Dict[int, List[int]] = {}
+        for i, g in enumerate(item.groups):
+            if i not in item.landed:
+                by_last.setdefault(int(g.feature_idx[-1]), []).append(i)
+        return by_last
+
+    def _streams(self, item: _Pending) -> bool:
+        """Ship groups while later features aggregate: a pool and more
+        than one last feature (otherwise every group waits for the same
+        one, and the batch aggregates once, then ships)."""
+        return (self.streaming and self._fanout is not None
+                and len(self._by_last(item)) > 1)
+
+    def _shipper(self, item: _Pending):
+        """``ship(i, group_grads)``: group ``i`` to its shard, in a
+        ``worker/ps_update`` span child of the calling thread's span; a
+        group that lands joins ``item.landed``."""
         tctx = tracing.current_context()
 
         def ship(i, group_grads):
-            g = groups[i]
+            g = item.groups[i]
             with tracing.span("worker/ps_update", ctx=tctx, shard=g.shard):
                 try:
                     self.ps_clients[g.shard].update_gradients(
@@ -663,27 +715,24 @@ class EmbeddingWorker:
                 except Exception as e:  # noqa: BLE001 — settled or raised
                     self._settle_stale_update(g.signs, group_grads, g.dim,
                                               e)
-            landed.add(i)
+            item.landed.add(i)
 
-        # a group can ship once its last feature (feature_idx is
-        # nondecreasing) has aggregated
-        by_last: Dict[int, List[int]] = {}
-        for i in todo:
-            by_last.setdefault(int(groups[i].feature_idx[-1]), []).append(i)
-        if not self.streaming or self._fanout is None or len(by_last) <= 1:
-            self._update_serialized(feats, groups, todo, ship, grads,
-                                    loss_scale)
-            return
+        return ship
+
+    def _ship_streaming(self, item: _Pending, grads, loss_scale):
+        by_last = self._by_last(item)
+        ship = self._shipper(item)
         futures = []
-        per_feature: List[Optional[np.ndarray]] = [None] * len(feats)
+        per_feature: List[Optional[np.ndarray]] = [None] * len(item.feats)
         agg_sec = 0.0
         try:
-            for fi, feat in enumerate(feats):
+            for fi, feat in enumerate(item.feats):
                 t0 = time.perf_counter()
                 per_feature[fi] = mw.aggregate_gradients(
                     feat, self.schema.get_slot(feat.name), grads[feat.name],
                     loss_scale)
-                ready = [(i, mw.gather_group_grads(groups[i], per_feature))
+                ready = [(i, mw.gather_group_grads(item.groups[i],
+                                                   per_feature))
                          for i in by_last.get(fi, ())]
                 agg_sec += time.perf_counter() - t0
                 for i, gmat in ready:
@@ -693,19 +742,13 @@ class EmbeddingWorker:
             with self._t_ship.timer():
                 _wait_all(futures)
 
-    def _update_serialized(self, feats, groups, todo, ship, grads,
-                           loss_scale):
-        """Aggregate every feature, then ship the groups ``todo``."""
-        with self._t_aggregate.timer():
-            per_feature = [
-                mw.aggregate_gradients(feat, self.schema.get_slot(feat.name),
-                                       grads[feat.name], loss_scale)
-                for feat in feats]
-            calls = [partial(ship, i, mw.gather_group_grads(groups[i],
-                                                            per_feature))
-                     for i in todo]
-        with self._t_ship.timer():
-            self._fan_out(calls)
+    def _ship_aggregated(self, item: _Pending, gathered):
+        """Ship every group not landed yet, from ``gathered`` (group index
+        to its gradient rows)."""
+        ship = self._shipper(item)
+        self._fan_out([partial(ship, i, gmat)
+                       for i, gmat in gathered.items()
+                       if i not in item.landed])
 
     def _fan_out(self, calls, span: Optional[str] = None) -> list:
         """Run ``calls`` (callables without arguments) on the fan-out
@@ -866,7 +909,7 @@ class EmbeddingWorker:
         with self._t_rpc.timer():
             sels, results = self._per_shard(
                 signs, lambda r, sel: self.ps_clients[r].lookup(
-                    signs[sel], dim, False), routing)
+                    signs[sel], dim, False), routing, "worker/ps_lookup")
         for sel, rows in zip(sels, results):
             out[sel] = rows
         if prev is not None and prev.num_slots == routing.num_slots:
@@ -885,16 +928,19 @@ class EmbeddingWorker:
                                       int(r), e)
         return out
 
-    def _per_shard(self, signs: np.ndarray, call, routing=None):
+    def _per_shard(self, signs: np.ndarray, call, routing=None,
+                   span: Optional[str] = None):
         """``call(shard, sel)`` for each shard owning some of ``signs``
         (``sel`` their indices) under ``routing`` (default the live
-        table), fanned out, once more after a recovery. Returns (the
+        table), fanned out, once more after a recovery; each in a
+        ``span`` child of the caller's span when given. Returns (the
         selections, the results)."""
         routing = routing or self._routing.table
         shards = routing.replica_of(signs)
         sels = [np.nonzero(shards == r)[0] for r in np.unique(shards)]
         return sels, self._with_ps_retry(lambda: self._fan_out(
-            [partial(call, int(shards[sel[0]]), sel) for sel in sels]))
+            [partial(call, int(shards[sel[0]]), sel) for sel in sels],
+            span))
 
     # --- recovery from PS failures ----------------------------------------
 

@@ -126,10 +126,11 @@ def _record(worker):
 
 
 def port_ctx(params, mesh=None, leader=True, mode=None, raw=False,
-             worker=True):
+             worker=True, **kw):
     """The port's TrainCtx on the CPU: DLRM from the flax ``params``,
     OptaxAdagrad and sparse Adagrad at LR, f32 wire; the worker (two
-    per-entry numpy PS shards) only where ``leader``."""
+    per-entry numpy PS shards) only where ``leader``; ``kw`` to the
+    TrainCtx."""
     from persia_tpu_torch import config as tcfg
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding.optim import Adagrad
@@ -149,7 +150,8 @@ def port_ctx(params, mesh=None, leader=True, mode=None, raw=False,
     return TrainCtx(model, OptaxAdagrad(model.parameters(), LR),
                     Adagrad(lr=LR), sch, w, device="cpu", mesh=mesh,
                     grad_reduce_dtype=mode,
-                    global_config=tcfg.GlobalConfig(tcfg.CommonConfig("f32")))
+                    global_config=tcfg.GlobalConfig(tcfg.CommonConfig("f32")),
+                    **kw)
 
 
 def port_run(ctx, batches):
@@ -259,9 +261,13 @@ def device_mode_run(inputs, mesh):
 
 
 def refusals(inputs, mesh, leader):
+    """The refusals, and what item 3c made work where refusals stood: a
+    collective snapshot, checkpoint dump and resume, and a DataLoader
+    (None where the call raised nothing)."""
     from persia_tpu_torch.data import batch as tb
-    from persia_tpu_torch.data.dataloader import DataLoader
-    from persia_tpu_torch.ctx import TrainCtx, eval_ctx
+    from persia_tpu_torch.data.dataloader import DataLoader, IterableDataset
+    from persia_tpu_torch.ctx import eval_ctx
+    from persia_tpu_torch.weights import flax_params
     from persia_tpu_torch.models.dlrm import DLRM
     from persia_tpu_torch.parallel import device_mode as tdm
     from persia_tpu_torch.parallel.mesh import make_mesh
@@ -278,20 +284,31 @@ def refusals(inputs, mesh, leader):
     out["model_axis"] = _refusal(lambda: tdm.make_device_mode_trainer(
         model, lambda p: OptaxAdagrad(p, 0.02), non_id, ids,
         device="cpu", mesh=sharded))
-    out["resume_from"] = _refusal(lambda: TrainCtx(
-        model.tower, None, None, None, None, device="cpu", mesh=mesh,
-        resume_from="x"))
     out["wrong_worker"] = _refusal(lambda: port_ctx(
         params, mesh, leader=True))
     out["bad_dtype"] = _refusal(lambda: port_ctx(params, mesh, leader,
                                                  mode="fp8"))
+    snaps = os.path.join(inputs["tmp"], "snaps")
+    ckpt_dir = os.path.join(inputs["tmp"], "ckpt")
+    cursor = {"seed": 1, "consumed": 1}
     ctx = port_ctx(params, mesh, leader)
     with ctx:
-        out["snapshot"] = _refusal(lambda: ctx.snapshot("/nonexistent"))
+        (warm,) = make_batches(tb, 1, BS, 2)
+        ctx.train_step(warm)  # the optimizer holds state to snapshot
+        out["snapshot"] = _refusal(lambda: out.__setitem__(
+            "snap", ctx.snapshot(snaps, cursor=cursor)))
+        out["snap_params"] = flat(flax_params(ctx.model)[0])
         out["dump_checkpoint"] = _refusal(
-            lambda: ctx.dump_checkpoint("/nonexistent"))
-        out["dataloader"] = _refusal(
-            lambda: iter(DataLoader(make_batches(tb, 1, BS, 1))).__next__())
+            lambda: ctx.dump_checkpoint(ckpt_dir))
+
+        def loader():
+            out["loader_losses"] = [
+                float(ctx.train_step(lb)[0])
+                for lb in DataLoader(IterableDataset(
+                    make_batches(tb, 2, BS, 1)), num_workers=2,
+                    embedding_staleness=1)]
+
+        out["dataloader"] = _refusal(loader)
         (mine,) = make_batches(tb, 1, BS, 1)
         mine.batch_id = ctx.mesh.get_rank()  # every rank another batch
         out["other_batches"] = _refusal(lambda: ctx.train_step(mine))
@@ -305,6 +322,16 @@ def refusals(inputs, mesh, leader):
             assert pred.shape == (BS, 1) and bool(torch.isfinite(pred).all())
 
         out["eval"] = _refusal(evaluate)
+        out["end_params"] = flat(flax_params(ctx.model)[0])
+    out["ckpt_dir"] = ckpt_dir
+
+    def resume():
+        again = port_ctx(params, mesh, leader, resume_from=snaps)
+        with again:
+            out["resumed"] = (again.resume_cursor, again._step_count,
+                              flat(flax_params(again.model)[0]))
+
+    out["resume_from"] = _refusal(resume)
     return out
 
 
@@ -514,7 +541,8 @@ def worlds(tmp_path_factory):
     dm_init, dm_batch, dm_losses, dm_params = jax_device_mode((W, 1))
     dirs = {n: tmp_path_factory.mktemp(n) for n in BODIES}
     inputs = {"params": params, "raw_params": raw_params,
-              "dm_params": dm_init, "dm_batch": dm_batch}
+              "dm_params": dm_init, "dm_batch": dm_batch,
+              "tmp": str(tmp_path_factory.mktemp("ddp_files"))}
     sizes = {"ddp": W, "ef8": 8, "rendezvous": 2}
     groups = {n: launch.start_ranks(__file__, n, sizes[n], inputs, dirs[n],
                                     env=_child_env()) for n in BODIES}
@@ -733,23 +761,52 @@ def test_device_mode_over_the_data_axis_matches_jax(worlds):
 
 @pytest.mark.parametrize("case,expect", [
     ("model_axis", ("NotImplementedError", "item 3d")),
-    ("resume_from", ("NotImplementedError", "item 3c")),
+    ("resume_from", ("ok", "every rank resumes the leader's snapshot")),
     ("wrong_worker", ("ValueError", "sparse leader")),
     ("bad_dtype", ("ValueError", "grad_reduce_dtype")),
-    ("snapshot", ("NotImplementedError", "item 3c")),
-    ("dump_checkpoint", ("NotImplementedError", "item 3c")),
-    ("dataloader", ("NotImplementedError", "item 3c")),
+    ("snapshot", ("ok", "every rank gets the leader's path")),
+    ("dump_checkpoint", ("ok", "the leader writes, every rank returns")),
+    ("dataloader", ("ok", "every rank trains the leader's batches")),
     ("other_batches", ("RuntimeError", "different batches")),
 ])
 def test_mesh_refusals(worlds, case, expect):
     """Each refusal raises on every rank alike (so that no rank waits on
-    a collective the others never reach), naming its ROADMAP item."""
+    a collective the others never reach), naming its ROADMAP item. The
+    calls item 3c made work (``ok``) return on every rank: the snapshot's
+    path is the same on every rank, the resumed context holds the
+    snapshot's cursor, step and dense parameters on every rank (the run
+    trained on after the snapshot), the checkpoint holds the leader's
+    files, and the DataLoader's losses are equal on every rank."""
     _, port = worlds
-    for rank, r in enumerate(port["ddp"]):
-        got = r["refusals"][case]
+    kind, words = expect
+    ranks = [r["refusals"] for r in port["ddp"]]
+    for rank, r in enumerate(ranks):
+        got = r[case]
+        if kind == "ok":
+            assert got is None, (rank, case, got)
+            continue
         assert got is not None, (rank, case)
-        kind, words = expect
         assert got.startswith(kind + ":") and words in got, (rank, got)
+    if case == "snapshot":
+        assert len({r["snap"] for r in ranks}) == 1
+        assert os.path.exists(os.path.join(ranks[0]["snap"],
+                                           "manifest.json"))
+    elif case == "resume_from":
+        for r in ranks:
+            cursor, step, params = r["resumed"]
+            assert cursor == {"seed": 1, "consumed": 1} and step == 1
+            assert set(params) == set(r["snap_params"])
+            for k in params:
+                np.testing.assert_array_equal(params[k], r["snap_params"][k])
+            assert any(not np.array_equal(r["snap_params"][k], v)
+                       for k, v in r["end_params"].items())
+    elif case == "dump_checkpoint":
+        assert os.path.exists(os.path.join(ranks[0]["ckpt_dir"],
+                                           "dense.pt"))
+    elif case == "dataloader":
+        losses = [r["loader_losses"] for r in ranks]
+        assert len(losses[0]) == 2 and np.isfinite(losses[0]).all()
+        assert all(x == losses[0] for x in losses)
 
 
 def test_ranks_import_no_jax(worlds):

@@ -202,7 +202,8 @@ def test_port_imports_no_jax():
     zoo and the workload registry among them) and chip_smoke (without
     running it), then builds and loads the port's
     native library and runs one worker lookup on the native store through
-    the middleware's C++ kernels: no jax, flax, optax or persia_tpu
+    the middleware's C++ kernels, and a step profiler window (the
+    ``torch.profiler`` path of ``tracing.py``) writes its trace: no jax, flax, optax or persia_tpu
     module may load, and no file under ``native/build/`` or
     ``persia_tpu/native_bin/`` may be mapped or open. The serving wire
     speaks MessagePack through the port's own codec: ``msgpack`` must not
@@ -245,6 +246,16 @@ def test_port_imports_no_jax():
         "assert set(calls) == {'dedup', 'shard_order', 'scatter_rows', "
         "'sum_post', 'scatter_add_rows'}, calls\n"
         "w.close()\n"
+        "import tempfile\n"
+        "from persia_tpu_torch.tracing import StepProfiler\n"
+        "prof = StepProfiler(tempfile.mkdtemp(), start_step=1, "
+        "num_steps=1)\n"
+        "prof.on_step(1)\n"
+        "with prof.step_scope():\n"
+        "    schema.slots_config\n"
+        "prof.on_step(2)\n"
+        "assert prof.trace_path and os.path.getsize(prof.trace_path), "
+        "prof.trace_path\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert str(native_lib_path()) in maps\n"
         "fds = [os.path.realpath(f'/proc/self/fd/{fd}') "

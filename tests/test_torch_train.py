@@ -533,7 +533,7 @@ def test_train_ctx_eval_ctx_and_auc():
     assert roc_auc(labels, tied) == jauc(labels, tied)
 
 
-def test_train_ctx_refusals(monkeypatch):
+def test_train_ctx_refusals(monkeypatch, tmp_path):
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.models import SequenceTower
 
@@ -550,10 +550,35 @@ def test_train_ctx_refusals(monkeypatch):
     mesh = DeviceMesh("cpu", torch.arange(2).reshape(2, 1),
                       mesh_dim_names=("data", "model"), _init_backend=False,
                       _rank=0)
-    for kw in (dict(mesh=mesh, resume_from="snap"),
-               dict(profiler=object())):
-        with pytest.raises(NotImplementedError, match="queue A"):
-            TrainCtx(model, opt, None, schema, worker, device="cpu", **kw)
+    # a profiler is taken and bound to the context's device; mesh= with
+    # resume_from= resumes (here a world of one gloo rank; two ranks in
+    # tests/test_torch_mesh_pipeline.py)
+    import torch.distributed as dist
+
+    from persia_tpu_torch.distributed import free_port
+    from persia_tpu_torch.parallel.mesh import make_mesh
+    from persia_tpu_torch.tracing import StepProfiler
+
+    prof = StepProfiler(str(tmp_path / "prof"), 1, 1)
+    ctx = TrainCtx(model, opt, None, schema, worker, device="cpu",
+                   profiler=prof)
+    assert ctx.profiler is prof and not prof._cuda
+    with ctx:
+        snap = ctx.snapshot(str(tmp_path / "snap"),
+                            cursor={"seed": 0, "consumed": 3})
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        ctx = TrainCtx(model, opt, None, schema,
+                       TWorker(schema, [THolder(1000, 2)]), device="cpu",
+                       mesh=make_mesh((1, 1), device="cpu"),
+                       resume_from=str(tmp_path / "snap"))
+        assert ctx.resume_cursor == {"seed": 0, "consumed": 3}
+        assert ctx._resume_snap == snap
+        with ctx:
+            assert ctx._resume_snap is None and ctx._step_count == 0
+    finally:
+        dist.destroy_process_group()
     # the device cache over a mesh of two ranks (two processes), refused
     # on request before the context joins the mesh
     monkeypatch.setenv("PERSIA_MULTIHOST_CACHE", "refuse")
