@@ -134,7 +134,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      ``hotness`` admission at 131,072 rows over the first 30 batches:
      hit rate, promotions, samples/s;
    - ``zoo``: the registry's ``dlrm``, ``seqrec`` and ``multitask``
-     scenarios at full size on ``bench.py``'s e2e stack, 120 steps at
+     scenarios at full size on ``bench.py``'s e2e stack, 80 steps at
      each bench batch: samples/s, the loss falling, the held-out AUC of
      each task at the scenario's bar;
    - ``adult_income``: ``DNN`` with its two batch norms at
@@ -142,7 +142,7 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      steps of batch 256 synchronous and pipelined: AUC above 0.70 on
      both, the running statistics moved from their init;
    - ``criteo_towers``: ``DCNv2``, ``DeepFM`` and ``WideAndDeep`` at the
-     criteo example's widths and optimizers, 50 steps of batch 4096 of
+     criteo example's widths and optimizers, 30 steps of batch 4096 of
      ``criteo_learnable_batches``: every loss finite, the last 10 steps'
      mean below the first 10's, eval predictions in (0, 1).
 7. ``snapshot_resume``, the spill tier, the hotness sketches, job
@@ -168,8 +168,8 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      disk, the restore ms (construction to the end of the first resumed
      step), the launches;
    - ``bench.py``'s ``_chaos_job_convergence_cell`` on the registry's
-     ``dlrm`` scenario at full size: 80 steps of batch 2048 straight
-     against 40, a snapshot and 40 resumed (the cell's 120 cut); the
+     ``dlrm`` scenario at full size: 60 steps of batch 2048 straight
+     against 30, a snapshot and 30 resumed (the cell's 120 cut); the
      suffix losses and the dense parameters within 1e-5, the held-out AUC
      within 1e-6, and no kernel launched.
 8. Device-mode phase, K1's main path, at ``bench.py``'s ``bench_device``
@@ -388,6 +388,35 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    ``stats()``); ``pipelined`` reads ``pipeline_staleness_permits_in_use``
    (0 at rest) and one ``pipeline_gradient_staleness_steps`` observation
    a step.
+16. ``orchestration`` (last; every process of it starts with it), the
+   launcher, the k8s manifests and operator and
+   the autopilot: (a) ``examples/criteo/job.yml`` rendered by the port's
+   ``k8s_utils.gen_manifests``, cut to 2 PS, 1 embedding worker, 2 data
+   loaders and 1 nnWorker of ``gpu: {count: 1}`` (``PERSIA_MESH`` 2,1,
+   ``PERSIA_TRAINER_PROCESSES`` 2, the port's entry scripts), every pod's
+   rendered command and env run as a local process (the coordinator's
+   address handed over by addr file): the launcher's group of two gloo
+   ranks sharing the card trains DLRM on the loaders' learnable batches
+   over the remote worker and the dataflow; every process exits 0, the
+   ranks together count at least the samples sent, their dense
+   parameters agree by digest, the held-out AUC is above 0.60
+   (``tests/test_flagship_e2e.py``'s bar), no K1-K5 launch. (b) seq_rec
+   at the training phase's widths over a ``ServiceCtx`` of 2 PS, each
+   behind its sidecar, watched by ``svc.fleet_monitor``; an enforce-mode
+   ``Autopilot`` with ``PsScalePolicy`` (scale-out above 0.30 of the
+   fleet's ``ps_lookup_row_rate`` over the first scrapes) and a shadow
+   recommend-mode one tick at the same instants and scale the tier 2→3
+   mid-run through ``Operator(FakeKubeApi(), reshard_driver=...)`` and a
+   ``ReshardController``: exactly that action, the same decisions, the
+   journal re-read with its evidence, losses, dense state and every
+   touched row bit-equal to an unbroken cluster's run of the same
+   batches, K2-K4 once a step. (c) ``bench.py``'s ``bench_autopilot``
+   at its smoke depth on the port, in a child that loads no torch:
+   scale_out → rebalance → scale_in, each verified improved, no update
+   lost, recommend == enforce, the worker p99 through the actions within
+   25x of quiet above a 1 s floor. (c) runs first, beside only the
+   start-up of (a)'s and (b)'s processes; then (a) beside (b), each one's
+   rates under the other's load.
    Last, one line gives every wrapper's host time a call at its
    main-path shape beside the launch floor. A ``[time]`` line follows
    each phase.
@@ -559,8 +588,8 @@ DC_ADMIT_STEPS = 30
 DC_ADMIT_CAPACITY = 131_072
 # training / zoo: the registry's scenarios at full size on bench.py's e2e
 # stack; bench.py --mode e2e runs at least 200 steps each, cut here to pay
-# for the fleet phase's time (PERF.md §4)
-ZOO_STEPS = 120
+# for the fleet (120) and orchestration (80) phases' time (PERF.md §4)
+ZOO_STEPS = 80
 ZOO_EVAL = 8192
 # training / adult_income: examples/adult_income/train.py's widths and
 # optimizers; the AUC bar of tests/test_e2e_local.py
@@ -570,8 +599,9 @@ AI_STEPS = 300
 AI_BATCH = 256
 AI_EVAL = 4096
 AI_BAR = 0.70
-# training / criteo_towers: examples/criteo/train.py's widths
-CT_STEPS = 50
+# training / criteo_towers: examples/criteo/train.py's widths; 50 steps a
+# tower until the orchestration phase came (PERF.md §4)
+CT_STEPS = 30
 CT_BATCH = 4096
 # snapshot_resume: seq_rec at the example's widths on spill-armed native
 # holders. Run A trains 2 N steps straight; run B trains N, snapshots and
@@ -592,7 +622,7 @@ SR_PACKET_BYTES = 256 << 10
 # bench.py's _chaos_job_convergence_cell on the registry's dlrm scenario:
 # 80 steps of its bench batch (the cell's 120, cut when the online phase
 # came), resumed at 40, with bench.py's gates
-DRILL_STEPS = 80
+DRILL_STEPS = 60  # 80 until the orchestration phase came (PERF.md §4)
 DRILL_EVAL = 2048
 DRILL_ATOL = 1e-5  # suffix losses and dense parameters
 DRILL_AUC_ATOL = 1e-6
@@ -2131,8 +2161,8 @@ def thread_cpu_s() -> dict:
         try:
             with open(f"/proc/self/task/{tid}/stat") as f:
                 fields = f.read().rsplit(")", 1)[1].split()
-        except FileNotFoundError:  # the thread ended meanwhile
-            continue
+        except (FileNotFoundError, ProcessLookupError):
+            continue  # the thread ended meanwhile (ENOENT or ESRCH)
         group = named.get(int(tid), "other")
         out[group] = out.get(group, 0.0) + (
             int(fields[11]) + int(fields[12])) / tick
@@ -8109,6 +8139,974 @@ def fleet_phase(torch, card: str, clusters: FleetClusters) -> dict:
     return launches
 
 
+OR_SAMPLES = 49152  # (a): tests/test_flagship_e2e.py's samples, all loaders
+OR_BATCH = 256
+OR_VOCAB = 500  # (a): a slot's sign space, small so that ids repeat
+OR_EVAL = 4096  # (a): held-out samples (seed 99) on the leader
+OR_AUC_BAR = 0.60  # (a): tests/test_flagship_e2e.py's bar
+OR_JOB_S = 300  # (a): the job's deadline
+OR_SCRAPE_S = 0.25  # (b), (c): bench_autopilot's scrape interval
+OR_WINDOW_S = 2.0  # (b), (c): the scale rules' sustained() window
+OR_CAL_S = 1.2  # (b), (c): the calibration's scrapes
+OR_CAL_FROM = 2  # (b): the pilots' thread starts before this step
+OR_AFTER_STEPS = 20  # (b): steps trained after the scale-out executed
+OR_MAX_STEPS = 400  # (b): no scale-out by then fails the phase
+OR_C_INFLATION_X = 25.0  # (c): bench_autopilot's p99 gate above its floor
+OR_C_FLOOR_S = 1.0
+
+
+def or_job_spec(gc_path: str) -> dict:
+    """``examples/criteo/job.yml`` read by the port's YAML reader and cut
+    for one card: 2 PS (8), 1 embedding worker (2), 2 data loaders, 1
+    nnWorker of ``gpu: {count: 1}`` in place of the TPU block, the port's
+    entry scripts, ``PERSIA_MESH`` 2,1 (4,1) with
+    ``PERSIA_TRAINER_PROCESSES`` 2, a global config (the PS's capacity),
+    and no metrics gateway (a pushgateway image, not a local process)."""
+    from persia_tpu_torch.utils import load_yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = load_yaml(os.path.join(root, "examples", "criteo", "job.yml"))
+    spec["metrics"] = {"enabled": False}
+    spec["globalConfigPath"] = gc_path
+    roles = spec["roles"]
+    roles["embeddingParameterServer"]["replicas"] = 2
+    roles["embeddingWorker"]["replicas"] = 1
+    nn = roles["nnWorker"]
+    del nn["tpu"]
+    nn["gpu"] = {"count": 1}
+    nn["entry"] = "persia_tpu_torch/examples/criteo/train.py"
+    nn["env"] = {"PERSIA_MESH": "2,1", "PERSIA_TRAINER_PROCESSES": "2"}
+    roles["dataloader"]["replicas"] = 2
+    roles["dataloader"]["entry"] = "persia_tpu_torch/examples/criteo/send_data.py"
+    return spec
+
+
+class LauncherJob:
+    """(a): every pod of the port's ``gen_manifests(or_job_spec())`` as a
+    local process from the checkout's root, its rendered ``command``
+    (``python`` being this interpreter) and ``env`` over this process's.
+    The coordinator pod binds 127.0.0.1 on port 0 and hands its address
+    over by an addr file (``--addr-file``), which replaces the rendered
+    ``PERSIA_COORDINATOR_ADDR`` of every other pod; the PS pods bind port
+    0. The service pods start at construction (they load no torch);
+    :meth:`start_roles` starts the data loaders and the nnWorker pod (the
+    launcher and its trainer group, the card's processes), each with the
+    job's arguments appended (an entry holds a script, not its flags)."""
+
+    LOADER_ARGS = ["--learnable", "--samples", str(OR_SAMPLES),
+                   "--batch-size", str(OR_BATCH), "--vocab", str(OR_VOCAB)]
+
+    def __init__(self, tmp: str):
+        from persia_tpu_torch.k8s_utils import gen_manifests
+        from persia_tpu_torch.utils import dump_yaml, wait_addr_file
+
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.tmp = tmp
+        gc = os.path.join(tmp, "job_global.yml")
+        dump_yaml({"embedding_parameter_server_config": {
+            "capacity": 2_000_000, "num_hashmap_internal_shards": 8}}, gc)
+        self.result_dir = os.path.join(tmp, "job_results")
+        self.pods = [m for m in gen_manifests(or_job_spec(gc))
+                     if m["kind"] == "Pod"]
+        self.procs = {}  # pod name -> Popen
+        coord = next(p for p in self.pods if self._role(p) == "coordinator")
+        addr_file = os.path.join(tmp, "job_coordinator.addr")
+        try:
+            self._spawn(coord, ["--host", "127.0.0.1", "--port", "0",
+                                "--addr-file", addr_file])
+            self.coordinator_addr = wait_addr_file(
+                addr_file, SV_START_S, self.procs[coord["metadata"]["name"]])
+            for p in self.pods:
+                role = self._role(p)
+                if role == "embeddingParameterServer":
+                    self._spawn(p, ["--port", "0"])
+                elif role == "embeddingWorker":
+                    self._spawn(p, [])
+        except BaseException:
+            self.stop()
+            raise
+
+    @staticmethod
+    def _role(pod) -> str:
+        return pod["metadata"]["labels"]["persia-role"]
+
+    def _spawn(self, pod, extra):
+        import subprocess
+
+        (c,) = pod["spec"]["containers"]
+        cmd = [sys.executable if a == "python" else a for a in c["command"]]
+        env = {e["name"]: e["value"] for e in c.get("env", [])}
+        if "PERSIA_COORDINATOR_ADDR" in env:
+            env["PERSIA_COORDINATOR_ADDR"] = self.coordinator_addr
+        # a session of its own: stop() signals the pod's whole process
+        # group, the launcher's trainer ranks with it
+        self.procs[pod["metadata"]["name"]] = subprocess.Popen(
+            cmd + extra, cwd=self.root, start_new_session=True,
+            env={**os.environ, **env, "PYTHONPATH": self.root,
+                 "LOG_LEVEL": "WARNING"})
+
+    def start_roles(self):
+        """The data loaders and the nnWorker's trainer group."""
+        for p in self.pods:
+            role = self._role(p)
+            if role == "dataloader":
+                self._spawn(p, self.LOADER_ARGS)
+            elif role == "nnWorker":
+                self._spawn(p, [
+                    "--learnable", "--batch-size", str(OR_BATCH), "--vocab",
+                    str(OR_VOCAB), "--test-samples", str(OR_EVAL), "--lr",
+                    "0.1", "--sparse-lr", "0.3", "--num-workers", "2",
+                    "--device", "cuda", "--result-dir", self.result_dir])
+
+    def finishing(self):
+        return {n: p for n, p in self.procs.items()
+                if "-dataloader-" in n or "-nnworker-" in n}
+
+    def wait(self):
+        """Waits until every loader and the trainer group exited; raises
+        on a non-zero exit, a service pod's death or the deadline."""
+        deadline = time.perf_counter() + OR_JOB_S
+        fin = self.finishing()
+        while True:
+            bad = {n: p.returncode for n, p in self.procs.items()
+                   if p.poll() not in (None, 0)}
+            if bad:
+                raise AssertionError(f"orchestration (a): a pod exited "
+                                     f"non-zero: {bad}")
+            if all(p.poll() == 0 for p in fin.values()):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("orchestration (a): the job did not "
+                                     f"end within {OR_JOB_S}s")
+            time.sleep(0.1)
+        alive = [n for n, p in self.procs.items() if n not in fin
+                 and p.poll() is not None]
+        if alive:
+            raise AssertionError(f"orchestration (a): service pods exited "
+                                 f"early: {alive}")
+
+    def stop(self):
+        import signal
+
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            for p in self.procs.values():
+                try:
+                    os.killpg(p.pid, sig)
+                except OSError:  # the group is gone
+                    pass
+            deadline = time.monotonic() + 10
+            for p in self.procs.values():
+                try:
+                    p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+                except Exception:  # noqa: BLE001 — then it is killed
+                    pass
+
+
+class OrchestrationClusters(ServiceClusters):
+    """The orchestration phase's processes, started while (c) runs: (b)'s
+    watched seq_rec cluster (every service with its sidecar) and
+    its third PS process (no coordinator: the migration hands its
+    address to the worker), the unbroken reference cluster, and (a)'s
+    service pods (:class:`LauncherJob`). :meth:`stop` takes them all
+    down."""
+
+    def __init__(self):
+        import subprocess
+        import tempfile
+
+        from persia_tpu_torch.service.helper import ServiceCtx
+        from persia_tpu_torch.utils import dump_yaml
+
+        self._tmp = tempfile.TemporaryDirectory()
+        tmp = self._tmp.name
+        path = os.path.join(tmp, "global.yml")
+        dump_yaml({"embedding_parameter_server_config": {
+            "capacity": 2_000_000, "num_hashmap_internal_shards": 8}}, path)
+        env = {"LOG_LEVEL": "WARNING"}
+        self.watched, self.ref = (ServiceCtx(
+            build_schema(), n_workers=1, n_ps=N_PS, global_config_path=path,
+            http_all=http, startup_timeout=SV_START_S, env=env)
+            for http in (True, False))
+        self.ctxs = [self.watched, self.ref]
+        self.pm_dir = os.path.join(tmp, "postmortems")
+        self.extra_addr_file = os.path.join(tmp, "ps2.addr")
+        self.extra_ps = subprocess.Popen(
+            [sys.executable, "-m", "persia_tpu_torch.service.ps_service",
+             "--port", "0", "--replica-index", str(N_PS), "--replica-size",
+             str(N_PS + 1), "--coordinator", "", "--global-config", path,
+             "--http-port", "-1", "--addr-file", self.extra_addr_file],
+            env={**os.environ, **env,
+                 "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+        self.job = None
+        self._start()
+        try:
+            self.job = LauncherJob(tmp)
+        except BaseException:
+            self.stop()
+            raise
+
+    def extra_addr(self) -> str:
+        from persia_tpu_torch.utils import wait_addr_file
+
+        return wait_addr_file(self.extra_addr_file, SV_START_S,
+                              self.extra_ps)
+
+    def stop(self):
+        if self.job is not None:
+            self.job.stop()
+        self.extra_ps.terminate()
+        try:
+            self.extra_ps.wait(timeout=10)
+        except Exception:  # noqa: BLE001 — then it is killed
+            self.extra_ps.kill()
+            self.extra_ps.wait(timeout=10)
+        super().stop()
+
+
+def or_job_check(card: str, job: LauncherJob) -> str:
+    """(a)'s gates over the trainer group's result files: both ranks on
+    the card over gloo, their dense parameters equal by digest, the ranks'
+    shares of the batches at least the samples the loaders sent, the
+    leader's held-out AUC above the bar, no K1-K5 launch in either rank
+    (hybrid DLRM)."""
+    ranks = []
+    for i in range(2):
+        with open(os.path.join(job.result_dir, f"rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    lead = ranks[0]
+    trained = sum(r["rows_trained"] for r in ranks)
+    launches = [sum(r["launches"].values()) for r in ranks]
+    line = (f"(a) the launcher's job from the port's manifests "
+            f"({len(job.pods)} pods: coordinator, 2 PS, 1 worker, 2 data "
+            f"loaders, 1 nnWorker of a 2-rank group on {lead['backend']}): "
+            f"{lead['steps']} steps of {OR_BATCH}, {trained} samples trained "
+            f"by the ranks together (the loaders sent {OR_SAMPLES}), "
+            f"{lead['samples_per_s']:.1f} samples/s on the leader over its "
+            f"loop ({lead['wall_s']:.2f}s), ranks up {ranks[0]['startup_s']:.2f}"
+            f" / {ranks[1]['startup_s']:.2f}s after main; held-out AUC "
+            f"on {OR_EVAL} samples {lead['auc']:.4f} (bar {OR_AUC_BAR}); "
+            f"digests {'equal' if ranks[0]['digest'] == ranks[1]['digest'] else 'DIFFER'}; "
+            f"K1-K5 launches {[r['launches'] for r in ranks]} | card: {card}")
+    if [r["leader"] for r in ranks] != [True, False] or any(
+            not r["device"].startswith("cuda") for r in ranks):
+        raise AssertionError(f"orchestration (a): the ranks are not the "
+                             f"group on the card: {ranks}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError(f"orchestration (a): the ranks' dense "
+                             f"parameters differ: {line}")
+    if trained < OR_SAMPLES or ranks[0]["steps"] != ranks[1]["steps"]:
+        raise AssertionError(f"orchestration (a): the trainers counted "
+                             f"fewer samples than the loaders sent: {line}")
+    if not lead["auc"] > OR_AUC_BAR:
+        raise AssertionError(f"orchestration (a): AUC not above "
+                             f"{OR_AUC_BAR}: {line}")
+    if any(launches):
+        raise AssertionError(f"orchestration (a): a kernel launched on the "
+                             f"hybrid DLRM path: {line}")
+    return line
+
+
+def or_pilots(monitor, operator, job: str, m_rows: float, jdir: str,
+              verify_sec: float, table_fn, rebalance: bool):
+    """The shadow (recommend) and the enforce pilot over one monitor and
+    operator, thresholds at fractions of the calibrated fleet row rate
+    ``m_rows`` (``bench.py``'s ``bench_autopilot``)."""
+    from persia_tpu_torch.autopilot import (Autopilot, PsScalePolicy,
+                                            RebalancePolicy)
+
+    def policies():
+        out = [PsScalePolicy(job, scale_out_at=0.30 * m_rows,
+                             scale_in_below=(0.15 if rebalance else 0.05)
+                             * m_rows, window_sec=OR_WINDOW_S,
+                             min_replicas=2, max_replicas=3,
+                             verify_sec=verify_sec)]
+        if rebalance:
+            out.append(RebalancePolicy(job, share_threshold=0.60,
+                                       hold_sec=1.0, min_gain=0.05,
+                                       window_sec=1.5, verify_sec=2.0))
+        return out
+
+    kw = dict(cooldown_sec=6.0, max_actions_per_hour=6, table_fn=table_fn)
+    shadow = Autopilot(monitor, operator, job, policies=policies(),
+                       mode="recommend", **kw)
+    pilot = Autopilot(monitor, operator, job, policies=policies(),
+                      mode="enforce", journal_dir=jdir, **kw)
+    return shadow, pilot
+
+
+def or_job_operator(job: str, driver):
+    from persia_tpu_torch.k8s_operator import FakeKubeApi, Operator
+
+    spec = {"jobName": job, "image": "persia-tpu-runtime:chip",
+            "embeddingConfigPath": "/config/embedding_config.yml",
+            "roles": {"embeddingParameterServer": {"replicas": 2},
+                      "embeddingWorker": {"replicas": 1},
+                      "nnWorker": {"replicas": 1, "entry": "train.py"}}}
+    op = Operator(FakeKubeApi(), [spec], interval=60.0,
+                  reshard_driver=driver)
+    op.reconcile_all()
+    return op
+
+
+def or_evidence_gate(tag: str, decisions, n: int):
+    """Every journaled decision re-read from disk carries its history
+    excerpt, and a scale decision its firing rules."""
+    if len(decisions) != n:
+        raise AssertionError(f"{tag}: {len(decisions)} journaled decisions "
+                             f"for {n} executed actions")
+    for d in decisions:
+        ev = d.get("evidence", {})
+        if not ev.get("history"):
+            raise AssertionError(f"{tag}: decision {d['decision_seq']} "
+                                 f"({d['kind']}) carries no history")
+        if d["kind"] in ("scale_out", "scale_in") \
+                and not ev.get("firing_rules"):
+            raise AssertionError(f"{tag}: decision {d['decision_seq']} "
+                                 f"({d['kind']}) carries no firing rule")
+
+
+def or_seq_rec(torch, card: str, clusters: OrchestrationClusters):
+    """(b) seq_rec at the training phase's widths over the watched cluster
+    while an enforce-mode ``Autopilot`` with ``PsScalePolicy`` and a
+    shadow recommend-mode one tick over its ``FleetMonitor`` at the same
+    instants, on a thread: the scale-out threshold is 0.30 of the fleet's
+    ``ps_lookup_row_rate`` over the first scrapes, so that the sustained
+    load scales the tier 2→3 mid-run, executed through
+    ``Operator(FakeKubeApi(), reshard_driver=...)`` by a
+    ``ReshardController`` while the trainer steps on; then
+    ``OR_AFTER_STEPS`` more steps, and the same batches on the unbroken
+    cluster. Gates: exactly that action executes; the shadow decides the
+    same (policy, kind, action); the journal re-reads with the decision
+    and its evidence; losses, dense state with Adam's and every touched
+    row (from its owner) bit-equal to the unbroken run; K2-K4 once a step,
+    K1 and K5 never. Returns (the report, the launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from persia_tpu_torch.autopilot import ActionJournal
+    from persia_tpu_torch.reshard import ReshardController
+    from persia_tpu_torch.routing import RoutingTable
+    from persia_tpu_torch.service.coordinator import CoordinatorClient
+    from persia_tpu_torch.service.ps_service import PsClient
+    from persia_tpu_torch.slos import SloEngine, default_rules
+    from persia_tpu_torch.workloads.generator import SeqRecSpec, \
+        seqrec_batches
+
+    spec = SeqRecSpec(item_vocab=ITEM_VOCAB, t_hist=T_HIST)
+    schema = build_schema()
+    stream = seqrec_batches(OR_MAX_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                            seed=TRAIN_SEED + 23, spec=spec)
+    batches = []  # the stream as the watched run consumed it
+    start = build_tower(spec.num_dense, "flash").state_dict()
+    svc = clusters.watched
+    clients = [PsClient(a, circuit_breaker=False)
+               for a in [*svc.ps_addrs, clusters.extra_addr()]]
+    os.makedirs(clusters.pm_dir, exist_ok=True)
+    jdir = tempfile.mkdtemp(dir=clusters.pm_dir, prefix="journal_b_")
+    monitor = svc.fleet_monitor(
+        scrape_interval=OR_SCRAPE_S, scrape_timeout=1.0,
+        slo_engine=SloEngine(default_rules()),
+        postmortem_dir=os.path.join(clusters.pm_dir, "b"))
+    box = {"table": RoutingTable.uniform(N_PS), "rec": [], "enf": [],
+           "ticks": 0, "windows": []}
+    stop = threading.Event()
+
+    def driver(job_name, old, new, phase, drv_spec):
+        if phase != "scale_out" or (old, new) != (N_PS, N_PS + 1):
+            raise AssertionError(f"orchestration (b): unexpected reshard "
+                                 f"{phase} {old}->{new}")
+        t0 = time.perf_counter()
+        box["table"] = box["ctrl"].reshard_to(new,
+                                              new_ps_clients=clients[:new])
+        box["migrate_s"] = time.perf_counter() - t0
+
+    operator = or_job_operator("seqrec", driver)
+
+    def executed(pilot):
+        return [r["action_kind"] for r in pilot.journal.tail(256)
+                if r["kind"] == "executed"]
+
+    def drive():
+        try:
+            # the trainer is past its first steps: calibrate over at least
+            # OR_CAL_S of scrapes, until a second of them saw rows
+            t_cal = time.monotonic()
+            m_rows = None
+            while time.monotonic() - t_cal < OR_CAL_S or not m_rows:
+                if time.monotonic() - t_cal > 10 * OR_CAL_S:
+                    raise RuntimeError("calibration saw no "
+                                       "ps_lookup_row_rate")
+                time.sleep(OR_SCRAPE_S)
+                monitor.scrape_once()
+                m_rows = monitor.history.avg_over(
+                    "ps_lookup_row_rate", 1.0, r"^ps", time.monotonic())
+            box["m_rows"] = m_rows
+            shadow, pilot = box["pilots"] = or_pilots(
+                monitor, operator, "seqrec", m_rows, jdir, 60.0,
+                lambda: box["table"], rebalance=False)
+            while not stop.is_set():
+                time.sleep(OR_SCRAPE_S)
+                monitor.scrape_once()
+                now = time.monotonic()
+                alerts = monitor.engine.evaluate(now)
+                # the shadow first: it reads the world as enforcement
+                # will, the instant before enforcement changes it
+                box["rec"].extend(shadow.tick(now, alerts))
+                t0 = time.perf_counter()
+                enf = pilot.tick(now, alerts)
+                if enf:
+                    box["windows"].append((t0, time.perf_counter()))
+                    box["step_at_action"] = box.get("step", 0)
+                box["enf"].extend(enf)
+                box["ticks"] += 1
+                if executed(pilot) and "step_executed" not in box:
+                    box["step_executed"] = box.get("step", 0)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            box["error"] = e
+
+    def run(cluster, on_step=None):
+        ctx = train_ctx(torch, schema, build_tower(
+            spec.num_dense, "flash", state_dict=start),
+            worker=cluster.remote_worker())
+        losses = []
+        with ctx:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            step = 0
+            while True:
+                if on_step is not None:
+                    b = on_step(step, ctx)
+                    if b is None:
+                        break
+                elif step == len(batches):
+                    break
+                else:
+                    b = batches[step]
+                losses.append(ctx.train_step(b)[0])
+                step += 1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_launches()
+        losses = torch.stack(losses).float().cpu().tolist()
+        if not np.isfinite(losses).all():
+            raise AssertionError("orchestration (b): a loss is not finite")
+        return ctx, losses, dense_state(ctx), launches, wall
+
+    def on_step(step, ctx):
+        box["step"] = step
+        if step == 0:
+            # the new replica gets the init, admission and optimizer the
+            # context armed the first two with
+            ec = ctx.embedding_config
+            lower, upper = ec.emb_initialization
+            clients[-1].configure(
+                "bounded_uniform", {"lower": lower, "upper": upper},
+                ec.admit_probability, ec.weight_bound,
+                enable_weight_bound=True)
+            clients[-1].register_optimizer(
+                ctx.embedding_optimizer.config,
+                feature_index_prefix_bit=schema.feature_index_prefix_bit)
+            box["ctrl"] = ReshardController(
+                clients[:N_PS], RoutingTable.uniform(N_PS),
+                workers=[ctx.worker],
+                coordinator=CoordinatorClient(svc.coordinator_addr),
+                drain_sec=RS_DRAIN_S)
+        if step == OR_CAL_FROM:
+            box["thread"] = threading.Thread(target=drive, daemon=True)
+            box["thread"].start()
+        if "error" in box:
+            raise box["error"]
+        done = box.get("step_executed")
+        if (done is not None and step >= done + OR_AFTER_STEPS) \
+                or step == OR_MAX_STEPS:
+            return None
+        batches.append(next(stream))
+        return batches[-1]
+
+    try:
+        ctx, losses, dense, launches, wall = run(svc, on_step)
+    finally:
+        stop.set()
+        if "thread" in box:
+            box["thread"].join(timeout=120)
+    if "error" in box:
+        raise box["error"]
+    if "step_executed" not in box:
+        raise AssertionError(
+            f"orchestration (b): no scale-out executed in {OR_MAX_STEPS} "
+            f"steps (calibrated {box.get('m_rows')} rows/s)")
+    ctrl, table = box["ctrl"], box["table"]
+    ctrl.finalize()
+    steps = len(batches)
+    signs = np.unique(np.concatenate([f.signs for b in batches
+                                      for f in b.id_type_features]))
+    rows = np.zeros((len(signs), 2 * DIM), np.float32)
+    owner = table.replica_of(signs)
+    for r, c in enumerate(clients):
+        sel = np.nonzero(owner == r)[0]
+        f, v = c.get_entries(signs[sel], 2 * DIM)
+        if not f.all():
+            raise AssertionError(f"orchestration (b): {int((~f).sum())} "
+                                 f"touched rows absent at their owner {r}")
+        rows[sel] = v
+    ctx.worker.close()
+    ref_ctx, ref_losses, ref_dense, _, ref_wall = run(clusters.ref)
+    found = np.zeros(len(signs), np.int64)
+    ref_rows = np.zeros((len(signs), 2 * DIM), np.float32)
+    for a in clusters.ref.ps_addrs:
+        f, v = PsClient(a).get_entries(signs, 2 * DIM)
+        found += f
+        ref_rows[f] = v[f]
+    ref_ctx.worker.close()
+    monitor.stop()
+
+    shadow, pilot = box["pilots"]
+    journal = ActionJournal(jdir).records()
+    by_kind = {}
+    for r in journal:
+        by_kind.setdefault(r["kind"], []).append(r)
+    executed_kinds = [r["action_kind"] for r in by_kind.get("executed", [])]
+    decisions = [r["decision"] for r in by_kind.get("decision", [])]
+
+    def key(ds):
+        return [(d["policy"], d["kind"], d["action"]) for d in ds]
+
+    loss_diff = sum(a != b for a, b in zip(losses, ref_losses))
+    dense_diff = first_difference(ref_dense, dense)
+    row_diff = int((rows.view(np.uint32) != ref_rows.view(np.uint32))
+                   .any(axis=-1).sum())
+    events = [{k: v for k, v in e.items() if k != "time"}
+              for e in operator.reshard_events()]
+    line = (f"(b) seq_rec {steps} synchronous steps of {TRAIN_BATCH} over "
+            f"the watched cluster: calibrated fleet ps_lookup_row_rate "
+            f"{box['m_rows']:.1f} rows/s (scale-out above "
+            f"{0.30 * box['m_rows']:.1f} sustained {OR_WINDOW_S}s), "
+            f"{box['ticks']} ticks a pilot; executed {executed_kinds} at "
+            f"step {box.get('step_at_action')} (migration "
+            f"{box.get('migrate_s', 0.0):.3f}s inside the tick, "
+            f"{box['windows'][0][1] - box['windows'][0][0]:.3f}s), "
+            f"operator {events}; recommend {key(box['rec'])} enforce "
+            f"{key(box['enf'])}; journal {[r['kind'] for r in journal]}; "
+            f"against the unbroken cluster: losses that differ {loss_diff}, "
+            f"dense state {dense_diff or 'bit-equal'}, {len(signs)} touched "
+            f"rows ({np.bincount(owner, minlength=3).tolist()} a replica "
+            f"under epoch {table.epoch}), rows that differ in any bit "
+            f"{row_diff}; wall {wall:.2f}s watched vs {ref_wall:.2f}s "
+            f"unbroken; launches "
+            + " ".join(f"{n}={c}" for n, c in launches.items()))
+    flash = [launches[n] for n in FLASH_KERNELS]
+    if flash != [steps] * 3 or launches["embedding_bag"] \
+            or launches["probe_copy"]:
+        raise AssertionError(f"orchestration (b): K2-K4 must launch once a "
+                             f"step and K1, K5 never: {line}")
+    if executed_kinds != ["scale_out"] or operator.ps_replicas("seqrec") \
+            != N_PS + 1 or [e["status"] for e in events] != ["done"] \
+            or by_kind.get("action_failed"):
+        raise AssertionError(f"orchestration (b): not exactly the one "
+                             f"scale-out 2→3: {line}")
+    if key(box["rec"]) != key(box["enf"]) or key(box["enf"]) != [
+            ("ps_scale", "scale_out", {"job": "seqrec", "replicas": 3})]:
+        raise AssertionError(f"orchestration (b): recommend and enforce "
+                             f"decided differently: {line}")
+    or_evidence_gate("orchestration (b)", decisions, 1)
+    if loss_diff or dense_diff or row_diff or not (found == 1).all():
+        raise AssertionError(f"orchestration (b): the autopiloted run "
+                             f"differs from the unbroken one: {line}")
+    return line, launches
+
+
+def or_autopilot_bench(card: str, pm_dir: str) -> str:
+    """(c) ``bench.py``'s ``bench_autopilot`` at its smoke depth on the
+    port: 4 in-process ``PsService`` replicas (the per-entry holder,
+    hotness on, the counting optimizer), each behind a sidecar that
+    serves only its own series, scraped by a ``FleetMonitor`` every
+    0.25 s; two paced trainer threads; an enforce and a shadow recommend
+    ``Autopilot`` (``PsScalePolicy`` and ``RebalancePolicy``, thresholds
+    from the calibrated row rate) acting through ``Operator(FakeKubeApi(),
+    reshard_driver=...)`` over a live ``ReshardController``. The script:
+    quiet (no action), surge (scale_out 2→3), hot-key skew (rebalance),
+    calm (scale_in 3→2), settle (three outcomes). Gates: zero lost updates
+    (the counting identity at the final owners), exactly [scale_out,
+    rebalance, scale_in] executed and each verified improved, the fleet
+    back at 2, recommend == enforce, every decision re-read from disk
+    with its evidence, and the worker p99 during the actions within 25x
+    of the quiet p99 above a 1 s floor. Run in a process of its own that
+    loads no torch (``chip_smoke.py autopilot_bench <spec>``). Returns the
+    report."""
+    import numpy as np
+
+    from persia_tpu_torch.autopilot import ActionJournal
+    from persia_tpu_torch.config import EmbeddingSchema, uniform_slots
+    from persia_tpu_torch.data.batch import IDTypeFeature
+    from persia_tpu_torch.fleet import FleetMonitor
+    from persia_tpu_torch.metrics import default_registry
+    from persia_tpu_torch.obs_http import ObservabilityServer
+    from persia_tpu_torch.ps.store import EmbeddingHolder
+    from persia_tpu_torch.reshard import ReshardController
+    from persia_tpu_torch.routing import RoutingTable
+    from persia_tpu_torch.service.ps_service import PsClient, PsService
+    from persia_tpu_torch.slos import SloEngine, default_rules
+    from persia_tpu_torch.worker.worker import EmbeddingWorker
+
+    dim, n_feats, n_threads, bs, sign_space = RS_DIM, 2, 2, 256, 1 << 20
+    job = "bench"
+    schema = EmbeddingSchema(slots_config=uniform_slots(
+        [f"slot_{i}" for i in range(n_feats)], dim=dim))
+
+    def feature(name, signs):
+        return IDTypeFeature(name, [np.asarray(signs, dtype=np.uint64)])
+
+    class OneServer:
+        """The process registry's exposition cut to one PS server's
+        labeled series: the replicas share this process, and each
+        sidecar must serve only its own (what separate processes serve),
+        or the fleet sums would count every replica four times."""
+
+        def __init__(self, base, label):
+            self._base, self._needle = base, f'server="{label}"'
+
+        def histogram(self, *a, **kw):
+            return self._base.histogram(*a, **kw)
+
+        def render(self):
+            keep = [ln for ln in self._base.render().splitlines()
+                    if ln.startswith("#") or self._needle in ln]
+            return "\n".join(keep) + "\n"
+
+    holders, services, clients, sidecars = [], [], [], []
+    for i in range(4):
+        h = EmbeddingHolder(capacity=2_000_000, hotness=True)
+        svc = PsService(h, port=0)
+        svc.server.serve_background()
+        c = PsClient(svc.addr, circuit_breaker=False)
+        c.configure("bounded_uniform", {"lower": 0.0, "upper": 0.0},
+                    admit_probability=1.0, weight_bound=1e9,
+                    enable_weight_bound=False)
+        c.register_optimizer({"type": "sgd", "lr": 1.0, "wd": 0.0})
+        side = ObservabilityServer(
+            port=0, registry=OneServer(default_registry(),
+                                       svc.addr.rsplit(":", 1)[1]),
+            health_fn=svc._health, service=f"ps{i}",
+            refresh_fn=svc._refresh_mem_gauges,
+            hotness_fn=svc._hotness_snapshot).start()
+        holders.append(h)
+        services.append(svc)
+        clients.append(c)
+        sidecars.append(side)
+
+    table = RoutingTable.uniform(2)
+    worker = EmbeddingWorker(schema, clients[:2], routing=table)
+    controller = ReshardController(clients[:2], table, workers=[worker],
+                                   replay_settle_rows=64, drain_sec=0.25)
+    last_table = [table]
+    jdir = os.path.join(pm_dir, "journal_c")
+    monitor = FleetMonitor(
+        targets=[{"service": f"ps{i}", "http_addr": s.addr, "role": "ps",
+                  "replica": i} for i, s in enumerate(sidecars)],
+        scrape_interval=OR_SCRAPE_S, scrape_timeout=1.0, flight_interval=4.0,
+        slo_engine=SloEngine(default_rules()),
+        postmortem_dir=os.path.join(pm_dir, "c"))
+
+    def reshard_driver(job_name, old, new, phase, spec):
+        if phase == "resume":
+            return
+        if phase == "rebalance":
+            plan = monitor.hotness_plan(old, current_table=last_table[0])
+            last_table[0] = controller.reshard_to(
+                old, slot_weights=np.asarray(plan["slot_weights"],
+                                             np.float64))
+        elif phase == "scale_out":
+            last_table[0] = controller.reshard_to(
+                new, new_ps_clients=clients[:new])
+        else:
+            last_table[0] = controller.reshard_to(new)
+
+    operator = or_job_operator(job, reshard_driver)
+    ships, samples, errors = [0], [], []
+    s_lock = threading.Lock()
+    stop = threading.Event()
+    mode_box, period_box = ["uniform"], [0.0]
+    hot_box = [np.zeros(0, dtype=np.uint64)]
+
+    def mk_feats(rng):
+        if mode_box[0] == "skew" and len(hot_box[0]):
+            n_hot = int(bs * 0.75)
+            return [np.concatenate([
+                rng.choice(hot_box[0], size=n_hot),
+                rng.integers(0, sign_space, bs - n_hot, dtype=np.uint64)])
+                for _ in range(n_feats)]
+        return [rng.integers(0, sign_space, bs, dtype=np.uint64)
+                for _ in range(n_feats)]
+
+    def train(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            raw = mk_feats(rng)
+            t0 = time.perf_counter()
+            try:
+                ref, out = worker.lookup_direct_training(
+                    [feature(f"slot_{i}", r) for i, r in enumerate(raw)])
+                worker.update_gradients(ref, {
+                    k: np.ones_like(v.embeddings) for k, v in out.items()})
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+                return
+            dt = time.perf_counter() - t0
+            with s_lock:
+                ships[0] += n_feats * bs
+                samples.append((t0, dt))
+            p = period_box[0]
+            if p > dt:
+                time.sleep(p - dt)
+
+    threads = [threading.Thread(target=train, args=(s,), daemon=True)
+               for s in range(n_threads)]
+    for t in threads:
+        t.start()
+    enf_decisions, rec_decisions, windows, marks = [], [], [], {}
+    t_start = time.monotonic()
+    try:
+        t_cal = time.monotonic()
+        ships0 = ships[0]
+        while time.monotonic() - t_cal < OR_CAL_S:
+            time.sleep(OR_SCRAPE_S)
+            monitor.scrape_once()
+        m_cycles = max((ships[0] - ships0) / (n_feats * bs)
+                       / (time.monotonic() - t_cal), 1.0)
+        m_rows = monitor.history.avg_over(
+            "ps_lookup_row_rate", 1.0, r"^ps", time.monotonic())
+        if not m_rows or m_rows <= 0:
+            raise RuntimeError("calibration saw no ps_lookup_row_rate")
+        shadow, pilot = or_pilots(monitor, operator, job, m_rows, jdir, 2.0,
+                                  lambda: last_table[0], rebalance=True)
+
+        def executed_kinds():
+            return [r["action_kind"] for r in pilot.journal.tail(256)
+                    if r["kind"] == "executed"]
+
+        def drive(frac, traffic, done_fn, max_sec, label):
+            mode_box[0] = traffic
+            period_box[0] = n_threads / (frac * m_cycles)
+            t_end = time.monotonic() + max_sec
+            while time.monotonic() < t_end:
+                time.sleep(OR_SCRAPE_S)
+                if errors:
+                    raise RuntimeError(f"a trainer thread died during "
+                                       f"{label}: {errors[0]!r}")
+                monitor.scrape_once()
+                now = time.monotonic()
+                alerts = monitor.engine.evaluate(now)
+                rec_decisions.extend(shadow.tick(now, alerts))
+                t0 = time.perf_counter()
+                enf = pilot.tick(now, alerts)
+                if enf:
+                    windows.append((t0, time.perf_counter()))
+                enf_decisions.extend(enf)
+                if done_fn is not None and done_fn():
+                    marks[label] = time.monotonic() - t_start
+                    return
+            if done_fn is not None:
+                raise AssertionError(
+                    f"orchestration (c): the script never reached {label} "
+                    f"within {max_sec:.0f}s (executed {executed_kinds()})")
+            marks[label] = time.monotonic() - t_start
+
+        drive(0.10, "uniform", None, 2.6, "warmup")
+        if executed_kinds():
+            raise AssertionError(f"orchestration (c): the pilot acted during "
+                                 f"the quiet warm-up: {executed_kinds()}")
+        drive(0.55, "uniform", lambda: "scale_out" in executed_kinds(),
+              15.0, "scale_out")
+        cand = np.random.default_rng(7).integers(0, sign_space, 8192,
+                                                 dtype=np.uint64)
+        hot_box[0] = cand[last_table[0].replica_of(cand) == 0][:512]
+        drive(0.25, "skew", lambda: "rebalance" in executed_kinds(), 18.0,
+              "rebalance")
+        hot_box[0] = np.zeros(0, dtype=np.uint64)
+        drive(0.05, "uniform", lambda: "scale_in" in executed_kinds(), 15.0,
+              "scale_in")
+        drive(0.05, "uniform", lambda: len(
+            [r for r in pilot.journal.tail(256) if r["kind"] == "outcome"])
+            >= 3, 10.0, "outcomes")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    try:
+        if errors:
+            raise RuntimeError(f"a trainer thread died: {errors[0]!r}")
+        controller.finalize(drain_sec=0.0)
+        final = last_table[0]
+        applied = rs_applied(holders, final)  # dim 8 is RS_DIM
+        lost = ships[0] - applied
+
+        def p99(vals):
+            return float(np.percentile(np.asarray(vals), 99)) if vals \
+                else 0.0
+
+        during = [d for t0, d in samples
+                  if any(a <= t0 <= b for a, b in windows)]
+        quiet = [d for t0, d in samples
+                 if not any(a - 0.1 <= t0 <= b + 0.1 for a, b in windows)]
+        p99_q, p99_d = p99(quiet), p99(during)
+        inflation = p99_d / p99_q if p99_q > 0 else 0.0
+        journal = ActionJournal(jdir).records()
+        by_kind = {}
+        for r in journal:
+            by_kind.setdefault(r["kind"], []).append(r)
+        executed = [r["action_kind"] for r in by_kind.get("executed", [])]
+        improved = [r for r in by_kind.get("outcome", [])
+                    if r.get("improved")]
+
+        def key(ds):
+            return [(d["policy"], d["kind"], d["action"]) for d in ds]
+
+        line = (f"(c) bench_autopilot at its smoke depth (4 in-process PS, 2 "
+                f"paced trainer threads, dim {dim}, {n_feats} slots, batch "
+                f"{bs}): calibrated {m_cycles:.1f} cycles/s, {m_rows:.1f} "
+                f"rows/s; executed {executed} at "
+                + ", ".join(f"{k} {v:.1f}s" for k, v in marks.items())
+                + f"; {len(improved)} outcomes improved, "
+                f"{len(by_kind.get('regressed', []))} regressed, "
+                f"{len(by_kind.get('action_failed', []))} failed; replicas "
+                f"{operator.ps_replicas(job)}; ships {ships[0]} applied "
+                f"{applied:.0f} lost {lost:.3f}; worker p99 quiet "
+                f"{p99_q * 1e3:.2f}ms during actions {p99_d * 1e3:.2f}ms "
+                f"({len(during)} cycles), inflation {inflation:.2f}x (gate "
+                f"{OR_C_INFLATION_X}x above a {OR_C_FLOOR_S}s floor); "
+                f"recommend == enforce over {len(enf_decisions)} decisions: "
+                f"{key(rec_decisions) == key(enf_decisions)}; journal "
+                + str({k: len(v) for k, v in by_kind.items()}))
+        if abs(lost) > 1e-3:
+            raise AssertionError(f"orchestration (c): lost updates: {line}")
+        if executed != ["scale_out", "rebalance", "scale_in"]:
+            raise AssertionError(f"orchestration (c): executed {executed}, "
+                                 f"not the script: {line}")
+        if len(improved) < 3 or by_kind.get("regressed") \
+                or by_kind.get("action_failed") \
+                or operator.ps_replicas(job) != 2:
+            raise AssertionError(f"orchestration (c): verification not "
+                                 f"green: {line}")
+        if key(rec_decisions) != key(enf_decisions):
+            raise AssertionError(f"orchestration (c): recommend and enforce "
+                                 f"diverge: {line}")
+        or_evidence_gate("orchestration (c)",
+                         [r["decision"] for r in by_kind.get("decision", [])],
+                         3)
+        if p99_d > OR_C_FLOOR_S and inflation > OR_C_INFLATION_X:
+            raise AssertionError(f"orchestration (c): worker p99 inflated "
+                                 f"through the actions: {line}")
+        return line + f" | card: {card}"
+    finally:
+        monitor.stop()
+        worker.close()
+        for s in services:
+            s.stop()
+        for side in sidecars:
+            side.stop()
+
+
+class AutopilotBenchProcess:
+    """(c) in a child process (``chip_smoke.py autopilot_bench <spec>``),
+    as ``bench.py --mode autopilot`` runs: its four replicas, monitor,
+    pilots and trainer threads share a process holding nothing else."""
+
+    def __init__(self, card: str, pm_dir: str):
+        import subprocess
+
+        os.makedirs(pm_dir, exist_ok=True)
+        self.spec = os.path.join(pm_dir, "c.json")
+        with open(self.spec, "w") as f:
+            json.dump({"card": card, "pm_dir": pm_dir,
+                       "out": self.spec + ".out"}, f)
+        self.proc = subprocess.Popen([sys.executable,
+                                      os.path.abspath(__file__),
+                                      "autopilot_bench", self.spec])
+
+    def result(self) -> str:
+        """Its report; raises its failure."""
+        self.proc.wait(timeout=600)
+        with open(self.spec + ".out") as f:
+            out = json.load(f)
+        if out.get("error"):
+            raise AssertionError(out["error"])
+        return out["line"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+
+
+def autopilot_bench_main(spec_path: str) -> int:
+    """The child of :func:`or_autopilot_process`: run (c), write its report
+    or its failure. It never loads torch, so it launches no kernel."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    try:
+        out = {"line": or_autopilot_bench(spec["card"], spec["pm_dir"])}
+        if "torch" in sys.modules:
+            raise AssertionError("orchestration (c): the bench's process "
+                                 "loaded torch")
+    except Exception as e:  # noqa: BLE001 — the parent raises it
+        traceback.print_exc()
+        out = {"error": f"{type(e).__name__}: {e}"}
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0 if "line" in out else 1
+
+
+def orchestration_phase(torch, card: str) -> dict:
+    """(c)'s child first, beside nothing but the start-up of (a)'s and
+    (b)'s processes: its thresholds are fractions of a rate it calibrates
+    at its start, and its script needs that rate to hold after (run
+    beside (a) and (b), its surge once missed the band). Then (a)'s
+    trainer group and data loaders start and (b) runs in this process
+    while (a) trains; (a)'s gates are read once it ends. Returns (b)'s
+    launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as pm_dir:
+        bench = AutopilotBenchProcess(card, pm_dir)
+        clusters = None
+        try:
+            clusters = OrchestrationClusters()
+            c_line = bench.result()
+            _log(f"[orchestration] {c_line}")
+            t1 = time.perf_counter()
+            _log(f"[time] orchestration (c) {t1 - t0:.1f}s")
+            job = clusters.job
+            job.start_roles()
+            up = clusters.wait()
+            _log(f"[orchestration] (b)'s watched and unbroken clusters up "
+                 f"{up:.1f}s after their start, a third PS at "
+                 f"{clusters.extra_addr()}; (a)'s service pods up, "
+                 f"coordinator {job.coordinator_addr} | card: {card}")
+            b_line, launches = or_seq_rec(torch, card, clusters)
+            _log(f"[orchestration] {b_line} | card: {card}")
+            t2 = time.perf_counter()
+            _log(f"[time] orchestration (b) {t2 - t1:.1f}s")
+            job.wait()
+            _log(f"[orchestration] {or_job_check(card, job)}")
+            _log(f"[time] orchestration (a) {time.perf_counter() - t1:.1f}s "
+                 f"from its roles' spawn, {time.perf_counter() - t2:.1f}s "
+                 f"after (b)")
+            for c in clusters.ctxs:
+                if c.crashed:
+                    raise AssertionError(f"orchestration: a child crashed: "
+                                         f"{c.crashed}")
+            if clusters.extra_ps.poll() is not None:
+                raise AssertionError("orchestration: the third PS process "
+                                     "exited")
+        finally:
+            bench.stop()
+            if clusters is not None:
+                clusters.stop()
+    return launches
+
+
 def obs_get(addr: str, path: str):
     """A sidecar's ``/metrics`` as (samples, families), or its JSON
     document at ``path``."""
@@ -8258,6 +9256,11 @@ def main() -> int:
         clock("device_mode")
         records["probe_copy"] = probe_phase(torch, card)
         clock("probe")
+        # its processes start with it: the earlier phases run without them
+        orchestration_launches = orchestration_phase(torch, card)
+        clock("orchestration")
+        for name, n in orchestration_launches.items():
+            records[name]["launches_orchestration"] = n
         for name, n in cached_launches.items():
             records[name]["launches_dlrm_cached"] = n
         for name, n in rpc_launches.items():
@@ -8312,6 +9315,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["fleet_bench"]:  # the fleet phase's (a)
         sys.exit(fleet_bench_main(sys.argv[2]))
+    elif sys.argv[1:2] == ["autopilot_bench"]:  # the orchestration's (c)
+        sys.exit(autopilot_bench_main(sys.argv[2]))
     elif len(sys.argv) > 1:  # a rank of the multi_rank phase
         _ranks_module().rank_main(RANK_BODIES)
     else:

@@ -10,7 +10,9 @@ flow collections, a comment after a value, timestamps) raises
 :class:`YamlError` rather than being read differently.
 
 :func:`dump` writes block style with sorted keys, as ``yaml.safe_dump``
-does, and quotes every string that would read back as something else.
+does (or in insertion order, as ``sort_keys=False`` has it), and quotes
+every string that would read back as something else; :func:`dump_all`
+writes a stream of documents.
 """
 
 import json
@@ -18,7 +20,7 @@ import math
 import re
 from typing import Any, List, Tuple
 
-__all__ = ["YamlError", "load", "dump"]
+__all__ = ["YamlError", "load", "dump", "dump_all"]
 
 
 class YamlError(ValueError):
@@ -380,22 +382,22 @@ def _scalar_text(v: Any) -> str:
     raise YamlError(f"cannot write a {type(v).__name__} as YAML")
 
 
-def _emit(v: Any, indent: int, out: List[str]):
+def _emit(v: Any, indent: int, out: List[str], sort_keys: bool = True):
     pad = " " * indent
     if isinstance(v, dict):
-        for k in sorted(v):
+        for k in (sorted(v) if sort_keys else v):
             val = v[k]
             key = _scalar_text(k)
             if isinstance(val, (dict, list)) and val:
                 out.append(f"{pad}{key}:")
-                _emit(val, indent + 2, out)
+                _emit(val, indent + 2, out, sort_keys)
             else:
                 out.append(f"{pad}{key}: {_inline(val)}")
         return
     for item in v:
         if isinstance(item, (dict, list)) and item:
             sub: List[str] = []
-            _emit(item, indent + 2, sub)
+            _emit(item, indent + 2, sub, sort_keys)
             out.append(f"{pad}- {sub[0][indent + 2:]}")
             out.extend(sub[1:])
         else:
@@ -410,15 +412,22 @@ def _inline(v: Any) -> str:
     return _scalar_text(v)
 
 
-def dump(value: Any) -> str:
+def dump(value: Any, sort_keys: bool = True) -> str:
     """``value`` (dicts, lists, tuples, str, int, float, bool, None) as a
-    block-style document with sorted keys."""
+    block-style document, keys sorted or (``sort_keys=False``) in
+    insertion order."""
     value = _plain_data(value)
     if not isinstance(value, (dict, list)) or not value:
         return _inline(value) + "\n"
     out: List[str] = []
-    _emit(value, 0, out)
+    _emit(value, 0, out, sort_keys)
     return "\n".join(out) + "\n"
+
+
+def dump_all(values, sort_keys: bool = True) -> str:
+    """Each of ``values`` as a document of one stream, ``---`` between
+    them, as ``yaml.safe_dump_all`` writes them."""
+    return "---\n".join(dump(v, sort_keys) for v in values)
 
 
 def _plain_data(v: Any) -> Any:

@@ -19,7 +19,9 @@ points a series, the postmortem directory), tooling (the step profiler's
 window, the stall watchdog) and live routing (a uniform table's slots a
 replica, the ``__routing__`` rider, the reshard controller's chunk,
 drain, lease, journal, RPC deadline and the worker's stale-retry
-budget), with the JAX package's names,
+budget) and orchestration (the launcher's entry scripts, the fleet sizes
+a manifest hands its roles, the autopilot's mode, cooldown, hourly
+action limit and journal), with the JAX package's names,
 types, defaults and parse conventions:
 
 - ``bool`` knobs whose default is False are enabled by ``1`` / ``true`` /
@@ -51,7 +53,12 @@ class Knob:
 REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_ARENA_INDEX_SLOTS", "int", 1024),
     Knob("PERSIA_ARENA_SLAB_ROWS", "int", 65536),
+    Knob("PERSIA_AUTOPILOT_COOLDOWN_SEC", "float", 300.0),
+    Knob("PERSIA_AUTOPILOT_JOURNAL_DIR", "str", None),
+    Knob("PERSIA_AUTOPILOT_MAX_ACTIONS_PER_HOUR", "int", 12),
+    Knob("PERSIA_AUTOPILOT_MODE", "str", "recommend"),
     Knob("PERSIA_COORDINATOR_ADDR", "str", "127.0.0.1:23333"),
+    Knob("PERSIA_DATALOADER_ENTRY", "str", None),
     Knob("PERSIA_DEADLOCK_DETECTION", "bool", False),
     Knob("PERSIA_ENABLE_MONITOR", "bool", False),
     Knob("PERSIA_FAULTS", "str", None),
@@ -68,7 +75,10 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_HTTP_PORT", "int", 0),
     Knob("PERSIA_METRICS_GATEWAY_ADDR", "str", None),
     Knob("PERSIA_MULTIHOST_CACHE", "str", "off"),
+    Knob("PERSIA_NN_WORKER_ENTRY", "str", None),
+    Knob("PERSIA_NUM_DATALOADERS", "int", 1),
     Knob("PERSIA_NUM_PS", "int", 1),
+    Knob("PERSIA_NUM_WORKERS", "int", 1),
     Knob("PERSIA_ONLINE_APPLY_BATCH_ROWS", "int", 8192),
     Knob("PERSIA_ONLINE_APPLY_ROWS_PER_SEC", "int", 500_000),
     Knob("PERSIA_ONLINE_SCAN_SEC", "float", 2.0),

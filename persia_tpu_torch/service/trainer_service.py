@@ -119,12 +119,15 @@ def _backend_for(device, process_count: int) -> str:
     return "nccl" if torch.cuda.device_count() >= process_count else "gloo"
 
 
-def _mesh_up(coord: CoordinatorClient, args, device):
-    """The trainer group's ``torch.distributed`` world and its data mesh,
-    met through the coordinator's KV store: process 0 binds a
-    ``TCPStore`` on port 0 and publishes the bound ``host:port`` under
-    ``--rendezvous-key`` (no free-port probe to race); the others wait
-    for it. Returns ``(mesh, backend)``."""
+def mesh_up(coord: CoordinatorClient, process_index: int,
+            process_count: int, device, rendezvous_key: str,
+            rendezvous_host: str = "127.0.0.1", mesh_shape=None):
+    """A trainer group's ``torch.distributed`` world and its mesh (every
+    rank on the data axis unless ``mesh_shape`` says otherwise), met
+    through the coordinator's KV store: process 0 binds a ``TCPStore`` on
+    port 0 and publishes the bound ``host:port`` under
+    ``rendezvous_key`` (no free-port probe to race); the others wait for
+    it. Returns ``(mesh, backend)``."""
     import datetime
 
     import torch.distributed as dist
@@ -132,23 +135,23 @@ def _mesh_up(coord: CoordinatorClient, args, device):
     from persia_tpu_torch.distributed import DistributedOption
 
     timeout = knobs.get("PERSIA_TRAINER_RENDEZVOUS_TIMEOUT_SEC")
-    world, rank = args.process_count, args.process_index
+    world, rank = process_count, process_index
     if rank == 0:
-        store = dist.TCPStore(args.rendezvous_host, 0, world,
+        store = dist.TCPStore(rendezvous_host, 0, world,
                               is_master=True, wait_for_workers=False,
                               timeout=datetime.timedelta(seconds=timeout))
-        addr = f"{args.rendezvous_host}:{store.port}"
+        addr = f"{rendezvous_host}:{store.port}"
         if world > 1:
-            coord.kv_put(args.rendezvous_key, addr.encode())
+            coord.kv_put(rendezvous_key, addr.encode())
     else:
-        addr = coord.wait_kv(args.rendezvous_key, timeout=timeout).decode()
+        addr = coord.wait_kv(rendezvous_key, timeout=timeout).decode()
         host, port = addr.rsplit(":", 1)
         store = dist.TCPStore(host, int(port), world, is_master=False,
                               timeout=datetime.timedelta(seconds=timeout))
     backend = _backend_for(device, world)
-    mesh = DistributedOption(backend=backend, device=device, store=store,
-                             world_size=world, rank=rank,
-                             timeout=timeout).initialize()
+    mesh = DistributedOption(mesh_shape=mesh_shape, backend=backend,
+                             device=device, store=store, world_size=world,
+                             rank=rank, timeout=timeout).initialize()
     _logger.info("trainer mesh up: process %d/%d via %s (%s)", rank, world,
                  addr, backend)
     return mesh, backend
@@ -313,7 +316,9 @@ def main(argv=None):
 
     mesh = None
     if args.mesh:
-        mesh, backend = _mesh_up(coord, args, device)
+        mesh, backend = mesh_up(coord, args.process_index,
+                                args.process_count, device,
+                                args.rendezvous_key, args.rendezvous_host)
         status["mesh_shape"] = "x".join(str(d) for d in mesh.mesh.shape)
         status["backend"] = backend
 

@@ -1,13 +1,17 @@
 """Small helpers (``persia_tpu/utils.py``).
 
 ``load_yaml`` / ``dump_yaml`` read and write through the port's own YAML
-subset (:mod:`persia_tpu_torch._yaml`), not PyYAML.
+subset (:mod:`persia_tpu_torch._yaml`), not PyYAML. ``run_command``,
+``find_free_port`` and ``setup_seed`` are the launcher's and the entry
+scripts' helpers; ``setup_seed`` alone loads torch.
 """
 
 import os
+import random
+import socket
 import subprocess
 import time
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 
@@ -24,6 +28,44 @@ def load_yaml(path: str) -> Any:
 def dump_yaml(content: Any, path: str):
     with open(path, "w") as f:
         f.write(_yaml.dump(content))
+
+
+def setup_seed(seed: int):
+    """Seed Python's ``random``, numpy's global generator and torch's
+    (``torch.manual_seed``, every device), and pin ``PYTHONHASHSEED`` for
+    the children this process starts."""
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+
+
+def run_command(cmd: List[str], env: Optional[dict] = None
+                ) -> subprocess.Popen:
+    """Start ``cmd`` with ``env`` (values stringified) merged over this
+    process's environment."""
+    full_env = dict(os.environ)
+    if env:
+        full_env.update({k: str(v) for k, v in env.items()})
+    return subprocess.Popen(cmd, env=full_env)
+
+
+def find_free_port(start: int = 10000, end: int = 65535) -> int:
+    """A TCP port on localhost that was free a moment ago, drawn from
+    ``[start, end]``. Racy by nature: a parent that waits for a child's
+    port binds port 0 in the child and reads its addr file instead
+    (:func:`write_addr_file`)."""
+    for _ in range(128):
+        port = random.randint(start, end)
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("127.0.0.1", port))
+                return port
+            except OSError:
+                continue
+    raise RuntimeError("could not find a free port")
 
 
 def write_addr_file(addr: str, path: str) -> None:

@@ -277,3 +277,90 @@ def test_routing_knobs(name, value, monkeypatch, tmp_path):
                       lambda: _routing_site(name, "jax"))
     assert mine == ref
     assert not isinstance(mine, str) or name.endswith("JOURNAL_DIR"), mine
+
+
+# --- orchestration: the launcher's entries, the fleet sizes, the autopilot --
+
+ORCH_OWN = {
+    "PERSIA_AUTOPILOT_COOLDOWN_SEC": "45.5",
+    "PERSIA_AUTOPILOT_JOURNAL_DIR": "journal",
+    "PERSIA_AUTOPILOT_MAX_ACTIONS_PER_HOUR": "4",
+    "PERSIA_AUTOPILOT_MODE": "enforce",
+    "PERSIA_DATALOADER_ENTRY": "send.py",
+    "PERSIA_NN_WORKER_ENTRY": "train.py",
+    "PERSIA_NUM_DATALOADERS": "3",
+    "PERSIA_NUM_WORKERS": "2",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ORCH_OWN))
+def test_orchestration_knob_is_registered_as_in_jax(name):
+    from persia_tpu import knobs as jknobs
+
+    mine, ref = tknobs.REGISTRY[name], jknobs.REGISTRY[name]
+    assert (mine.type, mine.default) == (ref.type, ref.default)
+
+
+def _orch_site(name, pkg):
+    """What the knob's reading site does in package ``pkg``: the pilot's
+    posture, the launcher's child command line, or the knob's value where
+    a manifest's role reads it."""
+    import sys
+
+    if pkg == "jax":
+        from persia_tpu import autopilot, knobs, launcher
+        from persia_tpu.fleet import FleetHistory
+        from persia_tpu.slos import SloEngine
+    else:
+        from persia_tpu_torch import autopilot, knobs, launcher
+        from persia_tpu_torch.fleet import FleetHistory
+        from persia_tpu_torch.slos import SloEngine
+    if name.startswith("PERSIA_AUTOPILOT_"):
+        class Mon:
+            engine, history, recorder = SloEngine(), FleetHistory(), None
+
+        p = autopilot.Autopilot(Mon(), None, "job", policies=[])
+        return (p.mode, p.cooldown_sec, p.max_actions_per_hour,
+                p.journal.root)
+    if name.endswith("_ENTRY"):
+        role = ("data-loader" if name == "PERSIA_DATALOADER_ENTRY"
+                else "nn-worker")
+        calls = []
+
+        class P:
+            def wait(self):
+                return 0
+
+        def run(cmd, env=None):
+            calls.append(cmd)
+            return P()
+
+        orig = launcher.run_command
+        launcher.run_command = run
+        try:
+            try:
+                launcher.main([role])
+            except SystemExit as e:
+                code = e.code
+        finally:
+            launcher.run_command = orig
+        return [c[1:] for c in calls if c[0] == sys.executable], code
+    return knobs.get(name)
+
+
+@pytest.mark.parametrize(
+    "name,value", [pytest.param(n, v, id=f"{n}-"
+                                f"{'unset' if v is UNSET else repr(v)}")
+                   for n in sorted(ORCH_OWN)
+                   for v in (UNSET, "", " 1", ORCH_OWN[n])])
+def test_orchestration_knobs(name, value, monkeypatch, tmp_path):
+    """Each orchestration knob read where JAX reads it: the autopilot's
+    mode (a bad one raises in both), cooldown, hourly limit and journal;
+    the launcher's entry scripts (unset: ``SystemExit`` naming the knob);
+    the fleet sizes a manifest hands its roles."""
+    monkeypatch.chdir(tmp_path)  # a journal directory lands here
+    monkeypatch.delenv("PERSIA_TRAINER_PROCESSES", raising=False)
+    _set(monkeypatch, name, value)
+    mine, ref = _both(lambda: _orch_site(name, "port"),
+                      lambda: _orch_site(name, "jax"))
+    assert mine == ref
