@@ -35,7 +35,13 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
    where one does not take the inputs) at both shapes, and the backend
    its default picks. K1's multi-slot entry at device mode's shape (26
    tables, hash fused, bit-equal to its plain version, beside its bound
-   and the old per-slot cost), and its single-table entry at device
+   and the old per-slot cost); the same entry under a shard window at
+   (b2)'s shape (26 shards of half the rows, 2^19 x 16, of 2^20-row
+   tables; B = 4096, 4 ids a slot, ~25% padding; f32 partials) against
+   its windowed plain version (bit-equal at the main path's one id a
+   slot), timed by CUDA events and the profiler beside its bound (the
+   in-shard rows read, the ids, the rows and the output); and its
+   single-table entry at device
    mode's shape and at the v5e shape of ``persia_tpu/ops/embedding_bag.py``
    beside ``F.embedding_bag``. Each wrapper's host time a call.
 3. Serving phase: two PS shards hold rows for the whole sign space of the
@@ -221,6 +227,16 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      device mode's agreement rule; K1 once a step on each rank; the two
      ranks' tables equal (a digest of their bits); step ms and peak
      memory;
+   - (b2) the same width with every table row-sharded over
+     ``make_mesh((1, 2))``: each rank holds 2^19 rows of each table (the
+     model built on the CPU and cut by the trainer before its move, so
+     no table sits whole on the card), pools the whole batch through
+     windowed K1 into f32 partials and sums them over the model axis
+     (``collectives.sum_partials``), 3 steps against the same one-rank
+     run under device mode's agreement rule (the tables gathered);
+     windowed K1 and the sum once a step on each rank; the two ranks'
+     towers bit-equal (digest); step ms, the tables' GB a rank and peak
+     memory beside (b)'s;
    - (c) the seq_rec tower over ``make_mesh((1, 2))``: Ulysses with the
      flash kernels and the ring, 3 f32 ``TrainCtx`` steps against the
      single-rank flash tower from the same weights (the training phase's
@@ -427,6 +443,7 @@ without the ``ok`` line.
 """
 
 import json
+import math
 import os
 import re
 import shutil
@@ -464,7 +481,8 @@ TRAIN_GRAD_RTOL = 1e-3
 # Also the pipelined run (reproducible, staleness 1) against the
 # synchronous run in f32: the same operations in the same order, so equal
 # unless a stream ordering across threads is wrong.
-# the example's own pass bar (examples/seq_rec/train.py:166)
+# the example's own pass bar (examples/seq_rec/train.py:166, the port's
+# script's AUC_BAR)
 AUC_BAR = 0.62
 # K1 against its plain version: at S = 1 each output is one rounded
 # product in both, so they must be bit-equal; at S > 1 both round every
@@ -498,20 +516,28 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
-# the model: examples/seq_rec/train.py's widths
-DIM = 16
-HEADS = 4
-T_HIST = 64
-ITEM_VOCAB = 50_000
-N_PS = 2
-MLP = (256, 128)
+# the model: the widths of the port's seq_rec example
+# (persia_tpu_torch/examples/seq_rec/train.py, its defaults), read from the
+# script, whose top imports only the standard library and numpy; without
+# the port here they stay None and main() exits 2
+try:
+    from persia_tpu_torch.examples.seq_rec import train as seq_rec
+except ImportError:
+    seq_rec = None
+SEQ_ARGS = seq_rec.parse_args([]) if seq_rec else None
+DIM = seq_rec.DIM if seq_rec else None
+HEADS = SEQ_ARGS.heads if seq_rec else None
+T_HIST = SEQ_ARGS.t_hist if seq_rec else None
+ITEM_VOCAB = SEQ_ARGS.vocab if seq_rec else None
+N_PS = SEQ_ARGS.n_ps if seq_rec else None
+MLP = seq_rec.MLP if seq_rec else None
 REQUEST_ROWS = 32
 N_THREADS = 8
 REQUESTS_PER_THREAD = 50
 SEED = 0
-TRAIN_SEED = 42  # the example's --seed
-TRAIN_STEPS = 300
-TRAIN_BATCH = 256
+TRAIN_SEED = SEQ_ARGS.seed if seq_rec else None  # the example's --seed
+TRAIN_STEPS = SEQ_ARGS.steps if seq_rec else None
+TRAIN_BATCH = SEQ_ARGS.batch_size if seq_rec else None
 # the A/B runs carry no gate; their depth was cut (from 60 and 100) to pay
 # for the multi_rank phase (PERF.md section 4)
 AB_STEPS = 30  # synchronous steps on the arena PS holder (the A/B)
@@ -1341,6 +1367,91 @@ def slot_inputs(torch, gen):
     return tables, ids, padded
 
 
+def windowed_slots_check(torch, gen, card: str) -> dict:
+    """K1's multi-slot entry under a shard window at (b2)'s shape: 26
+    shards of half the rows (2^19 x 16) of a 2^20-row vocab, the
+    agreement batch (B = 4096, ``DM_AGREE_SFS`` ids a slot, ~25% padding),
+    f32 partials. The second half (lo = 2^19: local row 0 is a real row,
+    padding lies outside) against its windowed plain version within
+    BAG_ATOL + BAG_RTOL (S > 1), the local rows equal; the first half
+    (lo = 0, the padding row inside) at the main path's S = 1 ids
+    bit-equal. Timed by CUDA events and the profiler's device ms beside
+    its bound (the in-shard rows it reads, the ids, the rows and the f32
+    output) and its plain version. Returns the record."""
+    from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.parallel.device_mode import (
+        criteo_like_specs,
+        synthetic_device_batch,
+    )
+
+    dev = torch.device("cuda")
+    n = DM_VOCAB // MR_WORLD
+    specs = criteo_like_specs(DM_SLOTS, DM_VOCAB, DM_DIM)
+    shards = [torch.randn((n, DM_DIM), generator=gen, device=dev)
+              for _ in specs]
+    _, ids4, _ = dm_agree_batch(torch, specs)
+    ids = [ids4[name] for name, _, _ in specs]
+    _, ids1, _ = synthetic_device_batch(DM_BATCH, DM_DENSE, specs,
+                                        seed=SEED, device=dev)
+    err = 0.0
+    for lo, slot_ids in ((0, [ids1[name] for name, _, _ in specs]),
+                         (n, ids)):
+        wins = [(lo, DM_VOCAB)] * DM_SLOTS
+        got, rows = eb.embedding_bag_slots_fwd(shards, slot_ids,
+                                               torch.float32, wins)
+        want, want_rows = eb.embedding_bag_slots_reference(
+            shards, slot_ids, torch.float32, wins)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        same = torch.equal(got, want) if lo == 0 else not bool(
+            ((got - want).abs() > BAG_ATOL + BAG_RTOL * want.abs()).any())
+        if not (same and torch.equal(rows, want_rows)
+                and bool((rows == -1).any())):
+            raise AssertionError(
+                f"K1 windowed (lo={lo}, n={n}): kernel disagrees with its "
+                f"plain version (max abs err {e:.3e}, rows equal "
+                f"{torch.equal(rows, want_rows)})")
+        err = max(err, e)
+    wins = [(n, DM_VOCAB)] * DM_SLOTS
+
+    def call():
+        return eb.embedding_bag_slots_fwd(shards, ids, torch.float32, wins)
+
+    ms = [cuda_ms(torch, call, 200)]
+    plain = cuda_ms(torch, lambda: eb.embedding_bag_slots_reference(
+        shards, ids, torch.float32, wins), 50)
+    ms.append(cuda_ms(torch, call, 200))
+    dev_ms = kernel_device_ms(torch, call, "bag_kernel")
+    # the in-shard rows this run's ids read, each once; every id read and
+    # its local row written (int32); the f32 partial written; 2 FLOP per
+    # element of an in-shard row read
+    inside = rows >= 0
+    distinct = sum(int(torch.unique(r[r >= 0]).numel()) for r in
+                   eb.slot_rows(rows, DM_BATCH, [DM_AGREE_SFS] * DM_SLOTS))
+    items = int(inside.sum())
+    bound = bound_ms(distinct * 4 * DM_DIM + rows.numel() * (4 + 4)
+                     + DM_SLOTS * DM_BATCH * DM_DIM * 4,
+                     2.0 * items * DM_DIM, PEAK_F32_FLOPS)
+    share = "not measured" if dev_ms is None else f"{bound[0] / dev_ms:.4f}"
+    _log(f"[kernel] embedding_bag windowed multi-slot, (b2)'s shape "
+         f"{DM_SLOTS} shards of {n} x {DM_DIM} (lo={n}) of V={DM_VOCAB}, "
+         f"B={DM_BATCH} S={DM_AGREE_SFS} (~25% padding, all outside the "
+         f"window), f32 partials: max_abs_err={err:.3e} (atol {BAG_ATOL} + "
+         f"rtol {BAG_RTOL}; bit-equal at lo=0 with the S=1 ids) "
+         f"kernel_ms={ms[0]:.6f} / {ms[1]:.6f} device_ms_per_launch="
+         f"{'not measured' if dev_ms is None else f'{dev_ms:.6f}'} "
+         f"bound_ms={bound[0]:.6f} ({bound[1]}, {distinct} distinct in-shard "
+         f"rows, {items} of {rows.numel()} ids inside) share_of_bound="
+         f"{share} plain_ms={plain:.6f} | card: {card}")
+    del shards, ids, ids4, ids1, got, want, rows, want_rows, inside
+    torch.cuda.empty_cache()
+    return {"shape": f"{DM_SLOTS} shards of {n} x {DM_DIM} (lo={n}) of "
+                     f"V={DM_VOCAB}, B={DM_BATCH} S={DM_AGREE_SFS}, f32",
+            "ms": min(ms), "device_ms_per_launch": dev_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "plain_ms": plain,
+            "max_abs_err": err}
+
+
 def sparse_kernel_phase(torch, card: str) -> dict:
     """K1's multi-slot entry at device mode's shape (26 tables of 2^20 x
     16, B = 4096, one id a slot: the main path's one call a step),
@@ -1418,6 +1529,9 @@ def sparse_kernel_phase(torch, card: str) -> dict:
         "old_per_slot_path_ms": old_ms}
     del tables, ids, padded, got, want, rows, want_rows
     torch.cuda.empty_cache()
+    record["windowed"] = windowed_slots_check(torch, gen, card)
+    record["max_abs_err"] = max(record["max_abs_err"],
+                                record["windowed"]["max_abs_err"])
 
     for tag, (vocab, dim, batch, bag, edge) in {
             "device-mode": (DM_VOCAB, DM_DIM, DM_BATCH, 1, False),
@@ -1548,33 +1662,24 @@ def probe_phase(torch, card: str) -> dict:
                       for r in results}}
 
 
-def build_schema():
-    from persia_tpu_torch.config import EmbeddingSchema, SlotConfig, \
-        uniform_slots
-    from persia_tpu_torch.workloads.generator import (
-        SEQ_CLICKS_SLOT, SEQ_HISTORY_SLOT, SEQ_PROFILE_SLOTS,
-        SEQ_TARGET_SLOT)
+def seq_args(**overrides):
+    """The seq_rec script's default arguments, with ``overrides``."""
+    import argparse
 
-    slots = uniform_slots([*SEQ_PROFILE_SLOTS, SEQ_TARGET_SLOT], dim=DIM)
-    slots[SEQ_HISTORY_SLOT] = SlotConfig(
-        name=SEQ_HISTORY_SLOT, dim=DIM, embedding_summation=False,
-        sample_fixed_size=T_HIST)
-    slots[SEQ_CLICKS_SLOT] = SlotConfig(
-        name=SEQ_CLICKS_SLOT, dim=DIM, pooling="last4")
-    return EmbeddingSchema(slots_config=slots)
+    return argparse.Namespace(**{**vars(SEQ_ARGS), **overrides})
+
+
+def build_schema():
+    """The seq_rec script's schema (its ``build_schema``)."""
+    return seq_rec.build_schema(SEQ_ARGS)
 
 
 def fresh_worker(schema, backend=None):
     """A worker over ``N_PS`` empty PS shards, each
-    ``make_holder(2_000_000, 8)`` as the example builds them (the native
-    C++ store); ``backend="arena"`` gives the Python arena holder,
-    ``"python-legacy"`` the per-entry holder."""
-    from persia_tpu_torch.ps.native import make_holder
-    from persia_tpu_torch.worker.worker import EmbeddingWorker
-
-    return EmbeddingWorker(
-        schema, [make_holder(2_000_000, 8, backend=backend)
-                 for _ in range(N_PS)])
+    ``make_holder(2_000_000, 8)`` as the example builds them (its
+    ``build_worker``: the native C++ store); ``backend="arena"`` gives the
+    Python arena holder, ``"python-legacy"`` the per-entry holder."""
+    return seq_rec.build_worker(SEQ_ARGS, schema, backend=backend)
 
 
 def ps_paths(worker) -> str:
@@ -1602,20 +1707,14 @@ def build_world():
 
 def build_tower(num_dense: int, attn_impl: str, state_dict=None,
                 compute_dtype=None, mesh=None, context_parallel="ring"):
-    """The SequenceTower on the card, with seeded weights or a copy of
-    ``state_dict``; context-parallel over ``mesh``'s model axis."""
-    import torch
-
-    from persia_tpu_torch.models import SequenceTower
+    """The seq_rec script's SequenceTower (its ``build_model``) on the card,
+    with seeded weights or a copy of ``state_dict``; context-parallel over
+    ``mesh``'s model axis."""
     from persia_tpu_torch.weights import init_params
 
-    # the batch's feature order: 2 profiles, history (raw), clicks, target
-    slots = [(DIM, False), (DIM, False), (DIM, True), (DIM, False),
-             (DIM, False)]
-    model = SequenceTower(num_dense, slots, mlp=MLP, num_heads=HEADS,
-                          attn_impl=attn_impl, device="cuda",
-                          compute_dtype=compute_dtype or torch.bfloat16,
-                          mesh=mesh, context_parallel=context_parallel)
+    model = seq_rec.build_model(
+        seq_args(context_parallel=context_parallel), num_dense, mesh=mesh,
+        compute_dtype=compute_dtype, attn_impl=attn_impl, device="cuda")
     if state_dict is None:
         return init_params(model, SEED)
     model.load_state_dict(state_dict)
@@ -2263,13 +2362,14 @@ RATES = {}
 
 def train_ctx(torch, schema, model, global_config=None, backend=None,
               mesh=None, worker=None):
-    """The seq_rec example's stack (Adam(1e-3), Adagrad(1e-2), rows from
-    U(-0.05, 0.05), 2 fresh shards of make_holder(2_000_000, 8) of
-    ``backend``, or ``worker``), the tower's weights as they are."""
-    return hybrid_ctx(torch, model, schema, [(2_000_000, 8)] * N_PS,
-                      lambda p: torch.optim.Adam(p, lr=1e-3), 1e-2,
-                      (-0.05, 0.05), global_config, seed=None,
-                      backend=backend, mesh=mesh, worker=worker)
+    """The seq_rec example's stack (the script's Adam(1e-3), Adagrad(1e-2),
+    rows from U(-0.05, 0.05), 2 fresh shards of make_holder(2_000_000, 8)
+    of ``backend``, or ``worker``), the tower's weights as they are."""
+    return hybrid_ctx(torch, model, schema,
+                      [(seq_rec.PS_CAPACITY, seq_rec.PS_SHARDS)] * N_PS,
+                      lambda p: torch.optim.Adam(p, lr=seq_rec.DENSE_LR),
+                      seq_rec.SPARSE_LR, seq_rec.EMB_INIT, global_config,
+                      seed=None, backend=backend, mesh=mesh, worker=worker)
 
 
 def hybrid_ctx(torch, model, schema, holders, dense_optimizer, sparse_lr,
@@ -3896,9 +3996,11 @@ def snapshot_resume_phase(torch, card: str) -> dict:
     return launches
 
 
-def device_mode_model(torch, bag_impl: str, compute_dtype):
-    """bench_device's DeviceModeModel(DLRM) on the card, weights not yet
-    drawn. Returns (slot specs, model)."""
+def device_mode_model(torch, bag_impl: str, compute_dtype,
+                      device: str = "cuda"):
+    """bench_device's DeviceModeModel(DLRM) on ``device`` (the card, or the
+    CPU for a model whose tables the trainer shards before it moves them),
+    weights not yet drawn. Returns (slot specs, model)."""
     from persia_tpu_torch.models.dlrm import DLRM
     from persia_tpu_torch.parallel.device_mode import (
         DeviceModeModel,
@@ -3907,9 +4009,23 @@ def device_mode_model(torch, bag_impl: str, compute_dtype):
 
     specs = criteo_like_specs(DM_SLOTS, DM_VOCAB, DM_DIM)
     tower = DLRM(DM_DENSE, DM_SLOTS, embedding_dim=DM_DIM,
-                 compute_dtype=compute_dtype, device="cuda")
+                 compute_dtype=compute_dtype, device=device)
     return specs, DeviceModeModel(specs, tower, bag_impl=bag_impl,
-                                  device="cuda")
+                                  device=device)
+
+
+def dm_agree_batch(torch, specs):
+    """The agreement batch of device mode: ``synthetic_device_batch`` at
+    bench width with ``DM_AGREE_SFS`` ids a slot, about a quarter of them
+    turned to padding, on the card."""
+    from persia_tpu_torch.parallel.device_mode import synthetic_device_batch
+
+    non_id, ids, label = synthetic_device_batch(
+        DM_BATCH, DM_DENSE, specs, DM_AGREE_SFS, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for v in ids.values():
+        v[torch.rand(v.shape, generator=gen, device="cuda") < 0.25] = 0
+    return non_id, ids, label
 
 
 def dm_adagrad(params):
@@ -3927,19 +4043,12 @@ def device_mode_agreement(torch, card: str):
     and the plain tower must have moved by more than twice each limit."""
     import numpy as np
 
-    from persia_tpu_torch.parallel.device_mode import (
-        make_device_mode_trainer,
-        synthetic_device_batch,
-    )
+    from persia_tpu_torch.parallel.device_mode import make_device_mode_trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     specs, kmodel = device_mode_model(torch, "kernel", torch.float32)
-    non_id, ids, label = synthetic_device_batch(
-        DM_BATCH, DM_DENSE, specs, DM_AGREE_SFS, seed=SEED, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    for v in ids.values():
-        v[torch.rand(v.shape, generator=gen, device="cuda") < 0.25] = 0
+    non_id, ids, label = dm_agree_batch(torch, specs)
     kmodel, _, kstep = make_device_mode_trainer(kmodel, dm_adagrad, non_id,
                                                 ids, seed=SEED, device="cuda")
     _, rmodel = device_mode_model(torch, "reference", torch.float32)
@@ -4310,51 +4419,86 @@ def _digest(torch, t):
     return torch.stack([bits.sum(), (bits * w).sum()])
 
 
+def _dm_agreement(torch, model, smodel, start, losses, single):
+    """Device mode's agreement numbers of a mesh run (``model``, its tables
+    gathered when sharded) against one rank's (``smodel``, rank 0 only,
+    from the same start tables): the loss, the predictions (an eval
+    forward on every rank, a collective when the tables are sharded) and
+    each table's change. Returns them on rank 0, None elsewhere."""
+    import numpy as np
+
+    from persia_tpu_torch.parallel.device_embedding import DeviceEmbeddingBag
+    from persia_tpu_torch.weights import gather_table
+
+    with torch.inference_mode():
+        pred = model.eval()(*start["batch"])
+    tables = {n: gather_table(m) for n, m in model.named_modules()
+              if isinstance(m, DeviceEmbeddingBag)}
+    if smodel is None:
+        return None
+    with torch.inference_mode():
+        spred = smodel.eval()(*start["batch"])
+    plain = dict(smodel.named_parameters())
+    table_err = table_move = 0.0
+    with torch.no_grad():
+        for n, t in tables.items():
+            key = n + ".table"
+            moved = plain[key] - start["tables"][key]
+            table_err = max(table_err, float(
+                ((t - start["tables"][key]) - moved).abs().max()))
+            table_move = max(table_move, float(moved.abs().max()))
+    losses, single = np.array(losses), np.array(single)
+    return {"loss_err": float(np.abs(losses - single).max()),
+            "loss_move": float(np.abs(single - single[0]).max()),
+            "pred_err": float((pred - spred).abs().max()),
+            "table_err": table_err, "table_move": table_move}
+
+
 def mr_device_mode(torch, mesh):
     """(b) bench_device's width over the (2, 1) mesh with an f32 tower:
     each rank pools its half of the batch through K1, the table and tower
     gradients are averaged through gloo; against one rank on the same
     batch under device mode's agreement rule, the tables of the two
-    ranks compared by digest."""
-    import numpy as np
+    ranks compared by digest. (b2) the same width over make_mesh((1, 2)):
+    each rank holds half of every table's rows (built on the CPU, cut by
+    the trainer before the move, so no table sits whole on the card),
+    pools the whole batch through windowed K1 and sums the f32 partials
+    over the model axis; against the same single-rank run, its tables
+    gathered; the two ranks' towers compared by digest."""
     import torch.distributed as dist
 
     from persia_tpu_torch.ops import embedding_bag as eb
     from persia_tpu_torch.parallel import collectives as coll
-    from persia_tpu_torch.parallel.device_mode import (
-        make_device_mode_trainer,
-        synthetic_device_batch,
-    )
+    from persia_tpu_torch.parallel.device_mode import make_device_mode_trainer
+    from persia_tpu_torch.parallel.mesh import make_mesh
 
     rank = dist.get_rank()
     specs, model = device_mode_model(torch, "kernel", torch.float32)
-    non_id, ids, label = synthetic_device_batch(
-        DM_BATCH, DM_DENSE, specs, DM_AGREE_SFS, seed=SEED, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    for v in ids.values():
-        v[torch.rand(v.shape, generator=gen, device="cuda") < 0.25] = 0
+    batch = dm_agree_batch(torch, specs)
 
     def steps(step):
         losses, ms = [], []
         for _ in range(MR_DM_STEPS):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            losses.append(float(step(non_id, ids, label)))
+            losses.append(float(step(*batch)))
             ms.append((time.perf_counter() - t) * 1e3)
         return losses, ms
 
-    out = {}
+    out, smodel, start = {}, None, {"batch": batch[:2]}
     if rank == 0:
         _, smodel = device_mode_model(torch, "kernel", torch.float32)
         smodel, _, sstep = make_device_mode_trainer(
-            smodel, dm_adagrad, non_id, ids, seed=SEED, device="cuda")
-        start = {n: p.detach().clone() for n, p in smodel.named_parameters()
-                 if n.endswith(".table")}
+            smodel, dm_adagrad, *batch[:2], seed=SEED, device="cuda")
+        start["tables"] = {n: p.detach().clone()
+                           for n, p in smodel.named_parameters()
+                           if n.endswith(".table")}
         out["single_losses"], out["single_ms"] = steps(sstep)
+        del sstep
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    model, _, step = make_device_mode_trainer(model, dm_adagrad, non_id, ids,
+    model, _, step = make_device_mode_trainer(model, dm_adagrad, *batch[:2],
                                               seed=SEED, device="cuda",
                                               mesh=mesh)
     torch.cuda.synchronize()
@@ -4367,27 +4511,41 @@ def mr_device_mode(torch, mesh):
                           model.named_parameters() if n.endswith(".table")])
     both = coll.all_gather(digest[None], None, 0)
     out["tables_equal"] = bool(torch.equal(both[0], both[1]))
-    if rank == 0:
-        with torch.inference_mode():
-            preds = [m.eval()(non_id, ids) for m in (model, smodel)]
-        plain = dict(smodel.named_parameters())
-        table_err = table_move = 0.0
-        with torch.no_grad():
-            for n, p in model.named_parameters():
-                if n in start:
-                    moved = plain[n] - start[n]
-                    table_err = max(table_err, float(
-                        ((p - start[n]) - moved).abs().max()))
-                    table_move = max(table_move, float(moved.abs().max()))
-        losses, single = np.array(out["losses"]), np.array(
-            out["single_losses"])
-        out["agree"] = {
-            "loss_err": float(np.abs(losses - single).max()),
-            "loss_move": float(np.abs(single - single[0]).max()),
-            "pred_err": float((preds[0] - preds[1]).abs().max()),
-            "table_err": table_err, "table_move": table_move}
-        del smodel, sstep, start, plain, preds
+    out["agree"] = _dm_agreement(torch, model, smodel, start, out["losses"],
+                                 out.get("single_losses"))
     del model, step
+    torch.cuda.empty_cache()
+
+    # (b2)
+    b2 = out["b2"] = {}
+    sharded = make_mesh((1, MR_WORLD), device="cuda")
+    _, model = device_mode_model(torch, "kernel", torch.float32, "cpu")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, _, step = make_device_mode_trainer(model, dm_adagrad, *batch[:2],
+                                              seed=SEED, device="cuda",
+                                              mesh=sharded)
+    torch.cuda.synchronize()
+    b2["setup_s"] = time.perf_counter() - t
+    bag = getattr(model.DeviceEmbeddingCollection_0, f"bag_{specs[0][0]}")
+    b2["rows"] = [(bag.window[0], bag.table.shape[0])]
+    eb.reset_launch_count()
+    sums = coll.calls.copy()
+    b2["losses"], b2["ms"] = steps(step)
+    b2["launches"] = eb.launch_count()
+    b2["sums"] = sum((coll.calls - sums).get(k, 0) for k in coll.calls
+                     if k.startswith("sum_partials/"))
+    b2["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    b2["table_gb"] = sum(p.numel() * 4 for n, p in model.named_parameters()
+                         if n.endswith(".table")) / 1e9
+    digest = torch.stack([_digest(torch, p) for n, p in
+                          model.named_parameters()
+                          if not n.endswith(".table")])
+    both = coll.all_gather(digest[None], None, 0)
+    b2["towers_equal"] = bool(torch.equal(both[0], both[1]))
+    b2["agree"] = _dm_agreement(torch, model, smodel, start, b2["losses"],
+                                out.get("single_losses"))
+    del model, step, smodel, start
     torch.cuda.empty_cache()
     return out
 
@@ -4946,6 +5104,51 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
         raise AssertionError("multi_rank (b): K1 did not launch once a "
                              "step on every rank")
 
+    # (b2)
+    b2 = [r["b2"] for r in b]
+    ag = b2[0]["agree"]
+    _log(f"[multi_rank] (b2) device mode {DM_SLOTS} x {DM_VOCAB} x {DM_DIM} "
+         f"tables row-sharded over make_mesh((1, {MR_WORLD})) (rank rows "
+         f"(lo, n) {[r['rows'][0] for r in b2]}), f32 tower, batch "
+         f"{DM_BATCH} on each rank ({DM_AGREE_SFS} ids a slot), "
+         f"{MR_DM_STEPS} steps: step ms rank 0 "
+         f"{' '.join(f'{x:.1f}' for x in b2[0]['ms'])}, rank 1 "
+         f"{' '.join(f'{x:.1f}' for x in b2[1]['ms'])} (the partials' sum "
+         f"through gloo inside), (b) beside: rank 0 "
+         f"{' '.join(f'{x:.1f}' for x in b[0]['ms'])}; setup "
+         f"{b2[0]['setup_s']:.2f}s; tables a rank "
+         f"{b2[0]['table_gb']:.3f} GB; max_memory_allocated "
+         f"{' / '.join(f'{r['max_memory_gb']:.3f}' for r in b2)} GB "
+         f"((b): {' / '.join(f'{r['max_memory_gb']:.3f}' for r in b)} GB; "
+         f"rank 0 also holds the one-rank model in both); against one rank: "
+         f"loss max_abs_err {ag['loss_err']:.3e} (limit "
+         f"{DM_LOSS_MOVE_RTOL * ag['loss_move']:.3e}) pred "
+         f"{ag['pred_err']:.3e} (atol {DM_PRED_ATOL}) table change (gathered)"
+         f" {ag['table_err']:.3e} (limit "
+         f"{DM_TABLE_ULPS_ATOL + DM_TABLE_MOVE_RTOL * ag['table_move']:.3e});"
+         f" windowed K1 launches {[r['launches'] for r in b2]} and model-"
+         f"axis sums {[r['sums'] for r in b2]} in {MR_DM_STEPS} steps; "
+         f"towers bit-equal on both ranks: "
+         f"{all(r['towers_equal'] for r in b2)} (no rate is claimed: gloo "
+         f"on one card) | card: {card}")
+    loss_lim = DM_LOSS_MOVE_RTOL * ag["loss_move"]
+    table_lim = DM_TABLE_ULPS_ATOL + DM_TABLE_MOVE_RTOL * ag["table_move"]
+    if not (np.isfinite([x for r in b2 for x in r["losses"]]).all()
+            and ag["loss_move"] > 2 * loss_lim
+            and ag["table_move"] > 2 * table_lim
+            and ag["loss_err"] <= loss_lim and ag["pred_err"] <= DM_PRED_ATOL
+            and ag["table_err"] <= table_lim):
+        raise AssertionError("multi_rank (b2): device mode with tables "
+                             "sharded over the model axis disagrees with "
+                             "one rank")
+    if not all(r["towers_equal"] for r in b2):
+        raise AssertionError("multi_rank (b2): the ranks' towers differ")
+    if any(r["launches"] != MR_DM_STEPS or r["sums"] != MR_DM_STEPS
+           for r in b2):
+        raise AssertionError("multi_rank (b2): windowed K1 or the model-"
+                             "axis sum did not run once a step on every "
+                             "rank")
+
     # (c)
     c = [r["c"] for r in ranks]
     agree = c[0]["agree"]
@@ -5003,7 +5206,9 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
         raise AssertionError("multi_rank (d): the NCCL world did not take "
                              "its collectives or its losses are not finite")
     return {"embedding_bag": {"launches_multi_rank":
-                              [r["launches"] for r in b]},
+                              [r["launches"] for r in b],
+                              "launches_multi_rank_sharded":
+                              [r["launches"] for r in b2]},
             **{n: {"launches_multi_rank": [r["launches"][n] for r in c],
                    "launches_mesh_pipeline": [r["e1"]["launches"][n]
                                               for r in e],
@@ -8303,8 +8508,8 @@ class LauncherJob:
 
 
 class OrchestrationClusters(ServiceClusters):
-    """The orchestration phase's processes, started while (c) runs: (b)'s
-    watched seq_rec cluster (every service with its sidecar) and
+    """The orchestration phase's processes, started once (c) has ended:
+    (b)'s watched seq_rec cluster (every service with its sidecar) and
     its third PS process (no coordinator: the migration hands its
     address to the worker), the unbroken reference cluster, and (a)'s
     service pods (:class:`LauncherJob`). :meth:`stop` takes them all
@@ -8826,7 +9031,9 @@ def or_autopilot_bench(card: str, pm_dir: str) -> str:
     ships, samples, errors = [0], [], []
     s_lock = threading.Lock()
     stop = threading.Event()
-    mode_box, period_box = ["uniform"], [0.0]
+    # the pace: a cycle every period a thread (0: flat out), thread i's
+    # cycles at epoch + (i / n_threads + k) * period
+    mode_box, period_box, epoch_box = ["uniform"], [0.0], [0.0]
     hot_box = [np.zeros(0, dtype=np.uint64)]
 
     def mk_feats(rng):
@@ -8840,6 +9047,13 @@ def or_autopilot_bench(card: str, pm_dir: str) -> str:
                 for _ in range(n_feats)]
 
     def train(seed):
+        """Trainer thread ``seed``: cycles on its own slots of the pace,
+        spread over the period with the other thread's, so that a paced
+        load reaches the scrapes as evenly as the pace allows. (Sleeping
+        the rest of the period after each cycle lets the two threads'
+        phases lock: at 5% of a slow host's rate both cycles then land in
+        one scrape interval each period, and that spike, above the
+        scale-in threshold, keeps the calm from being sustained.)"""
         rng = np.random.default_rng(seed)
         while not stop.is_set():
             raw = mk_feats(rng)
@@ -8857,8 +9071,11 @@ def or_autopilot_bench(card: str, pm_dir: str) -> str:
                 ships[0] += n_feats * bs
                 samples.append((t0, dt))
             p = period_box[0]
-            if p > dt:
-                time.sleep(p - dt)
+            if p > 0:
+                first = epoch_box[0] + seed * p / n_threads
+                now = time.perf_counter()
+                k = max(math.floor((now - first) / p) + 1, 0)
+                time.sleep(max(first + k * p - now, 0.0))
 
     threads = [threading.Thread(target=train, args=(s,), daemon=True)
                for s in range(n_threads)]
@@ -8887,6 +9104,7 @@ def or_autopilot_bench(card: str, pm_dir: str) -> str:
 
         def drive(frac, traffic, done_fn, max_sec, label):
             mode_box[0] = traffic
+            epoch_box[0] = time.perf_counter()
             period_box[0] = n_threads / (frac * m_cycles)
             t_end = time.monotonic() + max_sec
             while time.monotonic() < t_end:
@@ -8907,9 +9125,13 @@ def or_autopilot_bench(card: str, pm_dir: str) -> str:
                     marks[label] = time.monotonic() - t_start
                     return
             if done_fn is not None:
+                rate = monitor.history.avg_over(
+                    "ps_lookup_row_rate", 1.0, r"^ps", time.monotonic())
                 raise AssertionError(
                     f"orchestration (c): the script never reached {label} "
-                    f"within {max_sec:.0f}s (executed {executed_kinds()})")
+                    f"within {max_sec:.0f}s (executed {executed_kinds()}; "
+                    f"calibrated {m_cycles:.1f} cycles/s, {m_rows:.1f} "
+                    f"rows/s; the fleet's last second {rate} rows/s)")
             marks[label] = time.monotonic() - t_start
 
         drive(0.10, "uniform", None, 2.6, "warmup")
@@ -9058,13 +9280,13 @@ def autopilot_bench_main(spec_path: str) -> int:
 
 
 def orchestration_phase(torch, card: str) -> dict:
-    """(c)'s child first, beside nothing but the start-up of (a)'s and
-    (b)'s processes: its thresholds are fractions of a rate it calibrates
-    at its start, and its script needs that rate to hold after (run
-    beside (a) and (b), its surge once missed the band). Then (a)'s
-    trainer group and data loaders start and (b) runs in this process
-    while (a) trains; (a)'s gates are read once it ends. Returns (b)'s
-    launches."""
+    """(c)'s child first, alone: its thresholds are fractions of a rate it
+    calibrates at its start, and its script needs that rate to hold after
+    (its surge missed the band beside (a) and (b) once, and beside the
+    start-up of their processes on a slow host once more). Then (a)'s and
+    (b)'s processes start, (a)'s trainer group and data loaders start and
+    (b) runs in this process while (a) trains; (a)'s gates are read once
+    it ends. Returns (b)'s launches."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -9072,11 +9294,11 @@ def orchestration_phase(torch, card: str) -> dict:
         bench = AutopilotBenchProcess(card, pm_dir)
         clusters = None
         try:
-            clusters = OrchestrationClusters()
             c_line = bench.result()
             _log(f"[orchestration] {c_line}")
             t1 = time.perf_counter()
             _log(f"[time] orchestration (c) {t1 - t0:.1f}s")
+            clusters = OrchestrationClusters()
             job = clusters.job
             job.start_roles()
             up = clusters.wait()

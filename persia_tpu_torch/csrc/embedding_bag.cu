@@ -20,6 +20,15 @@
 //   rounded once to bf16 (or kept f32), and the rows read are written as
 //   int32 for the backward's scatter-add. A padding id (0 or negative)
 //   reads row 0 with weight 0, so every row is in range.
+// Either mode takes a shard window (lo, n): the table holds the global rows
+// [lo, lo + n) of a vocab-row table (device mode's tables row-sharded over
+// a mesh's model axis, persia_tpu/parallel/device_embedding.py:40-46). The
+// row is computed over the global vocab as above; a row outside the window
+// contributes nothing and is recorded as -1, a row inside reads local row
+// row - lo and is recorded as such. A padding id reads global row 0, so it is
+// local row 0 (weight 0) on the shard that holds row 0 and -1 on the others.
+// The output is then this shard's partial sum (the caller sums the shards
+// and casts). The whole table is the window (0, vocab): the unsharded call.
 // Products and sums are rounded one by one in s order (no fused
 // multiply-add), as the plain version rounds them: bit-equal at S = 1.
 //
@@ -58,7 +67,7 @@ constexpr int MAX_THREADS = 256;
 constexpr int MIN_THREADS = 64;
 constexpr int ITEMS = 4;  // independent row loads in flight a thread
 constexpr int MAX_SLOTS = 64;
-constexpr int DESC_WORDS = 7;  // int64 words of one slot's descriptor
+constexpr int DESC_WORDS = 9;  // int64 words of one slot's descriptor
 // CTAs of MAX_THREADS resident per SM: registers are capped so that
 // device mode's 26 x 16 CTAs fit the 132 SMs in one wave
 constexpr int MIN_CTAS_PER_SM = 4;
@@ -68,10 +77,11 @@ struct Slot {
   const void* ids;       // (batch, bag) int32 or int64
   const float* weights;  // (batch, bag) f32 (clip mode); unused in hash mode
   int32_t* rows;         // (batch, bag) int32 rows read, or null
-  int vocab;
+  int vocab;  // the global rows the ids hash or clip into
   int bag;
   int ids64;
-  int unused;
+  int lo;  // the window: this table holds global rows [lo, lo + n)
+  int n;
 };
 
 struct Params {
@@ -125,11 +135,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* out, float v) {
   *out = __float2bfloat16_rn(v);
 }
 
-// The row an id reads (in [0, vocab - 1], so it fits an int) and its
+// The global row an id reads (in [0, vocab - 1], so it fits an int) and its
 // weight. Hash mode does its arithmetic in the ids' own width (an int32
 // id's modulo stays 32-bit).
 template <bool HASH>
-__device__ __forceinline__ int row_of(const Slot& sd, int64_t i, float* w) {
+__device__ __forceinline__ int global_row(const Slot& sd, int64_t i,
+                                          float* w) {
   if (sd.ids64) {
     const int64_t id = static_cast<const int64_t*>(sd.ids)[i];
     if (HASH) {
@@ -147,6 +158,14 @@ __device__ __forceinline__ int row_of(const Slot& sd, int64_t i, float* w) {
   }
   *w = sd.weights[i];
   return min(max(id, 0), sd.vocab - 1);
+}
+
+// The local row of the window an id reads, or -1 for a row outside it.
+template <bool HASH>
+__device__ __forceinline__ int row_of(const Slot& sd, int64_t i, float* w) {
+  const int local = global_row<HASH>(sd, i, w) - sd.lo;
+  return static_cast<unsigned>(local) < static_cast<unsigned>(sd.n) ? local
+                                                                    : -1;
 }
 
 // SAMPLES x SPAN == ITEMS: each thread keeps SAMPLES samples and SPAN
@@ -238,10 +257,11 @@ cudaError_t launch(const Params& p, bool vec, bool wide, dim3 grid,
 
 // Pool n_slots slots into out (batch, out_cols, dim), f32 or (out_bf16)
 // bf16, columns slot0 .. slot0 + n_slots - 1, and (rows not null) write
-// each slot's int32 rows read into rows. desc holds DESC_WORDS int64
-// words a slot: table pointer, ids pointer, weights pointer (0 in hash
-// mode), the slot's offset in rows (elements), vocab, bag, ids element
-// size (4 or 8). hash selects the device-mode hash and mask; otherwise
+// each slot's int32 local rows read (-1: outside the window) into rows. desc holds
+// DESC_WORDS int64 words a slot: table pointer, ids pointer, weights
+// pointer (0 in hash mode), the slot's offset in rows (elements), vocab,
+// bag, ids element size (4 or 8), and the window's lo and n (the table's
+// rows; 0 and vocab for a whole table). hash selects the device-mode hash and mask; otherwise
 // ids are clipped and the weights read, and the output must be f32.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int persia_embedding_bag_slots(const int64_t* desc, int n_slots,
@@ -267,12 +287,14 @@ extern "C" int persia_embedding_bag_slots(const int64_t* desc, int n_slots,
     if (d[3] < 0 || d[4] < (hash ? 2 : 1) || d[4] > 0x7fffffff || d[5] < 0 ||
         d[5] > 0x7fffffff || (d[6] != 4 && d[6] != 8) ||
         s.table == nullptr || (d[5] > 0 && s.ids == nullptr) ||
-        (!hash && d[5] > 0 && s.weights == nullptr))
+        (!hash && d[5] > 0 && s.weights == nullptr) || d[7] < 0 ||
+        d[8] < 1 || d[7] + d[8] > d[4])
       return (int)cudaErrorInvalidValue;
     s.vocab = static_cast<int>(d[4]);
     s.bag = static_cast<int>(d[5]);
     s.ids64 = d[6] == 8;
-    s.unused = 0;
+    s.lo = static_cast<int>(d[7]);
+    s.n = static_cast<int>(d[8]);
     max_bag = std::max(max_bag, s.bag);
     aligned = aligned && reinterpret_cast<uintptr_t>(s.table) % 16 == 0;
   }

@@ -12,7 +12,8 @@ push gateway), the online tier (the delta subscriber's scan interval,
 apply batch and write-rate governor), the service tier (the
 coordinator's address, the PS replica count, the PS service's dispatch,
 wire codec, circuit breaker, frames, GC tune, row dtype and spill tier,
-the worker's data plane and distinct-id monitor), whole-job supervision
+the worker's data plane and distinct-id monitor, the middleware's numpy
+twins forced), whole-job supervision
 (the trainer group's size, rank and rendezvous, the snapshot cadence),
 the fleet monitor (its static targets, its history ring's window and
 points a series, the postmortem directory), tooling (the step profiler's
@@ -67,6 +68,7 @@ REGISTRY: Dict[str, Knob] = {k.name: k for k in [
     Knob("PERSIA_FLEET_HISTORY_POINTS", "int", 512),
     Knob("PERSIA_FLEET_HISTORY_SEC", "float", 600.0),
     Knob("PERSIA_FLEET_TARGETS", "str", ""),
+    Knob("PERSIA_FORCE_PYTHON_MW", "bool", False),
     Knob("PERSIA_FSYNC", "bool", True),
     Knob("PERSIA_HOTNESS", "bool", False),
     Knob("PERSIA_HOTNESS_CM_DEPTH", "int", 4),

@@ -11,6 +11,8 @@ Here each is a plain function over a ``torch.distributed`` group:
 - :func:`all_gather` (no autograd; masks and int8 codes);
 - :func:`all_to_all`, whose backward is the inverse ``all_to_all``;
 - :func:`ppermute`, a ring shift, whose backward is the reverse shift;
+- :func:`sum_partials`, the sum of row-sharded tables' partial lookups
+  over the model axis, whose backward is the identity (see there);
 - :func:`scatter_to_shards` / :func:`gather_from_shards`, the two ends
   of a sharded region inside an SPMD program. Every rank of the group
   runs the code outside the region identically (``shard_map`` runs it
@@ -173,6 +175,37 @@ def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
         return _Shift.apply(x, group, shift)
     return _shift(x, group, shift)
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """The all-reduce sum over ``group`` of each rank's partial ``x`` (the
+    pooled lookups of its rows of a table row-sharded over the model
+    axis), a new tensor that every rank then holds alike. Differentiable
+    with the identity as backward: every rank of the group runs the same
+    tower on the same sum, so each already holds the whole cotangent of
+    it, which is the cotangent of its own partial; summing it again over
+    the group would make the table gradients P times too large. Counted
+    as ``"sum_partials/<backend>"``."""
+    _count("sum_partials", group)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _SumPartials.apply(x, group)
+    return _sum(x, group)
 
 
 def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -7,12 +7,22 @@ server is involved. The pooled lookup is the embedding-bag kernel K1
 (:mod:`persia_tpu_torch.ops.embedding_bag`): the collection pools all
 its slots of one embedding dim, hash and mask included, in one launch
 (:func:`~persia_tpu_torch.ops.embedding_bag.embedding_bag_slots`), and a
-lone :class:`DeviceEmbeddingBag` takes K1's single-table entry. Tables
-are single-device in this slice: the JAX package shards them over a
-mesh's ``model`` axis, which waits for ROADMAP queue A item 3.
+lone :class:`DeviceEmbeddingBag` takes K1's single-table entry.
+
+Over a mesh whose ``model`` axis has m > 1 ranks (``shard_``, which
+``make_device_mode_trainer(mesh=)`` calls), every table is row-sharded
+as the JAX package declares it (``nn.with_partitioning(..., (MODEL_AXIS,
+None))``): a rank holds only its contiguous ``V / m`` rows
+(``parallel/mesh.table_window``), the same rows on every rank of the
+data axis. A lookup pools this rank's rows through K1's shard window
+(ids hashed over the global vocab, rows outside the window left out) into
+an f32 partial, sums the partials over the model axis
+(``collectives.sum_partials``, whose backward is the identity) and only
+then casts to ``compute_dtype``, so that bf16 is rounded once, as in the
+unsharded lookup. A model axis of 1 keeps the unsharded path.
 """
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +35,7 @@ from persia_tpu_torch.ops.embedding_bag import (
     embedding_bag_slots,
     hash_ids,
 )
+from persia_tpu_torch.parallel.collectives import sum_partials
 
 BAG_IMPLS = ("kernel", "reference")
 
@@ -38,6 +49,11 @@ class DeviceEmbeddingBag(nn.Module):
     K1 (its plain version on the CPU); ``"reference"`` runs the plain
     version on any device, so that a plain tower can be held against the
     kernel tower on the card.
+
+    After :meth:`shard_` the table holds only the global rows from ``lo``
+    on of the ``vocab_size``-row table, ``window = (lo, vocab_size)`` (K1's
+    shard window), and ``forward`` sums the partial pools over the model
+    axis's ``group`` before the mean and the cast.
     """
 
     def __init__(self, vocab_size: int, dim: int, pooling: str = "sum",
@@ -53,17 +69,33 @@ class DeviceEmbeddingBag(nn.Module):
         self.pooling = pooling
         self.compute_dtype = compute_dtype
         self.bag_impl = bag_impl
+        self.vocab_size = vocab_size
+        # (lo, vocab_size) and the model axis's group, once sharded
+        self.window: Optional[Tuple[int, int]] = None
+        self.group = None
         # drawn by weights.init_device_mode (flax's uniform(scale=0.01))
         self.table = nn.Parameter(torch.zeros(
             (vocab_size, dim), dtype=torch.float32,
             device=resolve_device(device)))
+
+    def shard_(self, lo: int, n: int, group) -> "DeviceEmbeddingBag":
+        """Keep only the global rows ``[lo, lo + n)`` of the table (a new
+        parameter: build the optimizer after this) and sum the partial
+        pools over ``group``."""
+        if self.window is not None:
+            raise RuntimeError("this table is sharded already")
+        self.table = nn.Parameter(self.table.detach()[lo:lo + n].clone())
+        self.window, self.group = (lo, self.vocab_size), group
+        return self
 
     def forward(self, hashed_ids: torch.Tensor, mask: torch.Tensor
                 ) -> torch.Tensor:
         weights = mask.to(torch.float32)
         bag = embedding_bag if self.bag_impl == "kernel" else \
             embedding_bag_reference
-        pooled = bag(self.table, hashed_ids, weights)
+        pooled = bag(self.table, hashed_ids, weights, self.window)
+        if self.group is not None:
+            pooled = sum_partials(pooled, self.group)
         if self.pooling == "mean":
             pooled = pooled / mask.sum(dim=1, keepdim=True).clamp_min(1)
         return pooled.to(self.compute_dtype)
@@ -80,7 +112,8 @@ class DeviceEmbeddingCollection(nn.Module):
     slots of each embedding dim go through one K1 call (hash fused in;
     its plain version on the CPU) and the outputs are views of its (bs,
     slots, dim) result; ``"reference"`` runs the plain per-slot path on
-    any device.
+    any device. :meth:`shard_` row-shards every table over a mesh's
+    model axis (the module docstring).
     """
 
     def __init__(self, slot_specs: Sequence[Any],
@@ -108,6 +141,28 @@ class DeviceEmbeddingCollection(nn.Module):
              [getattr(self, f"bag_{self.slot_specs[i][0]}") for i in group])
             for group in groups.values()]
 
+    def shard_(self, mesh) -> "DeviceEmbeddingCollection":
+        """Row-shard every table over ``mesh``'s model axis: each keeps
+        this rank's rows (``table_window``; a vocab that does not divide the
+        axis raises ``ValueError`` naming its slot, on every rank alike and
+        before any table changes). A model axis of 1 changes nothing.
+        Every rank of the mesh calls this."""
+        from persia_tpu_torch.parallel.mesh import (
+            MODEL_AXIS,
+            axis_group,
+            axis_size,
+            table_window,
+        )
+
+        if axis_size(mesh, MODEL_AXIS) == 1:
+            return self
+        windows = [table_window(mesh, vocab, f"slot {name}")
+                   for name, vocab, _ in self.slot_specs]
+        group = axis_group(mesh, MODEL_AXIS)
+        for (name, _, _), (lo, n) in zip(self.slot_specs, windows):
+            getattr(self, f"bag_{name}").shard_(lo, n, group)
+        return self
+
     def forward(self, id_tensors: Dict[str, torch.Tensor]
                 ) -> List[torch.Tensor]:
         if self.bag_impl == "reference":
@@ -115,12 +170,18 @@ class DeviceEmbeddingCollection(nn.Module):
                 *hash_ids(id_tensors[name], vocab))
                 for name, vocab, _ in self.slot_specs]
         dtype = self.compute_dtype
-        kernel_dtype = dtype if dtype in SLOT_DTYPES else torch.float32
         out: List[torch.Tensor] = [None] * len(self.slot_specs)
         for group, names, bags in self._groups:
-            pooled = embedding_bag_slots([bag.table for bag in bags],
-                                         [id_tensors[n] for n in names],
-                                         kernel_dtype)
+            model_group = bags[0].group  # shard_ shards every table or none
+            # the shards' partials stay f32 until their sum: bf16 rounds once
+            kernel_dtype = (dtype if dtype in SLOT_DTYPES and model_group is
+                            None else torch.float32)
+            pooled = embedding_bag_slots(
+                [bag.table for bag in bags], [id_tensors[n] for n in names],
+                kernel_dtype,
+                None if model_group is None else [bag.window for bag in bags])
+            if model_group is not None:
+                pooled = sum_partials(pooled, model_group)
             if kernel_dtype != dtype:
                 pooled = pooled.to(dtype)
             for i, emb in zip(group, pooled.unbind(1)):

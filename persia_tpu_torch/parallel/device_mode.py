@@ -9,12 +9,19 @@ as the JAX package's scatter-add is dense), and the optimizer over tables
 and tower alike. PyTorch runs eagerly, so the step updates in place where
 the JAX one returns new arrays.
 
-Over a mesh's data axis (``mesh=``) the tables and the tower are
-replicated on every rank, as ``P()`` on a model axis of size 1 places
-them in JAX: each rank pools its own rows of the batch (K1 on its rows),
-the gradients of tables and tower are averaged over the axis before the
-optimizer, and the loss is the global mean. Row-sharded tables over a
-model axis larger than 1 raise.
+Over a mesh (``mesh=``) the batch is split over the data axis only: each
+rank pools its own rows of the batch. The tower is replicated on every
+rank. On a model axis of m > 1 ranks the tables are row-sharded over it,
+as the JAX trainer places them through their ``(MODEL_AXIS, None)``
+specs: a rank holds ``V / m`` rows of each table, pools them through
+K1's shard window and sums the partials over the model axis
+(``DeviceEmbeddingCollection.shard_``); on a model axis of 1 they are
+replicated, as ``P()`` places them. The gradients of the tower and of
+each table (or shard) are averaged over the data axis before the
+optimizer, and nothing is reduced over the model axis, whose ranks
+compute the same tower on the same rows; the loss is the data axis'
+mean. Every forward is then a collective: every rank of the mesh calls
+the step, and any later ``model(...)``, alike.
 """
 
 import time
@@ -26,6 +33,7 @@ from torch import nn
 
 from persia_tpu_torch.device import DeviceLike, resolve_device
 from persia_tpu_torch.parallel.device_embedding import (
+    DeviceEmbeddingBag,
     DeviceEmbeddingCollection,
 )
 from persia_tpu_torch.parallel.train import bce_loss
@@ -65,10 +73,11 @@ class DeviceModeStep:
     synchronizes the device after each stage, which makes the split
     honest and the step slower.
 
-    With a ``mesh`` every rank of its data axis calls the step on the
-    same global batch and trains its own rows of it (a batch that does not
-    divide the axis stays whole on every rank); the gradient average over
-    the axis is booked in ``backward``, where DDP does it."""
+    With a ``mesh`` every rank of the mesh calls the step on the same
+    global batch and trains its own rows of it along the data axis (a
+    batch that does not divide the axis stays whole on every rank); the
+    gradient average over the axis is booked in ``backward``, where DDP
+    does it."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  loss_fn: Callable, device: torch.device, mesh=None):
@@ -117,7 +126,8 @@ class DeviceModeStep:
         return loss.detach()
 
     def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
-        """Every gradient and the loss averaged over the data axis."""
+        """Every gradient and the loss averaged over the data axis (nothing
+        to do on a data axis of one rank)."""
         from persia_tpu_torch.parallel import collectives as coll
         from persia_tpu_torch.parallel.mesh import (
             DATA_AXIS,
@@ -126,9 +136,12 @@ class DeviceModeStep:
         )
         from persia_tpu_torch.parallel.train import reduce_dense_grads
 
+        world = axis_size(self.mesh, DATA_AXIS)
+        if world == 1:  # a mean over one rank (tables sharded, no data axis)
+            return loss.detach()
         group = axis_group(self.mesh, DATA_AXIS)
-        reduce_dense_grads(list(self.model.parameters()), group,
-                           axis_size(self.mesh, DATA_AXIS), per_tensor=True)
+        reduce_dense_grads(list(self.model.parameters()), group, world,
+                           per_tensor=True)
         return coll.pmean(loss, group)
 
 
@@ -147,37 +160,48 @@ def make_device_mode_trainer(
     as the JAX trainer's ``model.init`` does. Returns ``(model,
     optimizer, step)`` with ``step`` a :class:`DeviceModeStep`.
 
-    With ``mesh`` (its model axis of size 1) every rank of the data axis
-    calls this alike; the weights then are the data axis' first rank's
-    (broadcast, as DDP does at construction), on this rank's device."""
+    With ``mesh`` every rank of the mesh calls this alike. On a model
+    axis larger than 1 the tables are first cut to this rank's rows
+    (before the move to the device, so a table the model holds on the CPU
+    never sits whole on the card; a vocab that does not divide the axis
+    raises ``ValueError`` naming its slot on every rank). The weights
+    then are the mesh origin's for the tower and the data axis' first
+    rank's for each table shard (broadcast, as DDP does at construction),
+    on this rank's device."""
     from persia_tpu_torch.weights import init_device_mode
 
     dev = resolve_device(device)
     if mesh is not None:
-        from persia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
-
-        if axis_size(mesh, MODEL_AXIS) > 1:
-            raise NotImplementedError(
-                "make_device_mode_trainer over a model axis larger than 1 "
-                "(tables row-sharded over it) is not ported yet: K1 would "
-                "have to leave out the rows outside its shard; it waits for "
-                "ROADMAP.md queue A item 3d")
         if mesh.device_type != dev.type:
             raise ValueError(f"the mesh's ranks compute on "
                              f"{mesh.device_type}, the trainer on {dev}")
         if dev.type == "cuda":
             dev = torch.device("cuda", torch.cuda.current_device())
+        for m in model.modules():
+            if isinstance(m, DeviceEmbeddingCollection):
+                m.shard_(mesh)
     model = model.to(dev)
     if seed is not None:
         init_device_mode(model, seed)
     if mesh is not None:
         from persia_tpu_torch.parallel import collectives as coll
-        from persia_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
+        from persia_tpu_torch.parallel.mesh import (
+            DATA_AXIS,
+            axis_group,
+            leader_rank,
+        )
 
         group = axis_group(mesh, DATA_AXIS)
+        tables = {id(b.table) for b in model.modules()
+                  if isinstance(b, DeviceEmbeddingBag)}
         with torch.no_grad():
-            coll.broadcast_([*model.parameters(), *model.buffers()],
-                            coll.global_rank(group, 0), group)
+            if coll.size(group) > 1:
+                coll.broadcast_([p for p in model.parameters()
+                                 if id(p) in tables],
+                                coll.global_rank(group, 0), group)
+            coll.broadcast_([*(p for p in model.parameters()
+                               if id(p) not in tables), *model.buffers()],
+                            leader_rank(mesh))
     opt = optimizer(model.parameters())
     step = DeviceModeStep(model, opt, loss_fn, dev, mesh=mesh)
     model.eval()

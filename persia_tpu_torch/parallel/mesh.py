@@ -7,8 +7,8 @@ ranks with the dim names ``("data", "model")``:
 
 - ``data``: synchronous data parallelism of the dense tower (the
   reference's DDP all-reduce);
-- ``model``: the axis context parallelism shards a sequence over (and,
-  in the JAX package, device tables' rows).
+- ``model``: the axis context parallelism shards a sequence over, and
+  device mode's tables' rows (:func:`table_window`).
 
 The JAX package places a global array with ``batch_sharding`` /
 ``replicated`` / ``shard_batch_pytree``; in a process-per-rank program
@@ -101,3 +101,20 @@ def shard_rows(x, mesh: DeviceMesh, axis: str = DATA_AXIS):
     rows = x.shape[0] // n
     i = axis_index(mesh, axis)
     return x[i * rows:(i + 1) * rows]
+
+
+def table_window(mesh: DeviceMesh, vocab: int, name: str = "table"
+                 ) -> Tuple[int, int]:
+    """This rank's rows ``(lo, n)`` of a (``vocab``, D) table sharded
+    over the model axis (``table_sharding``'s ``P(MODEL_AXIS, None)``):
+    contiguous blocks of ``vocab / m`` rows in model-axis order, the same
+    block on every rank of the data axis. A vocab that does not divide
+    the axis raises ``ValueError`` naming ``name`` (as ``jax.device_put``
+    refuses it), on every rank alike: no collective is involved."""
+    m = axis_size(mesh, MODEL_AXIS)
+    if vocab % m:
+        raise ValueError(f"{name}: vocab {vocab} does not divide the model "
+                         f"axis of {m} ranks (rows are sharded in equal "
+                         f"contiguous blocks)")
+    n = vocab // m
+    return axis_index(mesh, MODEL_AXIS) * n, n

@@ -42,8 +42,11 @@ With ``spill_dir`` the rows eviction would drop are demoted to the disk
 spill tier (:mod:`persia_tpu_torch.ps.spill`) and any later access faults
 them back in: a training access takes the row and re-inserts it resident,
 a read-only access peeks. With ``hotness`` the lookups feed the workload
-sketches (:mod:`persia_tpu_torch.hotness`). The metrics-registry counters
-are not ported; the miss counters are plain per-shard ints.
+sketches (:mod:`persia_tpu_torch.hotness`). The miss counters are
+per-shard ints (``index_miss_count``, ``gradient_id_miss_count``), each
+written under its shard's lock, with registry twins labelled by table
+(``ps_index_miss_total`` / ``ps_gradient_id_miss_total``, through
+``store.bump_miss``), as the JAX holder keeps them.
 
 Lock discipline: each ``_ArenaShard`` carries its own ``lock`` and every
 mutating shard method is suffixed ``_locked`` (the caller holds it).

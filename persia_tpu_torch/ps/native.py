@@ -731,8 +731,8 @@ def make_holder(capacity: int, num_internal_shards: int,
       the native C++ store, :class:`NativeEmbeddingHolder`, built at
       first use; ``prefer_native=False`` maps ``auto`` to ``arena``;
     - ``arena``: the Python arena holder (:mod:`persia_tpu_torch.ps.arena`);
-    - ``python-legacy``: the per-entry ``EmbeddingHolder``, fp32 rows with
-      a row budget only (the A/B baseline).
+    - ``python-legacy``: the per-entry ``EmbeddingHolder`` (the A/B
+      baseline), under the same ``row_dtype`` and ``capacity_bytes``.
 
     ``spill_dir`` (at most ``spill_bytes`` on disk) and ``hotness`` arm
     the disk spill tier and the hotness sketches on every backend.
@@ -744,12 +744,9 @@ def make_holder(capacity: int, num_internal_shards: int,
     if backend == "auto":
         backend = "native" if prefer_native else "arena"
     if backend == "python-legacy":
-        if (row_dtype or "fp32") != "fp32" or capacity_bytes:
-            raise NotImplementedError(
-                "make_holder(backend='python-legacy') keeps fp32 rows under "
-                "a row budget only; use backend='arena' for row_dtype or "
-                "capacity_bytes")
         return EmbeddingHolder(capacity, num_internal_shards,
+                               row_dtype=row_dtype or "fp32",
+                               capacity_bytes=capacity_bytes,
                                hotness=hotness, spill_dir=spill_dir,
                                spill_bytes=spill_bytes)
     cls = NativeEmbeddingHolder if backend == "native" else \

@@ -1,7 +1,7 @@
-"""The embedding parameter store: a sharded LRU map of fp32 rows.
+"""The embedding parameter store: a sharded LRU map of rows.
 
 A copy of the semantics of ``persia_tpu/ps/store.py``'s
-``EmbeddingHolder`` for fp32 rows:
+``EmbeddingHolder``:
 
 - entries are ``[embedding | optimizer state]`` f32 vectors with a
   per-entry dim, kept in ``num_internal_shards`` independently locked LRU
@@ -24,12 +24,18 @@ A copy of the semantics of ``persia_tpu/ps/store.py``'s
   them back in (a training access takes the row and re-inserts it, a
   read-only access peeks); ``hotness`` arms the workload sketches
   (:mod:`persia_tpu_torch.hotness`);
+- ``row_dtype`` ``fp16`` / ``bf16`` stores each row's embedding slice
+  in half precision and its optimizer state in f32, as one byte buffer
+  (:class:`~persia_tpu_torch.ps.optim.RowPrecision`): reads widen, the
+  optimizer runs on f32 and writes narrow; ``capacity_bytes`` bounds the
+  stored data bytes of each internal shard beside its row budget (the
+  least recently used rows go first, down to one row);
 - ``dump_bytes`` / ``load_bytes`` (and their file forms) write and read
-  the PSD v1 format, the spilled rows included.
+  the PSD format (v1 for fp32 rows, v2 for half rows), the spilled rows
+  included.
 
-Half-precision rows and byte budgets belong to the arena holder
-(``ps/arena.py``). The PSD dump format's header and record reader live
-here, as in the JAX package, and every holder writes and reads it.
+The PSD dump format's header and record reader live here, as in the JAX
+package, and every holder writes and reads it.
 """
 
 import io
@@ -82,21 +88,35 @@ def bump_miss(counters: dict, kind: str, dim: int, n: int):
 
 class EmbeddingHolder:
     """One process-level PS replica: ``num_internal_shards``
-    independently-locked LRU maps of ``sign -> (dim, f32 row)``.
-    ``spill_dir`` arms the disk tier (at most ``spill_bytes`` on disk),
-    ``hotness`` the workload sketches (None: the ``PERSIA_HOTNESS``
-    knob)."""
+    independently-locked LRU maps of ``sign -> (dim, stored row)``, the
+    row an f32 array (``row_dtype="fp32"``) or the half layout's bytes.
+    ``capacity_bytes`` (0 or None: none) bounds each shard's data bytes
+    beside ``capacity`` rows. ``spill_dir`` arms the disk tier (at most
+    ``spill_bytes`` on disk), ``hotness`` the workload sketches (None: the
+    ``PERSIA_HOTNESS`` knob)."""
 
     def __init__(self, capacity: int = 1_000_000_000,
-                 num_internal_shards: int = 8,
+                 num_internal_shards: int = 8, row_dtype: str = "fp32",
+                 capacity_bytes: Optional[int] = None,
                  hotness: Optional[bool] = None,
                  spill_dir: Optional[str] = None,
                  spill_bytes: Optional[int] = None):
         if num_internal_shards <= 0:
             raise ValueError("num_internal_shards must be positive")
+        # 0 (the config default) is no budget, not a zero-byte one
+        capacity_bytes = capacity_bytes or None
         self.capacity = capacity
+        self.capacity_bytes = capacity_bytes
         self.num_internal_shards = num_internal_shards
+        self._rp = RowPrecision(row_dtype)
         self._per_shard = max(1, capacity // num_internal_shards)
+        self._per_shard_bytes = (
+            max(1, capacity_bytes // num_internal_shards)
+            if capacity_bytes is not None else None)
+        # each shard's stored data bytes and their embedding share,
+        # written under the shard's lock
+        self._bytes = [0] * num_internal_shards
+        self._emb_bytes = [0] * num_internal_shards
         self._shards: List["OrderedDict[int, Tuple[int, np.ndarray]]"] = [
             OrderedDict() for _ in range(num_internal_shards)]
         self._locks = [threading.Lock() for _ in range(num_internal_shards)]
@@ -120,6 +140,28 @@ class EmbeddingHolder:
         self.spill: Optional[SpillStore] = (
             SpillStore(spill_dir, max_bytes=spill_bytes or None)
             if spill_dir else None)
+
+    @property
+    def row_dtype(self) -> str:
+        return self._rp.name
+
+    @property
+    def resident_bytes(self) -> int:
+        """Stored data bytes of every shard (embedding and state)."""
+        return sum(self._bytes)
+
+    @property
+    def resident_emb_bytes(self) -> int:
+        return sum(self._emb_bytes)
+
+    def resident_bytes_per_shard(self) -> List[int]:
+        return list(self._bytes)
+
+    def row_nbytes(self, dim: int) -> int:
+        """Stored data bytes of a row of ``dim`` under the registered
+        optimizer (its state included)."""
+        space = self.optimizer.require_space(dim) if self.optimizer else 0
+        return self._rp.entry_nbytes(dim, space)
 
     @property
     def index_miss_count(self) -> int:
@@ -152,7 +194,7 @@ class EmbeddingHolder:
             return disabled_snapshot()
         snap = self.hotness.snapshot()
         for table, t in snap.get("tables", {}).items():
-            t["row_bytes"] = int(table) * 4
+            t["row_bytes"] = int(table) * self._rp.itemsize
         return snap
 
     def spill_stats(self) -> dict:
@@ -179,7 +221,7 @@ class EmbeddingHolder:
         if got is None:
             return None
         dim0, raw = got
-        vec = raw.view(np.float32)
+        vec = raw.view(np.float32) if self._rp.is_fp32 else raw
         if training:
             self._evict_locked(shard_idx, sign, dim0, vec)
         return dim0, vec
@@ -213,6 +255,10 @@ class EmbeddingHolder:
         if self.hotness is not None:
             # outside the shard locks: the tracker's locks are leaves
             self.hotness.observe(dim, signs)
+        if not self._rp.is_fp32:
+            return self._lookup_half(signs, dim, training,
+                                     init_vecs if training else None,
+                                     admitted if training else None, out)
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
             n_miss = 0
@@ -243,16 +289,80 @@ class EmbeddingHolder:
                 bump_miss(self._miss_counters, "index_miss", dim, n_miss)
         return out
 
+    def _lookup_half(self, signs, dim, training, init_vecs, admitted, out):
+        """The lookup loop for half rows: the same per-sign recency,
+        admission and insert sequence; the init rows narrow once for the
+        batch, on its first miss, and the hit rows of a shard widen in one
+        conversion under its lock. A miss returns the stored (narrowed)
+        values, as every later lookup reads them."""
+        rp = self._rp
+        esz = dim * rp.itemsize
+        narrowed = [None]
+
+        def narrow_inits():
+            if narrowed[0] is None:
+                stored_rows = rp.narrow_matrix(init_vecs, dim)
+                widened = rp.to_f32(np.ascontiguousarray(
+                    stored_rows[:, :esz]).view(rp.np_dtype))
+                narrowed[0] = (stored_rows, widened)
+            return narrowed[0]
+
+        for shard_idx, sel in self._groups(signs):
+            shard = self._shards[shard_idx]
+            hit_pos: List[int] = []
+            hit_vecs: List[np.ndarray] = []
+            n_miss = 0
+            with self._locks[shard_idx]:
+                for pos in sel:
+                    sign = int(signs[pos])
+                    entry = shard.get(sign)
+                    if entry is not None and training:
+                        shard.move_to_end(sign)
+                    if entry is None and self.spill is not None:
+                        entry = self._fault_in_locked(shard_idx, sign,
+                                                      training)
+                    if entry is not None and entry[0] == dim:
+                        hit_pos.append(pos)
+                        hit_vecs.append(entry[1])
+                    elif not training or (entry is None
+                                          and not admitted[pos]):
+                        self._index_miss[shard_idx] += 1
+                        n_miss += 1
+                    else:
+                        stored_rows, widened = narrow_inits()
+                        out[pos] = widened[pos]
+                        self._insert_locked(shard_idx, sign, dim,
+                                            stored_rows[pos].copy())
+                        self._index_miss[shard_idx] += 1
+                        n_miss += 1
+                if hit_pos:
+                    # rows of this dim may differ in state width: copy the
+                    # embedding bytes row by row, widen them at once
+                    raw = np.empty((len(hit_vecs), esz), np.uint8)
+                    for i, v in enumerate(hit_vecs):
+                        raw[i] = v[:esz]
+                    out[np.asarray(hit_pos)] = rp.to_f32(
+                        raw.view(rp.np_dtype))
+            if n_miss:
+                bump_miss(self._miss_counters, "index_miss", dim, n_miss)
+        return out
+
     def update_gradients(self, signs: np.ndarray, grads: np.ndarray,
                          dim: int):
-        """Batched optimizer step for ``signs`` with grads (n, dim)."""
+        """Batched optimizer step for ``signs`` with grads (n, dim); half
+        rows widen to f32 for it and narrow back."""
         if self.optimizer is None:
             raise RuntimeError("optimizer not registered on parameter server")
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         if len(signs) == 0:
             return
         batch_state = self.optimizer.batch_level_state(signs)
-        width = dim + self.optimizer.require_space(dim)
+        space = self.optimizer.require_space(dim)
+        width = dim + space
+        rp = self._rp
+        # the stored length of a row of this layout: f32 elements, or the
+        # half layout's bytes; another length is another optimizer's
+        stored_len = rp.stored_len(dim, space)
         # duplicates must apply one after another (each step sees the
         # previous one's result); a batched gather/update/scatter would
         # keep only the last
@@ -271,11 +381,14 @@ class EmbeddingHolder:
                         entry = self._fault_in_locked(
                             shard_idx, int(signs[pos]), True)
                     if entry is None or entry[0] != dim or \
-                            len(entry[1]) != width:
+                            len(entry[1]) != stored_len:
                         self._gradient_id_miss[shard_idx] += 1
                         n_miss += 1
                     elif has_dups:
-                        row = entry[1][None, :]  # updated in place
+                        # fp32: updated in place; half: widened, updated,
+                        # narrowed back
+                        row = (entry[1] if rp.is_fp32
+                               else rp.unpack(entry[1], dim))[None, :]
                         st = (batch_state[pos:pos + 1]
                               if batch_state is not None else None)
                         self.optimizer.update(row, grads[pos:pos + 1], dim,
@@ -283,20 +396,20 @@ class EmbeddingHolder:
                         if self.enable_weight_bound:
                             apply_weight_bound(row[:, :dim],
                                                self.weight_bound)
+                        if not rp.is_fp32:
+                            rp.pack_into(row[0], entry[1], dim)
                     else:
                         found_pos.append(pos)
                         found_entries.append(entry[1])
                 if found_pos:
-                    mat = np.stack(found_entries).astype(np.float32,
-                                                         copy=False)
+                    mat = rp.unpack_matrix(found_entries, dim, width)
                     sub_state = (batch_state[np.array(found_pos)]
                                  if batch_state is not None else None)
                     self.optimizer.update(mat, grads[np.array(found_pos)],
                                           dim, sub_state)
                     if self.enable_weight_bound:
                         apply_weight_bound(mat[:, :dim], self.weight_bound)
-                    for row, vec in zip(mat, found_entries):
-                        vec[:] = row
+                    rp.pack_matrix_into(mat, found_entries, dim)
             if n_miss:
                 bump_miss(self._miss_counters, "gradient_id_miss", dim,
                           n_miss)
@@ -308,15 +421,29 @@ class EmbeddingHolder:
             self.spill.discard(sign)
         self._evict_locked(shard_idx, sign, dim, vec)
 
+    def _account_locked(self, shard_idx: int, dim: int, vec: np.ndarray,
+                 mult: int):
+        self._bytes[shard_idx] += mult * vec.nbytes
+        self._emb_bytes[shard_idx] += mult * min(dim * self._rp.itemsize,
+                                                 vec.nbytes)
+
     def _evict_locked(self, shard_idx: int, sign: int, dim: int,
                       vec: np.ndarray):
         """Insert, then evict the least recently used rows past the
-        shard's capacity, demoting them to the spill tier when armed."""
+        shard's row budget, or past its byte budget down to one row,
+        demoting them to the spill tier when armed."""
         shard = self._shards[shard_idx]
-        shard.pop(sign, None)
+        old = shard.pop(sign, None)
+        if old is not None:
+            self._account_locked(shard_idx, *old, -1)
         shard[sign] = (dim, vec)
-        while len(shard) > self._per_shard:
+        self._account_locked(shard_idx, dim, vec, +1)
+        budget = self._per_shard_bytes
+        while len(shard) > self._per_shard or (
+                budget is not None and self._bytes[shard_idx] > budget
+                and len(shard) > 1):
             old_sign, (old_dim, old_vec) = shard.popitem(last=False)
+            self._account_locked(shard_idx, old_dim, old_vec, -1)
             if self.spill is not None:
                 self.spill.put(old_sign, old_dim, old_vec)
 
@@ -328,11 +455,14 @@ class EmbeddingHolder:
             raise ValueError(
                 f"set_entries: vecs {vecs.shape} does not match "
                 f"{len(signs)} signs of dim {dim}")
+        rp = self._rp
         for shard_idx, sel in self._groups(signs):
             with self._locks[shard_idx]:
                 for pos in sel:
-                    self._insert_locked(shard_idx, int(signs[pos]), dim,
-                                        vecs[pos].copy())
+                    self._insert_locked(
+                        shard_idx, int(signs[pos]), dim,
+                        vecs[pos].copy() if rp.is_fp32
+                        else rp.pack(vecs[pos], dim))
 
     def get_entries(self, signs: np.ndarray, width: int):
         """Returns (found (n,) bool, vecs (n, width) f32); entries absent or
@@ -340,6 +470,7 @@ class EmbeddingHolder:
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         found = np.zeros(len(signs), dtype=bool)
         vecs = np.zeros((len(signs), width), dtype=np.float32)
+        rp = self._rp
         for shard_idx, sel in self._groups(signs):
             shard = self._shards[shard_idx]
             with self._locks[shard_idx]:
@@ -348,31 +479,46 @@ class EmbeddingHolder:
                     if entry is None and self.spill is not None:
                         entry = self._fault_in_locked(
                             shard_idx, int(signs[pos]), False)
-                    if entry is not None and len(entry[1]) == width:
+                    if entry is None:
+                        continue
+                    if rp.is_fp32:
+                        if len(entry[1]) == width:
+                            found[pos] = True
+                            vecs[pos] = entry[1]
+                        continue
+                    # a half row of dim d and state s is d + s f32 wide
+                    state_len = rp.state_len_of(entry[1], entry[0])
+                    if state_len is not None and \
+                            entry[0] + state_len == width:
                         found[pos] = True
-                        vecs[pos] = entry[1]
+                        rp.unpack_into(entry[1], entry[0], vecs[pos])
         return found, vecs
 
     def get_entry(self, sign: int) -> Optional[Tuple[int, np.ndarray]]:
-        """(dim, f32 [emb|state]) or None: the live stored row; a spilled
-        row reads through (peek)."""
+        """(dim, f32 [emb|state]) or None: the live stored row (a widened
+        copy of a half row); a spilled row reads through (peek)."""
         shard_idx = self._shard_idx(sign)
         with self._locks[shard_idx]:
             entry = self._shards[shard_idx].get(int(sign))
             if entry is None and self.spill is not None:
                 entry = self._fault_in_locked(shard_idx, int(sign), False)
-            return entry
+            if entry is None or self._rp.is_fp32:
+                return entry
+            return entry[0], self._rp.unpack(entry[1], entry[0])
 
     def set_entry(self, sign: int, dim: int, vec: np.ndarray):
         shard_idx = self._shard_idx(sign)
         vec = np.array(vec, dtype=np.float32)
+        if not self._rp.is_fp32:
+            vec = self._rp.pack(vec, dim)
         with self._locks[shard_idx]:
             self._insert_locked(shard_idx, int(sign), dim, vec)
 
     def clear(self):
-        for lock, shard in zip(self._locks, self._shards):
-            with lock:
+        for i, shard in enumerate(self._shards):
+            with self._locks[i]:
                 shard.clear()
+                self._bytes[i] = self._emb_bytes[i] = 0
         if self.spill is not None:
             # persialint: ok[lock-discipline] SpillStore guards its own state with its leaf lock; shard locks never guard the spill binding
             self.spill.clear()
@@ -388,11 +534,14 @@ class EmbeddingHolder:
 
     def dump_bytes(self) -> bytes:
         """Every entry as PSD v1 (``sign u64 | dim u32 | len u32 | f32
-        [emb|state]``), per shard in LRU order. A spill-armed holder
+        [emb|state]``), per shard in LRU order; half rows as PSD v2
+        (:meth:`_dump_v2`). A spill-armed holder
         dumps the logical table: the shards, then the spilled rows, and
         in front of both the rows that left the spill tier while the dump
         ran (so any newer record of the same sign wins on load). The
         header count is the records serialized."""
+        if not self._rp.is_fp32:
+            return self._dump_v2()
         chunks = []
         front = []
         if self.spill is not None:
@@ -422,8 +571,41 @@ class EmbeddingHolder:
         return b"".join([DUMP_MAGIC, struct.pack("<IQ", 1, count)]
                         + front + chunks)
 
+    def _dump_v2(self) -> bytes:
+        """Half rows as PSD v2: records ``sign u64 | dim u32 | emb-dtype u8
+        | state_len u32 | emb bytes | state f32 bytes``, in the order and
+        with the spill tier's records as :meth:`dump_bytes` says."""
+        rp = self._rp
+        code = _DTYPE_CODES[rp.name]
+
+        def record(sign, dim, raw):
+            return [struct.pack("<QIBI", sign, dim, code,
+                                rp.state_len_of(raw, dim)), raw.tobytes()]
+
+        chunks, front = [], []
+        if self.spill is not None:
+            self.spill.start_dump_capture()
+        try:
+            for lock, shard in zip(self._locks, self._shards):
+                with lock:
+                    for sign, (dim, vec) in shard.items():
+                        chunks += record(sign, dim, vec)
+            if self.spill is not None:
+                for sign, dim, raw in self.spill.items():
+                    chunks += record(sign, dim, raw)
+                for sign, (dim, raw) in \
+                        self.spill.stop_dump_capture().items():
+                    front += record(sign, dim, raw)
+        finally:
+            if self.spill is not None:
+                self.spill.stop_dump_capture()
+        count = (len(chunks) + len(front)) // 2
+        return b"".join([DUMP_MAGIC, struct.pack("<IQ", 2, count)]
+                        + front + chunks)
+
     def load_bytes(self, buf: bytes, clear: bool = True):
-        """Install a PSD v1 or v2 dump (half rows widen to f32)."""
+        """Install a PSD v1 or v2 dump (records widen or narrow to this
+        holder's row dtype)."""
         reader = io.BytesIO(buf)
         version, count = read_psd_header(reader, "<load_bytes>")
         if clear:

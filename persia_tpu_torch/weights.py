@@ -19,10 +19,14 @@ the two trees are walked name by name:
   dim is not ``proj_dim``), ``MLP_1``; ``PooledSessionNet``: ``MLP_0``;
   ``MultiTaskDNN``: ``MLP_0``, ``head_{t}``. A flax ``Dense`` kernel is
 (in, out) and becomes a ``Linear.weight`` (out, in); a device-mode
-``DeviceEmbeddingBag`` ``table`` is (V, D) in both and is copied as it is.
+``DeviceEmbeddingBag`` ``table`` is (V, D) in both and is copied as it is;
+a table row-sharded over a mesh's model axis takes the rows of its window
+from the whole (V, D) flax table.
 An unknown key, a missing one or a shape mismatch raises. :func:`flax_params` is the reverse
 walk: the module's weights as a flax tree, to compare a trained port
-model with a trained JAX one.
+model with a trained JAX one (a sharded table as this rank's rows, or,
+with ``gather_tables``, as the whole table :func:`gather_table` puts back
+together).
 """
 
 from typing import Dict, Mapping, Optional, Tuple
@@ -61,7 +65,12 @@ def _load(module: nn.Module, params: Mapping, stats: Mapping, where: str):
         return
     if isinstance(module, DeviceEmbeddingBag):
         _expect_keys(params, ("table",), where)
-        _set(module.table, params["table"], f"{where}/table")
+        table = np.asarray(params["table"])
+        if module.window is not None and table.shape[:1] == (
+                module.vocab_size,):
+            lo = module.window[0]
+            table = table[lo:lo + module.table.shape[0]]
+        _set(module.table, table, f"{where}/table")
         return
     if isinstance(module, FlaxBatchNorm):
         _expect_keys(params, ("scale", "bias"), where)
@@ -88,7 +97,7 @@ def load_flax_params(model: nn.Module, params_np: Mapping,
     return model
 
 
-def _export(module: nn.Module, params: Dict, stats: Dict):
+def _export(module: nn.Module, params: Dict, stats: Dict, gather: bool):
     def arr(t):
         return t.detach().float().cpu().numpy().copy()
 
@@ -96,7 +105,8 @@ def _export(module: nn.Module, params: Dict, stats: Dict):
         params.update(kernel=arr(module.weight).T, bias=arr(module.bias))
         return
     if isinstance(module, DeviceEmbeddingBag):
-        params.update(table=arr(module.table))
+        params.update(table=arr(gather_table(module) if gather
+                                else module.table))
         return
     if isinstance(module, FlaxBatchNorm):
         params.update(scale=arr(module.scale), bias=arr(module.bias))
@@ -104,18 +114,32 @@ def _export(module: nn.Module, params: Dict, stats: Dict):
         return
     for name, child in module.named_children():
         params[name], child_stats = {}, {}
-        _export(child, params[name], child_stats)
+        _export(child, params[name], child_stats, gather)
         if child_stats:
             stats[name] = child_stats
 
 
-def flax_params(model: nn.Module) -> Tuple[Dict, Dict]:
+def flax_params(model: nn.Module, gather_tables: bool = False
+                ) -> Tuple[Dict, Dict]:
     """The module's weights as flax trees of numpy f32 arrays:
-    ``(params, batch_stats)``, the layout :func:`load_flax_params` reads."""
+    ``(params, batch_stats)``, the layout :func:`load_flax_params` reads.
+    A row-sharded table is this rank's rows, or with ``gather_tables`` the
+    whole table (a collective: every rank of the mesh calls it)."""
     params: Dict = {}
     stats: Dict = {}
-    _export(model, params, stats)
+    _export(model, params, stats, gather_tables)
     return params, stats
+
+
+def gather_table(bag: DeviceEmbeddingBag) -> torch.Tensor:
+    """The whole (V, D) table of a ``DeviceEmbeddingBag``: its shards
+    all-gathered along the model axis in row order (every rank of that
+    axis calls this), or the table itself when it is not sharded."""
+    if bag.window is None:
+        return bag.table.detach()
+    from persia_tpu_torch.parallel.collectives import all_gather
+
+    return all_gather(bag.table.detach(), bag.group, 0)
 
 
 def init_params(model: nn.Module, seed: int) -> nn.Module:
@@ -143,15 +167,20 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
 
 def init_device_mode(model: nn.Module, seed: int) -> nn.Module:
     """Seeded init of a device-mode model: every ``DeviceEmbeddingBag``
-    table from flax's ``uniform(scale=0.01)``, U[0, 0.01), drawn in module
-    order from one explicit CPU ``torch.Generator``, so a seed gives the
-    same tables on every device; then the dense layers by
-    :func:`init_params`."""
+    table from flax's ``uniform(scale=0.01)``, U[0, 0.01), drawn whole in
+    module order from one explicit CPU ``torch.Generator``, so a seed
+    gives the same tables on every device and under every sharding; a
+    row-sharded table then takes only its window's rows to its device.
+    Then the dense layers by :func:`init_params`."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     for bag in model.modules():
         if isinstance(bag, DeviceEmbeddingBag):
-            table = torch.empty(bag.table.shape, dtype=torch.float32)
+            table = torch.empty((bag.vocab_size, bag.table.shape[1]),
+                                dtype=torch.float32)
             table.uniform_(0.0, 0.01, generator=gen)
+            if bag.window is not None:
+                lo = bag.window[0]
+                table = table[lo:lo + bag.table.shape[0]]
             with torch.no_grad():
                 bag.table.copy_(table)
     return init_params(model, seed)

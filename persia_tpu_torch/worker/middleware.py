@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from persia_tpu_torch import knobs
 from persia_tpu_torch.config import EmbeddingSchema, SlotConfig
 from persia_tpu_torch.data.batch import IDTypeFeature
 from persia_tpu_torch.hashing import farmhash64_np, sign_to_shard
@@ -142,7 +143,11 @@ class GradErrorFeedback:
 
 def _mw_native():
     """The C++ kernels, whose library is built at first use (a failed
-    build raises); the tests patch this to ``None`` for the numpy twin."""
+    build raises), or None for the numpy twins: when
+    ``PERSIA_FORCE_PYTHON_MW`` is set (read at each call), or where the
+    tests patch this to ``lambda: None``."""
+    if knobs.get("PERSIA_FORCE_PYTHON_MW"):
+        return None
     return mw_native
 
 

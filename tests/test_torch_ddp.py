@@ -35,6 +35,13 @@ or ``tests/test_multihost.py``:
 - device mode at ``make_mesh((W, 1))`` against ``make_device_mode_trainer``
   with a (W, 1) mesh: losses and parameters within 1e-5, the rule of
   ``tests/test_torch_device_mode.py``;
+- device mode with tables row-sharded over the model axis, at
+  ``make_mesh((2, 2))`` and ``make_mesh((1, 4))`` (vocab 256, which
+  divides 4) against the JAX trainer on the same mesh shapes
+  (``tests/test_models_parallel.py:91``): losses, every table shard
+  against the JAX table's same rows, the gathered tables against the
+  whole JAX tables and the tower within 1e-5; towers bit-equal on every
+  rank, shards bit-equal across the data axis;
 - the refusals, and a two-process ``DistributedOption`` rendezvous over
   an explicit ``tcp://`` address (``test_two_process_distributed_rendezvous_and_collective``);
 - ``gpu``: ``_ef_int8_mean`` and a DDP step at world 1 over NCCL, and the
@@ -60,6 +67,10 @@ MODES = [None, "bf16", "int8_ef"]
 MODE_TOL = {None: 1e-4, "bf16": 2e-3, "int8_ef": 2e-3}
 # device mode, at tests/test_torch_device_mode.py's widths
 DM_SLOTS, DM_VOCAB, DM_DIM, DM_BS, DM_TOL = 4, 257, 8, 32, 1e-5
+# device mode with tables row-sharded over the model axis: a vocab that
+# divides it (JAX's device_put refuses one that does not)
+DM_SHARDED_VOCAB = 256
+DM_SHARDED_MESHES = [(2, 2), (1, 4)]
 
 
 def _child_env():
@@ -236,6 +247,9 @@ def body_ddp(inputs):
         port_ctx(inputs["raw_params"], mesh, leader, raw=True),
         make_batches(tb, 2, BS, 6, raw=True))
     out["device_mode"] = device_mode_run(inputs, mesh)
+    out["device_mode_sharded"] = {
+        shape: device_mode_sharded_run(inputs, shape)
+        for shape in DM_SHARDED_MESHES}
     out["refusals"] = refusals(inputs, mesh, leader)
     out["jax_modules"] = loaded_jax_modules()
     return out
@@ -258,6 +272,75 @@ def device_mode_run(inputs, mesh):
         device="cpu", mesh=mesh)
     losses = [float(step(non_id, ids, label)) for _ in range(3)]
     return losses, flat(flax_params(model)[0])
+
+
+def device_mode_sharded_run(inputs, shape):
+    """3 steps of make_device_mode_trainer over make_mesh(shape), tables
+    row-sharded over its model axis, from the JAX trainer's initial
+    weights; the losses, this rank's parameters (its table shards), the
+    gathered tables, the windows and this rank's mesh coordinates."""
+    from persia_tpu_torch.models.dlrm import DLRM
+    from persia_tpu_torch.parallel import device_mode as tdm
+    from persia_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        axis_index,
+        make_mesh,
+    )
+    from persia_tpu_torch.parallel.optim import OptaxAdagrad
+    from persia_tpu_torch.weights import flax_params, load_flax_params
+
+    mesh = make_mesh(shape, device="cpu")
+    init, (non_id, ids, label) = inputs["dm_sharded"][shape]
+    specs = tdm.criteo_like_specs(DM_SLOTS, DM_SHARDED_VOCAB, DM_DIM)
+    tower = DLRM(N_DENSE, DM_SLOTS, embedding_dim=DM_DIM,
+                 compute_dtype=torch.float32, device="cpu")
+    model = tdm.DeviceModeModel(specs, tower, device="cpu")
+    load_flax_params(model, init)
+    model, _, step = tdm.make_device_mode_trainer(
+        model, lambda p: OptaxAdagrad(p, 0.02), non_id, ids, seed=None,
+        device="cpu", mesh=mesh)
+    losses = [float(step(non_id, ids, label)) for _ in range(3)]
+    coll = model.DeviceEmbeddingCollection_0
+    return {"losses": losses, "params": flat(flax_params(model)[0]),
+            "gathered": flat(flax_params(model, gather_tables=True)[0]),
+            "windows": {name: getattr(coll, f"bag_{name}").window
+                        for name, _, _ in specs},
+            "coords": (axis_index(mesh, DATA_AXIS),
+                       axis_index(mesh, MODEL_AXIS)),
+            "sum_grad": sharded_table_grads(mesh, specs, init, ids)}
+
+
+def sharded_table_grads(mesh, specs, init, ids):
+    """The table gradients of one collection forward and backward (bf16
+    compute, a fixed cotangent, the whole batch on every rank), sharded
+    over the model axis and gathered, against the same collection
+    unsharded on this rank: (the max abs difference, the largest
+    unsharded gradient, the ratio of their sums of magnitudes)."""
+    from persia_tpu_torch.parallel.collectives import all_gather
+    from persia_tpu_torch.parallel.device_embedding import (
+        DeviceEmbeddingCollection,
+    )
+    from persia_tpu_torch.weights import load_flax_params
+
+    ids = {k: torch.from_numpy(np.array(v)) for k, v in ids.items()}
+    cots = [torch.from_numpy(np.random.default_rng(i).normal(
+        size=(DM_BS, DM_DIM)).astype(np.float32)) for i in range(DM_SLOTS)]
+    grads = []
+    for shard in (False, True):
+        c = DeviceEmbeddingCollection(specs, device="cpu")
+        load_flax_params(c, init["DeviceEmbeddingCollection_0"])
+        if shard:
+            c.shard_(mesh)
+        sum((o * cot).sum() for o, cot in zip(c(ids), cots)).backward()
+        bags = [getattr(c, f"bag_{name}") for name, _, _ in specs]
+        # a shard's gradient is gathered as the shards themselves are
+        grads.append(torch.cat([
+            (all_gather(b.table.grad, b.group, 0) if shard
+             else b.table.grad).reshape(-1) for b in bags]))
+    one, sharded = grads
+    return (float((sharded - one).abs().max()), float(one.abs().max()),
+            float(sharded.abs().sum() / one.abs().sum()))
 
 
 def refusals(inputs, mesh, leader):
@@ -491,9 +574,9 @@ def jax_ef(world, n):
     return np.asarray(mean), np.asarray(err)
 
 
-def jax_device_mode(mesh_shape):
-    """3 steps of the JAX device-mode trainer on a (W, 1) mesh or one
-    device; the initial params, the batch, the losses and the params."""
+def jax_device_mode(mesh_shape, vocab=DM_VOCAB):
+    """3 steps of the JAX device-mode trainer on a (D, M) mesh; the
+    initial params, the batch, the losses and the params."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -504,7 +587,7 @@ def jax_device_mode(mesh_shape):
 
     n = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    specs = jdm.criteo_like_specs(DM_SLOTS, DM_VOCAB, DM_DIM)
+    specs = jdm.criteo_like_specs(DM_SLOTS, vocab, DM_DIM)
     model = jdm.DeviceModeModel(slot_specs=specs, tower=JDLRM(
         embedding_dim=DM_DIM, compute_dtype=jnp.float32))
     non_id, ids, label = jdm.synthetic_device_batch(DM_BS, N_DENSE, specs, 3)
@@ -539,9 +622,12 @@ def worlds(tmp_path_factory):
 
     params, raw_params = jax_params(), jax_params(raw=True)
     dm_init, dm_batch, dm_losses, dm_params = jax_device_mode((W, 1))
+    sharded = {shape: jax_device_mode(shape, DM_SHARDED_VOCAB)
+               for shape in DM_SHARDED_MESHES}
     dirs = {n: tmp_path_factory.mktemp(n) for n in BODIES}
     inputs = {"params": params, "raw_params": raw_params,
               "dm_params": dm_init, "dm_batch": dm_batch,
+              "dm_sharded": {s: r[:2] for s, r in sharded.items()},
               "tmp": str(tmp_path_factory.mktemp("ddp_files"))}
     sizes = {"ddp": W, "ef8": 8, "rendezvous": 2}
     groups = {n: launch.start_ranks(__file__, n, sizes[n], inputs, dirs[n],
@@ -550,6 +636,7 @@ def worlds(tmp_path_factory):
         with pytest.MonkeyPatch.context() as mp:
             ref = jax_side(mp, params, raw_params)
         ref["device_mode"] = (dm_losses, dm_params)
+        ref["device_mode_sharded"] = {s: r[2:] for s, r in sharded.items()}
     except BaseException:
         for g in groups.values():
             g.kill()
@@ -759,8 +846,64 @@ def test_device_mode_over_the_data_axis_matches_jax(worlds):
     assert jlosses[-1] != jlosses[0]
 
 
+@pytest.mark.parametrize("shape", DM_SHARDED_MESHES)
+def test_device_mode_sharded_over_the_model_axis_matches_jax(worlds, shape):
+    """3 steps with each table row-sharded over the model axis (each rank
+    holds 256 / M contiguous rows, JAX's P(MODEL_AXIS, None)) against the
+    JAX trainer on the same mesh shape: losses within 1e-5 on every rank;
+    every table shard within 1e-5 of the JAX table's same rows, and the
+    gathered tables of the whole; the tower within 1e-5 and bit-equal on
+    every rank; each shard bit-equal across the data axis; the losses
+    move."""
+    ref, port = worlds
+    jlosses, jparams = ref["device_mode_sharded"][shape]
+    ranks = [r["device_mode_sharded"][shape] for r in port["ddp"]]
+    n = DM_SHARDED_VOCAB // shape[1]
+    by_model = {}
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], jlosses, rtol=DM_TOL,
+                                   atol=DM_TOL)
+        d, m = r["coords"]
+        assert set(r["params"]) == set(jparams) == set(r["gathered"])
+        for k, v in r["params"].items():
+            if k.endswith("/table"):
+                assert v.shape == (n, DM_DIM), k
+                np.testing.assert_allclose(
+                    v, jparams[k][m * n:(m + 1) * n], rtol=DM_TOL,
+                    atol=DM_TOL, err_msg=k)
+                by_model.setdefault((m, k), []).append(v)
+            else:
+                np.testing.assert_array_equal(v, ranks[0]["params"][k])
+                np.testing.assert_allclose(v, jparams[k], rtol=DM_TOL,
+                                           atol=DM_TOL, err_msg=k)
+            np.testing.assert_allclose(r["gathered"][k], jparams[k],
+                                       rtol=DM_TOL, atol=DM_TOL, err_msg=k)
+        assert set(r["windows"].values()) == {(m * n, DM_SHARDED_VOCAB)}
+    assert len(by_model) == shape[1] * DM_SLOTS
+    for shards in by_model.values():  # one a data-axis rank
+        assert len(shards) == shape[0]
+        for v in shards[1:]:
+            np.testing.assert_array_equal(v, shards[0])
+    assert jlosses[-1] != jlosses[0]
+    assert ranks[0]["losses"][-1] != ranks[0]["losses"][0]
+
+
+@pytest.mark.parametrize("shape", DM_SHARDED_MESHES)
+def test_model_axis_sum_backward_is_the_identity(worlds, shape):
+    """The collection's table gradients row-sharded over the model axis
+    and gathered equal the unsharded collection's on one rank (the sum of
+    the partials passes the cotangent through unchanged), not M times
+    them, on every rank."""
+    _, port = worlds
+    for r in port["ddp"]:
+        err, scale, ratio = r["device_mode_sharded"][shape]["sum_grad"]
+        assert scale > 0
+        assert err <= 1e-6 * scale, (shape, err, scale)
+        assert abs(ratio - 1.0) < 1e-6, (shape, ratio)
+
+
 @pytest.mark.parametrize("case,expect", [
-    ("model_axis", ("NotImplementedError", "item 3d")),
+    ("model_axis", ("ValueError", "slot slot_0: vocab 257 does not divide")),
     ("resume_from", ("ok", "every rank resumes the leader's snapshot")),
     ("wrong_worker", ("ValueError", "sparse leader")),
     ("bad_dtype", ("ValueError", "grad_reduce_dtype")),

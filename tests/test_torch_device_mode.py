@@ -215,7 +215,8 @@ def test_collection_makes_one_kernel_call_per_dim(monkeypatch):
     calls = []
     inner = de.embedding_bag_slots
 
-    def spy(tables, ids, out_dtype):
+    def spy(tables, ids, out_dtype, windows=None):
+        assert windows is None  # an unsharded collection
         calls.append([tuple(t.shape) for t in tables])
         return inner(tables, ids, out_dtype)
 
@@ -458,13 +459,16 @@ def test_refusals():
     non_id, ids, _ = tdm.synthetic_device_batch(BS, NUM_DENSE, specs,
                                                 device="cpu")
     # tables row-sharded over a model axis of 2 (a mesh with no process
-    # group behind it: the refusal comes before any collective)
+    # group behind it: the refusal comes before any collective), at a
+    # vocab that does not divide the axis
     from torch.distributed.device_mesh import DeviceMesh
 
+    assert VOCAB % 2
     sharded = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
                          mesh_dim_names=("data", "model"),
                          _init_backend=False, _rank=0)
-    with pytest.raises(NotImplementedError, match="queue A item 3d"):
+    with pytest.raises(ValueError, match=f"slot slot_0: vocab {VOCAB} does "
+                                         f"not divide the model axis"):
         tdm.make_device_mode_trainer(model, lambda p: OptaxAdagrad(p, 0.1),
                                      non_id, ids, device="cpu",
                                      mesh=sharded)

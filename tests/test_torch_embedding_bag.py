@@ -8,7 +8,11 @@ the Pallas kernel; the autograd Function's gradients against ``jax.grad``
 of the custom-vjp ``embedding_bag``, and on out-of-range ids against the
 stated difference of the two backwards. The multi-slot entry's plain
 version (device mode's whole collection in one call) is held against the
-flax collection in ``tests/test_torch_device_mode.py``; here its refusals.
+flax collection in ``tests/test_torch_device_mode.py``; here its refusals,
+and both entries under a shard window (a table row-sharded over a mesh's
+model axis) against the unwindowed plain version restricted to the
+window's rows, forward and backward (exact: the same rounded products,
+with zeros in the place of the rows left out).
 K5's plain version is held against the numpy base of
 ``tools/probe_dma_shapes.py``. The launch path (``ops/_build.Launcher``)
 is held to its contract against a stub library. On the CPU the wrappers
@@ -255,6 +259,141 @@ def test_slots_wrappers_reject_bad_inputs():
         eb.embedding_bag_slots_fwd(tables, [i.float() for i in ids])
     with pytest.raises(TypeError):
         eb.embedding_bag_slots_fwd(tables, ids, torch.float16)
+    # one call's windows all hold the padding row 0 or none does
+    shards = [torch.zeros(5, 4)] * 2
+    with pytest.raises(ValueError, match="start at row 0"):
+        eb.embedding_bag_slots_fwd(shards, ids, windows=[(0, 10), (5, 10)])
+
+
+# a vocab of 64 in 4 shards of 16 rows: the windows (lo, n)
+WINDOWS = [(0, 16), (16, 16), (48, 16)]
+W_VOCAB = 64
+
+
+def _slot_case(seed, lo, batch=24, bag=3, n_slots=2):
+    """Raw ids of ``n_slots`` slots over a 64-row vocab with padding (0 and
+    negative) and, in the first bags, ids that hash to the window's first
+    global row ``lo`` (local row 0) beside padding: the backward must
+    scatter into that row and not into the padding row."""
+    rng = np.random.default_rng(seed)
+    tables, ids = [], []
+    for _ in range(n_slots):
+        tables.append(torch.from_numpy(
+            rng.normal(size=(W_VOCAB, 8)).astype(np.float32)))
+        i = rng.integers(1, 1 << 20, size=(batch, bag)).astype(np.int64)
+        i[rng.random((batch, bag)) < 0.25] = 0
+        i.flat[::7] = -2
+        if lo > 0:  # (id % 63) + 1 == lo, next to a padding id
+            i[:4, 0] = lo - 1 + 63 * rng.integers(1, 1000, size=4)
+            i[:4, 1] = 0
+        ids.append(torch.from_numpy(i))
+    return tables, ids
+
+
+def _restricted(ids, lo, n):
+    """The raw ids whose hashed row lies outside [lo, lo + n) turned to
+    padding: the unwindowed call on them pools only the window's rows."""
+    out = []
+    for i in ids:
+        rows, mask = eb.hash_ids(i, W_VOCAB)
+        keep = mask & (rows >= lo) & (rows < lo + n)
+        out.append(torch.where(keep, i, 0))
+    return out
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_windowed_slots_match_unwindowed_on_the_window(window):
+    """The multi-slot plain version (and the wrapper on the CPU) under a
+    shard window: the f32 partial equals the unwindowed call on the ids
+    restricted to the window, the rows are the local rows (-1 outside;
+    padding is global row 0, local 0 on the first shard only), and the
+    Function's shard gradients (the padding-mask trap included) equal the
+    window's rows of the unwindowed gradients."""
+    lo, n = window
+    tables, ids = _slot_case(lo + 1, lo)
+    shards = [t[lo:lo + n].clone() for t in tables]
+    wins = [(lo, W_VOCAB)] * len(tables)
+    got, rows = eb.embedding_bag_slots_reference(shards, ids, torch.float32,
+                                                 wins)
+    want, want_rows = eb.embedding_bag_slots_reference(
+        tables, _restricted(ids, lo, n), torch.float32)
+    assert torch.equal(got, want)
+    full, _ = eb.embedding_bag_slots_reference(tables, ids, torch.float32)
+    if lo > 0:
+        assert not torch.equal(got, full)  # some ids left out
+    glob, mask = zip(*(eb.hash_ids(i, W_VOCAB) for i in ids))
+    local = torch.cat([eb.local_rows(g, lo, n).reshape(-1) for g in glob])
+    assert torch.equal(rows, local) and rows.dtype == torch.int32
+    assert bool((rows == -1).any()) and bool((rows == 0).any())
+    fwd = eb.embedding_bag_slots_fwd(shards, ids, torch.float32, wins)
+    assert torch.equal(fwd[0], got) and torch.equal(fwd[1], rows)
+    cot = torch.from_numpy(np.random.default_rng(lo).normal(
+        size=tuple(got.shape)).astype(np.float32))
+    grads = []
+    for ts, ii, w in ((shards, ids, wins),
+                      (tables, _restricted(ids, lo, n), None)):
+        ts = [t.clone().requires_grad_() for t in ts]
+        (eb.embedding_bag_slots(ts, ii, torch.float32, w) * cot).sum() \
+            .backward()
+        grads.append([t.grad for t in ts])
+    for g, g_full in zip(*grads):
+        assert g.shape == (n, 8)
+        assert torch.equal(g, g_full[lo:lo + n])
+        if lo > 0:  # global row lo is local row 0, and it trains
+            assert bool(g[0].abs().sum() > 0)
+        else:  # the padding row does not
+            assert bool(g[0].abs().sum() == 0)
+    # and the Function's backward equals autograd through the plain version
+    ts = [t.clone().requires_grad_() for t in shards]
+    (eb.embedding_bag_slots_reference(ts, ids, torch.float32, wins)[0]
+     * cot).sum().backward()
+    for g, want_g in zip(grads[0], (t.grad for t in ts)):
+        assert torch.equal(g, want_g)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_windowed_single_table_matches_unwindowed_on_the_window(window):
+    """The single-table entry under a window (clipped ids over the global
+    vocab, -1 and ids past it included): the partial and the shard's
+    gradient against the unwindowed call with the outside weights zeroed;
+    the weights' gradient is the window's part."""
+    lo, n = window
+    table, ids, weights = _torch(*_inputs(lo, W_VOCAB, 8, 13, 4))
+    ids[2:5, 1] = torch.tensor([-1, W_VOCAB, W_VOCAB + 9], dtype=ids.dtype)
+    rows = eb.clip_ids(ids, W_VOCAB)
+    inside = (rows >= lo) & (rows < lo + n)
+    shard = table[lo:lo + n].clone()
+    got = eb.embedding_bag_reference(shard, ids, weights, (lo, W_VOCAB))
+    want = eb.embedding_bag_reference(table, ids,
+                                      torch.where(inside, weights, 0.0))
+    assert torch.equal(got, want)
+    assert torch.equal(eb.embedding_bag_fwd(shard, ids, weights,
+                                            (lo, W_VOCAB)), got)
+    cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(lo))
+    s, w = shard.clone().requires_grad_(), weights.clone().requires_grad_()
+    (eb.embedding_bag(s, ids, w, (lo, W_VOCAB)) * cot).sum().backward()
+    t, w2 = table.clone().requires_grad_(), weights.clone().requires_grad_()
+    (eb.embedding_bag(t, ids, w2) * cot).sum().backward()
+    t3 = table.clone().requires_grad_()
+    (eb.embedding_bag(t3, ids, torch.where(inside, weights, 0.0))
+     * cot).sum().backward()
+    assert torch.equal(s.grad, t3.grad[lo:lo + n])
+    assert torch.equal(w.grad, torch.where(inside, w2.grad, 0.0))
+    with pytest.raises(ValueError, match="window"):
+        eb.embedding_bag_fwd(shard, ids, weights, (W_VOCAB - 8, W_VOCAB))
+
+
+def test_unwindowed_slots_keep_their_rows_and_mask():
+    """No window and the whole table as the window are the same call:
+    the same output, rows (padding reads row 0, as before windows came)
+    and gradients."""
+    tables, ids = _slot_case(5, 0)
+    a = eb.embedding_bag_slots_reference(tables, ids)
+    b = eb.embedding_bag_slots_reference(tables, ids, windows=[
+        (0, W_VOCAB)] * len(tables))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    glob = torch.cat([eb.hash_ids(i, W_VOCAB)[0].reshape(-1) for i in ids])
+    assert torch.equal(a[1], glob) and not bool((a[1] < 0).any())
 
 
 class _StubFn:
@@ -490,6 +629,53 @@ def test_cuda_slots_backward_matches_plain_autograd(bags):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bags", [(1,), (4,)])
+@pytest.mark.parametrize("half", [0, 1])
+def test_cuda_windowed_slots_match_plain(bags, half):
+    """Windowed K1 (each table the first or the second half of its rows,
+    int32 and int64 ids) against its windowed plain version on the card:
+    f32 partials bit-equal at S = 1, within 1e-6 + 1e-5 rel above; the
+    local rows equal; one launch a call; the Function's shard gradients
+    against autograd through the plain version within 1e-6 of the largest
+    gradient (on the card ``index_add_`` and the plain gather's backward
+    both add a shard row's contributions, tens of them at B = 4096, S = 4,
+    in any order, and a row whose terms cancel keeps their rounding)."""
+    _skip_without_card()
+    specs = [(1000, 16), (256, 16), (4096, 16)]
+    slot_bags = [bags[i % len(bags)] for i in range(len(specs))]
+    for dtype in (np.int32, np.int64):
+        tables, ids = _slot_inputs(7 + half, specs, 4096, slot_bags,
+                                   dtype=dtype)
+        wins = [(half * (v // 2), v) for v, _ in specs]
+        shards = [t[lo:lo + v // 2].contiguous()
+                  for t, (lo, v) in zip(tables, wins)]
+        eb.reset_launch_count()
+        got, rows = eb.embedding_bag_slots_fwd(shards, ids, torch.float32,
+                                               wins)
+        assert eb.launch_count() == 1
+        want, want_rows = eb.embedding_bag_slots_reference(
+            shards, ids, torch.float32, wins)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, want_rows) and bool((rows == -1).any())
+        if max(bags) == 1:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=BAG_RTOL,
+                                       atol=BAG_ATOL)
+    cot = torch.randn(got.shape, device="cuda")
+    grads = []
+    for fn in (eb.embedding_bag_slots,
+               lambda t, i, d, w: eb.embedding_bag_slots_reference(
+                   t, i, d, w)[0]):
+        ts = [t.clone().requires_grad_() for t in shards]
+        (fn(ts, ids, torch.float32, wins) * cot).sum().backward()
+        grads.append([t.grad for t in ts])
+    for g, want_g in zip(*grads):
+        torch.testing.assert_close(
+            g, want_g, rtol=0, atol=BAG_ATOL * float(want_g.abs().max()))
+
+
+@pytest.mark.gpu
 def test_cuda_launch_failure_raises_and_does_not_count():
     """A launcher refused by the library (no slots) raises with the CUDA
     message; the failed launch is not counted."""
@@ -497,6 +683,6 @@ def test_cuda_launch_failure_raises_and_does_not_count():
     eb.reset_launch_count()
     out = torch.empty((4, 1, 16), device="cuda")
     with pytest.raises(RuntimeError, match="CUDA error 1 "):
-        eb._launch(out.device, eb.array("q", [0] * 7), 0, 4, 16, out, None,
-                   1, 0, True)
+        eb._launch(out.device, eb.array("q", [0] * eb._DESC_WORDS), 0, 4,
+                   16, out, None, 1, 0, True)
     assert eb.launch_count() == 0

@@ -3,7 +3,8 @@
 Each knob the port once read outside its registry, or not at all
 (``PERSIA_WORKLOAD_SEED`` / ``_ALPHA``, ``PERSIA_SKIP_CHECK_DATA``,
 ``PERSIA_PS_BACKEND``, ``PERSIA_ARENA_SLAB_ROWS`` / ``_INDEX_SLOTS``,
-``PERSIA_WORKER_STREAMING``), and the three the online tier reads
+``PERSIA_WORKER_STREAMING``, ``PERSIA_FORCE_PYTHON_MW``), and the three
+the online tier reads
 (``PERSIA_ONLINE_*``), is set unset, to ``""``, to ``" 1"`` and to a
 value of its own, and the site that reads it must behave as the JAX
 package's site does under the same environment: the same scenario bytes,
@@ -31,6 +32,7 @@ OWN = {
     "PERSIA_ONLINE_APPLY_BATCH_ROWS": "17",
     "PERSIA_ONLINE_APPLY_ROWS_PER_SEC": "1000",
     "PERSIA_ONLINE_SCAN_SEC": "0.25",
+    "PERSIA_FORCE_PYTHON_MW": "TRUE",
 }
 
 
@@ -364,3 +366,27 @@ def test_orchestration_knobs(name, value, monkeypatch, tmp_path):
     mine, ref = _both(lambda: _orch_site(name, "port"),
                       lambda: _orch_site(name, "jax"))
     assert mine == ref
+
+
+@pytest.mark.parametrize("name,value", _values("PERSIA_FORCE_PYTHON_MW"))
+def test_force_python_mw(name, value, monkeypatch):
+    """The middleware takes its numpy twins exactly where the JAX
+    middleware's kernel loader gives none for the knob (``1`` / ``true`` /
+    ``yes``); forced, dedup runs on the twin."""
+    from persia_tpu import knobs as jknobs
+    from persia_tpu.worker import mw_native as jmw_native
+
+    from persia_tpu_torch.data.batch import IDTypeFeatureWithSingleID
+    from persia_tpu_torch.worker import middleware as tmw
+
+    _set(monkeypatch, name, value)
+    monkeypatch.setattr(jmw_native, "_checked", False)
+    monkeypatch.setattr(jmw_native, "_lib", None)
+    forced = tmw._mw_native() is None
+    assert forced == bool(jknobs.get(name)) == bool(tknobs.get(name))
+    assert forced == (value == OWN[name])  # "" and " 1" do not force
+    if forced:
+        assert jmw_native._load() is None
+        got = tmw.dedup_feature(IDTypeFeatureWithSingleID(
+            "s", np.array([5, 3, 5, 9], np.uint64)))
+        assert sorted(got.distinct_signs.tolist()) == [3, 5, 9]

@@ -8,7 +8,10 @@ through its per-sign sequential path; the port runs them in occurrence
 rounds, so these tests hold the round path to the sequential one. Also:
 ``RowPrecision`` against the JAX package's (bf16 through ``ml_dtypes``
 there, uint16 bit patterns here), the port's fp32 arena against its
-per-entry holder, and ``make_holder``.
+per-entry holder, the per-entry holder's half rows under a byte budget
+against ``persia_tpu.ps.store.EmbeddingHolder``'s (lookups, updates, miss
+counts, resident bytes, ``get_entries`` and the PSD v2 dump bit for bit),
+and ``make_holder``.
 """
 
 import numpy as np
@@ -316,6 +319,67 @@ def test_row_precision_matches_jax(row_dtype):
 # --- make_holder --------------------------------------------------------
 
 
+@pytest.mark.parametrize("row_dtype", ["fp16", "bf16"])
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_per_entry_half_rows_under_a_byte_budget_match_jax(row_dtype, opt):
+    """The per-entry holder with half rows and ``capacity_bytes`` (via
+    ``make_holder(backend="python-legacy")``) against the JAX package's
+    ``EmbeddingHolder``: admission below 1, dims 8 and 4, duplicate
+    signs, a budget of 50 rows a shard that evicts inside batches, then
+    ``set_entries`` / ``set_entry``; every read, the resident bytes, the
+    miss counts and the PSD v2 dump bit for bit, and each dump loads into
+    the other package's holder."""
+    from persia_tpu.ps.store import EmbeddingHolder as JLegacy
+
+    row = toptim.RowPrecision(row_dtype).entry_nbytes(8, 8)
+    budget = 2 * 50 * row
+    hs = [JLegacy(1_000_000, 2, row_dtype=row_dtype, capacity_bytes=budget),
+          make_holder(1_000_000, 2, backend="python-legacy",
+                      row_dtype=row_dtype, capacity_bytes=budget)]
+    assert type(hs[1]) is TLegacy
+    for h in hs:
+        h.configure("bounded_uniform", {"lower": -0.2, "upper": 0.2},
+                    admit_probability=0.8, weight_bound=0.25)
+        h.register_optimizer(OPTIMIZERS[opt])
+    rng = np.random.default_rng([ROW_DTYPES.index(row_dtype), len(opt)])
+    universe = rng.integers(1, 2**63, size=300, dtype=np.uint64)
+    widths = tuple(d + hs[1].optimizer.require_space(d) for d in (8, 4))
+
+    def same():
+        j, t = hs
+        assert len(j) == len(t) > 0
+        assert j.index_miss_count == t.index_miss_count
+        assert j.gradient_id_miss_count == t.gradient_id_miss_count
+        assert j.resident_bytes == t.resident_bytes <= budget
+        assert j.resident_emb_bytes == t.resident_emb_bytes
+        for width in widths:
+            a, b = (h.get_entries(universe, width) for h in hs)
+            np.testing.assert_array_equal(a[0], b[0])
+            _eq(a[1], b[1])
+        assert j.dump_bytes() == t.dump_bytes()
+
+    _traffic(hs, rng, universe, rounds=6, batch=80, dims=(8, 8, 4), mult=3)
+    same()
+    assert hs[1].resident_bytes > 0.9 * budget  # the budget binds
+    vecs = rng.normal(size=(40, widths[0])).astype(np.float32)
+    vecs[:2, :3] = [[np.inf, -0.0, 1e-40], [65504.0, 1.0 + 2.0**-8, -1e-45]]
+    for h in hs:
+        h.set_entries(universe[:40], 8, vecs)
+        h.set_entry(int(universe[50]), 4, np.arange(
+            widths[1], dtype=np.float32))
+    got = [h.get_entry(int(universe[50])) for h in hs]
+    assert got[0][0] == got[1][0] == 4
+    _eq(got[0][1], got[1][1])
+    same()
+    blob = hs[0].dump_bytes()
+    assert blob[4:8] == b"\x02\x00\x00\x00"
+    port = TLegacy(1_000_000, 2, row_dtype=row_dtype)
+    port.load_bytes(blob)
+    jax_side = JLegacy(1_000_000, 2, row_dtype=row_dtype)
+    jax_side.load_bytes(hs[1].dump_bytes())
+    assert port.dump_bytes() == jax_side.dump_bytes()
+
+
 def test_make_holder_backends_and_refusals(caplog):
     """``auto`` (the default) and ``native`` give the native C++ store,
     without a warning; ``arena`` and ``python-legacy`` stay explicit."""
@@ -339,8 +403,11 @@ def test_make_holder_backends_and_refusals(caplog):
         "bf16", 4096, 2)
     legacy = make_holder(1000, 4, backend="python-legacy")
     assert type(legacy) is TLegacy and legacy.capacity == 1000
-    with pytest.raises(NotImplementedError, match="backend='arena'"):
-        make_holder(1000, 4, backend="python-legacy", row_dtype="fp16")
+    legacy = make_holder(1000, 2, backend="python-legacy", row_dtype="fp16",
+                         capacity_bytes=4096)
+    assert type(legacy) is TLegacy
+    assert (legacy.row_dtype, legacy.capacity_bytes,
+            legacy.num_internal_shards) == ("fp16", 4096, 2)
     with pytest.raises(ValueError, match="unknown PS backend"):
         make_holder(1000, 4, backend="rocksdb")
     with pytest.raises(ValueError, match="positive"):

@@ -129,14 +129,20 @@ def collect(group: RankGroup, workdir, deadline_s: float) -> List[Any]:
 
 def rank_main(bodies: Dict[str, Callable[[Any], Any]]):
     """In a rank process started by :func:`start_ranks`: run the body
-    named by ``sys.argv[1]`` on the pickled inputs and pickle its result
-    as this rank's."""
+    named by ``sys.argv[1]`` on the pickled inputs, pickle its result as
+    this rank's and exit 0 at once."""
     body, workdir = sys.argv[1], Path(sys.argv[2])
     with open(workdir / "inputs.pkl", "rb") as f:
         inputs = pickle.load(f)
     result = bodies[body](inputs)
     with open(workdir / f"rank{os.environ['RANK']}.pkl", "wb") as f:
         pickle.dump(result, f)
+    # the result is written: leave without the interpreter's teardown, where
+    # a gloo group left open may abort the process ("terminate called
+    # without an active exception") once its peers are gone
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 # --- tests of the helper ---------------------------------------------------

@@ -430,8 +430,11 @@ def test_make_holder_arms_spill_and_hotness_on_every_backend(tmp_path):
     unarmed = make_holder(100, 2)
     assert unarmed.spill is None and unarmed.spill_stats() == {}
     assert unarmed.hotness_snapshot() == thot.disabled_snapshot()
-    with pytest.raises(NotImplementedError, match="backend='arena'"):
-        make_holder(100, 2, backend="python-legacy", row_dtype="bf16")
+    # the per-entry holder takes half rows and a byte budget as well
+    half = make_holder(100, 2, backend="python-legacy", row_dtype="bf16",
+                       capacity_bytes=4096, spill_dir=str(tmp_path / "half"))
+    assert type(half) is TLegacy and half.spill is not None
+    assert (half.row_dtype, half.capacity_bytes) == ("bf16", 4096)
 
 
 # --- hotness ------------------------------------------------------------------
