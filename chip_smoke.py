@@ -2890,9 +2890,8 @@ def reset_launch_counts():
         module.reset_launch_count()
 
 
-def assert_no_kernel_launched(phase: str, card: str):
-    """Read just after the path: the hybrid towers read PS rows and have
-    no attention, so none of K1-K5 may have launched."""
+def kernel_counts() -> dict:
+    """K1-K5's launch counts now."""
     from persia_tpu_torch.ops import embedding_bag as eb
     from persia_tpu_torch.ops import flash_attention as fa
     from persia_tpu_torch.ops import probe_copy as pc
@@ -2900,6 +2899,13 @@ def assert_no_kernel_launched(phase: str, card: str):
     counts = {n: fa.launch_count(n) for n in FLASH_KERNELS}
     counts.update(embedding_bag=eb.launch_count(),
                   probe_copy=pc.launch_count())
+    return counts
+
+
+def assert_no_kernel_launched(phase: str, card: str):
+    """Read just after the path: the hybrid towers read PS rows and have
+    no attention, so none of K1-K5 may have launched."""
+    counts = kernel_counts()
     _log(f"[{phase}] kernel launches over the phase: " + " ".join(
         f"{n}={c}" for n, c in counts.items()) + f" | card: {card}")
     if any(counts.values()):
@@ -3373,8 +3379,9 @@ def dlrm_cached_phase(torch, card: str) -> dict:
     sp = {k: run["split"][k] / len(split) * 1e3 for k in run["split"]}
     _log(f"[dlrm_cached] (b) cached: step split over steps {split.start}-"
          f"{split.stop - 1}, device synchronized after each stage (ms a "
-         f"step): prepare (mapper + miss import)={sp['lookup']:.3f} "
-         f"h2d={sp['h2d']:.3f} device step={sp['dense']:.3f} "
+         f"step): prepare (mapper, miss import, their upload)="
+         f"{sp['lookup']:.3f} h2d (dense features, labels)="
+         f"{sp['h2d']:.3f} device step={sp['dense']:.3f} "
          f"finish={sp['update']:.3f} | card: {card}")
     report_window("dlrm_cached", f"{len(prof)} cached steps", run["window"],
                   card)
@@ -4259,6 +4266,14 @@ MR_PROF_START, MR_PROF_STEPS = 10, 3  # (e5): the window inside (e1)
 MR_PROF_KERNELS = {"flash_attention_fwd": "::fwd_kernel<",
                    "flash_attention_bwd_dq": "::bwd_dq_kernel<",
                    "flash_attention_bwd_dkv": "::bwd_dkv_kernel<"}
+# (f) bench_cached's traffic through the device cache sharded over the two
+# ranks, on (2, 1) and (1, 2): 3 f32 steps a mesh against one rank at
+# DC_CAPACITY and at a cache a quarter above one batch's distinct signs
+# (it evicts from step 2 on); 30 bf16 steps a mesh, timed over 10-29
+MR_CACHE_MESHES = ((2, 1), (1, 2))
+MR_CACHE_AGREE_STEPS = 3
+MR_CACHE_STEPS = 30
+MR_CACHE_TIMED_FROM = 10
 MR_TIMEOUT_S = 300  # a collective that waits on a dead peer fails then
 MR_DEADLINE_S = 480  # a rank group that outlives this is killed
 MR_WAIT_S = 900  # a rank started before the build waits this for its go
@@ -4877,8 +4892,104 @@ def mr_mesh_pipeline(torch, mesh):
     return out
 
 
+def mr_cached_run(torch, batches, capacity: int, mesh=None, f32=True,
+                  timed_from=None) -> dict:
+    """``batches`` through ``dh_ctx`` cached at ``capacity`` rows (over
+    ``mesh``, or one rank), f32 tower and wire or bench_cached's bf16
+    tower: losses, the leader's touched PS rows after the flush and its
+    counters, this rank's block bytes and peak memory, the dense
+    parameters' bit-equality over the mesh, and from ``timed_from`` on
+    host ms a step and samples/s, synchronized at both ends."""
+    import numpy as np
+
+    from persia_tpu_torch.config import CommonConfig, GlobalConfig
+    from persia_tpu_torch.parallel import collectives as coll
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = (dh_ctx(torch, "cuda", torch.float32,
+                  GlobalConfig(CommonConfig("f32")), mesh=mesh,
+                  device_cache_capacity=capacity) if f32 else
+           dh_ctx(torch, "cuda", mesh=mesh, device_cache_capacity=capacity))
+    out, losses, step_ms, t = {}, [], [], None
+    with ctx:
+        for i, b in enumerate(batches):
+            if i == timed_from:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            t1 = time.perf_counter()
+            losses.append(ctx.train_step(b)[0])
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        if t is not None:
+            out["samples_per_s"] = (DH_BATCH * (len(batches) - timed_from)
+                                    / (time.perf_counter() - t))
+            out["step_ms"] = step_ms[timed_from:]
+        out["flushed"] = ctx.flush_device_cache()
+        eng = ctx._cache_engine
+        out["block_bytes"] = eng.cache_vals.nbytes + eng.cache_acc.nbytes
+        out["window"] = eng._rows.window
+        out["max_mem"] = torch.cuda.max_memory_allocated()
+        if eng.leader:
+            out["stats"] = eng.stats()
+    out["losses"] = [float(x) for x in losses]
+    if not np.isfinite(out["losses"]).all():
+        raise AssertionError("multi_rank (f): a loss is not finite")
+    if mesh is not None:
+        flat = _dense_flat(torch, ctx)
+        both = coll.all_gather(flat[None], None, 0)
+        out["params_equal"] = bool(all(torch.equal(both[0], x)
+                                       for x in both[1:]))
+    if ctx.worker is not None:
+        out["rows"] = touched_rows(ctx.worker, dc_signs(batches))
+        ctx.worker.close()
+    del ctx, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def mr_cached(torch):
+    """(f) bench_cached at full width (DLRM, 26 slots x 16, batch 4096,
+    Zipf(1.2) over 2^20 ids a slot, the 2,000,000-row cache) with the
+    cache's rows sharded over the two ranks, on make_mesh((2, 1)) and
+    make_mesh((1, 2)): f32 agreement with one rank at the full and at a
+    small, evicting capacity, then 30 bf16 steps a mesh. Every launch
+    count is 0 just before the mesh runs and read just after."""
+    import torch.distributed as dist
+
+    from persia_tpu_torch.parallel.mesh import make_mesh
+    from persia_tpu_torch.workloads.generator import zipf_bench_batches
+
+    t0 = time.perf_counter()
+    batches = list(zipf_bench_batches(MR_CACHE_STEPS, DH_BATCH,
+                                      vocab=DC_VOCAB, a=DC_ZIPF_A,
+                                      seed=SEED))
+    agree = batches[:MR_CACHE_AGREE_STEPS]
+    distinct = max(len(dc_signs([b])) for b in agree)
+    small = distinct + distinct // 4
+    out = {"setup_s": time.perf_counter() - t0, "small": small,
+           "distinct": distinct}
+    if dist.get_rank() == 0:
+        out["one"] = {cap: mr_cached_run(torch, agree, cap)
+                      for cap in (DC_CAPACITY, small)}
+    dist.barrier()
+    meshes = [make_mesh(shape, device="cuda") for shape in MR_CACHE_MESHES]
+    reset_launch_counts()
+    for shape, mesh in zip(MR_CACHE_MESHES, meshes):
+        t = time.perf_counter()
+        out[shape] = {
+            "agree": mr_cached_run(torch, agree, DC_CAPACITY, mesh),
+            "small": mr_cached_run(torch, agree, small, mesh),
+            "timed": mr_cached_run(torch, batches, DC_CAPACITY, mesh,
+                                   f32=False,
+                                   timed_from=MR_CACHE_TIMED_FROM)}
+        out[shape]["wall_s"] = time.perf_counter() - t
+    out["launches"] = kernel_counts()
+    return out
+
+
 def mr_gloo_body(inputs):
-    """The rank body of the two gloo ranks: (a), (b), (c), (e)."""
+    """The rank body of the two gloo ranks: (a), (b), (c), (e), (f)."""
     import torch.distributed as dist
 
     from persia_tpu_torch.parallel import collectives as coll
@@ -4897,6 +5008,9 @@ def mr_gloo_body(inputs):
     t = time.perf_counter()
     out["e"] = mr_mesh_pipeline(torch, mesh)
     out["e"]["wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["f"] = mr_cached(torch)
+    out["f"]["wall_s"] = time.perf_counter() - t
     out["calls"] = dict(coll.calls)
     dist.destroy_process_group()
     return out
@@ -5046,7 +5160,7 @@ class MultiRankProcs:
 
 
 def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
-    """Lets the ranks of ``procs`` run (a)-(d), holds them to their gates
+    """Lets the ranks of ``procs`` run (a)-(f), holds them to their gates
     and prints them. Returns each kernel's launches on each rank's main
     path."""
     import numpy as np
@@ -5060,9 +5174,10 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
          f"transport of a multi-card job) and one NCCL rank, started once "
          f"before the build (start-up, warmed by a DLRM step, "
          f"{r0['warm_s']:.1f}s on rank 0): phase {wall:.1f}s, rank init "
-         f"{r0['init_s']:.1f}s, parts a/b/c/e "
+         f"{r0['init_s']:.1f}s, parts a/b/c/e/f "
          f"{r0['a']['wall_s']:.1f}/{r0['b']['wall_s']:.1f}/"
-         f"{r0['c']['wall_s']:.1f}/{r0['e']['wall_s']:.1f}s, (d) after "
+         f"{r0['c']['wall_s']:.1f}/{r0['e']['wall_s']:.1f}/"
+         f"{r0['f']['wall_s']:.1f}s, (d) after "
          f"them {solo_s:.1f}s; gloo's point-to-point ring shifts of "
          f"device tensors staged through host memory "
          f"(collectives._p2p_exchange): {staged}; collectives by backend, "
@@ -5188,6 +5303,8 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
 
     e = [r["e"] for r in ranks]
     check_mesh_pipeline(e, card)
+    f = [r["f"] for r in ranks]
+    check_mesh_cache(f, [r["a"] for r in ranks], card)
 
     # (d)
     need = {"all_reduce", "all_to_all", "all_gather", "broadcast"}
@@ -5207,14 +5324,94 @@ def multi_rank_phase(torch, card: str, procs: MultiRankProcs) -> dict:
                              "its collectives or its losses are not finite")
     return {"embedding_bag": {"launches_multi_rank":
                               [r["launches"] for r in b],
+                              "launches_mesh_cache":
+                              [r["launches"]["embedding_bag"] for r in f],
                               "launches_multi_rank_sharded":
                               [r["launches"] for r in b2]},
             **{n: {"launches_multi_rank": [r["launches"][n] for r in c],
                    "launches_mesh_pipeline": [r["e1"]["launches"][n]
                                               for r in e],
                    "launches_mesh_eval": [r["e4"]["launches"][n]
-                                          for r in e]}
+                                          for r in e],
+                   "launches_mesh_cache": [r["launches"][n] for r in f]}
                for n in FLASH_KERNELS}}
+
+
+def check_mesh_cache(f, a, card: str):
+    """(f)'s gates and lines over each gloo rank's results: each mesh's f32
+    runs against one rank's within dlrm_cached (a)'s bounds, the small
+    cache evicting and writing back, the ranks' losses equal and their
+    dense parameters bit-equal, no kernel launched; the rates and memory
+    printed beside (a)'s and one rank's, no gate."""
+    import numpy as np
+
+    one = f[0]["one"]
+    for shape in MR_CACHE_MESHES:
+        runs = [r[shape] for r in f]
+        errs = {}
+        for kind, cap in (("agree", DC_CAPACITY), ("small", f[0]["small"])):
+            got, ref = runs[0][kind], one[cap]
+            (rf, rr), (cf, cr) = ref["rows"], got["rows"]
+            errs[kind] = (
+                max(abs(x - y) for x, y in zip(got["losses"],
+                                                ref["losses"])),
+                float(np.abs(cr - rr).max()) / float(np.abs(rr).max()))
+            st = got["stats"]
+            _log(f"[multi_rank] (f) make_mesh({shape}) {kind}: "
+                 f"{MR_CACHE_AGREE_STEPS} f32 steps of batch {DH_BATCH} "
+                 f"through {cap} cache rows sharded over {MR_WORLD} ranks "
+                 f"(windows {[r[shape][kind]['window'] for r in f]}) against "
+                 f"one rank: loss max_abs_err={errs[kind][0]:.3e} (atol "
+                 f"{DC_LOSS_ATOL}); {len(rf)} touched PS rows max_abs_err / "
+                 f"max|row|={errs[kind][1]:.3e} (rtol {DC_REL_TOL}); misses="
+                 f"{st['misses']} evictions={st['evictions']} writeback_rows="
+                 f"{st['writeback_rows']} (one rank: "
+                 f"{one[cap]['stats']['evictions']} / "
+                 f"{one[cap]['stats']['writeback_rows']}) | card: {card}")
+            if not ((rf == 1).all() and (cf == 1).all()):
+                raise AssertionError(f"multi_rank (f) {shape} {kind}: a "
+                                     f"touched PS row is missing")
+            if not (errs[kind][0] <= DC_LOSS_ATOL
+                    and errs[kind][1] <= DC_REL_TOL):
+                raise AssertionError(f"multi_rank (f) {shape} {kind}: the "
+                                     f"mesh cache disagrees with one rank")
+            if any(r[shape][kind]["losses"] != got["losses"] for r in f):
+                raise AssertionError(f"multi_rank (f) {shape} {kind}: the "
+                                     f"ranks' losses differ")
+        st = runs[0]["small"]["stats"]
+        if not (st["evictions"] > 0 and st["writeback_rows"] > 0):
+            raise AssertionError(f"multi_rank (f) {shape}: the small cache "
+                                 f"neither evicted nor wrote back: {st}")
+        if not all(r[shape][k]["params_equal"] for r in f
+                   for k in ("agree", "small", "timed")):
+            raise AssertionError(f"multi_rank (f) {shape}: the ranks' dense "
+                                 f"parameters differ")
+        timed = [r[shape]["timed"] for r in f]
+        ms = np.asarray(timed[0]["step_ms"])
+        st = timed[0]["stats"]
+        _log(f"[multi_rank] (f) make_mesh({shape}) bench_cached bf16, "
+             f"{DC_CAPACITY} rows sharded ({f[0]['distinct']} distinct "
+             f"signs in a batch at most), {MR_CACHE_STEPS} steps: samples/s "
+             f"over steps {MR_CACHE_TIMED_FROM}-{MR_CACHE_STEPS - 1} "
+             f"{timed[0]['samples_per_s']:.1f} (rank 0; (a)'s uncached DDP "
+             f"f32 on the same ranks {a[0]['None']['samples_per_s']:.1f}, "
+             f"one rank uncached {a[0]['single']['samples_per_s']:.1f}); "
+             f"host ms a step p50={np.percentile(ms, 50):.3f} "
+             f"p99={np.percentile(ms, 99):.3f}; hit_rate "
+             f"{st['hits'] / max(1, st['probes']):.4f}; block bytes a rank "
+             f"{[r['block_bytes'] for r in timed]} (one rank "
+             f"{one[DC_CAPACITY]['block_bytes']}); max_memory_allocated GB "
+             f"{' / '.join(f'{r['max_mem'] / 2**30:.3f}' for r in timed)} "
+             f"(one rank's f32 run {one[DC_CAPACITY]['max_mem'] / 2**30:.3f})"
+             f"; the mesh's wall {runs[0]['wall_s']:.1f}s (no rate is "
+             f"claimed: gloo on one card) | card: {card}")
+    launches = [r["launches"] for r in f]
+    _log(f"[multi_rank] (f) kernel launches over the mesh cache runs, by "
+         f"rank: {launches}; setup {f[0]['setup_s']:.2f}s, part "
+         f"{f[0]['wall_s']:.1f}s | card: {card}")
+    if any(any(c.values()) for c in launches):
+        raise AssertionError("multi_rank (f): a kernel launched on the "
+                             "cached mesh path")
 
 
 def check_mesh_pipeline(e, card: str):

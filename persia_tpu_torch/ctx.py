@@ -310,12 +310,19 @@ class TrainCtx(EmbeddingCtx):
     :meth:`snapshot`, :meth:`dump_checkpoint`, ``eval_ctx`` and a clean
     ``__exit__`` call; a restore (``load_checkpoint``, ``resume_from``)
     drops the cache instead. In ``stage_seconds`` a cached step books the
-    mapper and the miss import as ``lookup``, their upload as ``h2d``, the
-    device step as ``dense`` and the evicted rows' hand-over as
-    ``update``. Over a mesh of more than one rank the cache is
-    single-controller state: with ``PERSIA_MULTIHOST_CACHE=off`` (the
-    default) the context logs a warning and trains uncached, with
-    ``refuse`` it raises ``NotImplementedError``.
+    mapper, the miss import and their upload as ``lookup``, the dense
+    features' and labels' upload as ``h2d``, the device step as ``dense``
+    and the evicted rows' hand-over as ``update``. Over a mesh of ranks on one host the cache is sharded as
+    the JAX package's GSPMD cache is: each rank holds a contiguous block
+    of its rows (``parallel.mesh.cache_window``), the leader keeps the
+    mapper, the victim buffer and the write-back, and broadcasts each
+    step's plan (in ``lookup``); every rank calls ``train_step``
+    on the same raw batch, and the flush, ``eval_ctx``, snapshots,
+    checkpoints and the resume are collective. A mesh whose ranks span
+    more than one host is JAX's ``jax.process_count() > 1``: with
+    ``PERSIA_MULTIHOST_CACHE=off`` (the default) the context logs a
+    warning and trains uncached, with ``refuse`` it raises
+    ``NotImplementedError``.
     """
 
     def __init__(self, model, dense_optimizer: torch.optim.Optimizer,
@@ -329,10 +336,6 @@ class TrainCtx(EmbeddingCtx):
                  device_cache_admission: Optional[str] = None,
                  profiler=None, resume_from: Optional[str] = None,
                  grad_reduce_dtype: Optional[str] = None):
-        device_cache_capacity = int(device_cache_capacity)
-        if device_cache_capacity and mesh is not None and mesh.size() > 1:
-            device_cache_capacity = _negotiate_multirank_cache(
-                device_cache_capacity, mesh.size())
         from persia_tpu_torch.parallel.train import grad_reduce_mode
 
         grad_reduce_mode(grad_reduce_dtype)  # raises on a bad name early
@@ -362,7 +365,7 @@ class TrainCtx(EmbeddingCtx):
         self.grad_reduce_dtype = grad_reduce_dtype
         self._ddp = False
         self._ef_state = None  # this rank's int8_ef residual
-        self.device_cache_capacity = device_cache_capacity
+        self.device_cache_capacity = int(device_cache_capacity)
         self.device_cache_admission = device_cache_admission
         self._cache_engine = None
         self._cached_step = None
@@ -375,6 +378,11 @@ class TrainCtx(EmbeddingCtx):
         self._resumes = bool(resume_from)
         if mesh is not None:
             self._join_mesh()
+            if self.device_cache_capacity and mesh.size() > 1:
+                hosts = self._mesh_host_count()
+                if hosts > 1:
+                    self.device_cache_capacity = _negotiate_multihost_cache(
+                        self.device_cache_capacity, hosts)
         # resolved and verified here, so a torn or absent snapshot fails
         # at construction; the rollback runs on __enter__
         self.resume_manifest: Optional[dict] = None
@@ -428,6 +436,19 @@ class TrainCtx(EmbeddingCtx):
         with torch.no_grad():
             coll.broadcast_([*self.model.parameters(), *self.model.buffers()],
                             leader_rank(self.mesh))
+
+    def _mesh_host_count(self) -> int:
+        """How many hosts the mesh's ranks span (JAX's
+        ``jax.process_count()``, a process there being a host): each
+        rank's host name digested and all-gathered, so every rank counts
+        alike."""
+        from persia_tpu_torch.parallel import collectives as coll
+
+        d = int.from_bytes(hashlib.blake2b(_host_name().encode(),
+                                           digest_size=7).digest(), "little")
+        seen = coll.all_gather(torch.tensor([d], dtype=torch.int64,
+                                            device=self.device))
+        return len(set(seen.tolist()))
 
     def __enter__(self):
         super().__enter__()
@@ -681,17 +702,24 @@ class TrainCtx(EmbeddingCtx):
     def _ensure_cache(self, batch: PersiaBatch):
         """At the first batch: check the cache's envelope and build the
         engine and the cached step. Anything outside the envelope raises
-        with its reason."""
+        with its reason; over a mesh on every rank alike (the leader's
+        reason where it has one)."""
         if self._cache_engine is not None:
             return
-        if not hasattr(self.worker, "lookup_rows_with_state"):
-            # the JAX remote worker has no row reads either
-            raise NotImplementedError(
-                "device cache needs an in-process embedding worker (its "
-                "miss import and write-back read and write whole PS rows); "
-                f"{type(self.worker).__name__} has no row access")
-        from persia_tpu_torch.data.batch import IDTypeFeatureWithSingleID
-        from persia_tpu_torch.embedding.optim import Adagrad
+        err, multi_id, dim = self._cache_envelope(batch)
+        if self.mesh is not None:
+            from persia_tpu_torch.parallel import collectives as coll
+
+            flag = torch.tensor([float(err is not None)], device=self.device)
+            coll.pmax_([flag])
+            if flag.item():
+                said = self._from_leader(
+                    lambda: b"" if err is None else str(err).encode())
+                raise err or NotImplementedError(
+                    said.decode() or "device cache: another rank of the "
+                    "mesh refused the batch")
+        elif err is not None:
+            raise err
         from persia_tpu_torch.parallel.cached_engine import DeviceCacheEngine
         from persia_tpu_torch.parallel.cached_train import (
             make_cached_bag_train_step,
@@ -699,10 +727,42 @@ class TrainCtx(EmbeddingCtx):
         )
 
         opt = self.embedding_optimizer
+        num_slots = len(batch.id_type_features)
+        self._cache_engine = DeviceCacheEngine(
+            self.worker, self.device_cache_capacity, num_slots, dim,
+            acc_init=opt.initial_accumulator_value,
+            sqrt_scaling=[self.schema.get_slot(f.name).sqrt_scaling
+                          for f in batch.id_type_features],
+            admission=self.device_cache_admission, device=self.device,
+            mesh=self.mesh)
+        self._cache_multi_id = multi_id
+        maker = (make_cached_bag_train_step if multi_id
+                 else make_cached_train_step)
+        self._cached_step = maker(
+            self.model, self.dense_optimizer, num_slots, dim, lr=opt.lr,
+            eps=opt.eps, g_square_momentum=opt.g_square_momentum,
+            loss_fn=self.loss_fn,
+            weight_bound=self.embedding_config.weight_bound,
+            capacity=self.device_cache_capacity, mesh=self.mesh)
+
+    def _cache_envelope(self, batch: PersiaBatch):
+        """(the refusal, None inside the envelope; whether the batch takes
+        the bag step; the slots' one dim)."""
+        if (self.worker is not None
+                and not hasattr(self.worker, "lookup_rows_with_state")):
+            # the JAX remote worker has no row reads either
+            return NotImplementedError(
+                "device cache needs an in-process embedding worker (its "
+                "miss import and write-back read and write whole PS rows); "
+                f"{type(self.worker).__name__} has no row access"), None, None
+        from persia_tpu_torch.data.batch import IDTypeFeatureWithSingleID
+        from persia_tpu_torch.embedding.optim import Adagrad
+
+        opt = self.embedding_optimizer
         if not isinstance(opt, Adagrad) or opt.vectorwise_shared:
-            raise NotImplementedError(
+            return NotImplementedError(
                 "device cache mirrors non-shared Adagrad on the device; "
-                f"got {type(opt).__name__}")
+                f"got {type(opt).__name__}"), None, None
         # the step is chosen by the features' TYPE: a single-id feature
         # has one id a sample in every batch, so the gather path never
         # meets a later bag; a base IDTypeFeature stream takes the bag
@@ -715,62 +775,41 @@ class TrainCtx(EmbeddingCtx):
             # both steps feed the model pooled (B, D) values a slot; a raw
             # slot would be silently sum-pooled
             if not slot.embedding_summation:
-                raise NotImplementedError(
+                return NotImplementedError(
                     "device cache needs summed (pooled) slots; "
-                    f"{f.name} is a raw slot")
+                    f"{f.name} is a raw slot"), None, None
             if slot.pooling != "sum":
-                raise NotImplementedError(
+                return NotImplementedError(
                     "device cache supports pooling='sum' slots only; "
                     f"{f.name} uses pooling={slot.pooling!r} (worker-tier "
-                    "pooling): use the uncached hybrid path")
+                    "pooling): use the uncached hybrid path"), None, None
             dims.add(slot.dim)
         if len(dims) != 1:
-            raise NotImplementedError(
-                f"device cache needs one uniform slot dim, got {dims}")
-        dim = dims.pop()
-        num_slots = len(batch.id_type_features)
-        self._cache_engine = DeviceCacheEngine(
-            self.worker, self.device_cache_capacity, num_slots, dim,
-            acc_init=opt.initial_accumulator_value,
-            sqrt_scaling=[self.schema.get_slot(f.name).sqrt_scaling
-                          for f in batch.id_type_features],
-            admission=self.device_cache_admission, device=self.device)
-        self._cache_multi_id = multi_id
-        maker = (make_cached_bag_train_step if multi_id
-                 else make_cached_train_step)
-        self._cached_step = maker(
-            self.model, self.dense_optimizer, num_slots, dim, lr=opt.lr,
-            eps=opt.eps, g_square_momentum=opt.g_square_momentum,
-            loss_fn=self.loss_fn,
-            weight_bound=self.embedding_config.weight_bound,
-            capacity=self.device_cache_capacity)
+            return NotImplementedError(
+                f"device cache needs one uniform slot dim, got {dims}"), \
+                None, None
+        return None, multi_id, dims.pop()
 
     def _cached_train_step(self, batch: PersiaBatch):
+        if self.mesh is not None:
+            self._check_same_batch(batch)
         self._ensure_cache(batch)
         eng = self._cache_engine
         with self._stage("lookup"):
-            prep = (eng.prepare_bags if self._cache_multi_id
-                    else eng.prepare)(batch.id_type_features)
-        if self._cache_multi_id:
-            (*idx, cold_idx, cold_vals, cold_acc, evicted, evicted_mask,
-             inverse, unique_slots) = prep
-        else:
-            (slot_idx, cold_idx, cold_vals, cold_acc, evicted, evicted_mask,
-             inverse, unique_slots) = prep
-            idx = [slot_idx]
+            # the leader's plan, on every rank's device
+            idx, cold, read_evicted, rest = eng.share_plan(
+                batch.id_type_features, self._cache_multi_id)
         with self._stage("h2d"):
             non_id = [self.to_device(f.data)
                       for f in batch.non_id_type_features]
             label = self.to_device(batch.labels[0].data)
-            idx = [self.to_device(a) for a in idx]
-            cold = [self.to_device(a) for a in (cold_idx, cold_vals,
-                                                cold_acc, inverse,
-                                                unique_slots)]
         with self._stage("dense"):
             loss, pred, ev_vals, ev_acc = self._cached_step(
-                eng.cache_vals, eng.cache_acc, non_id, *idx, *cold, label)
-        with self._stage("update"):
-            eng.finish(evicted, evicted_mask, ev_vals, ev_acc)
+                eng.cache_vals, eng.cache_acc, non_id, *idx, *cold, label,
+                read_evicted=read_evicted)
+        if rest is not None:  # the leader's
+            with self._stage("update"):
+                eng.finish(*rest, ev_vals, ev_acc)
         return loss, pred
 
     # --- over a mesh ---------------------------------------------------------
@@ -1058,43 +1097,52 @@ class TrainCtx(EmbeddingCtx):
         return self._eval_step(non_id, emb_values, emb_indices)
 
 
-def _negotiate_multirank_cache(capacity: int, world: int) -> int:
-    """The cache over a mesh of ``world`` > 1 ranks, JAX's
-    ``jax.process_count() > 1`` case: each rank is a process, and the
-    cache's mapper, miss imports and write-backs are one process's state.
-    ``PERSIA_MULTIHOST_CACHE=off`` (the default) logs a warning and
-    returns 0 (train uncached), ``refuse`` raises. Returns the capacity
-    to use."""
+def _host_name() -> str:
+    import socket
+
+    return socket.gethostname()
+
+
+def _negotiate_multihost_cache(capacity: int, hosts: int) -> int:
+    """The cache over a mesh whose ranks span ``hosts`` > 1 hosts, JAX's
+    ``jax.process_count() > 1`` case: the cache's mapper, miss imports and
+    write-backs are the leader's host state, and rows on another host are
+    not its to import or flush. ``PERSIA_MULTIHOST_CACHE=off`` (the
+    default) logs a warning and returns 0 (train uncached), ``refuse``
+    raises, another value is a ``ValueError``. Returns the capacity to
+    use."""
     from persia_tpu_torch import knobs
 
     mode = str(knobs.get("PERSIA_MULTIHOST_CACHE")).lower()
     if mode == "refuse":
         raise NotImplementedError(
-            f"device cache is single-controller only: a mesh of {world} "
-            f"ranks, each a process; the sign->slot mapper and the "
-            f"miss/evict host transfers live in one process. Use the "
-            f"uncached hybrid path (or device mode) on a mesh, or leave "
+            f"device cache is single-controller only: the mesh's ranks "
+            f"span {hosts} hosts; the sign->slot mapper and the miss/evict "
+            f"host transfers live on one host. Use the uncached hybrid path "
+            f"(or device mode) across hosts, or leave "
             f"PERSIA_MULTIHOST_CACHE=off to train uncached instead of "
             f"raising")
     if mode != "off":
         raise ValueError(f"PERSIA_MULTIHOST_CACHE={mode!r}: expected 'off' "
                          f"or 'refuse'")
     _logger.warning(
-        "device cache requested (capacity=%d) on a mesh of %d ranks: the "
+        "device cache requested (capacity=%d) on a mesh over %d hosts: the "
         "cache's sign->slot mapper and miss/evict host transfers are "
         "single-controller state; NEGOTIATING DOWN: device cache "
         "DISABLED, continuing on the PS-only hybrid path. Set "
         "PERSIA_MULTIHOST_CACHE=refuse to make this a hard error instead.",
-        capacity, world)
+        capacity, hosts)
     return 0
 
 
 class _EvalCtx(EmbeddingCtx):
     def __init__(self, parent: TrainCtx):
-        # a context-parallel tower's attention needs every rank
-        self._every_rank = parent.mesh is not None and any(
-            getattr(m, "context_parallel_active", False)
-            for m in parent.model.modules())
+        # a context-parallel tower's attention needs every rank, and so
+        # does the flush of a cache sharded over them
+        self._every_rank = parent.mesh is not None and (
+            bool(parent.device_cache_capacity) or any(
+                getattr(m, "context_parallel_active", False)
+                for m in parent.model.modules()))
         if (parent.mesh is not None and not self._every_rank
                 and not parent._leader):
             import torch.distributed as dist
@@ -1127,10 +1175,11 @@ def eval_ctx(train_ctx: Optional[TrainCtx] = None) -> _EvalCtx:
     current context): eval lookups and an eval-mode forward.
 
     Over a mesh the sparse leader evaluates alone (another rank raises),
-    except for a context-parallel tower: then every rank enters the
-    context and calls ``forward`` on the same batch, the leader looks it
-    up and shares the values, each rank runs its part of the attention,
-    and every rank returns the full predictions."""
+    except for a context-parallel tower or a cached context (its flush is
+    collective): then every rank enters the context and calls ``forward``
+    on the same batch, the leader looks it up and shares the values, each
+    rank runs the tower (its part of the attention), and every rank
+    returns the full predictions."""
     ctx = train_ctx or current_ctx()
     if not isinstance(ctx, TrainCtx):
         raise RuntimeError("eval_ctx requires a TrainCtx")

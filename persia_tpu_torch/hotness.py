@@ -81,6 +81,26 @@ class SpaceSaving:
     def __len__(self) -> int:
         return len(self._signs)
 
+    def min_count(self) -> int:
+        """The smallest tracked count (0 while below capacity)."""
+        if len(self._signs) < self.k:
+            return 0
+        return int(self._counts.min())
+
+    def offer(self, sign: int, inc: int = 1):
+        """One item: the sequential algorithm (a batch of one)."""
+        self.offer_many(np.array([sign], dtype=np.uint64),
+                        np.array([inc], dtype=np.float64))
+
+    def count_of(self, sign: int) -> int:
+        """The tracked count of one sign (0 when untracked)."""
+        return int(self.counts_of(np.array([sign], dtype=np.uint64))[0])
+
+    @property
+    def counts(self) -> Dict[int, int]:
+        """sign -> tracked count, as a dict (small summaries)."""
+        return {int(s): int(c) for s, c in zip(self._signs, self._counts)}
+
     def counts_of(self, signs: np.ndarray) -> np.ndarray:
         """Tracked count of each sign (0 for untracked signs), int64: the
         hotness-admitted device-cache mapper queries its whole victim
@@ -210,6 +230,9 @@ class CountMinSketch:
             return ((h[None, :] + d * h2[None, :])
                     % np.uint64(self.width)).astype(np.int64)
 
+    def add(self, hashes: np.ndarray, counts: np.ndarray):
+        self.add_and_estimate(hashes, counts)
+
     def add_and_estimate(self, hashes: np.ndarray,
                          counts: np.ndarray) -> np.ndarray:
         """One pass: fold the batch in and return each hash's
@@ -230,6 +253,15 @@ class CountMinSketch:
             else:
                 np.minimum(est, row_est, out=est)
         return est
+
+    def estimate(self, hashes: np.ndarray) -> np.ndarray:
+        """Each hash's frequency upper bound (the min over the rows)."""
+        idx = self._indices(hashes)
+        est = self.rows[0][idx[0]]
+        for i in range(1, self.depth):
+            np.minimum(est, self.rows[i][idx[i]], out=est)
+        return est
+
 
 class _TableGlobal:
     """One table's whole-replica sketches (count-min + HLL + total).

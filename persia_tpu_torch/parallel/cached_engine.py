@@ -12,10 +12,18 @@ until the row is evicted (written back) or :meth:`flush_all` runs (the
 eval, checkpoint and snapshot entry points call it). A miss reads the
 victim buffer before the PS, so a row evicted and wanted again never
 loses its update in flight. One trainer only: caches replicated over
-trainers would fork hot rows' optimizer state. A rank of the port is a
-process, so ``TrainCtx`` over a mesh of more than one rank negotiates the
-cache off (``PERSIA_MULTIHOST_CACHE``), as the JAX package does over more
-than one process.
+trainers would fork hot rows' optimizer state.
+
+Over a mesh of ranks on one host (``mesh=``) the engine is the JAX
+package's single controller over a GSPMD-sharded cache: the sparse
+leader alone (the rank that holds the worker) keeps the mapper, the
+victim buffer, the flush thread and the counters; every rank holds its
+block of the cache tensors (``parallel.mesh.cache_window``). Each step
+the leader prepares the plan and :meth:`share_plan` broadcasts it;
+:meth:`flush_all` and :meth:`invalidate` are collective. A failure on
+the leader raises on every rank. ``TrainCtx`` turns the cache down
+(``PERSIA_MULTIHOST_CACHE``) only for a mesh whose ranks span hosts, as
+JAX does for ``jax.process_count() > 1``.
 
 The cache tensors change in place at every step, where the JAX arrays
 are immutable. So the evicted rows a step returns are new tensors, and
@@ -40,7 +48,7 @@ import itertools
 import logging
 import queue
 import threading
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +56,9 @@ import torch
 from persia_tpu_torch import knobs
 from persia_tpu_torch.device import DeviceLike, resolve_device
 from persia_tpu_torch.metrics import default_registry
+from persia_tpu_torch.parallel import collectives as coll
 from persia_tpu_torch.parallel.cached_train import (
+    _Rows,
     init_cache_arrays,
     pad_to_bucket,
 )
@@ -119,12 +129,17 @@ class DeviceCacheEngine:
     mode), ``admission`` the mapper's policy (default the
     ``PERSIA_TIER_ADMIT`` knob, ``lru``). ``wire_bytes_saved`` counts what
     the packed path (bf16 both ways) would have moved less what the cached
-    path moved."""
+    path moved. Over a ``mesh`` (module docstring) only the sparse leader
+    passes a ``worker``; every rank builds the engine alike."""
 
     def __init__(self, worker, capacity: int, num_slots: int, dim: int,
                  acc_init: float, sqrt_scaling=None,
                  admission: Optional[str] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        from persia_tpu_torch.parallel.mesh import is_leader
+
+        self.mesh = mesh
+        self.leader = mesh is None or is_leader(mesh)
         self.worker = worker
         self.capacity = int(capacity)
         self.num_slots = int(num_slots)
@@ -138,14 +153,18 @@ class DeviceCacheEngine:
                             else torch.cuda.current_device())
         self.sqrt_scaling = list(sqrt_scaling or [])
         self.admission = admission or knobs.get("PERSIA_TIER_ADMIT")
-        self.mapper = make_sign_slot_map(capacity, self.admission)
+        # the host state is the leader's alone
+        self.mapper = (make_sign_slot_map(capacity, self.admission)
+                       if self.leader else None)
         self.victims = VictimBuffer()
         self.cache_vals, self.cache_acc = init_cache_arrays(
-            capacity, dim, acc_init, self.device)
+            capacity, dim, acc_init, self.device, mesh)
+        self._rows = _Rows(mesh, self.capacity)
         self._flush_q: "queue.Queue" = queue.Queue()
         self._flush_token = 0
         self._flush_err: List[BaseException] = []
-        self._flush_thread = self._start_flush_thread()
+        self._flush_thread = (self._start_flush_thread() if self.leader
+                              else None)
         self.wire_bytes_saved = 0
         self._counts_lock = threading.Lock()
         reg = default_registry()
@@ -196,10 +215,11 @@ class DeviceCacheEngine:
 
     def stats(self) -> dict:
         """The counters (:data:`COUNTERS`, cumulative over the engine's
-        life) and ``resident_rows``, the signs cached now."""
+        life) and ``resident_rows``, the signs cached now; over a mesh the
+        whole mesh's on the leader, zeros on the other ranks."""
         with self._counts_lock:
             out = {name: int(c.value) for name, c in self._counters.items()}
-        out["resident_rows"] = len(self.mapper)
+        out["resident_rows"] = len(self.mapper) if self.leader else 0
         return out
 
     # --- per-batch host work ----------------------------------------------
@@ -331,13 +351,127 @@ class DeviceCacheEngine:
         return (cold_idx, cold_vals, cold_acc, evicted_signs, evicted_mask,
                 mpad)
 
+    # --- over a mesh --------------------------------------------------------
+
+    def _share_head(self, words: List[int], err: Optional[BaseException]
+                    ) -> List[int]:
+        """The leader's header ``words`` on every rank (the other ranks
+        pass as many placeholders). ``err``, a failure on the leader,
+        raises on every rank: the leader's own, a ``RuntimeError`` with
+        its message elsewhere, so that no rank waits on a collective the
+        others never reach. Without a mesh ``words``, or ``err`` raised."""
+        from persia_tpu_torch.parallel.mesh import leader_rank
+
+        if self.mesh is None:
+            if err is not None:
+                raise err
+            return words
+        src = leader_rank(self.mesh)
+        msg = b"" if err is None else f"{type(err).__name__}: {err}".encode()
+        head = torch.tensor([int(err is not None), len(msg), *words],
+                            dtype=torch.int64, device=self.device)
+        coll.broadcast_([head], src)
+        failed, n, *words = head.tolist()
+        if failed:
+            buf = (torch.frombuffer(bytearray(msg), dtype=torch.uint8)
+                   .to(self.device) if self.leader
+                   else torch.empty(n, dtype=torch.uint8, device=self.device))
+            coll.broadcast_([buf], src)
+            if err is not None:
+                raise err
+            raise RuntimeError(f"the sparse leader failed: "
+                               f"{buf.cpu().numpy().tobytes().decode()}")
+        return words
+
+    def _bcast(self, parts: Optional[Sequence[np.ndarray]], n: int, dtype
+               ) -> torch.Tensor:
+        """The leader's ``parts`` cast to ``dtype`` and laid end to end, as
+        one device tensor of ``n`` elements on every rank (the other ranks
+        pass None). The leader fills a pinned buffer, so a part is copied
+        once on the host."""
+        from persia_tpu_torch.parallel.mesh import leader_rank
+
+        cuda = self.device.type == "cuda"
+        if self.leader:
+            buf = torch.empty(n, dtype=dtype, pin_memory=cuda)
+            flat, pos = buf.numpy(), 0
+            for a in parts:
+                flat[pos:pos + a.size] = a.reshape(-1)
+                pos += a.size
+            # the caching host allocator keeps the pinned block alive
+            # until the asynchronous copy has run
+            t = buf.to(self.device, non_blocking=True) if cuda else buf
+        else:
+            t = torch.empty(n, dtype=dtype, device=self.device)
+        if self.mesh is not None:
+            coll.broadcast_([t], leader_rank(self.mesh))
+        return t
+
+    def share_plan(self, id_type_features, bags: bool):
+        """One step's plan on every rank of the mesh (without a mesh on
+        the one rank's device): the leader runs :meth:`prepare` (``bags``:
+        :meth:`prepare_bags`) and broadcasts a header, then the indices as
+        one int32 tensor and the miss rows (and the bags' scales) as one
+        f32 tensor. Returns (the index tensors of the step: ``[slot_idx]``
+        or ``[flat_slot_idx, seg, scale]``; ``[cold_idx, cold_vals,
+        cold_acc, inverse, unique_slots]``; whether a row was evicted; the
+        leader's ``(evicted_signs, evicted_mask)``, None elsewhere)."""
+        err = prep = None
+        words = [0] * 5
+        if self.leader:
+            try:
+                if self._flush_err:
+                    raise self._flush_err[0]
+                prep = (self.prepare_bags if bags else self.prepare)(
+                    id_type_features)
+                if bags:
+                    (flat, seg, scale, cold_idx, cold_vals, cold_acc,
+                     ev_signs, ev_mask, inverse, unique) = prep
+                    ints = (flat, seg, cold_idx, inverse, unique)
+                    floats = (cold_vals, cold_acc, scale)
+                    batch, slots = scale.shape
+                else:
+                    (slot_idx, cold_idx, cold_vals, cold_acc, ev_signs,
+                     ev_mask, inverse, unique) = prep
+                    ints = (slot_idx, cold_idx, inverse, unique)
+                    floats = (cold_vals, cold_acc)
+                    batch, slots = slot_idx.shape
+                words = [batch, slots, len(inverse), len(cold_idx),
+                         int(ev_mask.sum())]
+            except Exception as e:  # raised on every rank, below
+                err = e
+        batch, slots, n_pos, n_miss, n_evicted = self._share_head(words, err)
+        d = self.dim
+        n_int = (4 if bags else 3) * n_pos + n_miss
+        n_float = 2 * n_miss * d + (batch * slots if bags else 0)
+        i32 = self._bcast(ints if self.leader else None, n_int, torch.int32)
+        f32 = self._bcast(floats if self.leader else None, n_float,
+                          torch.float32)
+        if bags:
+            flat, seg, cold_idx, inverse, unique = i32.split(
+                [n_pos, n_pos, n_miss, n_pos, n_pos])
+            cold_vals, cold_acc, scale = f32.split(
+                [n_miss * d, n_miss * d, batch * slots])
+            idx = [flat, seg, scale.view(batch, slots)]
+        else:
+            slot_idx, cold_idx, inverse, unique = i32.split(
+                [n_pos, n_miss, n_pos, n_pos])
+            cold_vals, cold_acc = f32.split([n_miss * d, n_miss * d])
+            idx = [slot_idx.view(batch, slots)]
+        cold = [cold_idx, cold_vals.view(n_miss, d),
+                cold_acc.view(n_miss, d), inverse, unique]
+        rest = (ev_signs, ev_mask) if self.leader else None
+        return idx, cold, n_evicted > 0, rest
+
     def finish(self, evicted_signs: np.ndarray, evicted_mask: np.ndarray,
                ev_vals: torch.Tensor, ev_acc: torch.Tensor) -> None:
         """Queue a step's evicted rows for the PS write-back: their copy
         to the host starts here, on the training thread's stream. The mask
         (not the sign's value) selects real evictions: sign 0 is legal. A
-        write-back that failed raises here."""
-        if self._flush_err:
+        write-back that failed raises here; over a mesh (the leader's call
+        alone) at the next :meth:`share_plan`, flush or invalidation, which
+        raise on every rank."""
+        if self._flush_err and self.mesh is None:
             raise self._flush_err[0]
         real = np.nonzero(evicted_mask)[0]
         if not len(real):
@@ -392,22 +526,54 @@ class DeviceCacheEngine:
     def flush_all(self) -> int:
         """Write every cached row (and the victim buffer) back to the PS,
         once the queued write-backs landed; the cache stays valid for more
-        training. Returns the rows written."""
-        self._drain_flush_queue()
-        signs, slots = self.mapper.signs_and_slots()
-        n = len(signs)
+        training. Returns the rows written. Over a mesh collective: the
+        leader broadcasts its resident slots, every rank reads its own
+        rows (zeros elsewhere), their sum over the world is the cache's
+        rows, and the leader writes them; every rank returns the count."""
+        err = signs = slots = None
+        if self.leader:
+            try:
+                self._drain_flush_queue()
+                signs, slots = self.mapper.signs_and_slots()
+            except Exception as e:  # raised on every rank
+                err = e
+        (n,) = self._share_head([0 if signs is None else len(signs)], err)
+        written = 0
         if n:
-            idx = torch.from_numpy(slots.astype(np.int64)).to(self.device)
-            # copies on this thread's stream, ordered after every step it ran
-            vals = self.cache_vals.index_select(0, idx).cpu().numpy()
-            acc = self.cache_acc.index_select(0, idx).cpu().numpy()
-            self.worker.set_rows(signs, np.concatenate([vals, acc], axis=1),
-                                 self.dim)
-            self._count("writeback_rows", n)
+            idx = self._bcast([slots] if self.leader else None, n,
+                              torch.int64)
+            try:
+                written = self._write_rows(signs, idx)
+            except Exception as e:  # the leader's write; raised below
+                err = e
+        if self.leader and err is None:
+            try:
+                written += self._write_victims()
+            except Exception as e:
+                err = e
+        (written,) = self._share_head([written], err)
+        return written
+
+    def _write_rows(self, signs, idx: torch.Tensor) -> int:
+        """The cache rows of slots ``idx`` (over a mesh every rank's part,
+        summed: a collective) written to the PS under ``signs`` by the
+        leader. The reads are copies on this thread's stream, ordered
+        after every step it ran."""
+        vals = self._rows.gather(self.cache_vals, idx)
+        acc = self._rows.gather(self.cache_acc, idx)
+        if not self.leader:
+            return 0
+        self.worker.set_rows(signs, np.concatenate(
+            [vals.cpu().numpy(), acc.cpu().numpy()], axis=1), self.dim)
+        self._count("writeback_rows", len(signs))
+        return len(signs)
+
+    def _write_victims(self) -> int:
+        n = 0
         while True:
             item = self.victims.pop_any()
             if item is None:
-                break
+                return n
             # after the drain this is normally empty; a row left behind
             # (a flush after close()) is still written back
             sign, (host, row) = item
@@ -418,18 +584,26 @@ class DeviceCacheEngine:
                 self.dim)
             self._count("writeback_rows", 1)
             n += 1
-        return n
 
     def invalidate(self) -> None:
         """Drop every cached row WITHOUT writing it back (a checkpoint or
         snapshot restore: the cache predates the loaded rows). Queued
-        write-backs land first, before the restore overwrites them."""
-        self._drain_flush_queue()
-        while self.victims.pop_any() is not None:
-            pass
-        self.mapper = make_sign_slot_map(self.capacity, self.admission)
-        self._counted = (0, 0, 0, 0)
-        self._m_resident.set(0)
+        write-backs land first, before the restore overwrites them. Over a
+        mesh collective: the leader drops its host state, every rank
+        clears its block."""
+        err = None
+        if self.leader:
+            try:
+                self._drain_flush_queue()
+            except Exception as e:  # raised on every rank
+                err = e
+        self._share_head([], err)
+        if self.leader:
+            while self.victims.pop_any() is not None:
+                pass
+            self.mapper = make_sign_slot_map(self.capacity, self.admission)
+            self._counted = (0, 0, 0, 0)
+            self._m_resident.set(0)
         with torch.no_grad():
             self.cache_vals.zero_()
             self.cache_acc.fill_(self.acc_init)
@@ -445,12 +619,12 @@ class DeviceCacheEngine:
     def close(self):
         """Stop the flush thread (``TrainCtx.__exit__``). The cache and
         the mapper stay valid; :meth:`ensure_open` restarts the thread."""
-        if self._flush_thread.is_alive():
+        if self._flush_thread is not None and self._flush_thread.is_alive():
             self._flush_q.put(None)
             self._flush_thread.join(timeout=30)
 
     def ensure_open(self):
-        if not self._flush_thread.is_alive():
+        if self.leader and not self._flush_thread.is_alive():
             # an error kept from the context's previous life was raised at
             # its exit, or that exit was on another exception and skipped
             # the flush, losing those write-backs: say so, and start clean
@@ -465,4 +639,4 @@ class DeviceCacheEngine:
 
     @property
     def hit_rate(self) -> float:
-        return self.mapper.hit_rate
+        return self.mapper.hit_rate if self.leader else 0.0

@@ -10,6 +10,9 @@ ranks with the dim names ``("data", "model")``:
 - ``model``: the axis context parallelism shards a sequence over, and
   device mode's tables' rows (:func:`table_window`).
 
+The device cache's rows are sharded over both axes together
+(:func:`cache_window`).
+
 The JAX package places a global array with ``batch_sharding`` /
 ``replicated`` / ``shard_batch_pytree``; in a process-per-rank program
 every rank holds the global batch and takes its own rows
@@ -118,3 +121,25 @@ def table_window(mesh: DeviceMesh, vocab: int, name: str = "table"
                          f"contiguous blocks)")
     n = vocab // m
     return axis_index(mesh, MODEL_AXIS) * n, n
+
+
+def cache_rows(capacity: int, ranks: int) -> int:
+    """The device cache's row count over ``ranks``: ``capacity`` rows and
+    the dummy row, padded up to a multiple of ``ranks``
+    (``init_cache_arrays`` under a JAX mesh)."""
+    rows = capacity + 1
+    return rows + (-rows) % ranks
+
+
+def cache_window(mesh: DeviceMesh, capacity: int) -> Tuple[int, int]:
+    """This rank's rows ``(lo, n)`` of the device cache sharded over every
+    rank of the mesh (``_row_sharding``'s ``P(("data", "model"))``):
+    :func:`cache_rows` split in contiguous blocks of ``n = rows / W``,
+    data-major, so rank (i, j) of a (d, m) mesh holds block ``i * m + j``.
+    The dummy row ``capacity`` lies in exactly one block; the pad rows
+    past it are never addressed."""
+    w = mesh.size()
+    n = cache_rows(capacity, w) // w
+    block = (axis_index(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS)
+             + axis_index(mesh, MODEL_AXIS))
+    return block * n, n

@@ -244,6 +244,12 @@ class _ArenaShard:
     def live_rows(self) -> int:
         return sum(c.live for c in self.classes)
 
+    @property
+    def emb_bytes(self) -> int:
+        """The embedding bytes of the resident rows (their stored
+        precision, no optimizer state)."""
+        return sum(c.live * c.emb_bytes for c in self.classes)
+
     # --- flat sign index ------------------------------------------------
 
     def probe_locked(self, keys: np.ndarray) -> np.ndarray:
@@ -578,8 +584,20 @@ class ArenaEmbeddingHolder:
     def resident_bytes(self) -> int:
         return sum(s.resident_bytes for s in self._shards)
 
+    @property
+    def resident_emb_bytes(self) -> int:
+        """The embedding share of :attr:`resident_bytes` (the health
+        document's ``resident_emb_bytes``)."""
+        return sum(s.emb_bytes for s in self._shards)
+
     def resident_bytes_per_shard(self) -> List[int]:
         return [s.resident_bytes for s in self._shards]
+
+    def row_nbytes(self, dim: int) -> int:
+        """One row's stored bytes at ``dim``: the embedding at the row
+        precision and the registered optimizer's f32 state."""
+        space = self.optimizer.require_space(dim) if self.optimizer else 0
+        return self._rp.entry_nbytes(dim, space)
 
     @property
     def index_miss_count(self) -> int:

@@ -238,6 +238,13 @@ class SparseOptimizer:
         """Apply one optimizer step to every row of ``entries`` in place."""
         raise NotImplementedError
 
+    def update_lr(self, lr: float) -> None:
+        pass
+
+    def to_config(self) -> dict:
+        """The config :meth:`from_config` builds this optimizer from."""
+        raise NotImplementedError
+
     @staticmethod
     def from_config(config: dict,
                     feature_index_prefix_bit: int = 0) -> "SparseOptimizer":
@@ -263,6 +270,12 @@ class SparseSGD(SparseOptimizer):
     def update(self, entries, grads, dim, batch_level_state=None):
         emb = entries[:, :dim]
         emb -= self.lr * (grads + self.wd * emb)
+
+    def update_lr(self, lr: float) -> None:
+        self.lr = lr
+
+    def to_config(self) -> dict:
+        return {"type": "sgd", "lr": self.lr, "wd": self.wd}
 
 
 class SparseAdagrad(SparseOptimizer):
@@ -304,6 +317,15 @@ class SparseAdagrad(SparseOptimizer):
             emb -= self.lr * grads / np.sqrt(acc + self.eps)
             acc *= self.g_square_momentum
             acc += grads * grads
+
+    def update_lr(self, lr: float) -> None:
+        self.lr = lr
+
+    def to_config(self) -> dict:
+        return {"type": "adagrad", "lr": self.lr, "wd": self.wd,
+                "g_square_momentum": self.g_square_momentum,
+                "initialization": self.initialization, "eps": self.eps,
+                "vectorwise_shared": self.vectorwise_shared}
 
 
 class SparseAdam(SparseOptimizer):
@@ -367,6 +389,13 @@ class SparseAdam(SparseOptimizer):
         m_hat = m / (1.0 - b1p)
         v_hat = v / (1.0 - b2p)
         emb -= self.lr * m_hat / (self.eps + np.sqrt(v_hat))
+
+    def update_lr(self, lr: float) -> None:
+        self.lr = lr
+
+    def to_config(self) -> dict:
+        return {"type": "adam", "lr": self.lr, "beta1": self.beta1,
+                "beta2": self.beta2, "eps": self.eps}
 
 
 def apply_weight_bound(emb: np.ndarray, bound: float) -> None:

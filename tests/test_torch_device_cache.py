@@ -22,8 +22,8 @@
   bags; ``eval_ctx`` flushes, ``load_checkpoint`` invalidates, a cached
   run resumed from a snapshot equals the unbroken one bit for bit
   (deterministic algorithms on), a ``DataLoader`` over a cached context
-  equals the synchronous run; the envelope's refusals; over a mesh of two
-  ranks the cache is negotiated off, or refused.
+  equals the synchronous run; the envelope's refusals; over a mesh whose
+  ranks span two hosts the cache is negotiated off, or refused.
 - One ``gpu`` test: cached against uncached on the card (``python -m
   pytest tests/test_torch_device_cache.py -m gpu --noconftest``).
 """
@@ -990,10 +990,13 @@ def test_cached_ctx_refuses_a_looked_up_batch():
 
 
 def test_cache_over_a_mesh_of_two_ranks(monkeypatch, caplog):
-    """A rank is a process, so a mesh of two is the JAX package's
-    ``jax.process_count() > 1``: by default the context warns and trains
-    uncached; ``PERSIA_MULTIHOST_CACHE=refuse`` raises; another value is
-    an error. Checked before the context joins the mesh."""
+    """A mesh of two ranks on one host caches (its rows sharded over the
+    ranks: ``tests/test_torch_cached_mesh.py``). A mesh whose ranks span
+    two hosts is the JAX package's ``jax.process_count() > 1``: by
+    default the context warns and trains uncached;
+    ``PERSIA_MULTIHOST_CACHE=refuse`` raises; another value is an error.
+    Decided once the context has joined the mesh (the ranks count their
+    hosts together)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from persia_tpu_torch import models as tm
@@ -1002,38 +1005,42 @@ def test_cache_over_a_mesh_of_two_ranks(monkeypatch, caplog):
     mesh = DeviceMesh("cpu", torch.arange(2).reshape(2, 1),
                       mesh_dim_names=("data", "model"), _init_backend=False,
                       _rank=0)
-    joined = []
+    joined, hosts = [], [1]
     monkeypatch.setattr(TrainCtx, "_join_mesh",
                         lambda self: joined.append(self))
+    monkeypatch.setattr(TrainCtx, "_mesh_host_count",
+                        lambda self: hosts[0])
     model = tm.DLRM(NUM_DENSE, NUM_SLOTS, embedding_dim=DIM,
                     compute_dtype=torch.float32, device="cpu")
     schema = _schema(tcfg)
 
-    def build():
+    def build(on=mesh):
         return TrainCtx(model, torch.optim.Adam(model.parameters()), None,
                         schema, TWorker(schema, [THolder(1000, 2)]),
-                        device="cpu", mesh=mesh, device_cache_capacity=64)
+                        device="cpu", mesh=on, device_cache_capacity=64)
 
+    monkeypatch.setenv("PERSIA_MULTIHOST_CACHE", "refuse")
+    ctx = build()  # one host: the knob is not read
+    assert ctx.device_cache_capacity == 64 and joined == [ctx]
+    hosts[0] = 2
+    monkeypatch.delenv("PERSIA_MULTIHOST_CACHE")
     with caplog.at_level(logging.WARNING, logger="persia_tpu_torch.ctx"):
         ctx = build()
-    assert ctx.device_cache_capacity == 0 and joined == [ctx]
-    assert "NEGOTIATING DOWN" in caplog.text
+    assert ctx.device_cache_capacity == 0 and joined[-1] is ctx
+    assert "NEGOTIATING DOWN" in caplog.text and "2 hosts" in caplog.text
     monkeypatch.setenv("PERSIA_MULTIHOST_CACHE", "refuse")
     with pytest.raises(NotImplementedError, match="single-controller"):
         build()
     monkeypatch.setenv("PERSIA_MULTIHOST_CACHE", "maybe")
     with pytest.raises(ValueError, match="PERSIA_MULTIHOST_CACHE"):
         build()
-    assert len(joined) == 1
-    # a mesh of one rank caches
+    assert len(joined) == 4
+    # a mesh of one rank caches and counts no hosts
     one = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
                      mesh_dim_names=("data", "model"), _init_backend=False,
                      _rank=0)
     monkeypatch.setenv("PERSIA_MULTIHOST_CACHE", "refuse")
-    ctx = TrainCtx(model, torch.optim.Adam(model.parameters()), None,
-                   schema, TWorker(schema, [THolder(1000, 2)]),
-                   device="cpu", mesh=one, device_cache_capacity=64)
-    assert ctx.device_cache_capacity == 64
+    assert build(one).device_cache_capacity == 64
 
 
 @pytest.mark.gpu

@@ -522,6 +522,39 @@ def test_hotness_sketches_are_bit_exact():
     assert len(ts.counts_of(np.empty(0, np.uint64))) == 0
 
 
+def test_hotness_single_item_api_matches_jax():
+    """``SpaceSaving.offer`` / ``count_of`` / ``min_count`` / ``counts`` and
+    ``CountMinSketch.add`` / ``estimate`` on the same seeded stream."""
+    from persia_tpu import hotness as jhot
+    from persia_tpu_torch import hotness as thot
+
+    rng = np.random.default_rng(4)
+    js, ts = jhot.SpaceSaving(16), thot.SpaceSaving(16)
+    jc, tc = jhot.CountMinSketch(64, 4), thot.CountMinSketch(64, 4)
+    assert ts.min_count() == js.min_count() == 0
+    stream = (rng.zipf(1.3, 600) % 300).astype(np.uint64)
+    for i, sign in enumerate(stream.tolist()):
+        inc = 1 + i % 3
+        js.offer(sign, inc)
+        ts.offer(sign, inc)
+        if i % 50 == 0:
+            assert ts.min_count() == js.min_count()
+    assert ts.counts == js.counts and len(ts.counts) == 16
+    assert ts.min_count() == js.min_count() > 0
+    for sign in list(js.counts)[:8] + [10**6, 0]:
+        assert ts.count_of(sign) == js.count_of(sign)
+    assert ts.count_of(10**6) == 0
+    hashes = thash.farmhash64_np(np.unique(stream))
+    for part in np.array_split(hashes, 5):
+        counts = rng.integers(1, 5, len(part))
+        jc.add(part, counts)
+        tc.add(part, counts)
+        np.testing.assert_array_equal(tc.estimate(hashes),
+                                      jc.estimate(hashes))
+    np.testing.assert_array_equal(tc.rows, jc.rows)
+    assert tc.estimate(hashes).min() >= 1
+
+
 def test_knob_types_reach_str_and_float(monkeypatch):
     """The device cache's knobs: a str is returned as it is set, a float
     parses, an empty float is unset, as in the JAX registry."""

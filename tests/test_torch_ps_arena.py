@@ -174,6 +174,42 @@ def test_byte_budget_and_set_get_entries(row_dtype):
     _assert_same_state(hs, universe, (16, 8))
 
 
+@pytest.mark.parametrize("row_dtype", ["fp16", "bf16"])
+def test_resident_emb_bytes_and_row_nbytes_match_jax(row_dtype):
+    """The embedding share of the resident bytes and one row's bytes, as
+    JAX's arena counts them, through inserts, evictions and ``clear``;
+    and the health document of a ``PsService`` over the holder."""
+    from persia_tpu.service import ps_service as jsvc
+    from persia_tpu_torch.service import ps_service as tsvc
+
+    hs = _pair(200, shards=2, row_dtype=row_dtype)
+    for dim in (4, 8, 12):
+        assert hs[1].row_nbytes(dim) == hs[0].row_nbytes(dim)
+    assert hs[1].row_nbytes(8) == 8 * (2 + 4)
+    rng = np.random.default_rng(6)
+    universe = rng.integers(1, 2**63, size=400, dtype=np.uint64)
+    for rnd in range(4):
+        signs = rng.choice(universe, size=120, replace=False)
+        for h in hs:
+            h.lookup(signs, (4, 8)[rnd % 2], True)
+        assert hs[1].resident_emb_bytes == hs[0].resident_emb_bytes > 0
+    assert hs[1].resident_emb_bytes < hs[1].resident_bytes
+    docs = []
+    for h, svc in zip(hs, (jsvc, tsvc)):
+        s = svc.PsService(h, port=0)
+        s.server.serve_background()
+        try:
+            docs.append(svc.PsClient(s.addr).health())
+        finally:
+            s.stop()
+    for key in ("row_dtype", "resident_bytes", "resident_emb_bytes"):
+        assert docs[1][key] == docs[0][key], key
+    assert docs[1]["resident_emb_bytes"] == hs[1].resident_emb_bytes
+    for h in hs:
+        h.clear()
+    assert hs[1].resident_emb_bytes == hs[0].resident_emb_bytes == 0
+
+
 @pytest.mark.parametrize("row_dtype", ROW_DTYPES)
 def test_dumps_cross_load(row_dtype):
     """Dumps are byte-identical (v1 for fp32, v2 for half rows); a JAX

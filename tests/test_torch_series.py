@@ -31,6 +31,13 @@ def _keys(reg) -> set:
         return set(reg._metrics)
 
 
+def _masked(key) -> tuple:
+    """(name, labels with the per-instance values masked)."""
+    name, labels = key
+    return name, tuple((k, "*" if k in PER_INSTANCE else v)
+                       for k, v in labels)
+
+
 def _new_series(reg, before: set) -> dict:
     """{(name, labels with the per-instance values masked): (kind, help,
     metric)} of the entries added since ``before``."""
@@ -39,11 +46,8 @@ def _new_series(reg, before: set) -> dict:
         for key, metric in reg._metrics.items():
             if key in before:
                 continue
-            name, labels = key
-            masked = tuple((k, "*" if k in PER_INSTANCE else v)
-                           for k, v in labels)
-            out[(name, masked)] = (reg._kinds[name], reg._help.get(name),
-                                   metric)
+            out[_masked(key)] = (reg._kinds[key[0]], reg._help.get(key[0]),
+                                 metric)
     return out
 
 
@@ -110,8 +114,21 @@ def _ps_traffic(pkg, tmp_path):
 
 
 def test_ps_series_equal_jax(tmp_path):
+    from persia_tpu.metrics import default_registry as jax_registry
+
+    # the registries are the process's: a series that an earlier test in
+    # this process registered in one package alone is not new there, so
+    # it is held to exist in that registry and left out of the comparison
+    had = {"port": {_masked(k) for k in _keys(default_registry())},
+           "jax": {_masked(k) for k in _keys(jax_registry())}}
     mine, health, rows = _ps_traffic("port", tmp_path)
     ref, jhealth, _ = _ps_traffic("jax", tmp_path)
+    for key in set(mine) - set(ref):
+        if key in had["jax"]:
+            del mine[key]
+    for key in set(ref) - set(mine):
+        if key in had["port"]:
+            del ref[key]
     # served_rpcs counts this client's calls up to the health read
     _assert_same_series(mine, ref)
     names = {k[0] for k in mine}

@@ -93,6 +93,30 @@ def test_sparse_optimizers_are_bit_exact(config):
     np.testing.assert_array_equal(*entries)
 
 
+@pytest.mark.parametrize("config", [
+    {"type": "sgd", "lr": 0.05, "wd": 0.01},
+    {"type": "adagrad", "lr": 0.02, "wd": 0.0, "g_square_momentum": 0.9,
+     "initialization": 0.01, "eps": 1e-10, "vectorwise_shared": True},
+    {"type": "adam", "lr": 0.002, "beta1": 0.8, "beta2": 0.99,
+     "eps": 1e-8},
+], ids=["sgd", "adagrad", "adam"])
+def test_sparse_optimizer_configs_round_trip_as_jax(config):
+    """``to_config`` equal to JAX's dict and read back by ``from_config``;
+    ``update_lr`` moves both alike (``tests/test_sparse_optim.py:144``)."""
+    from persia_tpu.ps import optim as joptim
+
+    j = joptim.SparseOptimizer.from_config(config)
+    t = toptim.SparseOptimizer.from_config(config)
+    assert t.to_config() == j.to_config() == config
+    clone = toptim.SparseOptimizer.from_config(t.to_config())
+    assert type(clone) is type(t) and clone.to_config() == t.to_config()
+    j.update_lr(0.125)
+    t.update_lr(0.125)
+    assert t.to_config() == j.to_config() and t.lr == 0.125
+    with pytest.raises(NotImplementedError):
+        toptim.SparseOptimizer().to_config()
+
+
 # --- PS store ---------------------------------------------------------------
 
 
@@ -579,12 +603,22 @@ def test_train_ctx_refusals(monkeypatch, tmp_path):
             assert ctx._resume_snap is None and ctx._step_count == 0
     finally:
         dist.destroy_process_group()
-    # the device cache over a mesh of two ranks (two processes), refused
-    # on request before the context joins the mesh
+    # the device cache over a mesh of two ranks on two hosts, refused on
+    # request once the context has joined the mesh; on one host it caches
     monkeypatch.setenv("PERSIA_MULTIHOST_CACHE", "refuse")
-    with pytest.raises(NotImplementedError, match="single-controller"):
-        TrainCtx(model, opt, None, schema, worker, device="cpu", mesh=mesh,
-                 device_cache_capacity=8)
+    monkeypatch.setattr(TrainCtx, "_join_mesh", lambda self: None)
+    for hosts in (2, 1):
+        monkeypatch.setattr(TrainCtx, "_mesh_host_count",
+                            lambda self, n=hosts: n)
+        if hosts == 2:
+            with pytest.raises(NotImplementedError,
+                               match="single-controller"):
+                TrainCtx(model, opt, None, schema, worker, device="cpu",
+                         mesh=mesh, device_cache_capacity=8)
+        else:
+            assert TrainCtx(model, opt, None, schema, worker, device="cpu",
+                            mesh=mesh, device_cache_capacity=8
+                            ).device_cache_capacity == 8
     # stored, as the JAX TrainCtx stores it
     assert TrainCtx(model, opt, None, schema, worker, device="cpu",
                     grad_update_interval=2).grad_update_interval == 2
