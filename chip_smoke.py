@@ -151,6 +151,21 @@ It imports only the port, torch and numpy, never JAX or the JAX package.
      criteo example's widths and optimizers, 30 steps of batch 4096 of
      ``criteo_learnable_batches``: every loss finite, the last 10 steps'
      mean below the first 10's, eval predictions in (0, 1).
+   - ``criteo_tsv``: the Criteo job on Criteo TSV files, through its
+     scripts' own functions. A child process started with the setup writes
+     16 × 4096 train and 4 × 4096 test lines with the port's
+     ``write_synthetic_tsv`` (seeds 0 and 1), a ``.gz`` copy of the train
+     file and the reference-format npz of ``tests/test_e2e_local.py``.
+     (a) ``criteo_batches`` reads the plain and the ``.gz`` file twice
+     each: every read bit-equal to the first (digests of each batch's
+     bytes); ``train.py``'s ``main`` with ``--local --train --test
+     --device cuda --model dlrm`` at the job's widths (26 slots of dim 16,
+     prefix bit 12, batch 4096, 2 in-process native PS): one step a batch
+     of 4096 lines, every loss finite, a finite test AUC (the labels are
+     noise: no bar). Printed: the reader's lines/s on the host and the
+     steps/s. (b) ``adult_income/train.py``'s ``main_npz`` on the npz at
+     batch 256 for 4 epochs on the card: AUC above 0.68. No kernel may
+     launch.
 7. ``snapshot_resume``, the spill tier, the hotness sketches, job
    snapshots and ``TrainCtx(resume_from=)``:
    - seq_rec at the example's widths through K2-K4, on 2 ×
@@ -629,6 +644,20 @@ AI_BAR = 0.70
 # tower until the orchestration phase came (PERF.md §4)
 CT_STEPS = 30
 CT_BATCH = 4096
+# criteo_tsv: the Criteo job's TSV path at its full width
+# (examples/criteo/config: 26 slots of dim 16, feature_index_prefix_bit 12;
+# DLRM over 13 dense features; batch 4096; 2 in-process native PS), on
+# files write_synthetic_tsv writes from these seeds in a child process
+# started with the setup; then adult-income's main_npz on the npz of
+# tests/test_e2e_local.py (generate(6144, seed=5)) at its batch, epochs and
+# bar
+CTSV_BATCH = 4096
+CTSV_TRAIN_LINES = 16 * CTSV_BATCH
+CTSV_TEST_LINES = 4 * CTSV_BATCH
+CTSV_SEEDS = {"train": 0, "test": 1}
+CTSV_NPZ_BATCH = 256
+CTSV_NPZ_EPOCHS = 4
+CTSV_NPZ_BAR = 0.68
 # snapshot_resume: seq_rec at the example's widths on spill-armed native
 # holders. Run A trains 2 N steps straight; run B trains N, snapshots and
 # is closed; a fresh stack resumes from the snapshot and trains N more.
@@ -3632,6 +3661,168 @@ def criteo_towers_phase(torch, card: str):
                 raise AssertionError(f"criteo_towers {name} {how}: eval "
                                      f"predictions outside (0, 1)")
     assert_no_kernel_launched("criteo_towers", card)
+
+
+def criteo_tsv_files_main(out_dir: str) -> int:
+    """The child of :class:`CriteoTsvFiles`: the phase's input files,
+    written with the port's own writers, and the seconds each took."""
+    import gzip
+
+    import numpy as np
+
+    from persia_tpu_torch.examples.adult_income import data_generator as ai
+    from persia_tpu_torch.examples.criteo.criteo_data import (
+        write_synthetic_tsv,
+    )
+
+    took = {}
+    for name, lines in (("train", CTSV_TRAIN_LINES),
+                        ("test", CTSV_TEST_LINES)):
+        t = time.perf_counter()
+        write_synthetic_tsv(os.path.join(out_dir, f"{name}.tsv"), lines,
+                            seed=CTSV_SEEDS[name])
+        took[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    with open(os.path.join(out_dir, "train.tsv"), "rb") as src, \
+            gzip.open(os.path.join(out_dir, "train.tsv.gz"), "wb",
+                      compresslevel=1) as dst:
+        shutil.copyfileobj(src, dst)
+    took["gz"] = time.perf_counter() - t
+    # tests/test_e2e_local.py's reference-format file: raw per-column
+    # codes, every column starting at 0
+    signs, dense, labels = ai.generate(6144, seed=5)
+    codes = signs - (np.arange(signs.shape[1], dtype=np.uint64)[None, :]
+                     * np.uint64(ai.VOCAB_PER_SLOT))
+    np.savez_compressed(
+        os.path.join(out_dir, "adult.npz"),
+        target=labels.ravel().astype(np.float32), continuous_data=dense,
+        categorical_data=codes, categorical_columns=np.array([
+            "workclass", "education", "marital_status", "occupation",
+            "relationship", "race", "gender", "native_country"]))
+    with open(os.path.join(out_dir, "took.json.tmp"), "w") as f:
+        json.dump(took, f)
+    os.replace(os.path.join(out_dir, "took.json.tmp"),
+               os.path.join(out_dir, "took.json"))
+    return 0
+
+
+class CriteoTsvFiles:
+    """The phase's files, written by a child process from the setup on
+    (the writer draws every field from the generator in turn, ~150 us a
+    line on one core), so that the phase itself only reads them."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="criteo_tsv_")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "criteo_tsv_files",
+             self.dir])
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.dir, name)
+
+    def wait(self) -> dict:
+        """The files' seconds to write; raises if the writer failed."""
+        rc = self.proc.wait(timeout=600)
+        waited = time.perf_counter() - self.t0
+        if rc != 0:
+            raise RuntimeError(f"criteo_tsv: the file writer exited {rc}")
+        with open(self.path("took.json")) as f:
+            return dict(json.load(f), since_setup=waited)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def tsv_digests(path: str) -> list:
+    """Each batch of ``criteo_batches(path, CTSV_BATCH)``: its id and a
+    digest of its bytes (labels, dense features, every slot's signs, the
+    id and ``requires_grad``)."""
+    import hashlib
+
+    from persia_tpu_torch.examples.criteo.criteo_data import criteo_batches
+
+    return [(b.batch_id, hashlib.sha256(b.to_bytes()).hexdigest())
+            for b in criteo_batches(path, CTSV_BATCH)]
+
+
+def criteo_tsv_phase(torch, card: str, files: CriteoTsvFiles) -> dict:
+    """(a) the Criteo job's ``--train`` / ``--test`` on the card, (b)
+    adult-income's ``main_npz`` (the module docstring); no kernel may
+    launch. Returns the kernels' launch counts."""
+    import numpy as np
+
+    from persia_tpu_torch.examples.adult_income import train as ai_train
+    from persia_tpu_torch.examples.criteo import train as criteo_train
+
+    took = files.wait()
+    _log(f"[criteo_tsv] files written by the child process: train "
+         f"{CTSV_TRAIN_LINES} lines {took['train']:.1f}s, test "
+         f"{CTSV_TEST_LINES} lines {took['test']:.1f}s, gzip "
+         f"{took['gz']:.1f}s (ready {took['since_setup']:.1f}s after the "
+         f"setup began) | card: {card}")
+    reset_launch_counts()
+    reads = {}
+    for name in ("train.tsv", "train.tsv.gz"):
+        for i in range(2):
+            t = time.perf_counter()
+            reads[name, i] = tsv_digests(files.path(name))
+            wall = time.perf_counter() - t
+            _log(f"[criteo_tsv] (a) read {i + 1} of {name}: "
+                 f"{len(reads[name, i])} batches, "
+                 f"{CTSV_TRAIN_LINES / wall:.1f} lines/s on the host | "
+                 f"card: {card}")
+    first = reads["train.tsv", 0]
+    if len(first) != math.ceil(CTSV_TRAIN_LINES / CTSV_BATCH):
+        raise AssertionError(f"criteo_tsv: {len(first)} batches")
+    for key, got in reads.items():
+        if got != first:
+            raise AssertionError(f"criteo_tsv: read {key} differs from the "
+                                 f"first read of the plain file")
+    out = os.path.join(files.dir, "result")
+    auc = criteo_train.main([
+        "--local", "--train", files.path("train.tsv"), "--test",
+        files.path("test.tsv"), "--device", "cuda", "--model", "dlrm",
+        "--batch-size", str(CTSV_BATCH), "--samples",
+        str(CTSV_TRAIN_LINES), "--test-samples", str(CTSV_TEST_LINES),
+        "--result-dir", out])
+    with open(os.path.join(out, "rank0.json")) as f:
+        run = json.load(f)
+    steps = math.ceil(CTSV_TRAIN_LINES / CTSV_BATCH)
+    _log(f"[criteo_tsv] (a) train.py --local --train --test --model dlrm "
+         f"(26 slots of dim 16, batch {CTSV_BATCH}): {run['steps']} steps, "
+         f"{run['steps'] / run['wall_s']:.3f} steps/s "
+         f"({run['rows'] / run['wall_s']:.1f} samples/s, the loop's wall "
+         f"{run['wall_s']:.2f}s with its DataLoader's parse), loss first "
+         f"{run['loss_first']:.5f} last {run['loss_last']:.5f}, test AUC "
+         f"on {CTSV_TEST_LINES} lines {auc:.4f} (noise labels: no bar) | "
+         f"card: {card}")
+    if run["steps"] != steps or run["rows"] != CTSV_TRAIN_LINES:
+        raise AssertionError(f"criteo_tsv: {run['steps']} steps of "
+                             f"{run['rows']} rows, not {steps} of "
+                             f"{CTSV_TRAIN_LINES}")
+    if not (np.isfinite(run["loss_first"]) and np.isfinite(run["loss_last"])
+            and np.isfinite(auc)):
+        raise AssertionError(f"criteo_tsv: a loss or the AUC is not "
+                             f"finite: {run}, {auc}")
+    t = time.perf_counter()
+    npz_auc = ai_train.main_npz(files.path("adult.npz"),
+                                files.path("adult.npz"),
+                                batch_size=CTSV_NPZ_BATCH,
+                                epochs=CTSV_NPZ_EPOCHS, device="cuda")
+    _log(f"[criteo_tsv] (b) adult_income main_npz, batch {CTSV_NPZ_BATCH}, "
+         f"{CTSV_NPZ_EPOCHS} epochs of 6144 samples: AUC {npz_auc:.4f} "
+         f"(bar {CTSV_NPZ_BAR}) in {time.perf_counter() - t:.1f}s | card: "
+         f"{card}")
+    if not npz_auc > CTSV_NPZ_BAR:
+        raise AssertionError(f"criteo_tsv (b): AUC {npz_auc:.4f} is not "
+                             f"above {CTSV_NPZ_BAR}")
+    return assert_no_kernel_launched("criteo_tsv", card)
 
 
 def ps_map(worker, tmp: str) -> dict:
@@ -9564,8 +9755,10 @@ def main() -> int:
               f"from the root of a checkout", file=sys.stderr)
         return 2
     procs = clusters = su_clusters = on_clusters = rs_clusters = None
-    fl_clusters = None
+    fl_clusters = tsv_files = None
     try:
+        # first: its child writes criteo_tsv's files while the setup builds
+        tsv_files = CriteoTsvFiles()
         clock = _PhaseClock()
         card = card_line()
         _log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -9661,6 +9854,10 @@ def main() -> int:
         clock("adult_income")
         criteo_towers_phase(torch, card)
         clock("criteo_towers")
+        tsv_launches = criteo_tsv_phase(torch, card, tsv_files)
+        tsv_files.stop()
+        tsv_files = None
+        clock("criteo_tsv")
         for name, n in snapshot_resume_phase(torch, card).items():
             records[name]["launches_snapshot_resume"] = n
         clock("snapshot_resume")
@@ -9694,6 +9891,8 @@ def main() -> int:
             records[name]["launches_reshard"] = n
         for name, n in fleet_launches.items():
             records[name]["launches_fleet"] = n
+        for name, n in tsv_launches.items():
+            records[name]["launches_criteo_tsv"] = n
         k1 = records["embedding_bag"]
         _log("[launch] host us a wrapper call at its main-path shape: K1 "
              f"multi-slot (26 slots) {k1['host_us_per_call']:.3f}, K1 "
@@ -9723,6 +9922,8 @@ def main() -> int:
             rs_clusters.stop()
         if fl_clusters is not None:
             fl_clusters.stop()
+        if tsv_files is not None:
+            tsv_files.stop()
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -9732,7 +9933,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["fleet_bench"]:  # the fleet phase's (a)
+    if sys.argv[1:2] == ["criteo_tsv_files"]:  # criteo_tsv's files
+        sys.exit(criteo_tsv_files_main(sys.argv[2]))
+    elif sys.argv[1:2] == ["fleet_bench"]:  # the fleet phase's (a)
         sys.exit(fleet_bench_main(sys.argv[2]))
     elif sys.argv[1:2] == ["autopilot_bench"]:  # the orchestration's (c)
         sys.exit(autopilot_bench_main(sys.argv[2]))

@@ -5,11 +5,16 @@ Run under the launcher with the coordinator, workers and trainers up:
 
     PERSIA_COORDINATOR_ADDR=... python -m persia_tpu_torch.launcher \
         data-loader persia_tpu_torch/examples/criteo/send_data.py \
-        --learnable --samples 49152 --batch-size 256 --vocab 500
+        --train day_0.tsv.gz
 
-Replica ``REPLICA_INDEX`` of ``REPLICA_SIZE`` sends ``--samples //
-REPLICA_SIZE`` samples drawn from seed ``--seed + REPLICA_INDEX``, so
-replicas never stream the same data, then an end of stream that names it.
+With ``--train`` (env ``CRITEO_TRAIN``), a Criteo TSV (``.gz``) file,
+replica ``REPLICA_INDEX`` of ``REPLICA_SIZE`` sends its share of the
+file's first ``--samples`` lines: every ``REPLICA_SIZE``-th batch of
+lines, skipped before parsing. Without it, the replica sends
+``--samples // REPLICA_SIZE`` synthetic samples (``--learnable``: the
+hidden-weight task) drawn from seed ``--seed + REPLICA_INDEX``. Either
+way replicas never stream the same data. Each ends with an end of stream
+that names it.
 """
 
 import argparse
@@ -26,6 +31,7 @@ except ImportError:  # a bare checkout: its root on the path
 from persia_tpu_torch import knobs  # noqa: E402
 from persia_tpu_torch.ctx import DataCtx  # noqa: E402
 from persia_tpu_torch.examples.criteo.criteo_data import (  # noqa: E402
+    criteo_batches,
     learnable_batches,
     synthetic_batches,
 )
@@ -41,9 +47,24 @@ from persia_tpu_torch.service.worker_service import \
 logger = logging.getLogger("criteo_data_loader")
 
 
-def main(argv=None):
-    logging.basicConfig(level=logging.INFO)
+def batch_source(args, replica_index: int, replica_size: int):
+    """The batches replica ``replica_index`` of ``replica_size`` sends."""
+    if args.train:
+        return criteo_batches(args.train, args.batch_size,
+                              max_samples=args.samples,
+                              replica_index=replica_index,
+                              replica_size=replica_size)
+    if not args.learnable:
+        logger.warning("no --train file; streaming synthetic batches")
+    make = learnable_batches if args.learnable else synthetic_batches
+    return make(args.samples // replica_size, args.batch_size,
+                seed=args.seed + replica_index, vocab_per_slot=args.vocab)
+
+
+def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--train", default=os.environ.get("CRITEO_TRAIN"),
+                   help="Criteo TSV (.gz) file (env CRITEO_TRAIN)")
     p.add_argument("--samples", type=int, default=512_000)
     p.add_argument("--batch-size", type=int, default=4096)
     p.add_argument("--vocab", type=int, default=1 << 20)
@@ -56,7 +77,12 @@ def main(argv=None):
                    default=knobs.get("PERSIA_NUM_WORKERS"))
     p.add_argument("--num-trainers", type=int,
                    default=int(os.environ.get("WORLD_SIZE") or 1))
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    args = parse_args(argv)
     replica_index = int(os.environ.get("REPLICA_INDEX") or 0)
     replica_size = int(os.environ.get("REPLICA_SIZE") or 1)
 
@@ -68,10 +94,7 @@ def main(argv=None):
     logger.info("dataflow to %d workers, %d trainers (loader %d/%d)",
                 args.num_workers, len(trainers), replica_index,
                 replica_size)
-    make = learnable_batches if args.learnable else synthetic_batches
-    batches = make(args.samples // replica_size, args.batch_size,
-                   seed=args.seed + replica_index,
-                   vocab_per_slot=args.vocab)
+    batches = batch_source(args, replica_index, replica_size)
     sent = 0
     with DataCtx(DataflowClient(worker, trainers)) as ctx:
         for batch in batches:

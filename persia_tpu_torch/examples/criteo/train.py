@@ -3,11 +3,15 @@
 Two modes:
 
 - **local** (no ``PERSIA_COORDINATOR_ADDR``, or ``--local``): the PS
-  holders live in this process; trains ``--samples`` synthetic samples
-  (``--learnable`` for the hidden-weight task) and prints the held-out
-  AUC. ``--mesh D,M`` brings up ``torch.distributed`` from torchrun's
-  environment (or a world of one) and trains data-parallel over it, the
-  holders in the leader's process.
+  holders live in this process; trains the first ``--samples`` lines of
+  the Criteo TSV (``.gz``) file ``--train`` and prints the AUC of the
+  first ``--test-samples`` lines of ``--test`` (by default ``--train``).
+  Without ``--train``, or with ``--synthetic``, it trains ``--samples``
+  synthetic samples (``--learnable`` for the hidden-weight task) and
+  scores held-out ones (seed 99). ``--mesh D,M`` brings up
+  ``torch.distributed`` from torchrun's environment (or a world of one)
+  and trains data-parallel over it, the holders in the leader's process,
+  which alone reads the file.
 - **service** (the k8s job's nnWorker entry): discover the embedding
   workers through the coordinator, register a dataflow receiver and
   train on the batches the data-loader role pushes. With ``--mesh D,M``
@@ -24,9 +28,10 @@ Two modes:
 ``--device`` (default ``cuda``) is where the tower trains; without a
 card, ``cuda`` raises. ``--result-dir`` has each process write
 ``rank<i>.json`` (steps, the rows it trained, its dense parameters'
-digest, samples/s, the AUC on the leader). The JAX example's TSV reader
-(``--train`` / ``--test``) is not ported.
+digest, samples/s, the AUC on the leader).
 
+    python persia_tpu_torch/examples/criteo/train.py --local \
+        --train day_0.tsv.gz --test day_1.tsv.gz
     python persia_tpu_torch/examples/criteo/train.py --learnable --device cpu
 
     PERSIA_TRAINER_PROCESSES=2 PERSIA_COORDINATOR_ADDR=... RANK=0 \
@@ -55,6 +60,7 @@ from persia_tpu_torch.examples.criteo.criteo_data import (  # noqa: E402
     NUM_DENSE,
     NUM_SLOTS,
     SLOT_NAMES,
+    criteo_batches,
     learnable_batches,
     synthetic_batches,
 )
@@ -132,6 +138,14 @@ def build_ctx(args, schema: EmbeddingSchema, worker=None, mesh=None,
 
 
 def batches_for(args, requires_grad=True, test=False):
+    """The TSV file's batches with ``--train`` (the test set's from
+    ``--test``, else from the train file), else the synthetic stream."""
+    if args.train and not args.synthetic:
+        path = (args.test or args.train) if test else args.train
+        return criteo_batches(
+            path, args.batch_size,
+            max_samples=args.test_samples if test else args.samples,
+            requires_grad=requires_grad)
     n = args.test_samples if test else args.samples
     make = learnable_batches if args.learnable else synthetic_batches
     return make(n, args.batch_size, seed=99 if test else args.seed,
@@ -143,7 +157,7 @@ def mesh_shape(args):
 
 
 def evaluate(args, ctx) -> float:
-    """The held-out AUC (seed 99) through ``eval_ctx``."""
+    """The test set's AUC (``batches_for``'s) through ``eval_ctx``."""
     from persia_tpu_torch.ctx import eval_ctx
     from persia_tpu_torch.utils import roc_auc
 
@@ -159,22 +173,32 @@ def evaluate(args, ctx) -> float:
 def train_loop(args, ctx, loader, world: int) -> dict:
     """Every step of ``loader``; returns the steps, the rows of the
     global batches, this rank's share of them (a batch's rows split over
-    the data axis when they divide evenly) and the loop's wall."""
+    the data axis when they divide evenly), the loop's wall and the first
+    and last losses. Raises when a loss is not finite."""
+    import torch
+
     steps = rows = mine = 0
     t0 = time.perf_counter()
-    loss = None
+    losses = []
     for batch in loader:
         loss, _ = ctx.train_step(batch)
+        losses.append(torch.as_tensor(loss).detach().float().reshape(()))
         n = int(batch.batch.labels[0].data.shape[0])
         rows += n
         mine += n // world if n % world == 0 else n
         if steps % args.log_every == 0:
             logger.info("step %d loss %.5f", steps, float(loss))
         steps += 1
-    if loss is not None and not np.isfinite(float(loss)):
-        raise RuntimeError(f"the last loss is not finite: {float(loss)}")
+    # one read of every loss after the loop: no host sync a step
+    seen = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+    wall = time.perf_counter() - t0
+    if not np.isfinite(seen).all():
+        raise RuntimeError(f"a loss is not finite: step "
+                           f"{int(np.argmin(np.isfinite(seen)))} of {seen}")
     return {"steps": steps, "rows": rows, "rows_trained": mine,
-            "wall_s": time.perf_counter() - t0}
+            "wall_s": wall,
+            "loss_first": float(seen[0]) if steps else None,
+            "loss_last": float(seen[-1]) if steps else None}
 
 
 def kernel_launches() -> dict:
@@ -310,6 +334,11 @@ def main_local(args, schema: EmbeddingSchema) -> float:
 def main(argv=None) -> float:
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser()
+    p.add_argument("--train", default=None, help="Criteo TSV (.gz) file")
+    p.add_argument("--test", default=None,
+                   help="Criteo TSV (.gz) test file (default: --train)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic batches even with --train")
     p.add_argument("--local", action="store_true",
                    help="in-process PS even when a coordinator address is "
                         "in the environment")
@@ -330,7 +359,7 @@ def main(argv=None) -> float:
     p.add_argument("--samples", type=int, default=512_000)
     p.add_argument("--test-samples", type=int, default=65_536)
     p.add_argument("--vocab", type=int, default=1 << 20,
-                   help="sign space a slot")
+                   help="synthetic sign space a slot")
     p.add_argument("--n-ps", type=int, default=2)
     p.add_argument("--ps-capacity", type=int, default=1_000_000_000)
     p.add_argument("--ps-shards", type=int, default=16)

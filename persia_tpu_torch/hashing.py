@@ -1,8 +1,9 @@
 """64-bit hashing for sign→shard routing and hashstack compression.
 
-A copy of ``persia_tpu/hashing.py``'s vectorized path: FarmHash64 of the
-8-byte little-endian encoding of a sign (FarmHash's HashLen0to16 for
-len == 8), bit-exact with the JAX package and the native C++ runtime.
+A copy of ``persia_tpu/hashing.py``: FarmHash64 of the 8-byte
+little-endian encoding of a sign (FarmHash's HashLen0to16 for len == 8),
+scalar and vectorized, bit-exact with the JAX package and the native C++
+runtime.
 """
 
 import numpy as np
@@ -10,6 +11,20 @@ import numpy as np
 _MASK = 0xFFFFFFFFFFFFFFFF
 _K2 = 0x9AE16A3B2F90404F
 _MUL8 = (_K2 + 16) & _MASK  # HashLen0to16's `mul` for len == 8
+
+
+def farmhash64(sign: int) -> int:
+    """FarmHash64 of one sign, a Python int (all arithmetic modulo
+    2**64)."""
+    a = (sign + _K2) & _MASK
+    b = sign & _MASK
+    c = ((((b >> 37) | (b << 27)) & _MASK) * _MUL8 + a) & _MASK
+    d = ((((a >> 25) | (a << 39)) & _MASK) + b) * _MUL8 & _MASK
+    h = ((c ^ d) * _MUL8) & _MASK
+    h ^= h >> 47
+    h = ((d ^ h) * _MUL8) & _MASK
+    h ^= h >> 47
+    return (h * _MUL8) & _MASK
 
 
 def farmhash64_np(signs: np.ndarray) -> np.ndarray:

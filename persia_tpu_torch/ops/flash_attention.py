@@ -398,3 +398,9 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor,
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, kv_mask, causal)
     return flash_attention_fwd(q, k, v, kv_mask=kv_mask, causal=causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """:func:`flash_attention_masked` with every key valid."""
+    return flash_attention_masked(q, k, v, causal=causal)

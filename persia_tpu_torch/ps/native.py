@@ -170,12 +170,16 @@ def native_jobs():
                 NATIVE_SRC_DIR / "capi.cc")]
 
 
-def load_native_lib() -> ctypes.CDLL:
+def load_native_lib(build_if_missing: bool = True
+                    ) -> Optional[ctypes.CDLL]:
     """The loaded native library, built from ``native/src/`` on first
-    use. Raises when the build fails or a symbol is missing."""
+    use. Raises when the build fails or a symbol is missing. With
+    ``build_if_missing=False`` a library not built yet is None."""
     global _lib
     if _lib is not None:
         return _lib
+    if not build_if_missing and not native_lib_path().exists():
+        return None
     with _lock:
         if _lib is None:
             compile_all(native_jobs())

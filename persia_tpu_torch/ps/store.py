@@ -34,6 +34,8 @@ A copy of the semantics of ``persia_tpu/ps/store.py``'s
   the PSD format (v1 for fp32 rows, v2 for half rows), the spilled rows
   included.
 
+:class:`EvictionMap` is the JAX package's map of one shard, on its own.
+
 The PSD dump format's header and record reader live here, as in the JAX
 package, and every holder writes and reads it.
 """
@@ -63,6 +65,77 @@ DUMP_MAGIC = b"PSD1"
 # PSD v2 per-record embedding dtype tags
 _DTYPE_CODES = {"fp32": 0, "fp16": 1, "bf16": 2}
 _DTYPE_NAMES = {v: k for k, v in _DTYPE_CODES.items()}
+
+
+class EvictionMap:
+    """A recency-ordered map of ``sign -> (dim, vec)`` with LRU eviction
+    at capacity (``persia_tpu/ps/store.py``'s ``EvictionMap``).
+
+    It counts rows, and with ``byte_capacity`` also the stored data
+    bytes (``resident_bytes``), of which ``dim * emb_itemsize`` an entry
+    are its embedding (``emb_bytes``). :class:`EmbeddingHolder` keeps the
+    same accounting inline, a shard's ``OrderedDict`` and two counters."""
+
+    def __init__(self, capacity: int, byte_capacity: Optional[int] = None,
+                 emb_itemsize: int = 4):
+        self.capacity = capacity
+        self.byte_capacity = byte_capacity
+        self.emb_itemsize = emb_itemsize
+        self.resident_bytes = 0
+        self.emb_bytes = 0
+        self._map: "OrderedDict[int, Tuple[int, np.ndarray]]" = OrderedDict()
+
+    def get(self, sign: int) -> Optional[Tuple[int, np.ndarray]]:
+        return self._map.get(sign)
+
+    def get_refresh(self, sign: int) -> Optional[Tuple[int, np.ndarray]]:
+        """:meth:`get`, a hit moved to the most recent end."""
+        v = self._map.get(sign)
+        if v is not None:
+            self._map.move_to_end(sign)
+        return v
+
+    def _account(self, entry: Tuple[int, np.ndarray], sign_mult: int):
+        dim, vec = entry
+        self.resident_bytes += sign_mult * vec.nbytes
+        self.emb_bytes += sign_mult * min(dim * self.emb_itemsize, vec.nbytes)
+
+    def insert(self, sign: int, dim: int,
+               vec: np.ndarray) -> List[Tuple[int, Tuple[int, np.ndarray]]]:
+        """Insert or replace ``sign`` as the most recent entry; returns the
+        ``(sign, (dim, vec))`` entries evicted, least recent first, to
+        bring the rows under ``capacity`` and the bytes under
+        ``byte_capacity`` (down to one row)."""
+        old = self._map.pop(sign, None)
+        if old is not None:
+            self._account(old, -1)
+        entry = (dim, vec)
+        self._map[sign] = entry
+        self._account(entry, +1)
+        evicted: List[Tuple[int, Tuple[int, np.ndarray]]] = []
+        while len(self._map) > self.capacity or (
+            self.byte_capacity is not None
+            and self.resident_bytes > self.byte_capacity
+            and len(self._map) > 1
+        ):
+            evicted_sign, old = self._map.popitem(last=False)
+            self._account(old, -1)
+            evicted.append((evicted_sign, old))
+        return evicted
+
+    def items_in_lru_order(self):
+        return self._map.items()
+
+    def clear(self):
+        self._map.clear()
+        self.resident_bytes = 0
+        self.emb_bytes = 0
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def __contains__(self, sign: int) -> bool:
+        return sign in self._map
 
 
 def bump_miss(counters: dict, kind: str, dim: int, n: int):

@@ -1134,6 +1134,9 @@ class PsClient:
     (``re``) on lookups and updates, so a resharding replica bounces a
     stale-epoch write before hashing it; off, no probe and no rider.
     ``deadline`` is the transport's default deadline a call.
+    ``enable_tags=False`` keeps the connection on untagged framing, and
+    ``legacy_frames`` packs requests in the concatenating frames, the
+    server's ``PERSIA_PS_LEGACY_FRAMES`` lever on the client side.
 
     The ``reshard_*`` calls (:mod:`persia_tpu_torch.reshard` drives them)
     take an optional fencing token ``(epoch, attempt)``, and carry the
@@ -1163,7 +1166,8 @@ class PsClient:
                 f"unknown wire codec {value!r} (expected one of "
                 f"{sorted(cls._WIRE_CODECS)})") from None
 
-    def __init__(self, addr: str, circuit_breaker=None,
+    def __init__(self, addr: str, enable_tags: bool = True,
+                 legacy_frames: bool = False, circuit_breaker=None,
                  wire_codec: Optional[str] = None,
                  hotness: Optional[bool] = None,
                  routing_wire: Optional[bool] = None,
@@ -1185,11 +1189,12 @@ class PsClient:
         if wire_codec is None:
             wire_codec = knobs.get("PERSIA_PS_WIRE_CODEC")
         self.wire_fp16, self.wire_int8 = self.parse_wire_codec(wire_codec)
-        self.client = RpcClient(addr, deadline=deadline,
+        self.client = RpcClient(addr, enable_tags=enable_tags,
+                                deadline=deadline,
                                 enable_codec=self.wire_fp16 or self.wire_int8,
                                 enable_routing=self.routing_wire)
         self._ef = GradErrorFeedback() if self.wire_int8 else None
-        self._pack = pack_arrays_sg
+        self._pack = pack_arrays if legacy_frames else pack_arrays_sg
         if circuit_breaker is None:
             circuit_breaker = knobs.get("PERSIA_PS_CIRCUIT_BREAKER")
         if circuit_breaker is True:

@@ -63,12 +63,13 @@ class WorkerService:
     CONCURRENT_STREAMS = 8
 
     def __init__(self, worker, host: str = "127.0.0.1", port: int = 0,
+                 concurrent_streams: int = CONCURRENT_STREAMS,
                  http_port: Optional[int] = None):
         self.worker = worker
         # a pipelining client's tagged requests complete out of order, so
         # one slow lookup does not hold back the next batch's ingestion
         self.server = RpcServer(host, port,
-                                concurrent_streams=self.CONCURRENT_STREAMS)
+                                concurrent_streams=concurrent_streams)
         # readiness is a call to every PS replica: cached for probes
         self._ready_lock = threading.Lock()
         self._ready_cache = (0.0, True)

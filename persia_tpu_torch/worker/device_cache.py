@@ -265,6 +265,13 @@ class SignSlotMap:
             np.asarray(emask, dtype=bool),
             inverse, unique_slots, len(uid))
 
+    def drop(self, sign: int) -> Optional[int]:
+        """Remove a sign (after a flush); returns its freed slot."""
+        slot = self._map.pop(int(sign), None)
+        if slot is not None:
+            self._free.append(slot)
+        return slot
+
     def signs_and_slots(self) -> Tuple[np.ndarray, np.ndarray]:
         """All cached (signs, slots) — the flush_all working set."""
         if not self._map:
@@ -625,6 +632,21 @@ class TieredSignSlotMap:
         return AssignResult(
             pslots, miss_pos, evicted, emask,
             remap[pslots], unique_slots, nu)
+
+    def drop(self, sign: int) -> Optional[int]:
+        """Remove a sign; returns its freed slot."""
+        pos = self._h_find_pos(int(sign))
+        if pos < 0:
+            return None
+        slot = int(self._h_slot[pos])
+        self._h_slot[pos] = -2
+        if self._state[slot] == 2:
+            self._hot_n -= 1
+        else:
+            self._win_n -= 1
+        self._state[slot] = 0
+        self._free.append(slot)
+        return slot
 
     def signs_and_slots(self) -> Tuple[np.ndarray, np.ndarray]:
         """All cached (signs, slots) across both regions."""

@@ -171,6 +171,16 @@ class DedupedFeature:
     def num_distinct(self) -> int:
         return len(self.distinct_signs)
 
+    @property
+    def num_raw_rows(self) -> int:
+        """Output rows of a raw slot: the distinct signs, or the original
+        signs that hashstack's rounds merge back onto."""
+        if self.raw_row_of_distinct is None:
+            return self.num_distinct
+        if not len(self.raw_row_of_distinct):
+            return 0
+        return int(self.raw_row_of_distinct.max()) + 1
+
 
 def _segment_sum(values: np.ndarray, segment_ids: np.ndarray,
                  num_segments: int) -> np.ndarray:
@@ -385,6 +395,18 @@ def scatter_group(mats: List[np.ndarray], group: ShardGroup,
                                 group.dim)
         else:
             mats[fi][group.distinct_idx[a:b]] = res[a:b]
+
+
+def scatter_lookup_results(
+    feats: List[DedupedFeature], schema: EmbeddingSchema,
+    groups: List[ShardGroup], results: List[np.ndarray],
+) -> List[np.ndarray]:
+    """Per-feature (num_distinct, dim) embedding matrices assembled from
+    the per-shard lookup results."""
+    mats = alloc_lookup_mats(feats, schema)
+    for group, res in zip(groups, results):
+        scatter_group(mats, group, res)
+    return mats
 
 
 @dataclass

@@ -53,6 +53,15 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
+def available() -> bool:
+    """Whether the native library builds and loads here."""
+    try:
+        _lib()
+    except (OSError, RuntimeError):  # the build, the load, a symbol
+        return False
+    return True
+
+
 def _p(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
