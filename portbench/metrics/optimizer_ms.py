@@ -1,0 +1,5 @@
+from portbench.metrics._common import stage_ms
+
+
+def read(obs):
+    return stage_ms(obs, "optimizer")
