@@ -61,6 +61,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from persia_tpu_torch import tracing
 from persia_tpu_torch.ops import _build
 
 KERNEL = "embedding_bag"  # K1; also the name of its CUDA source
@@ -414,13 +415,17 @@ class _SlotBags(torch.autograd.Function):
     ``index_add_``. The mask keeps the rows from the first real one on
     (:func:`_first_real_row`: ``rows > 0`` on the shard that holds the
     padding row, ``rows >= 0`` on the others); a row outside the window
-    (-1) adds zero at row 0. The ids get no gradient."""
+    (-1) adds zero at row 0. The ids get no gradient. The backward is the
+    span ``k1/table_grad``, a child of the span the forward ran under
+    (saved with the rows: autograd may run the backward on a thread of
+    its own), and no span when the forward ran under none."""
 
     @staticmethod
     def forward(ctx, out_dtype, windows, ids, *tables):
         pooled, rows = embedding_bag_slots_fwd(tables, ids, out_dtype,
                                                windows)
         ctx.save_for_backward(rows)
+        ctx.span_ctx = tracing.current_context()
         ctx.batch = ids[0].shape[0]
         ctx.bags = [i.shape[1] for i in ids]
         ctx.table_shapes = [t.shape for t in tables]
@@ -431,6 +436,11 @@ class _SlotBags(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with tracing.span("k1/table_grad", ctx=ctx.span_ctx):
+            return _SlotBags._table_grads(ctx, g)
+
+    @staticmethod
+    def _table_grads(ctx, g):
         (rows,) = ctx.saved_tensors
         batch, bags = ctx.batch, ctx.bags
         dim = g.shape[2]

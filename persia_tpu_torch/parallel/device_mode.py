@@ -22,6 +22,13 @@ optimizer, and nothing is reduced over the model axis, whose ranks
 compute the same tower on the same rows; the loss is the data axis'
 mean. Every forward is then a collective: every rank of the mesh calls
 the step, and any later ``model(...)``, alike.
+
+With tracing on (:mod:`persia_tpu_torch.tracing`) a step is one trace:
+its root span ``device_mode/step`` holds ``device_mode/forward``,
+``device_mode/backward`` and ``device_mode/optimizer`` on the calling
+thread; ``device_mode/model`` times the model's forward (a batch's root
+span when scoring), and K1's table gradients open ``k1/table_grad``
+under it from whatever thread autograd runs them on.
 """
 
 import time
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from persia_tpu_torch import tracing
 from persia_tpu_torch.device import DeviceLike, resolve_device
 from persia_tpu_torch.parallel.device_embedding import (
     DeviceEmbeddingBag,
@@ -58,8 +66,9 @@ class DeviceModeModel(nn.Module):
 
     def forward(self, non_id_tensors: Sequence[torch.Tensor],
                 id_tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.tower(non_id_tensors,
-                          self.DeviceEmbeddingCollection_0(id_tensors))
+        with tracing.span("device_mode/model"):
+            return self.tower(non_id_tensors,
+                              self.DeviceEmbeddingCollection_0(id_tensors))
 
 
 class DeviceModeStep:
@@ -71,7 +80,8 @@ class DeviceModeStep:
     :data:`STAGES`; the device runs asynchronously, so its work lands in
     whichever stage waits for it. With ``sync_stages`` the step
     synchronizes the device after each stage, which makes the split
-    honest and the step slower.
+    honest and the step slower. The stages' spans (module docstring)
+    cover the same blocks, syncs included.
 
     With a ``mesh`` every rank of the mesh calls the step on the same
     global batch and trains its own rows of it along the data axis (a
@@ -110,19 +120,24 @@ class DeviceModeStep:
         return shard_rows(x, self.mesh)
 
     def __call__(self, non_id_tensors, id_tensors, label) -> torch.Tensor:
-        t = time.perf_counter()
-        non_id = [self._rows(x) for x in non_id_tensors]
-        ids = {k: self._rows(v) for k, v in id_tensors.items()}
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.model(non_id, ids), self._rows(label))
-        t = self._mark("forward", t)
-        loss.backward()
-        if self.mesh is not None:
-            loss = self._reduce(loss)
-        t = self._mark("backward", t)
-        self.optimizer.step()
-        self._mark("optimizer", t)
+        with tracing.span("device_mode/step", root=True):
+            t = time.perf_counter()
+            with tracing.span("device_mode/forward"):
+                non_id = [self._rows(x) for x in non_id_tensors]
+                ids = {k: self._rows(v) for k, v in id_tensors.items()}
+                self.model.train()
+                self.optimizer.zero_grad(set_to_none=True)
+                loss = self.loss_fn(self.model(non_id, ids),
+                                    self._rows(label))
+                t = self._mark("forward", t)
+            with tracing.span("device_mode/backward"):
+                loss.backward()
+                if self.mesh is not None:
+                    loss = self._reduce(loss)
+                t = self._mark("backward", t)
+            with tracing.span("device_mode/optimizer"):
+                self.optimizer.step()
+                self._mark("optimizer", t)
         return loss.detach()
 
     def _reduce(self, loss: torch.Tensor) -> torch.Tensor:

@@ -136,11 +136,17 @@ class Span:
 
     Wall-clock start (``time.time_ns``) makes spans from different
     processes line up on one timeline; the duration is measured with
-    the monotonic perf counter so it never jumps with clock slew."""
+    the monotonic perf counter so it never jumps with clock slew. The
+    span ends at ``start_ns + dur_ns`` on the same clock, the one a
+    ``torch.profiler`` Chrome trace's ``ts + baseTimeNanoseconds / 1e3``
+    is on. ``thread_ident`` is the thread's ``threading.get_ident()``
+    (``pthread_self``): such a trace names the thread of a CUDA API call
+    (its ``tid``) by that number cut to 32 bits, where ``tid`` here is
+    the thread's name."""
 
     __slots__ = ("name", "service", "trace_id", "span_id", "parent_id",
-                 "start_ns", "dur_ns", "tags", "pid", "tid", "_prev",
-                 "_t0")
+                 "start_ns", "dur_ns", "tags", "pid", "tid",
+                 "thread_ident", "_prev", "_t0")
 
     def __init__(self, name: str, trace_id: int, span_id: int,
                  parent_id: int, tags: Optional[Dict] = None,
@@ -153,6 +159,7 @@ class Span:
         self.tags = tags
         self.pid = os.getpid()
         self.tid = threading.current_thread().name
+        self.thread_ident = threading.get_ident()
         self.start_ns = 0
         self.dur_ns = 0
 
@@ -195,6 +202,7 @@ class Span:
             "dur_ns": self.dur_ns,
             "pid": self.pid,
             "tid": self.tid,
+            "thread_ident": self.thread_ident,
             "tags": self.tags,
         }
 
