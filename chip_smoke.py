@@ -4303,11 +4303,13 @@ def device_mode_phase(torch, card: str) -> int:
     sync, on the repeated batch and on 4 rotating fresh-id batches), a
     stage split, a profiled window, and an eval forward. K1's counter is
     zeroed just before the timed steps and must read one per step after
-    them: the collection pools its 26 slots in one call. Returns K1's
-    launches."""
+    them: the collection pools its 26 slots in one call; the row-wise
+    Adagrad kernel's counter must read one per step too (the 26 tables'
+    row gradients in one update). Returns K1's launches."""
     import numpy as np
 
     from persia_tpu_torch.ops import embedding_bag as eb
+    from persia_tpu_torch.ops import rowwise_adagrad as rw
     from persia_tpu_torch.parallel.device_mode import (
         STAGES,
         make_device_mode_trainer,
@@ -4351,6 +4353,7 @@ def device_mode_phase(torch, card: str) -> int:
         return DM_STEPS * DM_BATCH / (time.perf_counter() - t)
 
     eb.reset_launch_count()
+    rw.reset_launch_count()
     # the two end-sync loops first, back to back after the warm-up, so
     # that the repeated and the fresh ids meet the card in the same state
     rates = {"end_sync": loop([ids], False),
@@ -4368,6 +4371,7 @@ def device_mode_phase(torch, card: str) -> int:
         for _ in range(DM_PROFILE_STEPS)])
     torch.cuda.synchronize()
     launches = eb.launch_count()
+    rw_launches = rw.launch_count()
     n_steps = 4 * DM_STEPS + DM_SPLIT_STEPS + DM_PROFILE_STEPS
     peak = torch.cuda.max_memory_allocated()
 
@@ -4391,7 +4395,8 @@ def device_mode_phase(torch, card: str) -> int:
     _log(f"[device_mode] loss step0={loss0:.6f} last={float(all_losses[-1]):.6f}"
          f" eval on the repeated batch after {DM_WARMUP + n_steps} steps="
          f"{eval_loss:.6f}; K1 launches in {n_steps} steps: {launches} "
-         f"({launches / n_steps:.3f} per step) | card: {card}")
+         f"({launches / n_steps:.3f} per step), row-wise Adagrad's "
+         f"{rw_launches} | card: {card}")
     report_window("device_mode", f"{DM_PROFILE_STEPS} steps", window, card)
     if window[1] > 0:
         # the profiler slows the host, so the window's own busy share
@@ -4416,6 +4421,9 @@ def device_mode_phase(torch, card: str) -> int:
         raise AssertionError(f"K1 launched {launches} times in {n_steps} "
                              f"steps, not once per step (all {DM_SLOTS} "
                              f"slots in one call)")
+    if rw_launches != n_steps:
+        raise AssertionError(f"the row-wise Adagrad launched {rw_launches} "
+                             f"times in {n_steps} steps, not once per step")
     return launches
 
 
@@ -9765,8 +9773,10 @@ def main() -> int:
              f"python {sys.version.split()[0]}")
         _log(f"[setup] card: {card}")
         procs = MultiRankProcs()
+        # the TPU kernels' ports, and R1 (the row-wise Adagrad, no TPU
+        # counterpart), which device mode's optimizer launches
         sources = sorted({s.split("/")[-1][:-3] for s, _ in
-                          KERNEL_INFO.values()})
+                          KERNEL_INFO.values()} | {"rowwise_adagrad"})
         t0 = time.perf_counter()
         # the kernels (nvcc) build on a thread while this one builds the
         # native PS library (g++) and then starts the service clusters,

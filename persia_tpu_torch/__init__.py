@@ -22,7 +22,9 @@ sequence-tower model, and device-mode training of DLRM:
 
     make_device_mode_trainer step -> DeviceModeModel: hashed tables on
     the card -> pooled lookups (CUDA kernel K1) -> DLRM -> backward
-    (dense table gradients) -> OptaxAdagrad over tables and tower
+    (table gradients as the rows read; densified, the JAX package's dense
+    scatter-add) -> OptaxAdagrad over tables (the row-wise CUDA kernel,
+    touched rows only) and tower
 
 The sparse tier also runs as processes of its own
 (:mod:`persia_tpu_torch.service`): a coordinator, PS and worker services

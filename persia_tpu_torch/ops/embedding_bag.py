@@ -35,7 +35,9 @@ Two entries share the kernel:
   launch: every slot's table and raw ids, with the collection's hash and
   mask (``DeviceEmbeddingCollection``) fused in, giving (B, slots, D) in
   bf16 (or f32) and the int32 rows read; :func:`embedding_bag_slots` is
-  its ``torch.autograd.Function``, whose backward scatters at those rows.
+  its ``torch.autograd.Function``, whose backward gives each table's
+  gradient as those rows and their contributions (a sparse tensor whose
+  dense form is the JAX package's scatter-add).
 
 Shard windows. Every entry takes a ``window`` (``windows`` a slot):
 ``(lo, vocab)`` says the table holds the global rows ``[lo, lo + n)`` of
@@ -409,13 +411,19 @@ def embedding_bag_slots_fwd(tables: Sequence[torch.Tensor],
 
 class _SlotBags(torch.autograd.Function):
     """Forward :func:`embedding_bag_slots_fwd`; backward the JAX package's
-    scatter-add at the rows the forward read (no hash recomputed): the
-    cotangent times the mask for every slot in one op, then per slot a
-    dense ``d_table`` (the shard's, under a window) by ``zeros`` and
-    ``index_add_``. The mask keeps the rows from the first real one on
+    scatter-add at the rows the forward read (no hash recomputed), left
+    as rows: the cotangent times the mask for every slot in one op, then
+    per slot an uncoalesced ``torch.sparse_coo_tensor`` of the table's
+    (the shard's, under a window) shape whose entries are the slot's rows
+    and their contributions, one an id, views of that one op's output (no
+    copy, no sort, no size read back from the card). Its dense form
+    (``to_dense()``) is the JAX package's dense ``d_table``; ``OptaxAdagrad``
+    updates only its rows (:mod:`persia_tpu_torch.ops.rowwise_adagrad`).
+    The mask keeps the rows from the first real one on
     (:func:`_first_real_row`: ``rows > 0`` on the shard that holds the
-    padding row, ``rows >= 0`` on the others); a row outside the window
-    (-1) adds zero at row 0. The ids get no gradient. The backward is the
+    padding row, ``rows >= 0`` on the others); a padding id or a row
+    outside the window (-1) is an entry of zeros at row 0. The ids get no
+    gradient. The backward is the
     span ``k1/table_grad``, a child of the span the forward ran under
     (saved with the rows: autograd may run the backward on a thread of
     its own), and no span when the forward ran under none."""
@@ -456,11 +464,14 @@ class _SlotBags(torch.autograd.Function):
         torch.mul(g.transpose(0, 1).reshape(-1, dim).repeat_interleave(
             reps, dim=0, output_size=rows.numel()),
             (rows >= ctx.first).unsqueeze(-1), out=contrib)
+        rows = rows.long()
         if ctx.sharded:  # rows outside a window (-1) add their zeros at 0
-            rows = rows.clamp_min(0)
+            rows.clamp_min_(0)
+        # the sizes are the tables' own: no check reads the rows back
         d_tables = [
-            torch.zeros(shape, dtype=torch.float32, device=g.device)
-            .index_add_(0, r, c) if ctx.needs_input_grad[3 + i] else None
+            torch.sparse_coo_tensor(r.unsqueeze(0), c, shape,
+                                    check_invariants=False)
+            if ctx.needs_input_grad[3 + i] else None
             for i, (shape, r, c) in enumerate(zip(
                 ctx.table_shapes, rows.split(sizes), contrib.split(sizes)))]
         return (None, None, None, *d_tables)

@@ -4,10 +4,13 @@ hashed embedding tables resident on the card, trained as one module.
 :class:`DeviceModeModel` composes :class:`DeviceEmbeddingCollection` with
 a model-zoo tower; :func:`make_device_mode_trainer` moves it to the card,
 draws its weights from a seed and returns the step: forward (the pooled
-lookups through kernel K1), ``loss.backward()`` (dense table gradients,
-as the JAX package's scatter-add is dense), and the optimizer over tables
-and tower alike. PyTorch runs eagerly, so the step updates in place where
-the JAX one returns new arrays.
+lookups through kernel K1), ``loss.backward()`` (each table's gradient as
+the rows the forward read, a sparse tensor whose dense form is the JAX
+package's dense scatter-add), and the optimizer over tables and tower
+alike: ``OptaxAdagrad`` updates only those rows (its row-wise kernel);
+an optimizer that does not declare ``takes_row_grads`` gets the dense
+form, as does the average over a mesh's data axis. PyTorch runs eagerly,
+so the step updates in place where the JAX one returns new arrays.
 
 Over a mesh (``mesh=``) the batch is split over the data axis only: each
 rank pools its own rows of the batch. The tower is replicated on every
@@ -20,8 +23,10 @@ replicated, as ``P()`` places them. The gradients of the tower and of
 each table (or shard) are averaged over the data axis before the
 optimizer, and nothing is reduced over the model axis, whose ranks
 compute the same tower on the same rows; the loss is the data axis'
-mean. Every forward is then a collective: every rank of the mesh calls
-the step, and any later ``model(...)``, alike.
+mean. A data axis of more than one rank averages dense gradients: the
+tables' row gradients are made dense first. Every forward is then a
+collective: every rank of the mesh calls the step, and any later
+``model(...)``, alike.
 
 With tracing on (:mod:`persia_tpu_torch.tracing`) a step is one trace:
 its root span ``device_mode/step`` holds ``device_mode/forward``,
@@ -47,6 +52,14 @@ from persia_tpu_torch.parallel.device_embedding import (
 from persia_tpu_torch.parallel.train import bce_loss
 
 STAGES = ("forward", "backward", "optimizer")
+
+
+def dense_grads(params):
+    """Each row (sparse) gradient of ``params`` replaced by its dense form,
+    the JAX package's scatter-add."""
+    for p in params:
+        if p.grad is not None and p.grad.is_sparse:
+            p.grad = p.grad.to_dense()
 
 
 class DeviceModeModel(nn.Module):
@@ -87,13 +100,16 @@ class DeviceModeStep:
     global batch and trains its own rows of it along the data axis (a
     batch that does not divide the axis stays whole on every rank); the
     gradient average over the axis is booked in ``backward``, where DDP
-    does it."""
+    does it. The tables' gradients reach the optimizer as rows (sparse)
+    when it declares ``takes_row_grads`` (``OptaxAdagrad``), and dense
+    otherwise (booked in ``backward``)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  loss_fn: Callable, device: torch.device, mesh=None):
         self.model = model
         self.mesh = mesh
         self.optimizer = optimizer
+        self._row_grads = getattr(optimizer, "takes_row_grads", False)
         self.loss_fn = loss_fn
         self.device = device
         self.sync_stages = False
@@ -134,6 +150,8 @@ class DeviceModeStep:
                 loss.backward()
                 if self.mesh is not None:
                     loss = self._reduce(loss)
+                if not self._row_grads:
+                    dense_grads(self.model.parameters())
                 t = self._mark("backward", t)
             with tracing.span("device_mode/optimizer"):
                 self.optimizer.step()
@@ -141,8 +159,8 @@ class DeviceModeStep:
         return loss.detach()
 
     def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
-        """Every gradient and the loss averaged over the data axis (nothing
-        to do on a data axis of one rank)."""
+        """Every gradient (the tables' made dense) and the loss averaged
+        over the data axis (nothing to do on a data axis of one rank)."""
         from persia_tpu_torch.parallel import collectives as coll
         from persia_tpu_torch.parallel.mesh import (
             DATA_AXIS,
@@ -155,8 +173,9 @@ class DeviceModeStep:
         if world == 1:  # a mean over one rank (tables sharded, no data axis)
             return loss.detach()
         group = axis_group(self.mesh, DATA_AXIS)
-        reduce_dense_grads(list(self.model.parameters()), group, world,
-                           per_tensor=True)
+        params = list(self.model.parameters())
+        dense_grads(params)
+        reduce_dense_grads(params, group, world, per_tensor=True)
         return coll.pmean(loss, group)
 
 

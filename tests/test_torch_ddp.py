@@ -336,8 +336,8 @@ def sharded_table_grads(mesh, specs, init, ids):
         bags = [getattr(c, f"bag_{name}") for name, _, _ in specs]
         # a shard's gradient is gathered as the shards themselves are
         grads.append(torch.cat([
-            (all_gather(b.table.grad, b.group, 0) if shard
-             else b.table.grad).reshape(-1) for b in bags]))
+            (all_gather(b.table.grad.to_dense(), b.group, 0) if shard
+             else b.table.grad.to_dense()).reshape(-1) for b in bags]))
     one, sharded = grads
     return (float((sharded - one).abs().max()), float(one.abs().max()),
             float(sharded.abs().sum() / one.abs().sum()))

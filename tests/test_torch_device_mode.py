@@ -192,7 +192,7 @@ def test_collection_slots_and_gradients_match_flax(sfs):
             np.testing.assert_allclose(g.detach().float().numpy(), w,
                                        rtol=2**-8, atol=1e-6)
         np.testing.assert_allclose(
-            getattr(tcoll, f"bag_{name}").table.grad.numpy(),
+            getattr(tcoll, f"bag_{name}").table.grad.to_dense().numpy(),
             np.asarray(want_grads[f"bag_{name}"]["table"]), rtol=1e-6,
             atol=1e-6, err_msg=name)
     # the rows of one group, as the backward scatters at them

@@ -1,9 +1,10 @@
 """Device mode's spans and their reading on the device trace.
 
 On the CPU: a device-mode step with tracing on is one trace, ``step`` over
-``forward`` (over ``model``), ``backward`` and ``optimizer``; K1's table
-gradients (``k1/table_grad``) carry the step's trace id and the span the
-forward ran under, also when the backward runs on another thread; with
+``forward`` (over ``model``), ``backward`` and ``optimizer`` (over the
+row-wise update ``optim/rowwise``, tagged with its tables and ids); K1's
+table gradients (``k1/table_grad``) carry the step's trace id and the span
+the forward ran under, also when the backward runs on another thread; with
 tracing off a step records nothing. ``Span.to_dict`` keeps its keys and
 adds ``thread_ident``. ``portbench/spans.py`` puts a hand-written Chrome trace
 (two threads, a launch that found the queue full, an operation whose
@@ -12,10 +13,11 @@ clock.
 
 On the card (``-m gpu``): a few steps at a small width with tracing on
 and the profiler tracing CUDA alone. Every launch of a step falls inside
-its ``device_mode/step`` span on the shared clock; the optimizer's
-``multi_tensor_apply_kernel`` go to ``device_mode/optimizer``, K1's
-``bag_kernel`` to ``device_mode/forward`` and ``index_add_``'s
-``indexFunc*`` to ``k1/table_grad``; at batch 64 the host paces the step,
+its ``device_mode/step`` span on the shared clock; the tower's
+``multi_tensor_apply_kernel`` go to ``device_mode/optimizer``, the row-wise
+update's ``level_kernel`` to ``optim/rowwise`` inside it, K1's
+``bag_kernel`` to ``device_mode/forward``, and no ``indexFunc*`` runs (the
+table gradients are rows, not a scatter); at batch 64 the host paces the step,
 so its host dispatch time is within 10% of its duration.
 
 Tolerance: equality on the CPU (the hand-written trace's times are exact
@@ -82,7 +84,8 @@ def test_a_step_is_one_trace(traced):
     step(*batch)
     got = _by_name(traced.recent())
     assert sorted(got) == sorted(["device_mode/step", "device_mode/model",
-                                  "k1/table_grad", *STAGES])
+                                  "k1/table_grad", "optim/rowwise",
+                                  *STAGES])
     assert all(len(v) == 1 for v in got.values())
     root = got["device_mode/step"][0]
     assert root.parent_id == 0
@@ -93,6 +96,9 @@ def test_a_step_is_one_trace(traced):
     assert model.parent_id == got["device_mode/forward"][0].span_id
     grad = got["k1/table_grad"][0]
     assert grad.parent_id == model.span_id
+    rowwise = got["optim/rowwise"][0]
+    assert rowwise.parent_id == got["device_mode/optimizer"][0].span_id
+    assert rowwise.tags == {"tables": SLOTS, "ids": 32 * SLOTS}
     # each stage inside the step, in order, on the calling thread
     f, b, o = (got[n][0] for n in STAGES)
     assert root.start_ns <= f.start_ns < b.start_ns < o.start_ns
@@ -336,16 +342,17 @@ def test_spans_on_the_device_trace(card, traced):
             and s["start_ns"] + s["dur_ns"] <= x["start_ns"] + x["dur_ns"]
             for x in spans)]
         held.setdefault(op["name"], set()).update(stage)
-        if "indexFunc" in op["name"]:
-            assert s["name"] == "k1/table_grad", op["name"]
+        if "level_kernel" in op["name"] or "keys_kernel" in op["name"]:
+            assert s["name"] == "optim/rowwise", op["name"]
     names = list(held)
     for pattern, stage in (("multi_tensor_apply_kernel",
                             "device_mode/optimizer"),
-                           ("bag_kernel", "device_mode/forward"),
-                           ("indexFunc", "device_mode/backward")):
+                           ("level_kernel", "device_mode/optimizer"),
+                           ("bag_kernel", "device_mode/forward")):
         hits = [n for n in names if pattern in n]
         assert hits, (pattern, names)
         assert all(held[n] == {stage} for n in hits), (pattern, held)
+    assert not [n for n in names if "indexFunc" in n], names
     stage_s = sum(got["spans"][n]["device_s"] for n in STAGES)
     assert stage_s == pytest.approx(got["busy_s"] - got["none_s"], rel=1e-9)
     assert got["none_s"] == 0

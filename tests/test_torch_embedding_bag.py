@@ -335,7 +335,7 @@ def test_windowed_slots_match_unwindowed_on_the_window(window):
         ts = [t.clone().requires_grad_() for t in ts]
         (eb.embedding_bag_slots(ts, ii, torch.float32, w) * cot).sum() \
             .backward()
-        grads.append([t.grad for t in ts])
+        grads.append([t.grad.to_dense() for t in ts])
     for g, g_full in zip(*grads):
         assert g.shape == (n, 8)
         assert torch.equal(g, g_full[lo:lo + n])
@@ -623,7 +623,7 @@ def test_cuda_slots_backward_matches_plain_autograd(bags):
                lambda t, i, d: eb.embedding_bag_slots_reference(t, i, d)[0]):
         ts = [t.clone().requires_grad_() for t in tables]
         (fn(ts, ids, torch.bfloat16).float() * cot).sum().backward()
-        grads.append([t.grad for t in ts])
+        grads.append([t.grad.to_dense() for t in ts])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=BAG_RTOL, atol=BAG_ATOL)
 
@@ -669,7 +669,7 @@ def test_cuda_windowed_slots_match_plain(bags, half):
                    t, i, d, w)[0]):
         ts = [t.clone().requires_grad_() for t in shards]
         (fn(ts, ids, torch.float32, wins) * cot).sum().backward()
-        grads.append([t.grad for t in ts])
+        grads.append([t.grad.to_dense() for t in ts])
     for g, want_g in zip(*grads):
         torch.testing.assert_close(
             g, want_g, rtol=0, atol=BAG_ATOL * float(want_g.abs().max()))
